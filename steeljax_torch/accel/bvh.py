@@ -29,6 +29,11 @@ _PAD_VALUE = 3.0e37  # padded triangles live here -> never hit
 # TRI_PER_ROW-aligned.
 TRI_PER_ROW = 12
 TRI_STRIDE = 10
+# The dense any-hit rows (cuda_traverse.pack_tris_dense): DENSE_PER_ROW
+# records of DENSE_STRIDE f32 ([v0.xyz, e1.xyz, e2.xyz]), over leaves
+# re-aligned to DENSE_PER_ROW.
+DENSE_PER_ROW = 14
+DENSE_STRIDE = 9
 # BVH8 supernode rows: child c occupies floats [16c, 16c + 8).
 SNODE_WIDTH = 8
 SNODE_CHILD_STRIDE = 16

@@ -1,11 +1,11 @@
-"""Trace tables and the nearest-hit query.
+"""Trace tables, the nearest-hit query and the any-hit query.
 
 Port of steeljax/accel/dispatch.py:76-135 (ChunkTables/TraceTables),
-:159-306 (prepare_tables), :368-418 (attach_shade_tables) and :451-530
-(trace_nearest).  The reference picks its backend with a `use_pallas`
-flag; here the device of the tensors decides (cuda_traverse.
-trace_nearest_bvh8).  Mode-1 shade tables are always attached, so the CPU
-runs the same fused path as the card.
+:159-306 (prepare_tables), :368-418 (attach_shade_tables), :451-530
+(trace_nearest) and :533-589 (trace_any).  The reference picks its backend
+with a `use_pallas` flag; here the device of the tensors decides
+(cuda_traverse.trace_nearest_bvh8, trace_any_bvh8).  Fused-shading tables
+are always attached, so the CPU runs the same fused path as the card.
 
 The port traces one chunk.  A scene larger than `max_chunk` raises: the
 multi-chunk sweep is ROADMAP item 13.
@@ -18,8 +18,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from torch.profiler import record_function
+
 from steeljax_torch.accel import cuda_traverse
-from steeljax_torch.accel.bvh import BVH, BVH8, build_bvh, collapse_bvh8
+from steeljax_torch.accel.bvh import (BVH, BVH8, DENSE_PER_ROW, _align_leaves,
+                                      build_bvh, collapse_bvh8)
 
 # The reference's chunk size (steeljax/accel/dispatch.py MAX_CHUNK_TRIS):
 # scenes up to this count are one chunk there, and so here.
@@ -31,9 +34,14 @@ class ChunkTables:
     bvh: BVH                   # binary tree (host)
     bvh8: BVH8                 # supernode rows (device)
     tris_packed: torch.Tensor  # (R, 128) pack_tris rows (device)
-    # Mode-1 fused-shading rows (pack_shade_records), None until
-    # attach_shade_tables.
+    # Fused-shading rows (pack_shade_records in the tables' shade mode),
+    # None until attach_shade_tables.
     shade_packed: torch.Tensor | None = None
+    # Dense any-hit tables (pack_tris_dense rows over supernode rows of the
+    # same tree with leaves re-aligned to DENSE_PER_ROW), built only when
+    # prepare_tables is asked to; occlusion queries then read them.
+    anyhit_bvh8: BVH8 | None = None
+    anyhit_tris: torch.Tensor | None = None
     row_offset: int = 0
     rows: int = 0
     # Chunk AABB of the real triangles.
@@ -46,7 +54,8 @@ class ChunkTables:
 @dataclasses.dataclass
 class TraceTables:
     chunks: tuple  # tuple[ChunkTables, ...]; one chunk in the port
-    # 0 = trace only; 1 = fuse (normal, mat id) into the kernel.
+    # 0 = trace only; 1 = fuse (normal, mat id) into the kernel; 2 = also
+    # (tangent, uv, uv density).
     shade_mode: int = 0
 
     @property
@@ -57,10 +66,25 @@ class TraceTables:
         return dataclasses.replace(self, **changes)
 
 
+def _permuted(order: np.ndarray, padded: int, tri_pos, ds):
+    pos = np.full((padded, 3, 3), 3.0e37, np.float32)
+    permuted_ds = np.zeros(padded, bool)
+    if len(order):
+        real = order >= 0
+        pos[np.nonzero(real)[0]] = tri_pos[order[real]]
+        permuted_ds[np.nonzero(real)[0]] = ds[order[real]]
+    return pos, permuted_ds
+
+
 def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
-                   leaf_size: int = 24, max_chunk: int | None = None
+                   leaf_size: int = 24, max_chunk: int | None = None,
+                   dense_anyhit: bool = False
                    ) -> tuple[TraceTables, np.ndarray, int]:
     """Build the acceleration tables of one chunk on `device`.
+
+    `dense_anyhit` also builds the dense any-hit tables, the counterpart of
+    the reference's STEELJAX_DENSE_ANYHIT=1 (off by default there and here).
+    Each step is a `prepare_tables.<step>` range for torch.profiler.
 
     Returns (tables, order, total_padded): reorder every per-triangle array
     by `order` (entries of -1 are pad slots) and pad to total_padded —
@@ -76,45 +100,72 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
             f"{max_chunk}; the multi-chunk sweep is not ported yet "
             "(ROADMAP item 13)")
 
-    bvh, order, padded = build_bvh(tri_pos, leaf_size)
-    permuted_pos = np.full((padded, 3, 3), 3.0e37, np.float32)
-    permuted_ds = np.zeros(padded, bool)
-    if len(order):
-        real = order >= 0
-        permuted_pos[np.nonzero(real)[0]] = tri_pos[order[real]]
-        permuted_ds[np.nonzero(real)[0]] = ds[order[real]]
-    rows8, depth8 = collapse_bvh8(bvh.nodes, leaf_size)
+    with record_function("prepare_tables.build_bvh"):
+        bvh, order, padded = build_bvh(tri_pos, leaf_size)
+    with record_function("prepare_tables.collapse_bvh8"):
+        rows8, depth8 = collapse_bvh8(bvh.nodes, leaf_size)
+    anyhit_bvh8 = anyhit_tris = None
+    if dense_anyhit:
+        with record_function("prepare_tables.dense_anyhit_tables"):
+            # The same binary tree, leaves re-aligned to DENSE_PER_ROW, and
+            # ds-less 9-float records (steeljax/accel/dispatch.py:259-277).
+            dnodes, dorder, dpadded = _align_leaves(
+                bvh.nodes, order, leaf_size, align=DENSE_PER_ROW)
+            dense_pos, _ = _permuted(dorder, dpadded, tri_pos, ds)
+            drows8, ddepth8 = collapse_bvh8(dnodes, leaf_size)
+            anyhit_bvh8 = BVH8(rows=torch.from_numpy(drows8).to(device),
+                               depth=ddepth8, max_leaf=leaf_size)
+            anyhit_tris = torch.from_numpy(
+                cuda_traverse.pack_tris_dense(dense_pos)).to(device)
     if count:
         real_pos = tri_pos.reshape(-1, 3)
         lo = tuple(float(v) for v in real_pos.min(axis=0))
         hi = tuple(float(v) for v in real_pos.max(axis=0))
     else:
         lo, hi = (0.0,) * 3, (0.0,) * 3
-    chunk = ChunkTables(
-        bvh=bvh,
-        bvh8=BVH8(rows=torch.from_numpy(rows8).to(device), depth=depth8,
-                  max_leaf=leaf_size),
-        tris_packed=torch.from_numpy(
-            cuda_traverse.pack_tris(permuted_pos, permuted_ds)).to(device),
-        row_offset=0, rows=padded, aabb=(lo, hi))
+    with record_function("prepare_tables.pack_tris"):
+        permuted_pos, permuted_ds = _permuted(order, padded, tri_pos, ds)
+        chunk = ChunkTables(
+            bvh=bvh,
+            bvh8=BVH8(rows=torch.from_numpy(rows8).to(device), depth=depth8,
+                      max_leaf=leaf_size),
+            tris_packed=torch.from_numpy(
+                cuda_traverse.pack_tris(permuted_pos, permuted_ds)).to(device),
+            anyhit_bvh8=anyhit_bvh8, anyhit_tris=anyhit_tris,
+            row_offset=0, rows=padded, aabb=(lo, hi))
     return TraceTables(chunks=(chunk,)), order, padded
 
 
 def attach_shade_tables(tables: TraceTables, tri_nrm, tri_mat,
-                        textured: bool = False) -> TraceTables:
-    """Mode-1 fused-shading rows from the PERMUTED per-triangle arrays (the
-    ones matching the BVH leaf order, padded to prepare_tables' total),
-    on the tables' device."""
+                        textured: bool = False, tri_tan=None, tri_uv=None,
+                        tri_uvd=None) -> TraceTables:
+    """Fused-shading rows from the PERMUTED per-triangle arrays (the ones
+    matching the BVH leaf order, padded to prepare_tables' total), on the
+    tables' device: mode 1, or mode 2 when `textured` (which needs tri_tan
+    and tri_uv; tri_uvd is the uv density, tri_shade column 27)."""
     tri_nrm = np.asarray(tri_nrm)
     tri_mat = np.asarray(tri_mat)
+
+    def part(arr, s):
+        return None if arr is None else np.asarray(arr)[s]
+
     chunks = []
     for chunk in tables.chunks:
         s = slice(chunk.row_offset, chunk.row_offset + chunk.rows)
-        packed = cuda_traverse.pack_shade_records(tri_nrm[s], tri_mat[s],
-                                                  textured)
+        packed = cuda_traverse.pack_shade_records(
+            tri_nrm[s], tri_mat[s], textured, tri_tan=part(tri_tan, s),
+            tri_uv=part(tri_uv, s), tri_uvd=part(tri_uvd, s))
         chunks.append(chunk.replace(shade_packed=torch.from_numpy(packed).to(
             chunk.tris_packed.device)))
-    return tables.replace(chunks=tuple(chunks), shade_mode=1)
+    return tables.replace(chunks=tuple(chunks),
+                          shade_mode=2 if textured else 1)
+
+
+def _one_chunk(tables: TraceTables) -> ChunkTables:
+    if len(tables.chunks) != 1:
+        raise NotImplementedError(
+            "multi-chunk traces are not ported yet (ROADMAP item 13)")
+    return tables.chunks[0]
 
 
 def trace_nearest(tables: TraceTables, o: torch.Tensor, d: torch.Tensor,
@@ -122,11 +173,22 @@ def trace_nearest(tables: TraceTables, o: torch.Tensor, d: torch.Tensor,
     """Nearest hit over the scene's one chunk; the record of
     cuda_traverse.trace_nearest_bvh8, with tri as an index into the permuted
     triangle arrays (-1 on a miss)."""
-    if len(tables.chunks) != 1:
-        raise NotImplementedError(
-            "multi-chunk traces are not ported yet (ROADMAP item 13)")
-    chunk = tables.chunks[0]
+    chunk = _one_chunk(tables)
     return cuda_traverse.trace_nearest_bvh8(
         chunk.bvh8, chunk.tris_packed, o, d, t_min, t_max,
         cull_backface=cull_backface, shade_rows=chunk.shade_packed,
         shade_mode=tables.shade_mode)
+
+
+def trace_any(tables: TraceTables, o: torch.Tensor, d: torch.Tensor,
+              t_min, t_max) -> torch.Tensor:
+    """Occlusion over the scene's one chunk, (N,) bool: the dense any-hit
+    tables when they are attached, else the nearest tables' rows with
+    culling off."""
+    chunk = _one_chunk(tables)
+    if chunk.anyhit_tris is not None:
+        return cuda_traverse.trace_any_bvh8(
+            chunk.anyhit_bvh8, chunk.anyhit_tris, o, d, t_min, t_max,
+            dense=True)
+    return cuda_traverse.trace_any_bvh8(chunk.bvh8, chunk.tris_packed, o, d,
+                                        t_min, t_max)

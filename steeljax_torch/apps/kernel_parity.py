@@ -1,23 +1,30 @@
-"""Kernel parity gate for the trace kernel K1: the CUDA kernel against its
-plain PyTorch version, on the card.
+"""Kernel parity gate for the trace kernels K1, K2 and K3: each CUDA kernel
+against its plain PyTorch version, on the card.
 
-Port of the K1 part of steeljax/apps/kernel_parity.py: the inputs
+Port of steeljax/apps/kernel_parity.py for the ported kernels: the inputs
 (`_soup`, `_rays`, seeded as :242-264), the deterministic grid
-(:370-401) and the judge `_compare` with its thresholds (:149-222):
+(:370-401), the any-hit variants (:302-339) and the judge `_compare` with
+its thresholds (:149-222):
 
-  * at most max(2, N/5000) hit mismatches (0 on the exact variant),
+  * at most max(2, N/5000) hit mismatches (0 on the exact variant); the
+    any-hit variants are judged by this count alone,
   * |delta t| < 2e-3 (1e-5 on the exact variant),
-  * normal deltas < 5e-3 and 0 material mismatches (fused shading),
+  * normal, tangent and uv deltas < 5e-3 and 0 material mismatches (fused
+    shading),
   * tri ids may differ, which they do only on exact-t ties.
 
-The kernel compiles with FMA contraction and the plain version runs
+The kernels compile with FMA contraction and the plain versions run
 unfused tensor ops, so the two differ in the last bits of t; the
 thresholds above absorb that.  Beyond the reference's variants it checks
-the main path's own rays: Cornell primary rays at 1280x720 and their
-first-bounce rays.
+the paths' own rays: Cornell primary rays at 1280x720 and their
+first-bounce rays (K1), the first-bounce shadow rays of the sunlit stress
+scene (K2 on both row layouts, `sunlit_shadow` and `sunlit_shadow_dense`)
+and the primary rays of the textured stress scene (K3,
+`stress_tex_primary`), each on a fixed strided subset, since the
+brute-force plain version costs O(rays x triangles).
 
 Usage (needs a CUDA card):
-    python -m steeljax_torch.apps.kernel_parity [-o k1_parity.json]
+    python -m steeljax_torch.apps.kernel_parity [-o parity.json]
 """
 
 from __future__ import annotations
@@ -113,6 +120,13 @@ def _compare(name, rec_k, rec_o, tri_pos, results,
             mk = rec_k["mat"][both]
             m_ref = attrs["mat"][np.maximum(tri, 0)][both]
             entry["mat_mismatches"] = int((mk != m_ref).sum())
+            if "uv" in rec_k:
+                uv_ref = _interp(attrs["uv"], tri, u, v)
+                entry["max_uv_delta"] = float(np.abs(
+                    rec_k["uv"][both] - uv_ref[both]).max())
+                tan_ref = _norm(_interp(attrs["tan"], tri, u, v))
+                entry["max_tan_delta"] = float(np.abs(
+                    rec_k["tan"][both] - tan_ref[both]).max())
     # Borderline-grazing rays may flip on fp fusion-order differences
     # between the two programs; tolerate <= 0.02% of rays, record all.
     # Deterministic (non-grazing) variants demand exact agreement.
@@ -121,21 +135,40 @@ def _compare(name, rec_k, rec_o, tri_pos, results,
           and entry.get("max_t_delta", 0.0) < atol
           and entry.get("max_normal_delta", 0.0) < 5e-3
           and entry.get("max_normal_delta_at_oracle", 0.0) < 5e-3
-          and entry.get("mat_mismatches", 0) == 0)
+          and entry.get("mat_mismatches", 0) == 0
+          and entry.get("max_uv_delta", 0.0) < 5e-3
+          and entry.get("max_tan_delta", 0.0) < 5e-3)
     entry["ok"] = bool(ok)
     results[name] = entry
     print(f"{'PASS' if ok else 'FAIL'} {name}: {entry}")
     return ok
 
 
+def _compare_hits(name, hit_k, hit_o, results):
+    """Occlusion flags, kernel against oracle: at most max(2, N/5000)
+    mismatches (kernel_parity.py:308-313)."""
+    hit_k = _numpy({"h": hit_k})["h"]
+    hit_o = _numpy({"h": hit_o})["h"]
+    mm = int((hit_k != hit_o).sum())
+    entry = {"rays": int(hit_k.shape[0]), "hit_mismatches": mm,
+             "hits": int(hit_k.sum()),
+             "ok": mm <= max(2, hit_k.shape[0] // 5000)}
+    results[name] = entry
+    print(f"{'PASS' if entry['ok'] else 'FAIL'} {name}: {entry}")
+    return entry["ok"]
+
+
 # ---------------------------------------------------------------------------
 # Inputs, shared by the CPU tests and the card's parity run
 # ---------------------------------------------------------------------------
 
-def soup_case(n_tris: int, n_rays: int, device, leaf_size: int = 24):
+def soup_case(n_tris: int, n_rays: int, device, leaf_size: int = 24,
+              textured: bool = False, dense_anyhit: bool = False):
     """The reference's flat soup (kernel_parity.py:242-264): 30% double-
-    sided triangles, random normals and material ids, random rays.
-    Returns (tables with mode-1 shade rows, permuted arrays, o, d)."""
+    sided triangles, random normals, tangents, uvs and material ids, random
+    rays.  Returns (tables with shade rows of mode 1, or mode 2 when
+    `textured`, and dense any-hit tables when `dense_anyhit`; permuted
+    arrays; o; d)."""
     from steeljax_torch.accel.bvh import apply_permutation
     from steeljax_torch.accel.dispatch import (attach_shade_tables,
                                                prepare_tables)
@@ -145,16 +178,16 @@ def soup_case(n_tris: int, n_rays: int, device, leaf_size: int = 24):
     ds = r.uniform(size=n_tris) < 0.3
     o, d = _rays(n_rays, 3)
     tables, order, padded = prepare_tables(tris, ds, device,
-                                           leaf_size=leaf_size)
-    nrm = _norm(r.normal(size=(n_tris, 3, 3))).astype(np.float32)
-    # Tangents and uvs (mode 2) are drawn and dropped, so the material ids
-    # are the reference run's.
-    r.normal(size=(n_tris, 3, 3))
-    r.uniform(size=(n_tris, 3, 2))
-    mat = r.integers(0, 7, n_tris).astype(np.int32)
-    perm = apply_permutation((None, order, padded),
-                             {"pos": tris, "ds": ds, "nrm": nrm, "mat": mat})
-    tables = attach_shade_tables(tables, perm["nrm"], perm["mat"])
+                                           leaf_size=leaf_size,
+                                           dense_anyhit=dense_anyhit)
+    perm = apply_permutation((None, order, padded), {
+        "pos": tris, "ds": ds,
+        "nrm": _norm(r.normal(size=(n_tris, 3, 3))).astype(np.float32),
+        "tan": _norm(r.normal(size=(n_tris, 3, 3))).astype(np.float32),
+        "uv": r.uniform(size=(n_tris, 3, 2)).astype(np.float32),
+        "mat": r.integers(0, 7, n_tris).astype(np.int32)})
+    tables = attach_shade_tables(tables, perm["nrm"], perm["mat"], textured,
+                                 tri_tan=perm["tan"], tri_uv=perm["uv"])
     return tables, perm, o, d
 
 
@@ -227,20 +260,103 @@ def cornell_cases(device, width: int, height: int, sphere_detail: int = 12):
                           "bounce1": (o1, d1.contiguous(), t_min1, t_max1)}
 
 
+def prepare_path_scene(name: str, device):
+    """One of the slice's two big paths, prepared on `device` as a user
+    would, at env_resolution 64: (scene, flat, tables).  "sunlit" is the
+    sunlit stress scene (path L: 208,084 triangles and a sun),
+    "sunlit_dense" the same with the dense any-hit tables, "stress_tex" the
+    textured stress scene (path T, the JAX bench's stress_tex: 1,320,868
+    triangles)."""
+    from steeljax_torch.render.pt.renderer import prepare_scene
+    from steeljax_torch.scene.builtin import (make_stress_scene,
+                                              make_sunlit_stress_scene)
+
+    if name == "stress_tex":
+        scene = make_stress_scene(instances=480, sphere_detail=32,
+                                  textured=True)
+    else:
+        scene = make_sunlit_stress_scene()
+    flat, tables = prepare_scene(scene, device, env_resolution=64,
+                                 dense_anyhit=name == "sunlit_dense")
+    return scene, flat, tables
+
+
+PATH_SCENES = ("sunlit", "sunlit_dense", "stress_tex")
+
+
+def tiled_primary(scene, device, width: int, height: int):
+    """The jittered primary rays of accumulation index 0 in the render
+    path's tile order: (o, d, t_min, t_max, seed) on `device`."""
+    from steeljax_torch.core import camera as camera_lib
+    from steeljax_torch.core import rng
+    from steeljax_torch.render.pt.integrator import primary_rays, tiled_order
+
+    frame = camera_lib.make_frame(scene.camera_location,
+                                  scene.camera_projection)
+    px, py, _ = tiled_order(width, height)
+    px = torch.as_tensor(px, device=device).to(torch.int64)
+    py = torch.as_tensor(py, device=device).to(torch.int64)
+    o, d, seed = primary_rays(frame.inverse_view, frame.inverse_proj, width,
+                              height, px, py, rng.make_seed(px, py, 0, 0))
+    return o.contiguous(), d, frame.camera_near, frame.camera_far, seed
+
+
+def sunlit_shadow_case(scene, flat, tables, width: int, height: int):
+    """The shadow rays the integrator traces at the primary hits of the lit
+    scene (bounce 0 of its bounce loop): (o, d, t_min, t_max), every lane
+    as the integrator traces it."""
+    from steeljax_torch.render.pt.integrator import (sample_light,
+                                                     shadow_rays,
+                                                     trace_material_ray,
+                                                     unpack_material_fused)
+
+    o, d, near, far, seed = tiled_primary(scene, flat.device, width, height)
+    rec = trace_material_ray(flat, tables, o, d, near, far,
+                             cull_backface=True)
+    _, tbn = unpack_material_fused(flat, rec)
+    p = o + d * rec["t"][:, None]
+    light, _ = sample_light(flat, tbn[2], p, seed)
+    so, sd, t_min, t_max = shadow_rays(p, tbn[2], light)
+    return so.contiguous(), sd.contiguous(), t_min, t_max
+
+
+def strided_subset(rays, limit: int):
+    """Every k-th ray of (o, d, t_min, t_max), at most `limit` of them, so
+    the subset spans the whole frame."""
+    o, d, t_min, t_max = rays
+    step = -(-o.shape[0] // limit)
+
+    def take(x):
+        return x[::step].contiguous() if isinstance(x, torch.Tensor) else x
+
+    return tuple(take(x) for x in (o, d, t_min, t_max))
+
+
+# The parity subsets of the big paths' rays (the plain versions are
+# brute force).
+SHADOW_SUBSET = 32768
+TEX_SUBSET = 4096
+
+
 # ---------------------------------------------------------------------------
 # The card's parity run
 # ---------------------------------------------------------------------------
 
 def run(device, n_rays: int = 10240, n_tris: int = 30000,
-        width: int = 1280, height: int = 720) -> dict:
-    """Every K1 variant, kernel against plain version, on a CUDA
-    `device`.  Returns {"n_rays", "n_tris", "variants": {...}, "ok"}."""
-    from steeljax_torch.accel.cuda_traverse import (trace_nearest_bvh8,
+        width: int = 1280, height: int = 720, scenes: dict | None = None
+        ) -> dict:
+    """Every variant of K1, K2 and K3, kernel against plain version, on a
+    CUDA `device`.  `scenes` maps each name of PATH_SCENES to its
+    prepare_path_scene result; they are built here when not given.  Returns {"n_rays", "n_tris", "variants": {...},
+    "ok"}."""
+    from steeljax_torch.accel.cuda_traverse import (trace_any_bvh8,
+                                                    trace_any_bvh8_plain,
+                                                    trace_nearest_bvh8,
                                                     trace_nearest_bvh8_plain)
 
     device = torch.device(device)
     if device.type != "cuda":
-        raise ValueError(f"the parity run compares the CUDA kernel; got "
+        raise ValueError(f"the parity run compares the CUDA kernels; got "
                          f"device {device}")
     variants: dict = {}
     all_ok = True
@@ -254,6 +370,12 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
         torch.cuda.synchronize(device)
         return rec_k, rec_p
 
+    def both_any(bvh8, tris, o, d, t_min, t_max, dense):
+        hit_k = trace_any_bvh8(bvh8, tris, o, d, t_min, t_max, dense)
+        hit_p = trace_any_bvh8_plain(bvh8, tris, o, d, t_min, t_max, dense)
+        torch.cuda.synchronize(device)
+        return hit_k, hit_p
+
     tables, perm, o_np, d_np = soup_case(n_tris, n_rays, device)
     o = torch.as_tensor(o_np, device=device)
     d = torch.as_tensor(d_np, device=device)
@@ -265,6 +387,20 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
     rec_k, rec_p = both(tables, o, d, 0.001, 1000.0, True, 1)
     all_ok &= _compare("flat_shade1", rec_k, rec_p, perm["pos"], variants,
                        attrs=attrs, d=d_np)
+    chunk = tables.chunks[0]
+    all_ok &= _compare_hits("flat_anyhit", *both_any(
+        chunk.bvh8, chunk.tris_packed, o, d, 0.001, 40.0, False), variants)
+
+    tables2, perm2, _, _ = soup_case(n_tris, n_rays, device, textured=True,
+                                     dense_anyhit=True)
+    rec_k, rec_p = both(tables2, o, d, 0.001, 1000.0, True, 2)
+    all_ok &= _compare("flat_shade2", rec_k, rec_p, perm2["pos"], variants,
+                       attrs={k: perm2[k] for k in ("nrm", "tan", "uv",
+                                                    "mat")}, d=d_np)
+    chunk2 = tables2.chunks[0]
+    all_ok &= _compare_hits("flat_anyhit_dense", *both_any(
+        chunk2.anyhit_bvh8, chunk2.anyhit_tris, o, d, 0.001, 40.0, True),
+        variants)
 
     dtables, dpos, od, dd = deterministic_case(device)
     rec_k, rec_p = both(dtables, torch.as_tensor(od, device=device),
@@ -283,6 +419,31 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
                            if name == "primary" else f"cornell_{name}",
                            rec_k, rec_p, cpos, variants, attrs=cattrs,
                            d=cd.cpu().numpy())
+
+    if scenes is None:
+        scenes = {name: prepare_path_scene(name, device)
+                  for name in PATH_SCENES}
+    scene, lflat, ltables = scenes["sunlit"]
+    rays = strided_subset(sunlit_shadow_case(scene, lflat, ltables, width,
+                                             height), SHADOW_SUBSET)
+    lchunk = ltables.chunks[0]
+    all_ok &= _compare_hits("sunlit_shadow", *both_any(
+        lchunk.bvh8, lchunk.tris_packed, *rays, False), variants)
+    dchunk = scenes["sunlit_dense"][2].chunks[0]
+    all_ok &= _compare_hits("sunlit_shadow_dense", *both_any(
+        dchunk.anyhit_bvh8, dchunk.anyhit_tris, *rays, True), variants)
+
+    scene, tflat, ttables = scenes["stress_tex"]
+    o_t, d_t, tmn, tmx = strided_subset(
+        tiled_primary(scene, device, width, height)[:4], TEX_SUBSET)
+    rec_k, rec_p = both(ttables, o_t, d_t, tmn, tmx, True, 2)
+    tattrs = {"nrm": tflat.tri_nrm.cpu().numpy(),
+              "tan": tflat.tri_tan.cpu().numpy(),
+              "uv": tflat.tri_uv.cpu().numpy(),
+              "mat": tflat.tri_mat.cpu().numpy()}
+    all_ok &= _compare("stress_tex_primary", rec_k, rec_p,
+                       tflat.tri_pos.cpu().numpy(), variants, attrs=tattrs,
+                       d=d_t.cpu().numpy())
     return {"n_rays": n_rays, "n_tris": n_tris, "variants": variants,
             "ok": bool(all_ok)}
 

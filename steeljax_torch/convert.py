@@ -54,12 +54,18 @@ def from_jax_prepared(flat, tables, device: torch.device | str
 
     chunk = tables.chunks[0]
     shade = chunk.shade_packed
+    mode = int(tables.shade_mode)
     if shade is None:
-        # The reference attaches no shade rows off the TPU; build the
-        # mode-1 rows from its permuted per-triangle arrays.
+        # The reference attaches no shade rows off the TPU; build the rows
+        # of the port's mode from its permuted per-triangle arrays.
         s = slice(chunk.row_offset, chunk.row_offset + chunk.rows)
-        shade = pack_shade_records(np.asarray(flat.tri_nrm)[s],
-                                   np.asarray(flat.tri_mat)[s])
+        mode = 2 if flat.has_textures else 1
+        shade = pack_shade_records(
+            np.asarray(flat.tri_nrm)[s], np.asarray(flat.tri_mat)[s],
+            mode == 2, tri_tan=np.asarray(flat.tri_tan)[s],
+            tri_uv=np.asarray(flat.tri_uv)[s],
+            tri_uvd=np.asarray(flat.tri_shade)[s, 27])
+    dense = chunk.anyhit_tris is not None
     port_chunk = ChunkTables(
         bvh=BVH(nodes=np.array(np.asarray(chunk.bvh.nodes)),
                 depth=int(chunk.bvh.depth), max_leaf=int(chunk.bvh.max_leaf)),
@@ -67,6 +73,11 @@ def from_jax_prepared(flat, tables, device: torch.device | str
                   max_leaf=int(chunk.bvh8.max_leaf)),
         tris_packed=dev(chunk.tris_packed),
         shade_packed=dev(shade),
+        anyhit_bvh8=(BVH8(rows=dev(chunk.anyhit_bvh8.rows),
+                          depth=int(chunk.anyhit_bvh8.depth),
+                          max_leaf=int(chunk.anyhit_bvh8.max_leaf))
+                     if dense else None),
+        anyhit_tris=dev(chunk.anyhit_tris) if dense else None,
         row_offset=int(chunk.row_offset), rows=int(chunk.rows),
         aabb=tuple(tuple(float(v) for v in corner) for corner in chunk.aabb))
-    return port_flat, TraceTables(chunks=(port_chunk,), shade_mode=1)
+    return port_flat, TraceTables(chunks=(port_chunk,), shade_mode=mode)

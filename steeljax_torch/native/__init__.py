@@ -92,7 +92,10 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
     ptr = ctypes.c_void_p
     lib.steeljax_trace_nearest8.restype = ctypes.c_int
     lib.steeljax_trace_nearest8.argtypes = (
-        [ptr] * 13 + [ctypes.c_int] * 5 + [ptr])
+        [ptr] * 19 + [ctypes.c_int] * 5 + [ptr])
+    lib.steeljax_trace_any8.restype = ctypes.c_int
+    lib.steeljax_trace_any8.argtypes = (
+        [ptr] * 10 + [ctypes.c_int] * 4 + [ptr])
 
 
 def bvh_library() -> ctypes.CDLL:

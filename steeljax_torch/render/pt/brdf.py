@@ -37,6 +37,14 @@ def make_tbn(n: torch.Tensor):
     return t, b, n
 
 
+def make_tbn_with_tangent(n: torch.Tensor, t: torch.Tensor):
+    """GetTBN(N, T): Gram-Schmidt the supplied tangent (Common.glsl:33-39)."""
+    t = t - (t * n).sum(dim=-1, keepdim=True) * n
+    t = _normalize(t)
+    b = torch.linalg.cross(n, t, dim=-1)
+    return t, b, n
+
+
 def world_to_tangent(v, tbn):
     t, b, n = tbn
     return torch.stack([(v * t).sum(dim=-1), (v * b).sum(dim=-1),
@@ -136,7 +144,17 @@ def make_surface(base_color, roughness, metallic, emission) -> dict:
     }
 
 
-def evaluate_brdf(surface, wo, wi, wh):
+def compose_brdf(diffuse, specular, compose: str = "both"):
+    """ComposeBRDF (Common/PBR.glsl:78-90): "diffuse" or "specular" isolates
+    one term (DEBUG_VIEW_DIFFUSE / DEBUG_VIEW_SPECULAR), "both" sums them."""
+    if compose == "diffuse":
+        return diffuse
+    if compose == "specular":
+        return specular
+    return diffuse + specular
+
+
+def evaluate_brdf(surface, wo, wi, wh, compose: str = "both"):
     nov = cos_theta(wo)
     nol = cos_theta(wi)
     noh = cos_theta(wh)
@@ -149,7 +167,7 @@ def evaluate_brdf(surface, wo, wi, wh):
     kd = (1.0 - f) * (1.0 - surface["metallic"])[..., None]
     diffuse = kd * diffuse_lambert(surface["base_color"])
     specular = d[..., None] * f * vis[..., None]
-    return diffuse + specular
+    return compose_brdf(diffuse, specular, compose)
 
 
 def pdf_brdf(surface, wo, wi, wh):

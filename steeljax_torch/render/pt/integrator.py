@@ -3,14 +3,17 @@
 Port of steeljax/render/pt/integrator.py (RayGen.rgen:322-425): per pixel
 a seeded xoroshiro stream, a jittered primary ray from the inverse
 proj/view matrices, a bounded bounce loop (miss -> environment; emission;
-BRDF importance sampling; Russian roulette after bounce 2), irradiance
-clamp.  The bounce loop is a Python loop over a flat ray batch with one
-trace per bounce; dead lanes ride along with an inverted t interval
-(RAY_DEAD_T) and cost the trace nothing.
+next-event estimation against punctual lights with an irradiance-
+proportional light pick and an any-hit shadow ray; textured shading with
+normal mapping; BRDF importance sampling; Russian roulette after bounce 2),
+irradiance clamp.  The bounce loop is a Python loop over a flat ray batch
+with one nearest trace per bounce (plus one shadow trace in lit scenes);
+dead lanes ride along with an inverted t interval (RAY_DEAD_T) and cost the
+trace nothing.  Above REPACK_MIN_TRIS the in-flight rays are repacked
+before every secondary bounce (repack_rays).
 
-The slice renders scenes without lights, textures or alpha-tested
-materials (no next-event estimation, no any-hit, no re-trace) on one
-chunk; prepare_scene refuses anything else.
+Alpha-tested materials (the any-hit re-trace) and multi-chunk scenes are
+not ported; prepare_scene refuses them.
 """
 
 from __future__ import annotations
@@ -20,12 +23,16 @@ import functools
 import numpy as np
 import torch
 
-from steeljax_torch.accel.dispatch import TraceTables, trace_nearest
+from steeljax_torch.accel.dispatch import (TraceTables, trace_any,
+                                           trace_nearest)
 from steeljax_torch.core import rng
+from steeljax_torch.core.colors import luminance, to_linear
 from steeljax_torch.core.config import RenderConfig
-from steeljax_torch.core.constants import (EPSILON, RAY_DEAD_T, RAY_MAX_T,
-                                           RAY_MIN_T)
+from steeljax_torch.core.constants import (BIAS, DIRECT_LIGHT_DISK_RADIUS,
+                                           EPSILON, PI, POINT_LIGHT_RADIUS,
+                                           RAY_DEAD_T, RAY_MAX_T, RAY_MIN_T)
 from steeljax_torch.render.pt import brdf as brdf_lib
+from steeljax_torch.render.texture import sample_bilinear
 from steeljax_torch.scene.flatten import FlatScene
 
 
@@ -66,25 +73,122 @@ def primary_rays(inverse_view, inverse_proj, width, height, px, py, seed):
 
 
 # ---------------------------------------------------------------------------
+# Ray repacking for big scenes (integrator.py:151-265)
+# ---------------------------------------------------------------------------
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    """Spread 5 bits of x across every third bit (Morton interleave)."""
+    x = x & 0x1F
+    x = (x | (x << 8)) & 0x100F
+    x = (x | (x << 4)) & 0x10C3
+    x = (x | (x << 2)) & 0x1249
+    return x
+
+
+def _ray_sort_key(o, d, lo, inv_extent) -> torch.Tensor:
+    """18-bit int32 coherence key: 15-bit Morton cell of the origin (5 bits
+    per axis over the scene AABB), direction octant in the low 3 bits.
+    lo and inv_extent are 3-sequences of Python floats (float32 values)."""
+    q = [torch.clamp((o[:, k] - lo[k]) * inv_extent[k] * 32.0, 0.0,
+                     31.0).to(torch.int32) for k in range(3)]
+    morton = (_part1by2(q[0]) | (_part1by2(q[1]) << 1)
+              | (_part1by2(q[2]) << 2))
+    octant = ((d[:, 0] > 0).to(torch.int32)
+              | ((d[:, 1] > 0).to(torch.int32) << 1)
+              | ((d[:, 2] > 0).to(torch.int32) << 2))
+    return (morton << 3) | octant
+
+
+# Scenes above this triangle count repack in-flight rays before every
+# secondary bounce (trace_paths); it is read at call time, so a test can
+# patch it.
+REPACK_MIN_TRIS = 200_000
+
+
+def _total_triangles(tables: TraceTables) -> int:
+    """Triangle count (padded rows) of the flat tables, for the repack
+    gate."""
+    return sum(c.rows for c in tables.chunks)
+
+
+def scene_bounds(tables: TraceTables) -> tuple[tuple, tuple]:
+    """(lo, inv_extent) of the chunk AABBs for ray-sort keys, as float32
+    values in Python floats (a constant of the key needs no device copy)."""
+    lo = np.min([c.aabb[0] for c in tables.chunks], axis=0)
+    hi = np.max([c.aabb[1] for c in tables.chunks], axis=0)
+    inv = 1.0 / np.maximum(hi - lo, 1e-6)
+    return (tuple(float(v) for v in lo.astype(np.float32)),
+            tuple(float(v) for v in inv.astype(np.float32)))
+
+
+def repack_rays(key: torch.Tensor, columns):
+    """Reorder the in-flight ray state by `key`: one stable sort, then the
+    same permutation of every column ((N,) or (N, k) tensors).  Returns
+    (sorted_key, columns).  The reference moves the columns as payloads of
+    one sort; the permutation gives the same order."""
+    sorted_key, perm = torch.sort(key, stable=True)
+    return sorted_key, [c.index_select(0, perm) for c in columns]
+
+
+# ---------------------------------------------------------------------------
 # Hit shading inputs (ClosestHit.rchit + UnpackMaterial, RayGen.rgen:72-115)
 # ---------------------------------------------------------------------------
 
 def material_select(scene: FlatScene, mid: torch.Tensor):
     """Per-ray material constants: (packed_row (N, 16), emission_linear
-    (N, 3)).  The reference builds these with a select chain because a TPU
-    gather is slow; plain indexing gives the same values."""
+    (N, 3), texture ids (N, 5)).  The reference builds these with a select
+    chain because a TPU gather is slow; plain indexing gives the same
+    values."""
     mid = mid.long()
-    return scene.mat_packed[mid], scene.mat_emission_linear[mid]
+    return (scene.mat_packed[mid], scene.mat_emission_linear[mid],
+            scene.mat_tex[mid])
 
 
 def unpack_material_fused(scene: FlatScene, rec: dict):
-    """Surface + TBN from the trace kernel's fused mode-1 outputs (the
-    interpolated, normalized, back-face-flipped normal and material id)."""
+    """Surface + TBN from the trace kernel's fused outputs: the
+    interpolated, normalized, back-face-flipped normal and the material id,
+    and in textured scenes (shade mode 2) the tangent and uv, which drive
+    normal mapping and the base-colour, roughness-metallic and emission
+    textures (integrator.py:554-599)."""
     normal = rec["n"]
-    mrow, emission = material_select(scene, rec["mat"])
-    surface = brdf_lib.make_surface(mrow[:, 13:16], mrow[:, 7], mrow[:, 8],
+    mrow, emission, tex = material_select(scene, rec["mat"])
+    base_color = mrow[:, 13:16]  # ToLinear(factor) precomputed
+    roughness = mrow[:, 7]
+    metallic = mrow[:, 8]
+
+    tbn = brdf_lib.make_tbn(normal)
+    if scene.has_textures:
+        uv = rec["uv"]
+
+        def sample(idx):
+            return sample_bilinear(scene.atlas, scene.tex_offset,
+                                   scene.tex_size, idx, uv)
+
+        def tex_rgb(idx):
+            return torch.where((idx >= 0)[..., None], sample(idx)[..., :3],
+                               1.0)
+
+        n_idx = tex[:, 2]
+        ns = sample(n_idx)[..., :3] * 2.0 - 1.0
+        scale = mrow[:, 9]
+        ns = _normalize(ns * torch.stack(
+            [scale, scale, torch.ones_like(scale)], dim=-1))
+        tbn_t = brdf_lib.make_tbn_with_tangent(normal, rec["tan"])
+        perturbed = _normalize(brdf_lib.tangent_to_world(ns, tbn_t))
+        tbn_nm = brdf_lib.make_tbn(perturbed)
+        has_nm = (n_idx >= 0)[..., None]
+        tbn = tuple(torch.where(has_nm, a, b) for a, b in zip(tbn_nm, tbn))
+
+        base_color = to_linear(mrow[:, 0:3] * tex_rgb(tex[:, 0]))
+        rm_idx = tex[:, 1]
+        rm = sample(rm_idx)
+        roughness = roughness * torch.where(rm_idx >= 0, rm[..., 1], 1.0)
+        metallic = metallic * torch.where(rm_idx >= 0, rm[..., 2], 1.0)
+        emission = to_linear(mrow[:, 4:7] * tex_rgb(tex[:, 4]))
+
+    surface = brdf_lib.make_surface(base_color, roughness, metallic,
                                     emission)
-    return surface, brdf_lib.make_tbn(normal)
+    return surface, tbn
 
 
 def trace_material_ray(scene: FlatScene, tables: TraceTables, o, d,
@@ -97,6 +201,126 @@ def trace_material_ray(scene: FlatScene, tables: TraceTables, o, d,
             "yet (ROADMAP item 16)")
     return trace_nearest(tables, o, d, t_min, t_max,
                          cull_backface=cull_backface)
+
+
+def trace_visibility(scene: FlatScene, tables: TraceTables, o, d,
+                     t_min, t_max) -> torch.Tensor:
+    """TraceVisibilityRay (RayGen.rgen:127-178): occlusion without backface
+    culling, (N,) bool (the reference's non-alpha branch,
+    steeljax/render/pt/integrator.py:506-525)."""
+    if scene.any_alpha_test:
+        raise NotImplementedError(
+            "alpha-tested shadow rays need the any-hit re-trace, not ported "
+            "yet (ROADMAP item 16)")
+    return trace_any(tables, o, d, t_min, t_max)
+
+
+# ---------------------------------------------------------------------------
+# Next-event estimation (RayGen.rgen:180-305)
+# ---------------------------------------------------------------------------
+
+def _estimate_lights(scene: FlatScene, n, p) -> torch.Tensor:
+    """Per-light irradiance estimate (EstimateLight, RayGen.rgen:180-197).
+    Returns (N, L) for the first light_count lights."""
+    loc = scene.light_location[:scene.light_count]          # (L, 4)
+    color = scene.light_color[:scene.light_count, :3]       # (L, 3)
+    direction = loc[None, :, :3] - p[:, None, :] * loc[None, :, 3:4]
+    dist2 = (direction * direction).sum(dim=-1)
+    attenuation = torch.where(
+        loc[None, :, 3] == 0.0, 1.0,
+        torch.where(dist2 == 0.0, 1e10, 1.0 / dist2))
+    l = _normalize(direction)
+    nol = torch.clamp((n[:, None, :] * l).sum(dim=-1), min=0.0)
+    return attenuation * nol * luminance(color)[None, :]
+
+
+def _light_distortion(n, w, seed):
+    """ComputeLightDistortion (RayGen.rgen:251-266): disk/sphere jitter of
+    the light direction for soft penumbrae.  Draws two floats."""
+    zero = torch.zeros_like(n[..., 0])
+    u = torch.stack([n[..., 1], -n[..., 0], zero], dim=-1)
+    u_len = torch.linalg.vector_norm(u, dim=-1, keepdim=True)
+    unit_x = torch.stack([torch.ones_like(zero), zero, zero], dim=-1)
+    u = torch.where(u_len > 1e-12, u / torch.clamp(u_len, min=1e-20), unit_x)
+    v = _normalize(torch.linalg.cross(n, u, dim=-1))
+    theta, seed = rng.next_float(seed)
+    theta = theta * 2.0 * PI
+    offset = torch.cos(theta)[..., None] * u + torch.sin(theta)[..., None] * v
+    r, seed = rng.next_float(seed)
+    dd = torch.sqrt(torch.clamp(1.0 - r * r, min=0.0))
+    offset = offset * r[..., None] + _normalize(n) * (dd * w)[..., None]
+    return offset, seed
+
+
+def sample_light(scene: FlatScene, n, p, seed):
+    """The light pick and jittered light direction of DirectLighting
+    (RayGen.rgen:268-290), in the reference's RNG order: one float for the
+    pick, then two for the distortion.  Returns ({"direction" (N, 3) unit,
+    "distance", "attenuation", "pdf", "has_light" (N,), "color" (N, 3)},
+    seed)."""
+    estimates = _estimate_lights(scene, n, p)            # (N, L)
+    # Running sum over the few lights, in cumsum's order: torch.cumsum
+    # along this short innermost axis runs as a scan kernel that took 5 ms
+    # per call at 921,600 rays on an H100.
+    running = list(estimates.unbind(dim=-1))
+    for i in range(1, len(running)):
+        running[i] = running[i - 1] + running[i]
+    cum = torch.stack(running, dim=-1)
+    total = running[-1]
+    has_light = total > 0.0
+    cum_norm = cum / torch.clamp(total, min=1e-20)[:, None]
+
+    pick, seed = rng.next_float(seed)
+    # First index with pick < cum_norm[i] (RayGen.rgen:226-234).
+    light_index = (pick[:, None] >= cum_norm[:, :-1]).sum(dim=-1)
+    norm_est = estimates / torch.clamp(total, min=1e-20)[:, None]
+    pdf = norm_est.gather(1, light_index[:, None])[:, 0]
+    loc = scene.light_location[light_index]
+    color = scene.light_color[light_index, :3]
+    is_point = loc[..., 3]
+
+    direction = loc[..., :3] - p * is_point[..., None]
+    distortion, seed = _light_distortion(-direction, is_point, seed)
+    radius = torch.where(is_point == 0.0, DIRECT_LIGHT_DISK_RADIUS,
+                         POINT_LIGHT_RADIUS)
+    direction = direction + distortion * radius[..., None]
+
+    distance = torch.where(is_point == 0.0, RAY_MAX_T,
+                           torch.linalg.vector_norm(direction, dim=-1))
+    attenuation = torch.where(
+        is_point == 0.0, 1.0,
+        1.0 / torch.clamp(distance * distance, min=1e-20))
+    return {"direction": _normalize(direction), "distance": distance,
+            "attenuation": attenuation, "pdf": pdf, "has_light": has_light,
+            "color": color}, seed
+
+
+def shadow_rays(p, n, light):
+    """The shadow ray of sample_light's light: (origin, direction, t_min,
+    t_max), with an inverted interval where no light was picked."""
+    t_far = torch.where(light["has_light"], light["distance"], RAY_DEAD_T)
+    return p + n * BIAS, light["direction"], RAY_MIN_T, t_far
+
+
+def direct_lighting(scene: FlatScene, tables: TraceTables, surface, tbn,
+                    p, wo, seed, compose: str = "both"):
+    """DirectLighting (RayGen.rgen:268-305).  Returns (radiance, seed).
+    `compose` isolates the diffuse/specular BRDF term (ComposeBRDF,
+    PathTracing.glsl:59)."""
+    n = tbn[2]
+    light, seed = sample_light(scene, n, p, seed)
+    wi = brdf_lib.world_to_tangent(light["direction"], tbn)
+    wh = _normalize(wo + wi)
+    # Lanes with no light get an inverted interval: the kernel reports them
+    # unoccluded without descending, and has_light zeroes them anyway.
+    occluded = trace_visibility(scene, tables, *shadow_rays(p, n, light))
+
+    f = brdf_lib.evaluate_brdf(surface, wo, wi, wh, compose=compose)
+    contrib = (f * brdf_lib.cos_theta(wi)[..., None] * light["color"]
+               * (light["attenuation"]
+                  / torch.clamp(light["pdf"], min=1e-20))[..., None])
+    visible = light["has_light"] & ~occluded
+    return torch.where(visible[..., None], contrib, 0.0), seed
 
 
 # ---------------------------------------------------------------------------
@@ -118,10 +342,8 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
     """The bounce loop for a prepared ray batch (RayGen.rgen:344-407).
 
     Returns (irradiance (N, 3) clamped, seed, rays_traced) with rays_traced
-    a 0-d float32 tensor on the render device (no host sync per bounce)."""
-    if scene.light_count > 0:
-        raise NotImplementedError(
-            "next-event estimation is not ported yet (ROADMAP item 11)")
+    (path segments and shadow rays) a 0-d float32 tensor on the render
+    device (no host sync per bounce)."""
     count = o.shape[0]
     device = o.device
     f32 = dict(dtype=torch.float32, device=device)
@@ -137,7 +359,29 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
     # the miss-time env weight is recovered at the end from the frozen state
     # plus one "ever missed" bit.
     miss = torch.zeros((count,), dtype=torch.bool, device=device)
+
+    # Before every secondary bounce on big scenes the in-flight ray state
+    # is repacked by one stable sort (repack_rays): dead rays sink to the
+    # tail and the live block is ordered by (Morton origin cell, direction
+    # octant), so neighbouring threads walk neighbouring nodes.  `slot`
+    # carries each ray's pixel, which restores frame order at the end.
+    use_repack = _total_triangles(tables) > REPACK_MIN_TRIS
+    sort_bounds = scene_bounds(tables) if use_repack else None
+    slot = torch.arange(count, device=device)
+    compose = (config.debug_view
+               if config.debug_view in ("diffuse", "specular") else "both")
     for bounce in range(config.max_bounce_count):
+        if bounce > 0 and use_repack:
+            key = (((~alive).to(torch.int32) << 19)
+                   | (miss.to(torch.int32) << 18)
+                   | _ray_sort_key(o, d, *sort_bounds))
+            key, (o, d, throughput, ray_pdf, irradiance, seed,
+                  slot) = repack_rays(
+                key, [o, d, throughput, ray_pdf, irradiance, seed, slot])
+            alive = (key >> 19) == 0
+            miss = ((key >> 18) & 1) == 1
+            t_max = torch.where(alive, RAY_MAX_T, RAY_DEAD_T).to(
+                torch.float32)
         rays_traced = rays_traced + alive.sum(dtype=torch.float32)
         rec = trace_material_ray(scene, tables, o, d, t_min, t_max,
                                  cull_backface=config.backface_culling)
@@ -164,6 +408,14 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
 
         p = o + d * rec["t"][..., None]
         wo = _normalize(brdf_lib.world_to_tangent(-d, tbn))
+
+        # NEE against punctual lights (RayGen.rgen:366-371).
+        if scene.light_count > 0:
+            rays_traced = rays_traced + alive.sum(dtype=torch.float32)
+            direct, seed = direct_lighting(scene, tables, surface, tbn, p,
+                                           wo, seed, compose=compose)
+            irradiance = irradiance + torch.where(
+                alive[..., None], direct * weight, 0.0)
 
         # BRDF sample (RayGen.rgen:374-385).
         f, wi, pdf, seed = brdf_lib.sample_brdf(surface, wo, seed)
@@ -204,8 +456,16 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
         miss[..., None],
         throughput / torch.clamp(ray_pdf, min=1e-30)[..., None], 0.0)
     irradiance = irradiance + _environment(scene, d) * env_weight
-    return torch.clamp(irradiance, max=config.max_irradiance), seed, \
-        rays_traced
+    clamped = torch.clamp(irradiance, max=config.max_irradiance)
+    if use_repack and config.max_bounce_count > 1:
+        # Restore frame order: `slot` is a permutation, so scattering by it
+        # puts every ray's irradiance (and seed, for the caller's next
+        # sample) back at its pixel.
+        restored = [torch.empty_like(x) for x in (clamped, seed)]
+        restored[0][slot] = clamped
+        restored[1][slot] = seed
+        clamped, seed = restored
+    return clamped, seed, rays_traced
 
 
 def render_pixels(scene: FlatScene, tables: TraceTables,

@@ -15,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from steeljax_torch.accel.bvh import apply_permutation
 from steeljax_torch.accel.dispatch import (TraceTables, attach_shade_tables,
@@ -53,14 +54,6 @@ def check_slice_scope(flat: FlatScene, tables: TraceTables) -> None:
     """Refuse a prepared scene that needs a part not ported yet, naming
     the ROADMAP item that brings it; such a scene is never rendered in
     part."""
-    if flat.light_count > 0:
-        raise NotImplementedError(
-            f"scene has {flat.light_count} punctual lights: next-event "
-            "estimation and the any-hit kernel K2 are not ported yet "
-            "(ROADMAP item 11)")
-    if flat.has_textures:
-        raise NotImplementedError(
-            "textured scenes are not ported yet (ROADMAP item 12)")
     if flat.any_alpha_test:
         raise NotImplementedError(
             "alpha-tested materials are not ported yet (ROADMAP item 16)")
@@ -72,14 +65,19 @@ def check_slice_scope(flat: FlatScene, tables: TraceTables) -> None:
 def prepare_scene(scene: Scene, device: torch.device | str,
                   env_resolution: int = 256,
                   use_default_environment: bool = True,
-                  leaf_size: int | None = None
+                  leaf_size: int | None = None, dense_anyhit: bool = False
                   ) -> tuple[FlatScene, TraceTables]:
     """Flatten, build the acceleration tables and the environment, on
     `device`.
 
     The environment is the scene's constant colour when it has one, else
     the procedural sky when `use_default_environment`, else none.  Leaf
-    size follows the reference: 48 at up to 50k triangles, else 24."""
+    size follows the reference: 48 at up to 50k triangles, else 24.
+    `dense_anyhit` builds the dense any-hit tables, which shadow rays then
+    read (the reference's STEELJAX_DENSE_ANYHIT=1, off by default; the
+    reference's prepare_scene reaches them through that variable, the port's
+    through this argument).  Each step is a `prepare_scene.<step>` or
+    `prepare_tables.<step>` range for torch.profiler."""
     env_cube = None
     env_analytic = False
     if scene.environment_cube is not None or (
@@ -94,24 +92,32 @@ def prepare_scene(scene: Scene, device: torch.device | str,
             (6, env_resolution, env_resolution, 3)).copy()
     elif use_default_environment:
         from steeljax_torch.env.sky import procedural_sky_cube
-        env_cube = procedural_sky_cube(env_resolution)
+        with record_function("prepare_scene.environment"):
+            env_cube = procedural_sky_cube(env_resolution)
         env_analytic = True
-    flat = flatten_scene(scene, device, env_cube, env_analytic=env_analytic)
+    with record_function("prepare_scene.flatten_scene"):
+        flat = flatten_scene(scene, device, env_cube,
+                             env_analytic=env_analytic)
 
     tri_pos = flat.tri_pos.cpu().numpy()
     if leaf_size is None:
         leaf_size = 48 if len(tri_pos) <= 50_000 else 24
     tables, order, total_padded = prepare_tables(
         tri_pos, flat.tri_double_sided.cpu().numpy(), device,
-        leaf_size=leaf_size)
-    permuted = apply_permutation((None, order, total_padded), {
-        name: getattr(flat, name).cpu().numpy()
-        for name in ("tri_pos", "tri_nrm", "tri_tan", "tri_uv", "tri_mat",
-                     "tri_double_sided", "tri_shade")})
-    tables = attach_shade_tables(tables, permuted["tri_nrm"],
-                                 permuted["tri_mat"])
-    flat = flat.replace(**{name: torch.from_numpy(arr).to(device)
-                           for name, arr in permuted.items()})
+        leaf_size=leaf_size, dense_anyhit=dense_anyhit)
+    with record_function("prepare_scene.apply_permutation"):
+        permuted = apply_permutation((None, order, total_padded), {
+            name: getattr(flat, name).cpu().numpy()
+            for name in ("tri_pos", "tri_nrm", "tri_tan", "tri_uv",
+                         "tri_mat", "tri_double_sided", "tri_shade")})
+    with record_function("prepare_scene.attach_shade_tables"):
+        tables = attach_shade_tables(
+            tables, permuted["tri_nrm"], permuted["tri_mat"],
+            textured=flat.has_textures, tri_tan=permuted["tri_tan"],
+            tri_uv=permuted["tri_uv"], tri_uvd=permuted["tri_shade"][:, 27])
+    with record_function("prepare_scene.upload_permuted"):
+        flat = flat.replace(**{name: torch.from_numpy(arr).to(device)
+                               for name, arr in permuted.items()})
     check_slice_scope(flat, tables)
     return flat, tables
 

@@ -5,7 +5,9 @@
 with green/red side walls, an emissive ceiling lamp, two boxes, and two
 spheres.  Used by tests and the smoke scripts so the framework is
 exercisable without the reference checkout.  `make_parity_scene` carries a
-directional light, which the path-tracing slice does not render yet.
+directional light; `make_stress_scene` fills the box with a grid of spheres
+and boxes, optionally textured; `make_sunlit_stress_scene` is the JAX
+bench's hybrid scene, a stress scene under a directional sun.
 """
 
 from __future__ import annotations
@@ -194,4 +196,82 @@ def make_parity_scene(sphere_detail: int = 8) -> Scene:
         up=camera_lib.UP)
     scene.camera_projection = camera_lib.CameraProjection(
         y_fov=0.9, width=1.77777, height=1.0, z_near=0.01, z_far=100.0)
+    return scene
+
+
+def _brick_texture(size: int = 256) -> np.ndarray:
+    """Procedural opaque RGBA brick/noise texture (base color): a real
+    high-frequency bilinear workload for the textured stress scene."""
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    row = np.floor(y * 8.0)
+    bx = x * 4.0 + np.where(row % 2 == 0, 0.0, 0.5)
+    mortar = ((np.abs(bx - np.round(bx)) < 0.04)
+              | (np.abs(y * 8.0 - np.round(y * 8.0)) < 0.06))
+    rng = np.random.default_rng(3)
+    noise = rng.uniform(0.85, 1.15, (size, size)).astype(np.float32)
+    tex = np.zeros((size, size, 4), np.uint8)
+    base = np.where(mortar[..., None],
+                    np.array([168, 160, 150], np.float32),
+                    np.array([152, 74, 56], np.float32))
+    tex[..., :3] = np.clip(base * noise[..., None], 0, 255).astype(np.uint8)
+    tex[..., 3] = 255
+    return tex
+
+
+def make_stress_scene(instances: int = 400, sphere_detail: int = 24,
+                      textured: bool = False) -> Scene:
+    """Cornell box populated with a grid of instanced spheres and boxes, a
+    many-triangle synthetic workload (steeljax/scene/builtin.py:329-373).
+
+    `textured=True` gives the instanced materials (4 and 5) the 256x256
+    brick base-color texture, so the textured shading path (uv
+    interpolation and bilinear atlas sampling) runs at full scene scale."""
+    rng = np.random.default_rng(7)
+    scene = make_cornell_scene(sphere_detail=sphere_detail)
+    sphere = 2  # from make_cornell_scene
+    box = 1
+    if textured:
+        scene.textures.append(_brick_texture())
+        scene.materials[4] = Material(
+            base_color_factor=np.ones(4, np.float32),
+            emission_factor=np.zeros(4, np.float32),
+            base_color_texture=0, roughness_factor=0.6,
+            metallic_factor=0.0, flags=MaterialFlags.DOUBLE_SIDED)
+        scene.materials[5] = Material(
+            base_color_factor=np.array([0.9, 0.9, 0.9, 1.0], np.float32),
+            emission_factor=np.zeros(4, np.float32),
+            base_color_texture=0, roughness_factor=0.15,
+            metallic_factor=1.0, flags=MaterialFlags.DOUBLE_SIDED)
+    side = int(np.ceil(instances ** (1 / 3)))
+    count = 0
+    for ix in range(side):
+        for iy in range(side):
+            for iz in range(side):
+                if count >= instances:
+                    break
+                pos = (np.array([ix, iy, iz], np.float32) / max(side - 1, 1)
+                       * 8.0 - 4.0)
+                scale = 0.25 + 0.35 * rng.random()
+                prim = sphere if (count % 3) else box
+                mat = 4 + (count % 2)  # matte / metal
+                scene.add_entity(Entity(
+                    name=f"stress_{count}",
+                    local_transform=_trs(pos, None, 0.0,
+                                         (scale, scale, scale)),
+                    render_objects=[RenderObject(prim, mat)]))
+                count += 1
+    return scene
+
+
+def make_sunlit_stress_scene(instances: int = 300,
+                             sphere_detail: int = 16) -> Scene:
+    """The JAX bench's hybrid scene (bench.py:228-233): a stress scene plus
+    a directional sun of colour (3.0, 2.9, 2.7)."""
+    scene = make_stress_scene(instances=instances,
+                              sphere_detail=sphere_detail)
+    sun = Entity(name="sun", local_transform=_trs((0, 0, 0), (0, 0, 1),
+                                                  -2.0))
+    sun.light = Light(type=LightType.DIRECTIONAL,
+                      color=np.array([3.0, 2.9, 2.7], np.float32))
+    scene.add_entity(sun)
     return scene

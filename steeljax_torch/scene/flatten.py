@@ -3,8 +3,7 @@
 Port of steeljax/scene/flatten.py:23-398.  The host packing is the same
 numpy code, so every array equals the reference's; `FlatScene` then holds
 the arrays as tensors on the render device, and its static fields stay
-plain Python values.  Textured scenes are outside the path-tracing slice
-and raise (ROADMAP item 12).
+plain Python values.
 """
 
 from __future__ import annotations
@@ -39,11 +38,14 @@ class FlatScene:
     mat_tex: torch.Tensor         # (M, 5) int32 texture ids (-1 none)
     mat_flags: torch.Tensor       # (M,) int32 MaterialFlags bits
 
-    # Texture pool descriptors (one empty texel row: the slice renders no
-    # textures).
-    atlas: torch.Tensor        # (1, 16) uint8
-    tex_offset: torch.Tensor   # (1, MAX_TEX_MIPS) int32
-    tex_size: torch.Tensor     # (1, 2) int32
+    # Texture pool: every texture's mip chain as quad rows (row y*w + x of
+    # a level holds the repeat-wrapped 2x2 bilinear footprint [c(x,y),
+    # c(x+1,y), c(x,y+1), c(x+1,y+1)]); tex_offset[k, m] is the first row of
+    # texture k's mip m (repeating the last level).  One empty row when the
+    # scene has no textures.
+    atlas: torch.Tensor        # (N, 16) uint8
+    tex_offset: torch.Tensor   # (K, MAX_TEX_MIPS) int32
+    tex_size: torch.Tensor     # (K, 2) int32 base (width, height)
 
     # Lights (gpu::Light, Common.h:24-28), padded to MAX_LIGHT_COUNT.
     light_location: torch.Tensor  # (16, 4) float32, w = isPoint
@@ -78,6 +80,59 @@ class FlatScene:
 
     def replace(self, **changes) -> "FlatScene":
         return dataclasses.replace(self, **changes)
+
+
+def _downsample2(img: np.ndarray) -> np.ndarray:
+    """2x2 box filter with odd-size clamping (mip generation)."""
+    h, w = img.shape[:2]
+    nh, nw = max(h // 2, 1), max(w // 2, 1)
+    ys = (np.arange(nh) * 2)
+    xs = (np.arange(nw) * 2)
+    y1 = np.minimum(ys + 1, h - 1)
+    x1 = np.minimum(xs + 1, w - 1)
+    acc = (img[np.ix_(ys, xs)].astype(np.uint16)
+           + img[np.ix_(ys, x1)] + img[np.ix_(y1, xs)]
+           + img[np.ix_(y1, x1)])
+    return (acc // 4).astype(np.uint8)
+
+
+def _pack_texture_quads(level: np.ndarray) -> np.ndarray:
+    """(H, W, 4) uint8 -> (H*W, 16) rows of the repeat-wrapped 2x2
+    bilinear footprint."""
+    h, w = level.shape[:2]
+    xr = (np.arange(w) + 1) % w
+    yd = (np.arange(h) + 1) % h
+    quad = np.concatenate([level, level[:, xr], level[yd],
+                           level[yd][:, xr]], axis=-1)
+    return quad.reshape(-1, 16)
+
+
+def _texture_pool(textures) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(atlas, tex_offset, tex_size) of the scene's textures, each with its
+    full mip chain (steeljax/scene/flatten.py:306-337)."""
+    if not textures:
+        return (np.zeros((1, 16), np.uint8),
+                np.zeros((1, MAX_TEX_MIPS), np.int32),
+                np.ones((1, 2), np.int32))
+    offsets, sizes, chunks = [], [], []
+    total = 0
+    for tex in textures:
+        h, w = tex.shape[:2]
+        sizes.append((w, h))
+        mip_offsets = []
+        level = tex
+        for m in range(MAX_TEX_MIPS):
+            mip_offsets.append(total)
+            chunks.append(_pack_texture_quads(level))
+            total += level.shape[0] * level.shape[1]
+            if level.shape[0] == 1 and level.shape[1] == 1:
+                # Repeat the last offset for the remaining slots.
+                mip_offsets += [mip_offsets[-1]] * (MAX_TEX_MIPS - m - 1)
+                break
+            level = _downsample2(level)
+        offsets.append(mip_offsets[:MAX_TEX_MIPS])
+    return (np.concatenate(chunks), np.asarray(offsets, np.int32),
+            np.asarray(sizes, np.int32))
 
 
 def pack_tri_shade(tri_nrm, tri_tan, tri_uv, tri_pos, tri_mat=None,
@@ -168,10 +223,6 @@ def _material_arrays(scene: Scene):
 def flatten_scene(scene: Scene, device: torch.device | str,
                   env_cube: np.ndarray | None = None,
                   env_analytic: bool = False) -> FlatScene:
-    if scene.textures:
-        raise NotImplementedError(
-            "textured scenes are not ported yet (ROADMAP item 12: textured "
-            "shading, fused mode 2)")
     tri_pos, tri_nrm, tri_tan, tri_uv, tri_mat, tri_ds = [], [], [], [], [], []
 
     for entity_index in scene.renderable_entities():
@@ -214,6 +265,7 @@ def flatten_scene(scene: Scene, device: torch.device | str,
 
     mat_base_color, mat_emission, mat_params, mat_tex, mat_flags = \
         _material_arrays(scene)
+    atlas, tex_offset, tex_size = _texture_pool(scene.textures)
 
     # Lights, padded to the reference's fixed UBO size (Common.h:4).
     locations, colors = scene.gather_lights()
@@ -254,9 +306,9 @@ def flatten_scene(scene: Scene, device: torch.device | str,
         mat_params=dev(mat_params),
         mat_tex=dev(mat_tex),
         mat_flags=dev(mat_flags),
-        atlas=dev(np.zeros((1, 16), np.uint8)),
-        tex_offset=dev(np.zeros((1, MAX_TEX_MIPS), np.int32)),
-        tex_size=dev(np.ones((1, 2), np.int32)),
+        atlas=dev(atlas),
+        tex_offset=dev(tex_offset),
+        tex_size=dev(tex_size),
         light_location=dev(light_location),
         light_color=dev(light_color),
         env_cube=dev(env_cube),
@@ -269,6 +321,6 @@ def flatten_scene(scene: Scene, device: torch.device | str,
         env_analytic=bool(env_analytic and env_enabled),
         any_alpha_test=bool(any_alpha_test),
         any_alpha_blend=bool(any_alpha_blend),
-        has_textures=False,
+        has_textures=bool(scene.textures),
         source_tri_count=int(len(tri_pos)),
     )

@@ -147,7 +147,7 @@ def test_dead_lanes_and_finite_t_max(soup):
 def test_wrapper_runs_plain_on_cpu_and_refuses_mixed_devices(soup):
     tables, _, _, o, d = soup
     chunk = tables.chunks[0]
-    before = cuda_traverse.LAUNCHES
+    before = dict(cuda_traverse.LAUNCHES)
     o_t, d_t = torch.from_numpy(o[:64]), torch.from_numpy(d[:64])
     rec = cuda_traverse.trace_nearest_bvh8(chunk.bvh8, chunk.tris_packed,
                                            o_t, d_t, 0.001, 1000.0)
