@@ -1,17 +1,22 @@
 """BVH8 traversal: table packers, the CUDA kernels' wrappers and their plain
 PyTorch versions.
 
-Port of steeljax/accel/pallas_traverse.py:48-191 (packers) and :249-794
-(`_traverse_kernel8`): the nearest-hit query with shade modes 0 and 1 (K1)
-and 2 (K3), and the any-hit occlusion query over the 12-record rows or the
-dense 14-record rows (K2).  The kernels are `csrc/traverse8.cu`, built by
-native.cuda_library() and called through plain C functions.
+Port of steeljax/accel/pallas_traverse.py:48-191 (packers), :249-794
+(`_traverse_kernel8`) and :812-1138 (`_multihit_kernel`): the nearest-hit
+query with shade modes 0 and 1 (K1) and 2 (K3), the any-hit occlusion query
+over the 12-record rows or the dense 14-record rows (K2), both queries with
+in-kernel alpha-coverage masks (K4: the coarse mask in the records' AUX
+lane, optionally the fine PASS plane of a parallel int32 row table), and the
+K-nearest multi-hit query (K5).  The kernels are `csrc/traverse8.cu` and
+`csrc/multihit8.cu`, built by native.cuda_library() and called through
+plain C functions.
 
-`trace_nearest_bvh8` and `trace_any_bvh8` launch their kernel for CUDA
-tensors and run the plain version only because their tensors lie on the
-CPU; mixed devices raise, and a build or launch failure raises — nothing
-falls back.  Every launch adds one to the kernel's entry in the module-level
-`LAUNCHES`, so a run can show that its path went through the kernel.
+`trace_nearest_bvh8`, `trace_any_bvh8` and `trace_multihit_bvh8` launch
+their kernel for CUDA tensors and run the plain version only because their
+tensors lie on the CPU; mixed devices raise, and a build or launch failure
+raises — nothing falls back.  Every launch adds one to the kernel's entry in
+the module-level `LAUNCHES`, so a run can show that its path went through
+the kernel.
 
 Packet size, shared-origin and coherence knobs of the reference change the
 TPU's scheduling, not the result, and have no counterpart here.
@@ -22,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from steeljax_torch.accel import alphamask
 from steeljax_torch.accel.bvh import (BVH8, DENSE_PER_ROW, DENSE_STRIDE,
                                       TRI_PER_ROW, TRI_STRIDE)
 
@@ -39,15 +45,22 @@ MAX_STACK = 256
 # Kernel launches by kernel since the last reset (set the entries to 0 to
 # start counting): K1 nearest hit (shade modes 0/1), K3 nearest hit with
 # textured shading (mode 2), K2 any-hit on the 12-record rows, K2_dense
-# any-hit on the dense rows.
-LAUNCHES = {"K1": 0, "K2": 0, "K2_dense": 0, "K3": 0}
+# any-hit on the dense rows, K4 nearest hit with alpha masks, K4_anyhit
+# any-hit with alpha masks, K5 the K-nearest multi-hit query.
+LAUNCHES = {"K1": 0, "K2": 0, "K2_dense": 0, "K3": 0, "K4": 0,
+            "K4_anyhit": 0, "K5": 0}
+# The slot counts the multi-hit kernel is compiled for.
+MULTIHIT_K = (2, 4, 8)
 # The telemetry a kernel writes per ray when asked (the reference's
 # counters=True): supernode pops, triangle-row bodies, leaf pops, triangle
-# tests.
-COUNTERS = ("supernode_pops", "row_bodies", "leaf_pops", "triangle_tests")
+# tests, and of the alpha kernels the candidates that reached the coarse
+# mask test and the fine one (0 in the other kernels).
+COUNTERS = ("supernode_pops", "row_bodies", "leaf_pops", "triangle_tests",
+            "mask_tests", "fine_tests")
 # The plain versions keep each ray chunk's (rays x records) intermediates
-# near this many bytes.
-_PLAIN_CHUNK_BYTES = 256 << 20
+# near this many bytes: 256 MiB on the host, 4 GiB on the card, whose 80 GB
+# let the brute force over a million records take a dozen rays at a time.
+_PLAIN_CHUNK_BYTES = {"cpu": 256 << 20, "cuda": 4 << 30}
 
 
 def _pack_rows(records: np.ndarray, per_row: int) -> np.ndarray:
@@ -72,13 +85,37 @@ def _edge_records(tri_pos: np.ndarray, stride: int) -> np.ndarray:
     return packed
 
 
-def pack_tris(tri_pos: np.ndarray, tri_double_sided: np.ndarray
-              ) -> np.ndarray:
+def pack_tris(tri_pos: np.ndarray, tri_double_sided: np.ndarray,
+              tri_alpha_mask: np.ndarray | None = None) -> np.ndarray:
     """Flat-packed triangle table: TRI_PER_ROW records of TRI_STRIDE f32
-    per 128-float row, [v0.xyz, e1.xyz, e2.xyz, double_sided 0/1]."""
+    per 128-float row, [v0.xyz, e1.xyz, e2.xyz, double_sided 0/1].  With
+    `tri_alpha_mask` ((T,) uint32, alphamask.compute_alpha_masks) the last
+    float is the AUX word ds | mask << 1, an exact integer below 2^22, which
+    the alpha-masked kernels decode."""
     packed = _edge_records(tri_pos, TRI_STRIDE)
-    packed[:, 9] = np.asarray(tri_double_sided).astype(np.float32)
+    ds = np.asarray(tri_double_sided).astype(np.uint32)
+    if tri_alpha_mask is None:
+        packed[:, 9] = ds.astype(np.float32)
+    else:
+        aux = ds | (np.asarray(tri_alpha_mask, np.uint32) << 1)
+        packed[:, 9] = aux.astype(np.float32)  # exact: < 2^22
     return _pack_rows(packed, TRI_PER_ROW)
+
+
+def pack_fine_mask_rows(fine_masks: np.ndarray) -> np.ndarray:
+    """(T, FINE_STRIDE) int32 two-plane fine masks -> (ceil(T/TRI_PER_ROW),
+    128) int32 rows parallel to pack_tris: record j of a row occupies
+    words [FINE_STRIDE*j, FINE_STRIDE*j + FINE_STRIDE).  Pad records get
+    PASS = 0 (their triangle test never hits anyway)."""
+    m = np.asarray(fine_masks, np.int32)
+    t, stride = m.shape
+    rows = -(-max(t, 1) // TRI_PER_ROW)
+    padded = np.zeros((rows * TRI_PER_ROW, stride), np.int32)
+    padded[:t] = m
+    out = np.zeros((rows, LANES), np.int32)
+    out[:, :TRI_PER_ROW * stride] = padded.reshape(
+        rows, TRI_PER_ROW * stride)
+    return out
 
 
 def pack_tris_dense(tri_pos: np.ndarray) -> np.ndarray:
@@ -162,12 +199,25 @@ def _one_device(tensors: dict, t_min, t_max) -> torch.device:
         raise ValueError(f"no trace path for device {device}")
     return device
 
+def _alpha_tensors(tensors: dict, alpha_mask: bool, fine_rows,
+                   shade_mode: int = 0) -> None:
+    """Check the alpha arguments of a trace call and add fine_rows to its
+    device check."""
+    if fine_rows is not None:
+        if not alpha_mask:
+            raise ValueError("fine_rows need alpha_mask=True")
+        tensors["fine_rows"] = fine_rows
+    if alpha_mask and shade_mode:
+        raise ValueError("the alpha-masked kernels have no fused shading "
+                         f"(shade_mode {shade_mode})")
+
 
 def trace_nearest_bvh8(bvh8: BVH8, tris_packed: torch.Tensor,
                        o: torch.Tensor, d: torch.Tensor, t_min, t_max,
                        cull_backface: bool = True,
                        shade_rows: torch.Tensor | None = None,
-                       shade_mode: int = 0) -> dict:
+                       shade_mode: int = 0, alpha_mask: bool = False,
+                       fine_rows: torch.Tensor | None = None) -> dict:
     """Nearest hit of each ray over a BVH8; the contract of the reference's
     trace_nearest_packet8 (pallas_traverse.py:752-778).
 
@@ -176,7 +226,10 @@ def trace_nearest_bvh8(bvh8: BVH8, tris_packed: torch.Tensor,
     pack_shade_records in that mode) also n (N, 3), the interpolated normal,
     normalized and flipped when det < 0, and mat (N,) int32; with mode 2
     also tan (N, 3), the interpolated tangent, normalized and not flipped,
-    uv (N, 2) and uvd (N,).  A ray with t_max < t_min is dead and misses."""
+    uv (N, 2) and uvd (N,).  A ray with t_max < t_min is dead and misses.
+    alpha_mask=True (K4) decodes the AUX words of tris packed with masks
+    and drops candidates whose coverage cell is provably transparent;
+    `fine_rows` (pack_fine_mask_rows) adds the fine PASS plane."""
     tensors = {"bvh8.rows": bvh8.rows, "tris_packed": tris_packed, "o": o,
                "d": d}
     if shade_mode not in (0, 1, 2):
@@ -185,48 +238,98 @@ def trace_nearest_bvh8(bvh8: BVH8, tris_packed: torch.Tensor,
         if shade_rows is None:
             raise ValueError(f"shade_mode {shade_mode} needs shade_rows")
         tensors["shade_rows"] = shade_rows
+    _alpha_tensors(tensors, alpha_mask, fine_rows, shade_mode)
     device = _one_device(tensors, t_min, t_max)
     if device.type == "cuda":
         launch, rec = kernel_launcher(bvh8, tris_packed, o, d, t_min, t_max,
-                                      cull_backface, shade_rows, shade_mode)
+                                      cull_backface, shade_rows, shade_mode,
+                                      alpha_mask=alpha_mask,
+                                      fine_rows=fine_rows)
         launch()
         rec["hit"] = rec["tri"] >= 0
         return rec
     return trace_nearest_bvh8_plain(bvh8, tris_packed, o, d, t_min, t_max,
-                                    cull_backface, shade_rows, shade_mode)
+                                    cull_backface, shade_rows, shade_mode,
+                                    alpha_mask, fine_rows)
 
 
 def trace_any_bvh8(bvh8: BVH8, tris: torch.Tensor, o: torch.Tensor,
-                   d: torch.Tensor, t_min, t_max, dense: bool = False
-                   ) -> torch.Tensor:
+                   d: torch.Tensor, t_min, t_max, dense: bool = False,
+                   alpha_mask: bool = False,
+                   fine_rows: torch.Tensor | None = None) -> torch.Tensor:
     """Occlusion of each ray over a BVH8: (N,) bool, true when any triangle
     is hit (no culling) with t in [t_min, t_max]; a dead ray (t_max <
     t_min) is never occluded.  `tris` is pack_tris rows, or with dense=True
     pack_tris_dense rows over their own supernode rows (the contracts of
     trace_nearest_packet8(any_hit=True) and trace_anyhit_dense,
-    pallas_traverse.py:574-594, :781-794)."""
-    device = _one_device({"bvh8.rows": bvh8.rows, "tris": tris, "o": o,
-                          "d": d}, t_min, t_max)
+    pallas_traverse.py:574-594, :781-794).  alpha_mask and fine_rows as in
+    trace_nearest_bvh8 (K4_anyhit; not with dense rows)."""
+    tensors = {"bvh8.rows": bvh8.rows, "tris": tris, "o": o, "d": d}
+    _alpha_tensors(tensors, alpha_mask, fine_rows)
+    if dense and alpha_mask:
+        raise ValueError("the dense any-hit rows carry no alpha masks")
+    device = _one_device(tensors, t_min, t_max)
     if device.type == "cuda":
-        launch, rec = anyhit_launcher(bvh8, tris, o, d, t_min, t_max, dense)
+        launch, rec = anyhit_launcher(bvh8, tris, o, d, t_min, t_max, dense,
+                                      alpha_mask=alpha_mask,
+                                      fine_rows=fine_rows)
         launch()
         return rec["hit"]
-    return trace_any_bvh8_plain(bvh8, tris, o, d, t_min, t_max, dense)
+    return trace_any_bvh8_plain(bvh8, tris, o, d, t_min, t_max, dense,
+                                alpha_mask, fine_rows)
 
 
-def _check_table(name, x, device):
-    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != LANES:
-        raise ValueError(f"{name} must be (R, {LANES}) float32, got "
+def _check_k(k_hits: int) -> None:
+    if k_hits not in MULTIHIT_K:
+        raise ValueError(f"the multi-hit kernel is built for K in "
+                         f"{MULTIHIT_K}, got {k_hits}")
+
+
+def trace_multihit_bvh8(bvh8: BVH8, tris: torch.Tensor, o: torch.Tensor,
+                        d: torch.Tensor, t_min, t_max, k_hits: int,
+                        cull_backface: bool = True, alpha_mask: bool = False,
+                        fine_rows: torch.Tensor | None = None) -> dict:
+    """The K nearest hits of each ray (K5), the contract of the reference's
+    trace_multihit_packet8 (pallas_traverse.py:1117-1138): {"t", "u", "v",
+    "tri"}, each (K, N), sorted ascending by t per ray; slot k holds t -1,
+    u = v = 0 and tri -1 when the ray has fewer than k + 1 hits with t in
+    [t_min, t_max).  alpha_mask drops candidates the coarse masks reject;
+    `fine_rows` also applies the fine PASS plane and bounds each ray by its
+    nearest OPAQUE-plane hit ob: the slots then hold the K nearest PASS hits
+    with t <= ob."""
+    _check_k(k_hits)
+    tensors = {"bvh8.rows": bvh8.rows, "tris": tris, "o": o, "d": d}
+    _alpha_tensors(tensors, alpha_mask, fine_rows)
+    device = _one_device(tensors, t_min, t_max)
+    if device.type == "cuda":
+        launch, rec = multihit_launcher(bvh8, tris, o, d, t_min, t_max,
+                                        k_hits, cull_backface,
+                                        alpha_mask=alpha_mask,
+                                        fine_rows=fine_rows)
+        launch()
+        return rec
+    return trace_multihit_bvh8_plain(bvh8, tris, o, d, t_min, t_max, k_hits,
+                                     cull_backface, alpha_mask, fine_rows)
+
+
+def _check_table(name, x, device, dtype=torch.float32):
+    if x.dtype != dtype or x.dim() != 2 or x.shape[1] != LANES:
+        raise ValueError(f"{name} must be (R, {LANES}) {dtype}, got "
                          f"{tuple(x.shape)} {x.dtype}")
     if x.device != device or not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous on {device}")
 
 
-def _check_launch(bvh8, tris, device):
+def _check_launch(bvh8, tris, device, fine_rows=None):
     if device.type != "cuda":
         raise ValueError(f"the trace kernel needs CUDA tensors, got {device}")
     _check_table("bvh8.rows", bvh8.rows, device)
     _check_table("tris", tris, device)
+    if fine_rows is not None:
+        _check_table("fine_rows", fine_rows, device, torch.int32)
+        if fine_rows.shape[0] < tris.shape[0]:
+            raise ValueError(f"fine_rows has {fine_rows.shape[0]} rows for "
+                             f"{tris.shape[0]} triangle rows")
     if 8 * bvh8.depth + 16 > MAX_STACK:
         raise ValueError(f"BVH8 depth {bvh8.depth} needs a stack of "
                          f"{8 * bvh8.depth + 16} > {MAX_STACK} entries")
@@ -251,37 +354,45 @@ def _launch_fn(kernel: str, entry: str, args, tensors):
         LAUNCHES[kernel] += 1
 
     # The pointers in `args` stay valid while the launcher holds the
-    # tensors they point into.
+    # tensors they point into, its outputs included (a caller may keep the
+    # launcher and drop the record).
     launch.tensors = tensors
     return launch
 
 
 def _telemetry(n: int, bvh8, tris, per_row: int) -> dict:
-    """The tensors a counting launch writes: "counters" (N, 4) int32, the
+    """The tensors a counting launch writes: "counters" (N, 6) int32, the
     per-ray telemetry named in COUNTERS; "seen_nodes" (S,) uint8, 1 for
-    every supernode row some ray popped; "seen_records" (R * per_row,)
-    uint8, 1 for every triangle record some ray tested.  The seen flags are
-    set by every launch and never cleared."""
+    every supernode row some ray popped; "seen_records" and "seen_fine"
+    (R * per_row,) uint8, 1 for every triangle record some ray tested, and
+    for every record whose fine mask words some ray read.  The seen flags
+    are set by every launch and never cleared."""
     device = tris.device
+    u8 = dict(dtype=torch.uint8, device=device)
     return {"counters": torch.empty((n, len(COUNTERS)), dtype=torch.int32,
                                     device=device),
-            "seen_nodes": torch.zeros(bvh8.rows.shape[0], dtype=torch.uint8,
-                                      device=device),
-            "seen_records": torch.zeros(tris.shape[0] * per_row,
-                                        dtype=torch.uint8, device=device)}
+            "seen_nodes": torch.zeros(bvh8.rows.shape[0], **u8),
+            "seen_records": torch.zeros(tris.shape[0] * per_row, **u8),
+            "seen_fine": torch.zeros(tris.shape[0] * per_row, **u8)}
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def kernel_launcher(bvh8, tris_packed, o, d, t_min, t_max,
                     cull_backface: bool = True, shade_rows=None,
-                    shade_mode: int = 0, counters: bool = False):
-    """Check the inputs of one nearest-hit kernel call (K1, or K3 for shade
-    mode 2) on CUDA tensors and allocate its outputs.  Returns (launch,
-    rec): each `launch()` runs the kernel on the current stream into rec's
-    tensors and adds one to LAUNCHES.  The wrapper calls it once; a
-    benchmark can repeat it without the wrapper's host work.  counters=True
-    adds the telemetry of _telemetry."""
+                    shade_mode: int = 0, counters: bool = False,
+                    alpha_mask: bool = False, fine_rows=None):
+    """Check the inputs of one nearest-hit kernel call (K1; K3 for shade
+    mode 2; K4 with alpha_mask) on CUDA tensors and allocate its outputs.
+    Returns (launch, rec): each `launch()` runs the kernel on the current
+    stream into rec's tensors and adds one to LAUNCHES.  The wrapper calls
+    it once; a benchmark can repeat it without the wrapper's host work.
+    counters=True adds the telemetry of _telemetry."""
     device = o.device
-    _check_launch(bvh8, tris_packed, device)
+    _alpha_tensors({}, alpha_mask, fine_rows, shade_mode)
+    _check_launch(bvh8, tris_packed, device, fine_rows)
     if shade_mode:
         _check_table("shade_rows", shade_rows, device)
         per_tri_row = 1 if shade_mode == 1 else TRI_PER_ROW // SHADE2_PER_ROW
@@ -309,24 +420,30 @@ def kernel_launcher(bvh8, tris_packed, o, d, t_min, t_max,
         return rec[name].data_ptr() if name in rec else None
 
     args = (bvh8.rows.data_ptr(), tris_packed.data_ptr(),
-            shade_rows.data_ptr() if shade_mode else None, o.data_ptr(),
-            d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(), ptr("t"), ptr("u"),
-            ptr("v"), ptr("tri"), ptr("n"), ptr("mat"), ptr("tan"),
-            ptr("uv"), ptr("uvd"), ptr("counters"), ptr("seen_nodes"),
-            ptr("seen_records"), n, bvh8.max_leaf,
-            bvh8.depth, int(bool(cull_backface)), shade_mode)
-    return _launch_fn("K3" if shade_mode == 2 else "K1",
-                      "steeljax_trace_nearest8", args,
-                      (bvh8.rows, tris_packed, shade_rows, o, d, tmn,
-                       tmx)), rec
+            shade_rows.data_ptr() if shade_mode else None, _ptr(fine_rows),
+            o.data_ptr(), d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
+            ptr("t"), ptr("u"), ptr("v"), ptr("tri"), ptr("n"), ptr("mat"),
+            ptr("tan"), ptr("uv"), ptr("uvd"), ptr("counters"),
+            ptr("seen_nodes"), ptr("seen_records"), ptr("seen_fine"), n,
+            bvh8.max_leaf, bvh8.depth, int(bool(cull_backface)), shade_mode,
+            int(bool(alpha_mask)))
+    kernel = "K4" if alpha_mask else ("K3" if shade_mode == 2 else "K1")
+    return _launch_fn(kernel, "steeljax_trace_nearest8", args,
+                      (bvh8.rows, tris_packed, shade_rows, fine_rows, o, d,
+                       tmn, tmx, *rec.values())), rec
 
 
 def anyhit_launcher(bvh8, tris, o, d, t_min, t_max, dense: bool = False,
-                    counters: bool = False):
-    """The any-hit kernel K2's launcher, as kernel_launcher: rec["hit"] is
-    (N,) bool; counters=True adds the telemetry of _telemetry."""
+                    counters: bool = False, alpha_mask: bool = False,
+                    fine_rows=None):
+    """The any-hit kernel's launcher (K2; K4_anyhit with alpha_mask), as
+    kernel_launcher: rec["hit"] is (N,) bool; counters=True adds the
+    telemetry of _telemetry."""
     device = o.device
-    _check_launch(bvh8, tris, device)
+    _alpha_tensors({}, alpha_mask, fine_rows)
+    if dense and alpha_mask:
+        raise ValueError("the dense any-hit rows carry no alpha masks")
+    _check_launch(bvh8, tris, device, fine_rows)
     o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
     n = o.shape[0]
     # The kernel writes one byte, 0 or 1, per ray: a bool tensor's storage.
@@ -338,13 +455,50 @@ def anyhit_launcher(bvh8, tris, o, d, t_min, t_max, dense: bool = False,
     def ptr(name):
         return rec[name].data_ptr() if name in rec else None
 
-    args = (bvh8.rows.data_ptr(), tris.data_ptr(), o.data_ptr(),
-            d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
+    args = (bvh8.rows.data_ptr(), tris.data_ptr(), _ptr(fine_rows),
+            o.data_ptr(), d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
             rec["hit"].data_ptr(), ptr("counters"), ptr("seen_nodes"),
-            ptr("seen_records"), n, bvh8.max_leaf, bvh8.depth,
-            int(bool(dense)))
-    return _launch_fn("K2_dense" if dense else "K2", "steeljax_trace_any8",
-                      args, (bvh8.rows, tris, o, d, tmn, tmx)), rec
+            ptr("seen_records"), ptr("seen_fine"), n, bvh8.max_leaf,
+            bvh8.depth, int(bool(dense)), int(bool(alpha_mask)))
+    kernel = ("K4_anyhit" if alpha_mask else
+              ("K2_dense" if dense else "K2"))
+    return _launch_fn(kernel, "steeljax_trace_any8", args,
+                      (bvh8.rows, tris, fine_rows, o, d, tmn, tmx,
+                       *rec.values())), rec
+
+
+def multihit_launcher(bvh8, tris, o, d, t_min, t_max, k_hits: int,
+                      cull_backface: bool = True, counters: bool = False,
+                      alpha_mask: bool = False, fine_rows=None):
+    """The multi-hit kernel K5's launcher, as kernel_launcher: rec holds
+    (K, N) "t", "u", "v" and "tri"; counters=True adds the telemetry of
+    _telemetry."""
+    _check_k(k_hits)
+    device = o.device
+    _alpha_tensors({}, alpha_mask, fine_rows)
+    _check_launch(bvh8, tris, device, fine_rows)
+    o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
+    n = o.shape[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    rec = {"t": torch.empty((k_hits, n), **f32),
+           "u": torch.empty((k_hits, n), **f32),
+           "v": torch.empty((k_hits, n), **f32),
+           "tri": torch.empty((k_hits, n), dtype=torch.int32, device=device)}
+    if counters:
+        rec.update(_telemetry(n, bvh8, tris, TRI_PER_ROW))
+
+    def ptr(name):
+        return rec[name].data_ptr() if name in rec else None
+
+    args = (bvh8.rows.data_ptr(), tris.data_ptr(), _ptr(fine_rows),
+            o.data_ptr(), d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
+            ptr("t"), ptr("u"), ptr("v"), ptr("tri"), ptr("counters"),
+            ptr("seen_nodes"), ptr("seen_records"), ptr("seen_fine"), n,
+            bvh8.max_leaf, bvh8.depth, k_hits, int(bool(cull_backface)),
+            int(bool(alpha_mask)))
+    return _launch_fn("K5", "steeljax_trace_multihit8", args,
+                      (bvh8.rows, tris, fine_rows, o, d, tmn, tmx,
+                       *rec.values())), rec
 
 
 # ---------------------------------------------------------------------------
@@ -384,44 +538,89 @@ def _candidates(v0, e1, e2, o, d, lo, hi):
     return det, det_ok, u, v, t, inside
 
 
+class _Masks:
+    """The alpha kernels' record flags: the double-sided flag (AUX bit 0
+    with masks, else the float flag), the coarse masks and the fine words
+    of every record."""
+
+    def __init__(self, rec_all, alpha_mask: bool, fine_rows):
+        if alpha_mask:
+            aux = rec_all[:, 9].to(torch.int32)
+            self.ds = (aux & 1) == 1
+            self.coarse = (aux >> 1)[None, :]
+        else:
+            self.ds = rec_all[:, 9] > 0.5
+            self.coarse = None
+        self.fine = (None if fine_rows is None else
+                     fine_rows[:, :TRI_PER_ROW * alphamask.FINE_STRIDE]
+                     .reshape(-1, alphamask.FINE_STRIDE)[None])
+
+    def facing(self, det, det_ok, cull: bool):
+        if cull:
+            return (det > DET_EPS) | (self.ds & det_ok)
+        return det_ok
+
+    def keep(self, u, v):
+        """(keep, opaque) of every candidate: keep is false where a mask
+        rejects it, opaque (None without fine words) where the OPAQUE
+        plane proves it kept."""
+        keep = torch.ones_like(u, dtype=torch.bool)
+        opaque = None
+        if self.coarse is not None:
+            keep = keep & alphamask.mask_test(self.coarse, u, v)
+        if self.fine is not None:
+            fine_keep, opaque = alphamask.fine_mask_test(self.fine, u, v)
+            keep = keep & fine_keep
+        return keep, opaque
+
+
+def _chunk_rays(k: int, alpha_mask: bool, device: torch.device) -> int:
+    """Rays per chunk of a plain version over k records on `device`."""
+    temporaries = 40 if alpha_mask else 24
+    return max(1, _PLAIN_CHUNK_BYTES[device.type]
+               // (max(k, 1) * 4 * temporaries))
+
+
 def trace_nearest_bvh8_plain(bvh8: BVH8, tris_packed: torch.Tensor,
                              o: torch.Tensor, d: torch.Tensor, t_min, t_max,
                              cull_backface: bool = True,
                              shade_rows: torch.Tensor | None = None,
-                             shade_mode: int = 0) -> dict:
-    """Plain version of the nearest-hit kernels K1 and K3, same signature
-    and outputs.
+                             shade_mode: int = 0, alpha_mask: bool = False,
+                             fine_rows: torch.Tensor | None = None) -> dict:
+    """Plain version of the nearest-hit kernels K1, K3 and K4, same
+    signature and outputs.
 
     Brute force: every packed record is tested against every ray with the
-    kernel's per-candidate arithmetic, in ray chunks; the nearest accepted
-    candidate wins.  Pad records (3e37 positions, or all-zero lanes) fail
-    the determinant test on their own, so the BVH is not needed.  It differs
-    from the kernel only on exact-t ties (which candidate wins) and on
-    grazing box-boundary rays, the cases kernel_parity._compare budgets."""
+    kernel's per-candidate arithmetic and mask tests, in ray chunks; the
+    nearest accepted candidate wins.  Pad records (3e37 positions, or
+    all-zero lanes) fail the determinant test on their own, so the BVH is
+    not needed.  It differs from the kernel only on exact-t ties (which
+    candidate wins), on grazing box-boundary rays and on candidates whose
+    last-bit u or v falls on a mask cell boundary, the cases
+    kernel_parity._compare budgets."""
     if shade_mode not in (0, 1, 2):
         raise ValueError(f"shade_mode must be 0, 1 or 2, got {shade_mode}")
+    _alpha_tensors({}, alpha_mask, fine_rows, shade_mode)
     device = o.device
     o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
     n = o.shape[0]
     v0, e1, e2, rec_all = _records(tris_packed, TRI_PER_ROW, TRI_STRIDE)
     k = rec_all.shape[0]
-    ds = rec_all[:, 9] > 0.5
+    masks = _Masks(rec_all, alpha_mask, fine_rows)
 
     out_t = torch.empty(n, dtype=torch.float32, device=device)
     out_u = torch.empty_like(out_t)
     out_v = torch.empty_like(out_t)
     out_tri = torch.empty(n, dtype=torch.int32, device=device)
     out_det = torch.empty_like(out_t)
-    chunk = max(1, _PLAIN_CHUNK_BYTES // (max(k, 1) * 4 * 24))
+    chunk = _chunk_rays(k, alpha_mask, device)
     for s in range(0, n, chunk):
         e = min(s + chunk, n)
         det, det_ok, u, v, t, inside = _candidates(
             v0, e1, e2, o[s:e], d[s:e], tmn[s:e], tmx[s:e])
-        if cull_backface:
-            facing = (det > DET_EPS) | (ds & det_ok)
-        else:
-            facing = det_ok
-        hit = facing & inside
+        hit = masks.facing(det, det_ok, cull_backface) & inside
+        if alpha_mask:
+            hit = hit & masks.keep(u, v)[0]
         t_acc = torch.where(hit, t, torch.full_like(t, float("inf")))
         best_t, best = t_acc.min(dim=1)
         found = torch.isfinite(best_t)
@@ -487,14 +686,18 @@ def _shade_plain(shade_rows, shade_mode, tri, u, v, det) -> dict:
 
 
 def trace_any_bvh8_plain(bvh8: BVH8, tris: torch.Tensor, o: torch.Tensor,
-                         d: torch.Tensor, t_min, t_max, dense: bool = False
+                         d: torch.Tensor, t_min, t_max, dense: bool = False,
+                         alpha_mask: bool = False,
+                         fine_rows: torch.Tensor | None = None
                          ) -> torch.Tensor:
-    """Plain version of the any-hit kernel K2, same signature and output.
+    """Plain version of the any-hit kernels K2 and K4_anyhit, same
+    signature and output.
 
     Brute force, like trace_nearest_bvh8_plain: a ray is occluded when any
-    record passes |det| > 1e-12, u >= 0, v >= 0, u + v <= 1 and t_min <= t
-    <= t_max, with no culling; a dead ray passes no t test.  `dense` reads
-    the 9-float records of pack_tris_dense."""
+    record passes |det| > 1e-12, u >= 0, v >= 0, u + v <= 1, t_min <= t
+    <= t_max and its masks, with no culling; a dead ray passes no t test.
+    `dense` reads the 9-float records of pack_tris_dense."""
+    _alpha_tensors({}, alpha_mask, fine_rows)
     device = o.device
     o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
     n = o.shape[0]
@@ -502,11 +705,72 @@ def trace_any_bvh8_plain(bvh8: BVH8, tris: torch.Tensor, o: torch.Tensor,
                        else (TRI_PER_ROW, TRI_STRIDE))
     v0, e1, e2, rec_all = _records(tris, per_row, stride)
     k = rec_all.shape[0]
+    masks = _Masks(rec_all, alpha_mask, fine_rows) if alpha_mask else None
     out = torch.empty(n, dtype=torch.bool, device=device)
-    chunk = max(1, _PLAIN_CHUNK_BYTES // (max(k, 1) * 4 * 24))
+    chunk = _chunk_rays(k, alpha_mask, device)
     for s in range(0, n, chunk):
         e = min(s + chunk, n)
-        _, det_ok, _, _, _, inside = _candidates(
+        _, det_ok, u, v, _, inside = _candidates(
             v0, e1, e2, o[s:e], d[s:e], tmn[s:e], tmx[s:e])
-        out[s:e] = (det_ok & inside).any(dim=1)
+        hit = det_ok & inside
+        if masks is not None:
+            hit = hit & masks.keep(u, v)[0]
+        out[s:e] = hit.any(dim=1)
+    return out
+
+
+def trace_multihit_bvh8_plain(bvh8: BVH8, tris: torch.Tensor,
+                              o: torch.Tensor, d: torch.Tensor, t_min, t_max,
+                              k_hits: int, cull_backface: bool = True,
+                              alpha_mask: bool = False,
+                              fine_rows: torch.Tensor | None = None) -> dict:
+    """Plain version of the multi-hit kernel K5, same signature and
+    outputs, by brute force: every accepted candidate with t in [t_min,
+    t_max), the k_hits smallest t in ascending order; with fine rows the
+    opaque bound ob = min(t_max, the smallest t of an OPAQUE-plane hit),
+    and only slots with t <= ob are kept (the reference's oracle,
+    steeljax/apps/kernel_parity.py:62-146).  Slots of equal t may come in
+    another order than the kernel's walk finds them."""
+    _check_k(k_hits)
+    _alpha_tensors({}, alpha_mask, fine_rows)
+    device = o.device
+    o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
+    n = o.shape[0]
+    v0, e1, e2, rec_all = _records(tris, TRI_PER_ROW, TRI_STRIDE)
+    k = rec_all.shape[0]
+    masks = _Masks(rec_all, alpha_mask, fine_rows)
+    take = min(k_hits, k)
+    f32 = dict(dtype=torch.float32, device=device)
+    out = {"t": torch.full((k_hits, n), -1.0, **f32),
+           "u": torch.zeros((k_hits, n), **f32),
+           "v": torch.zeros((k_hits, n), **f32),
+           "tri": torch.full((k_hits, n), -1, dtype=torch.int32,
+                             device=device)}
+    inf = torch.full((n,), float("inf"), **f32)
+    chunk = _chunk_rays(k, True, device)
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        det, det_ok, u, v, t, inside = _candidates(
+            v0, e1, e2, o[s:e], d[s:e], tmn[s:e], inf[s:e])
+        hit = masks.facing(det, det_ok, cull_backface) & inside
+        keep, opaque = masks.keep(u, v)
+        hit = hit & keep
+        bound = tmx[s:e]
+        if opaque is not None:
+            t_opq = torch.where(hit & opaque, t, torch.full_like(t, np.inf))
+            bound = torch.minimum(bound, t_opq.min(dim=1).values)
+        t_acc = torch.where(hit & (t < tmx[s:e, None]), t,
+                            torch.full_like(t, np.inf))
+        best_t, best = torch.topk(t_acc, take, dim=1, largest=False,
+                                  sorted=True)
+        found = torch.isfinite(best_t)
+        if opaque is not None:
+            found = found & (best_t <= bound[:, None])
+        out["t"][:take, s:e] = torch.where(found, best_t, -1.0).T
+        out["u"][:take, s:e] = torch.where(found, u.gather(1, best),
+                                           0.0).T
+        out["v"][:take, s:e] = torch.where(found, v.gather(1, best),
+                                           0.0).T
+        out["tri"][:take, s:e] = torch.where(found, best, -1).to(
+            torch.int32).T
     return out

@@ -5,7 +5,11 @@ Port of steeljax/accel/dispatch.py:76-135 (ChunkTables/TraceTables),
 (trace_nearest) and :533-589 (trace_any).  The reference picks its backend
 with a `use_pallas` flag; here the device of the tensors decides
 (cuda_traverse.trace_nearest_bvh8, trace_any_bvh8).  Fused-shading tables
-are always attached, so the CPU runs the same fused path as the card.
+are always attached for scenes without alpha-tested materials, so the CPU
+runs the same fused path as the card.  Alpha-masked tables carry the
+coarse masks in the triangle records and, unless asked otherwise, the fine
+mask rows on every device (the reference builds those only for the TPU),
+so the CPU and the card run the same kernel instances' arithmetic.
 
 The port traces one chunk.  A scene larger than `max_chunk` raises: the
 multi-chunk sweep is ROADMAP item 13.
@@ -21,6 +25,7 @@ import torch
 from torch.profiler import record_function
 
 from steeljax_torch.accel import cuda_traverse
+from steeljax_torch.accel.alphamask import MASK_FULL
 from steeljax_torch.accel.bvh import (BVH, BVH8, DENSE_PER_ROW, _align_leaves,
                                       build_bvh, collapse_bvh8)
 
@@ -42,6 +47,11 @@ class ChunkTables:
     # prepare_tables is asked to; occlusion queries then read them.
     anyhit_bvh8: BVH8 | None = None
     anyhit_tris: torch.Tensor | None = None
+    # Alpha-masked tables: the permuted coarse masks ((rows,) int32, also in
+    # the records' AUX words) and the fine mask rows ((R, 128) int32
+    # pack_fine_mask_rows, parallel to tris_packed), or None.
+    tri_mask: torch.Tensor | None = None
+    fine_mask_rows: torch.Tensor | None = None
     row_offset: int = 0
     rows: int = 0
     # Chunk AABB of the real triangles.
@@ -57,6 +67,11 @@ class TraceTables:
     # 0 = trace only; 1 = fuse (normal, mat id) into the kernel; 2 = also
     # (tangent, uv, uv density).
     shade_mode: int = 0
+    # The triangle records carry coarse alpha masks in their AUX words.
+    alpha_masked: bool = False
+    # Slots of the multi-hit kernel K5 on the alpha path (0: single-hit
+    # re-trace), the reference's STEELJAX_MULTIHIT_K.
+    multihit_k: int = 0
 
     @property
     def bvh8(self) -> BVH8:
@@ -66,24 +81,37 @@ class TraceTables:
         return dataclasses.replace(self, **changes)
 
 
-def _permuted(order: np.ndarray, padded: int, tri_pos, ds):
-    pos = np.full((padded, 3, 3), 3.0e37, np.float32)
-    permuted_ds = np.zeros(padded, bool)
+def _permute(order: np.ndarray, padded: int, arr: np.ndarray, fill):
+    """`arr` reordered by `order` into `padded` slots; pad slots get
+    `fill`."""
+    out = np.full((padded,) + arr.shape[1:], fill, arr.dtype)
     if len(order):
         real = order >= 0
-        pos[np.nonzero(real)[0]] = tri_pos[order[real]]
-        permuted_ds[np.nonzero(real)[0]] = ds[order[real]]
-    return pos, permuted_ds
+        out[np.nonzero(real)[0]] = arr[order[real]]
+    return out
+
+
+def _permuted(order: np.ndarray, padded: int, tri_pos, ds):
+    return (_permute(order, padded, tri_pos, np.float32(3.0e37)),
+            _permute(order, padded, np.asarray(ds, bool), False))
 
 
 def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
                    leaf_size: int = 24, max_chunk: int | None = None,
-                   dense_anyhit: bool = False
+                   dense_anyhit: bool = False,
+                   tri_alpha_mask: np.ndarray | None = None,
+                   tri_fine_mask: np.ndarray | None = None
                    ) -> tuple[TraceTables, np.ndarray, int]:
     """Build the acceleration tables of one chunk on `device`.
 
     `dense_anyhit` also builds the dense any-hit tables, the counterpart of
     the reference's STEELJAX_DENSE_ANYHIT=1 (off by default there and here).
+    `tri_alpha_mask` ((T,) uint32, alphamask.compute_alpha_masks) bakes the
+    coarse alpha masks into the triangle records' AUX words, and
+    `tri_fine_mask` ((T, FINE_STRIDE) int32, alphamask.compute_fine_masks)
+    adds the fine mask rows; both are dropped when every triangle's coarse
+    mask is MASK_FULL (masking is then a no-op), and masked tables get no
+    dense any-hit tables (their rows carry no masks).
     Each step is a `prepare_tables.<step>` range for torch.profiler.
 
     Returns (tables, order, total_padded): reorder every per-triangle array
@@ -94,6 +122,13 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
     tri_pos = np.asarray(tri_pos, np.float32)
     ds = np.asarray(tri_double_sided)
     count = len(tri_pos)
+    mask = (None if tri_alpha_mask is None
+            else np.asarray(tri_alpha_mask, np.uint32))
+    if mask is not None and count and int(mask.min()) == MASK_FULL:
+        mask = None
+    fine = (np.asarray(tri_fine_mask, np.int32)
+            if tri_fine_mask is not None and mask is not None else None)
+    dense_anyhit = dense_anyhit and mask is None
     if count > max_chunk:
         raise NotImplementedError(
             f"{count} triangles need {-(-count // max_chunk)} chunks of "
@@ -125,15 +160,26 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
         lo, hi = (0.0,) * 3, (0.0,) * 3
     with record_function("prepare_tables.pack_tris"):
         permuted_pos, permuted_ds = _permuted(order, padded, tri_pos, ds)
+        permuted_mask = (None if mask is None
+                         else _permute(order, padded, mask, np.uint32(0)))
         chunk = ChunkTables(
             bvh=bvh,
             bvh8=BVH8(rows=torch.from_numpy(rows8).to(device), depth=depth8,
                       max_leaf=leaf_size),
-            tris_packed=torch.from_numpy(
-                cuda_traverse.pack_tris(permuted_pos, permuted_ds)).to(device),
+            tris_packed=torch.from_numpy(cuda_traverse.pack_tris(
+                permuted_pos, permuted_ds,
+                tri_alpha_mask=permuted_mask)).to(device),
             anyhit_bvh8=anyhit_bvh8, anyhit_tris=anyhit_tris,
+            tri_mask=(None if mask is None else torch.from_numpy(
+                permuted_mask.astype(np.int32)).to(device)),
             row_offset=0, rows=padded, aabb=(lo, hi))
-    return TraceTables(chunks=(chunk,)), order, padded
+    if fine is not None:
+        with record_function("prepare_tables.pack_fine_mask_rows"):
+            chunk = chunk.replace(fine_mask_rows=torch.from_numpy(
+                cuda_traverse.pack_fine_mask_rows(_permute(
+                    order, padded, fine, np.int32(0)))).to(device))
+    return (TraceTables(chunks=(chunk,), alpha_masked=mask is not None),
+            order, padded)
 
 
 def attach_shade_tables(tables: TraceTables, tri_nrm, tri_mat,
@@ -172,23 +218,39 @@ def trace_nearest(tables: TraceTables, o: torch.Tensor, d: torch.Tensor,
                   t_min, t_max, cull_backface: bool = True) -> dict:
     """Nearest hit over the scene's one chunk; the record of
     cuda_traverse.trace_nearest_bvh8, with tri as an index into the permuted
-    triangle arrays (-1 on a miss)."""
+    triangle arrays (-1 on a miss).  Alpha-masked tables trace with their
+    masks (K4)."""
     chunk = _one_chunk(tables)
     return cuda_traverse.trace_nearest_bvh8(
         chunk.bvh8, chunk.tris_packed, o, d, t_min, t_max,
         cull_backface=cull_backface, shade_rows=chunk.shade_packed,
-        shade_mode=tables.shade_mode)
+        shade_mode=tables.shade_mode, alpha_mask=tables.alpha_masked,
+        fine_rows=chunk.fine_mask_rows)
 
 
 def trace_any(tables: TraceTables, o: torch.Tensor, d: torch.Tensor,
               t_min, t_max) -> torch.Tensor:
     """Occlusion over the scene's one chunk, (N,) bool: the dense any-hit
     tables when they are attached, else the nearest tables' rows with
-    culling off."""
+    culling off (and their masks, K4_anyhit, when alpha-masked)."""
     chunk = _one_chunk(tables)
     if chunk.anyhit_tris is not None:
         return cuda_traverse.trace_any_bvh8(
             chunk.anyhit_bvh8, chunk.anyhit_tris, o, d, t_min, t_max,
             dense=True)
-    return cuda_traverse.trace_any_bvh8(chunk.bvh8, chunk.tris_packed, o, d,
-                                        t_min, t_max)
+    return cuda_traverse.trace_any_bvh8(
+        chunk.bvh8, chunk.tris_packed, o, d, t_min, t_max,
+        alpha_mask=tables.alpha_masked, fine_rows=chunk.fine_mask_rows)
+
+
+def trace_multihit(tables: TraceTables, o: torch.Tensor, d: torch.Tensor,
+                   t_min, t_max, k_hits: int, cull_backface: bool = True
+                   ) -> dict:
+    """The k_hits nearest hits over the scene's one chunk (K5), with the
+    tables' masks: cuda_traverse.trace_multihit_bvh8's (K, N) slots, tri
+    indexing the permuted triangle arrays."""
+    chunk = _one_chunk(tables)
+    return cuda_traverse.trace_multihit_bvh8(
+        chunk.bvh8, chunk.tris_packed, o, d, t_min, t_max, k_hits,
+        cull_backface=cull_backface, alpha_mask=tables.alpha_masked,
+        fine_rows=chunk.fine_mask_rows)

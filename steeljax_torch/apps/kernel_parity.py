@@ -1,27 +1,34 @@
-"""Kernel parity gate for the trace kernels K1, K2 and K3: each CUDA kernel
+"""Kernel parity gate for the trace kernels K1 to K5: each CUDA kernel
 against its plain PyTorch version, on the card.
 
 Port of steeljax/apps/kernel_parity.py for the ported kernels: the inputs
 (`_soup`, `_rays`, seeded as :242-264), the deterministic grid
-(:370-401), the any-hit variants (:302-339) and the judge `_compare` with
-its thresholds (:149-222):
+(:370-401), the any-hit variants (:302-339), the alpha-mask, fine-mask and
+multi-hit variants (:341-370, :446-542) and the judge `_compare` with its
+thresholds (:149-222):
 
   * at most max(2, N/5000) hit mismatches (0 on the exact variant); the
     any-hit variants are judged by this count alone,
   * |delta t| < 2e-3 (1e-5 on the exact variant),
   * normal, tangent and uv deltas < 5e-3 and 0 material mismatches (fused
     shading),
-  * tri ids may differ, which they do only on exact-t ties.
+  * tri ids may differ, which they do only on exact-t ties;
+  * multi-hit slots: at most max(2, N K / 5000) slots hit in one and not the
+    other, |delta t| < 2e-3, and u, v within 5e-3 where the slot's tri ids
+    agree (_compare_slots).
 
 The kernels compile with FMA contraction and the plain versions run
 unfused tensor ops, so the two differ in the last bits of t; the
 thresholds above absorb that.  Beyond the reference's variants it checks
 the paths' own rays: Cornell primary rays at 1280x720 and their
 first-bounce rays (K1), the first-bounce shadow rays of the sunlit stress
-scene (K2 on both row layouts, `sunlit_shadow` and `sunlit_shadow_dense`)
-and the primary rays of the textured stress scene (K3,
-`stress_tex_primary`), each on a fixed strided subset, since the
-brute-force plain version costs O(rays x triangles).
+scene (K2 on both row layouts, `sunlit_shadow` and `sunlit_shadow_dense`),
+the primary rays of the textured stress scene (K3, `stress_tex_primary`),
+and path F's, the serrated foliage scene's, primary rays (K4 with fine
+masks, `foliage_primary`; K5 with K = 4, `foliage_multihit`) and
+first-bounce sun rays (K4 without culling, `foliage_shadow`), each on a
+fixed strided subset, since the brute-force plain version costs O(rays x
+triangles).
 
 Usage (needs a CUDA card):
     python -m steeljax_torch.apps.kernel_parity [-o parity.json]
@@ -144,6 +151,36 @@ def _compare(name, rec_k, rec_o, tri_pos, results,
     return ok
 
 
+def _compare_slots(name, slots_k, slots_o, results):
+    """Multi-hit slots, kernel against plain version (kernel_parity.py:
+    518-542): at most max(2, N K / 5000) slots hit in one and not the other,
+    |delta t| < 2e-3 where both hit, u and v within 5e-3 where the slot's
+    tri ids agree (tie order and grazing edges may swap slots)."""
+    slots_k = _numpy(slots_k)
+    slots_o = _numpy(slots_o)
+    k, n = slots_o["t"].shape
+    hk = slots_k["tri"] >= 0
+    ho = slots_o["tri"] >= 0
+    both = hk & ho
+    same = both & (slots_k["tri"] == slots_o["tri"])
+    entry = {"rays": int(n), "k": int(k),
+             "slot_mismatches": int((hk != ho).sum()),
+             "slots_hit": int(hk.sum()),
+             "max_t_delta": (float(np.abs(slots_k["t"][both]
+                                          - slots_o["t"][both]).max())
+                             if both.any() else 0.0),
+             "max_uv_delta_same_tri": (float(max(
+                 np.abs(slots_k["u"][same] - slots_o["u"][same]).max(),
+                 np.abs(slots_k["v"][same] - slots_o["v"][same]).max()))
+                 if same.any() else 0.0)}
+    entry["ok"] = bool(entry["slot_mismatches"] <= max(2, n * k // 5000)
+                       and entry["max_t_delta"] < 2e-3
+                       and entry["max_uv_delta_same_tri"] < 5e-3)
+    results[name] = entry
+    print(f"{'PASS' if entry['ok'] else 'FAIL'} {name}: {entry}")
+    return entry["ok"]
+
+
 def _compare_hits(name, hit_k, hit_o, results):
     """Occlusion flags, kernel against oracle: at most max(2, N/5000)
     mismatches (kernel_parity.py:308-313)."""
@@ -189,6 +226,32 @@ def soup_case(n_tris: int, n_rays: int, device, leaf_size: int = 24,
     tables = attach_shade_tables(tables, perm["nrm"], perm["mat"], textured,
                                  tri_tan=perm["tan"], tri_uv=perm["uv"])
     return tables, perm, o, d
+
+
+def alpha_soup_case(n_tris: int, device, fine: bool = False):
+    """kernel_parity's soup with random coarse alpha masks (every 21-bit
+    value equally likely) and, with `fine`, random two-plane fine masks
+    (PASS bits set with probability 3/4, OPAQUE 3/8; kernel_parity.py:
+    341-345, :446-457).  Returns (tables, permuted {"pos", "ds"})."""
+    from steeljax_torch.accel.alphamask import MASK_FULL
+    from steeljax_torch.accel.bvh import apply_permutation
+    from steeljax_torch.accel.dispatch import prepare_tables
+
+    tris = _soup(n_tris, 1)
+    ds = np.random.default_rng(2).uniform(size=n_tris) < 0.3
+    r = np.random.default_rng(5)
+    coarse = r.integers(0, MASK_FULL + 1, n_tris).astype(np.uint32)
+    fine_masks = None
+    if fine:
+        words = (r.integers(0, 1 << 31, (n_tris, 10), dtype=np.int64)
+                 | r.integers(0, 1 << 31, (n_tris, 10), dtype=np.int64))
+        words[:, 5:] &= r.integers(0, 1 << 31, (n_tris, 5), dtype=np.int64)
+        fine_masks = words.astype(np.int32)
+    tables, order, padded = prepare_tables(
+        tris, ds, device, leaf_size=24, tri_alpha_mask=coarse,
+        tri_fine_mask=fine_masks)
+    return tables, apply_permutation((None, order, padded),
+                                     {"pos": tris, "ds": ds})
 
 
 def deterministic_case(device):
@@ -261,27 +324,41 @@ def cornell_cases(device, width: int, height: int, sphere_detail: int = 12):
 
 
 def prepare_path_scene(name: str, device):
-    """One of the slice's two big paths, prepared on `device` as a user
-    would, at env_resolution 64: (scene, flat, tables).  "sunlit" is the
-    sunlit stress scene (path L: 208,084 triangles and a sun),
-    "sunlit_dense" the same with the dense any-hit tables, "stress_tex" the
-    textured stress scene (path T, the JAX bench's stress_tex: 1,320,868
-    triangles)."""
+    """One of the slices' big paths, prepared on `device` as a user would,
+    at env_resolution 64: (scene, flat, tables).  "sunlit" is the sunlit
+    stress scene (path L: 208,084 triangles and a sun), "sunlit_dense" the
+    same with the dense any-hit tables, "stress_tex" the textured stress
+    scene (path T, the JAX bench's stress_tex: 1,320,868 triangles);
+    "foliage" and "foliage_solid" are the JAX bench's foliage scenes (paths
+    F and S: make_foliage_scene(cards=500_000), serrated and solid leaves,
+    1,000,002 triangles, coarse and fine alpha masks), "foliage_multihit"
+    path F prepared with multihit_k = FOLIAGE_MULTIHIT_K (the K-nearest
+    kernel K5 in K4's place)."""
     from steeljax_torch.render.pt.renderer import prepare_scene
-    from steeljax_torch.scene.builtin import (make_stress_scene,
+    from steeljax_torch.scene.builtin import (make_foliage_scene,
+                                              make_stress_scene,
                                               make_sunlit_stress_scene)
 
     if name == "stress_tex":
         scene = make_stress_scene(instances=480, sphere_detail=32,
                                   textured=True)
+    elif name in FOLIAGE_SCENES:
+        scene = make_foliage_scene(cards=FOLIAGE_CARDS,
+                                   serrated=name != "foliage_solid")
     else:
         scene = make_sunlit_stress_scene()
-    flat, tables = prepare_scene(scene, device, env_resolution=64,
-                                 dense_anyhit=name == "sunlit_dense")
+    flat, tables = prepare_scene(
+        scene, device, env_resolution=64,
+        dense_anyhit=name == "sunlit_dense",
+        multihit_k=FOLIAGE_MULTIHIT_K if name == "foliage_multihit" else 0)
     return scene, flat, tables
 
 
 PATH_SCENES = ("sunlit", "sunlit_dense", "stress_tex")
+FOLIAGE_SCENES = ("foliage", "foliage_solid", "foliage_multihit")
+# The JAX bench's foliage configs (bench.py:189-210).
+FOLIAGE_CARDS = 500_000
+FOLIAGE_MULTIHIT_K = 4
 
 
 def tiled_primary(scene, device, width: int, height: int):
@@ -320,6 +397,26 @@ def sunlit_shadow_case(scene, flat, tables, width: int, height: int):
     return so.contiguous(), sd.contiguous(), t_min, t_max
 
 
+def foliage_shadow_case(scene, flat, tables, width: int, height: int):
+    """The sun rays the integrator traces at the primary hits of an
+    alpha-tested scene (bounce 0), each lane as the integrator traces it:
+    (o, d, t_min, t_max).  The primaries resolve through the alpha
+    re-trace, the shading through tri_shade rows."""
+    from steeljax_torch.render.pt.integrator import (sample_light,
+                                                     shade_rows, shadow_rays,
+                                                     trace_material_ray,
+                                                     unpack_material)
+
+    o, d, near, far, seed = tiled_primary(scene, flat.device, width, height)
+    rec = trace_material_ray(flat, tables, o, d, near, far,
+                             cull_backface=True)
+    _, tbn = unpack_material(flat, rec, d, shade_rows(flat, rec))
+    p = o + d * rec["t"][:, None]
+    light, _ = sample_light(flat, tbn[2], p, seed)
+    so, sd, t_min, t_max = shadow_rays(p, tbn[2], light)
+    return so.contiguous(), sd.contiguous(), t_min, t_max
+
+
 def strided_subset(rays, limit: int):
     """Every k-th ray of (o, d, t_min, t_max), at most `limit` of them, so
     the subset spans the whole frame."""
@@ -336,19 +433,102 @@ def strided_subset(rays, limit: int):
 # brute force).
 SHADOW_SUBSET = 32768
 TEX_SUBSET = 4096
+FOLIAGE_SUBSET = 4096
 
 
 # ---------------------------------------------------------------------------
 # The card's parity run
 # ---------------------------------------------------------------------------
 
+def _alpha_variants(device, tables, o, d, n_tris: int, variants) -> bool:
+    """K4 (nearest, cull on, and any-hit, with coarse and with coarse and
+    fine masks) and K5 (K = 4 on the first 2048 rays: no masks, coarse,
+    coarse and fine) on the soup, kernel against plain version
+    (kernel_parity.py:341-370, :446-542)."""
+    from steeljax_torch.accel.cuda_traverse import (
+        trace_any_bvh8, trace_any_bvh8_plain, trace_multihit_bvh8,
+        trace_multihit_bvh8_plain, trace_nearest_bvh8,
+        trace_nearest_bvh8_plain)
+
+    ok = True
+    mtables, mperm = alpha_soup_case(n_tris, device)
+    ftables, fperm = alpha_soup_case(n_tris, device, fine=True)
+    for label, tab, perm in (("alpha_mask", mtables, mperm),
+                             ("fine_mask", ftables, fperm)):
+        chunk = tab.chunks[0]
+        kw = dict(alpha_mask=True, fine_rows=chunk.fine_mask_rows)
+        args = (chunk.bvh8, chunk.tris_packed, o, d, 0.001, 1000.0, True,
+                None, 0)
+        rec_k = trace_nearest_bvh8(*args, **kw)
+        rec_p = trace_nearest_bvh8_plain(*args, **kw)
+        torch.cuda.synchronize(device)
+        ok &= _compare(f"flat_{label}", rec_k, rec_p, perm["pos"], variants)
+        args = (chunk.bvh8, chunk.tris_packed, o, d, 0.001, 40.0, False)
+        hit_k = trace_any_bvh8(*args, **kw)
+        hit_p = trace_any_bvh8_plain(*args, **kw)
+        torch.cuda.synchronize(device)
+        ok &= _compare_hits(f"flat_{label}_anyhit", hit_k, hit_p, variants)
+    for label, tab in (("flat_multihit", tables),
+                       ("flat_multihit_masked", mtables),
+                       ("flat_multihit_fine", ftables)):
+        chunk = tab.chunks[0]
+        kw = dict(alpha_mask=tab.alpha_masked,
+                  fine_rows=chunk.fine_mask_rows)
+        args = (chunk.bvh8, chunk.tris_packed, o[:2048], d[:2048], 0.001,
+                1000.0, 4, True)
+        slots_k = trace_multihit_bvh8(*args, **kw)
+        slots_p = trace_multihit_bvh8_plain(*args, **kw)
+        torch.cuda.synchronize(device)
+        ok &= _compare_slots(label, slots_k, slots_p, variants)
+    return ok
+
+
+def foliage_cases(scene, flat, tables, width: int, height: int):
+    """Path F's own trace inputs on a strided subset: its primary rays,
+    as the render path tiles them, and its first-bounce sun rays:
+    {"primary": (o, d, t_min, t_max), "shadow": ...}."""
+    primary = tiled_primary(scene, flat.device, width, height)[:4]
+    return {"primary": strided_subset(primary, FOLIAGE_SUBSET),
+            "shadow": strided_subset(
+                foliage_shadow_case(scene, flat, tables, width, height),
+                FOLIAGE_SUBSET)}
+
+
+def _foliage_variants(device, scenes, width, height, variants) -> bool:
+    """K4 with fine masks on path F's primaries (cull on) and first-bounce
+    sun rays (cull off), and K5 (K = 4) on its primaries, kernel against
+    plain version."""
+    from steeljax_torch.accel.cuda_traverse import (
+        trace_multihit_bvh8, trace_multihit_bvh8_plain, trace_nearest_bvh8,
+        trace_nearest_bvh8_plain)
+
+    scene, flat, tables = scenes["foliage"]
+    chunk = tables.chunks[0]
+    kw = dict(alpha_mask=True, fine_rows=chunk.fine_mask_rows)
+    cases = foliage_cases(scene, flat, tables, width, height)
+    ok = True
+    for name, cull in (("primary", True), ("shadow", False)):
+        args = (chunk.bvh8, chunk.tris_packed, *cases[name], cull, None, 0)
+        rec_k = trace_nearest_bvh8(*args, **kw)
+        rec_p = trace_nearest_bvh8_plain(*args, **kw)
+        torch.cuda.synchronize(device)
+        ok &= _compare(f"foliage_{name}", rec_k, rec_p, None, variants)
+    args = (chunk.bvh8, chunk.tris_packed, *cases["primary"],
+            FOLIAGE_MULTIHIT_K, True)
+    slots_k = trace_multihit_bvh8(*args, **kw)
+    slots_p = trace_multihit_bvh8_plain(*args, **kw)
+    torch.cuda.synchronize(device)
+    ok &= _compare_slots("foliage_multihit", slots_k, slots_p, variants)
+    return ok
+
+
 def run(device, n_rays: int = 10240, n_tris: int = 30000,
         width: int = 1280, height: int = 720, scenes: dict | None = None
         ) -> dict:
-    """Every variant of K1, K2 and K3, kernel against plain version, on a
-    CUDA `device`.  `scenes` maps each name of PATH_SCENES to its
-    prepare_path_scene result; they are built here when not given.  Returns {"n_rays", "n_tris", "variants": {...},
-    "ok"}."""
+    """Every variant of K1 to K5, kernel against plain version, on a CUDA
+    `device`.  `scenes` maps names of PATH_SCENES and "foliage" to their
+    prepare_path_scene results; those not given are built here.  Returns
+    {"n_rays", "n_tris", "variants": {...}, "ok"}."""
     from steeljax_torch.accel.cuda_traverse import (trace_any_bvh8,
                                                     trace_any_bvh8_plain,
                                                     trace_nearest_bvh8,
@@ -420,9 +600,10 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
                            rec_k, rec_p, cpos, variants, attrs=cattrs,
                            d=cd.cpu().numpy())
 
-    if scenes is None:
-        scenes = {name: prepare_path_scene(name, device)
-                  for name in PATH_SCENES}
+    scenes = dict(scenes or {})
+    for name in PATH_SCENES + ("foliage",):
+        if name not in scenes:
+            scenes[name] = prepare_path_scene(name, device)
     scene, lflat, ltables = scenes["sunlit"]
     rays = strided_subset(sunlit_shadow_case(scene, lflat, ltables, width,
                                              height), SHADOW_SUBSET)
@@ -444,6 +625,9 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
     all_ok &= _compare("stress_tex_primary", rec_k, rec_p,
                        tflat.tri_pos.cpu().numpy(), variants, attrs=tattrs,
                        d=d_t.cpu().numpy())
+
+    all_ok &= _alpha_variants(device, tables, o, d, n_tris, variants)
+    all_ok &= _foliage_variants(device, scenes, width, height, variants)
     return {"n_rays": n_rays, "n_tris": n_tris, "variants": variants,
             "ok": bool(all_ok)}
 

@@ -7,6 +7,12 @@ reference's objects only through `np.asarray` of their attributes, so this
 module imports neither jax nor steeljax.  It is the port's analogue of
 loading another framework's weights: tests use it to feed both packages
 identical tables.
+
+Alpha-masked tables come across with their AUX rows, coarse masks and
+`alpha_masked` flag.  The reference builds fine mask rows only for its TPU
+kernels; with `fine_masks` (and a `scene` to take the textures from) the
+port builds them here from the permuted arrays, as its own prepare_scene
+does.  Alpha-tested scenes get no fused shade rows.
 """
 
 from __future__ import annotations
@@ -16,8 +22,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from steeljax_torch.accel.alphamask import compute_fine_masks
 from steeljax_torch.accel.bvh import BVH, BVH8
-from steeljax_torch.accel.cuda_traverse import pack_shade_records
+from steeljax_torch.accel.cuda_traverse import (pack_fine_mask_rows,
+                                                pack_shade_records)
 from steeljax_torch.accel.dispatch import ChunkTables, TraceTables
 from steeljax_torch.scene.flatten import FlatScene
 
@@ -26,7 +34,22 @@ _STATIC_FIELDS = ("light_count", "env_enabled", "env_analytic",
                   "source_tri_count")
 
 
-def from_jax_prepared(flat, tables, device: torch.device | str
+def _fine_rows(flat, chunk, scene) -> np.ndarray:
+    """Fine mask rows of an alpha-masked chunk from the reference's
+    permuted per-triangle arrays (pad slots, whose material is 0 like the
+    reference's padding, get rows the kernel never reads: their triangles
+    never hit)."""
+    s = slice(chunk.row_offset, chunk.row_offset + chunk.rows)
+    masks = compute_fine_masks(
+        np.asarray(flat.tri_uv)[s], np.asarray(flat.tri_mat)[s],
+        np.asarray(flat.mat_base_color), np.asarray(flat.mat_params),
+        np.asarray(flat.mat_tex), np.asarray(flat.mat_flags),
+        scene.textures)
+    return pack_fine_mask_rows(masks)
+
+
+def from_jax_prepared(flat, tables, device: torch.device | str,
+                      fine_masks: bool = False, scene=None
                       ) -> tuple[FlatScene, TraceTables]:
     if not hasattr(tables, "chunks"):
         raise NotImplementedError(
@@ -34,9 +57,9 @@ def from_jax_prepared(flat, tables, device: torch.device | str
     if getattr(tables, "treelets", None) is not None:
         raise NotImplementedError(
             "streamed-treelet tables are not ported yet (ROADMAP item 19)")
-    if getattr(tables, "alpha_masked", False):
-        raise NotImplementedError(
-            "alpha-masked tables are not ported yet (ROADMAP item 16)")
+    alpha = bool(getattr(tables, "alpha_masked", False))
+    if fine_masks and alpha and scene is None:
+        raise ValueError("fine masks need the scene's textures")
     if len(tables.chunks) != 1:
         raise NotImplementedError(
             "multi-chunk tables are not ported yet (ROADMAP item 13)")
@@ -55,7 +78,9 @@ def from_jax_prepared(flat, tables, device: torch.device | str
     chunk = tables.chunks[0]
     shade = chunk.shade_packed
     mode = int(tables.shade_mode)
-    if shade is None:
+    if flat.any_alpha_test:
+        mode = 0
+    elif shade is None:
         # The reference attaches no shade rows off the TPU; build the rows
         # of the port's mode from its permuted per-triangle arrays.
         s = slice(chunk.row_offset, chunk.row_offset + chunk.rows)
@@ -72,12 +97,17 @@ def from_jax_prepared(flat, tables, device: torch.device | str
         bvh8=BVH8(rows=dev(chunk.bvh8.rows), depth=int(chunk.bvh8.depth),
                   max_leaf=int(chunk.bvh8.max_leaf)),
         tris_packed=dev(chunk.tris_packed),
-        shade_packed=dev(shade),
+        shade_packed=dev(shade) if mode else None,
         anyhit_bvh8=(BVH8(rows=dev(chunk.anyhit_bvh8.rows),
                           depth=int(chunk.anyhit_bvh8.depth),
                           max_leaf=int(chunk.anyhit_bvh8.max_leaf))
                      if dense else None),
         anyhit_tris=dev(chunk.anyhit_tris) if dense else None,
+        tri_mask=(dev(np.asarray(chunk.tri_mask).astype(np.int32))
+                  if alpha else None),
+        fine_mask_rows=(dev(_fine_rows(flat, chunk, scene))
+                        if alpha and fine_masks else None),
         row_offset=int(chunk.row_offset), rows=int(chunk.rows),
         aabb=tuple(tuple(float(v) for v in corner) for corner in chunk.aabb))
-    return port_flat, TraceTables(chunks=(port_chunk,), shade_mode=mode)
+    return port_flat, TraceTables(chunks=(port_chunk,), shade_mode=mode,
+                                  alpha_masked=alpha)

@@ -1,6 +1,6 @@
 // BVH8 ray traversal for Hopper (sm_90a), one thread per ray.
 //
-// One templated body, instanced as three TPU kernels of
+// One templated body, instanced as four TPU kernels of
 // steeljax/accel/pallas_traverse.py:_traverse_kernel8 (host wrapper
 // _trace_packed8, pallas_call at :719):
 //   K1  nearest hit, shade modes 0 and 1 (entry trace_nearest_packet8);
@@ -8,9 +8,13 @@
 //       :608-617);
 //   K2  any-hit occlusion (any_hit=True, :506-517, :574-594), over the
 //       12-record rows or the dense 14-record rows (trace_anyhit_dense,
-//       :781-794).
+//       :781-794);
+//   K4  nearest hit (shade mode 0) and any-hit occlusion with in-kernel
+//       alpha-coverage masks (alpha_mask=True, :457-499; fine=True,
+//       :500-505 with _fine_test :227-246).
 // Each instance is specialized at compile time on (ANY_HIT, DENSE, SHADE2,
-// COUNT), so K1's instance has no code of the others.
+// COUNT, ALPHA, FINE), so K1's instance has no code of the others.  The
+// K-nearest multi-hit kernel K5 is multihit8.cu.
 //
 // Tables, in the reference's formats unchanged:
 //   snodes (S, 128) f32: 8 children per supernode row, child c at floats
@@ -28,6 +32,11 @@
 //     (k % 12) / 4, floats (k % 4) * 26 .. +25 = [n0.xyz, n1.xyz, n2.xyz,
 //     mat, t0.xyz, t1.xyz, t2.xyz, uv0.xy, uv1.xy, uv2.xy, uv_density]
 //     (pallas_traverse.py:437-441, cuda_traverse.pack_shade_records).
+//   With alpha masks (K4) float 9 of a triangle record is the AUX word ds |
+//     mask << 1, an exact integer below 2^22 (cuda_traverse.pack_tris), and
+//     fine (R, 128) int32 rows run parallel to the triangle rows: record k
+//     at row k / 12, words (k % 12) * 10 .. +9 = 5 PASS words, 5 OPAQUE
+//     words of the 153-cell fine grid (pack_fine_mask_rows).
 //
 // What bounds it on this card.  K1: the scene tables of small scenes stay
 // resident in L1/L2, so HBM bandwidth is not the limit; each ray walks its
@@ -35,14 +44,19 @@
 // dependent table reads and by warp divergence when neighbouring rays take
 // different paths.  K3: the same as K1, plus one 104-byte shade record per
 // ray after the walk.  K2: the dependent-load latency of the walk, which
-// ends at the first occluder found.
+// ends at the first occluder found.  K4: as K1 and K2, plus the mask test
+// of each candidate inside its triangle (a cast, a shift, and with fine
+// rows one 4-byte read of the PASS word beside the record).
 //
 // What the design does about it: one thread per ray with a private stack
 // in local memory, so no ray waits on a packet-wide union of nodes (the
 // TPU's packet traversal had no per-lane control flow; this card has).  The
 // nearest query pushes children far-to-near by their own entry distance, so
 // the nearest hit is found early and the far children are culled at pop
-// time against the shrinking best t.  The any-hit query keeps no entry
+// time against the shrinking best t.  A candidate the masks reject never
+// becomes the best hit, so transparent texels do not shorten the walk's
+// interval; only boundary cells reach the integrator's exact test, which
+// re-traces past them.  The any-hit query keeps no entry
 // distances (its interval never shrinks), tests no facing and no shade
 // record, and returns at the first accepted candidate.  Table reads go
 // through the read-only cache (__ldg).  The winner's shading attributes are
@@ -55,38 +69,25 @@
 //
 // Optional telemetry (COUNT instances, the reference's counters=True,
 // :618-628): per ray, [supernode pops, triangle-row bodies, leaf pops,
-// triangle tests]; besides, a COUNT instance sets seen_snode[row] for every
-// supernode row popped and seen_rec[k] for every triangle record tested,
-// so the caller can count the distinct table bytes the walk read.  The
-// render path never launches a COUNT instance.
+// triangle tests, coarse mask tests, fine mask tests], where a mask test
+// counts a candidate that reached it (inside its triangle and its interval,
+// and for the fine test past the coarse one); besides, a COUNT instance
+// sets seen_snode[row] for every supernode row popped, seen_rec[k] for
+// every triangle record tested and seen_fine[k] for every record whose
+// fine words were read, so the caller can count the distinct table bytes
+// the walk read.  The render path never launches a COUNT instance.
 
-#include <cuda_runtime.h>
+#include "trace8_common.cuh"
 
-#define LANES 128
-#define TRI_PER_ROW 12
-#define TRI_STRIDE 10
-#define DENSE_PER_ROW 14
-#define DENSE_STRIDE 9
-#define SHADE1_STRIDE 10
-#define SHADE2_STRIDE 26
-#define SHADE2_PER_ROW 4
-#define CHILD_STRIDE 16
-#define SNODE_WIDTH 8
-#define N_COUNTERS 4
-// Per-thread stack capacity.  A pop removes one entry and pushes at most 8,
-// so a tree of supernode depth D needs at most 7 * D + 1 entries; the host
-// requires 8 * D + 16 <= MAX_STACK (the reference's bound,
-// pallas_traverse.py:698).
-#define MAX_STACK 256
+using namespace steeljax;
 
 namespace {
-
-constexpr float kDetEps = 1e-12f;
 
 struct TraceArgs {
   const float* snodes;
   const float* tris;
   const float* shade;
+  const int* fine;
   const float* o;
   const float* d;
   const float* t_min;
@@ -104,17 +105,15 @@ struct TraceArgs {
   int* out_cnt;
   unsigned char* seen_snode;
   unsigned char* seen_rec;
+  unsigned char* seen_fine;
   int n;
   int leaf_cap;
   int cull;
   int shade_mode;
 };
 
-__device__ __forceinline__ float safe_inv(float d) {
-  return 1.0f / (fabsf(d) < 1e-12f ? (d < 0.0f ? -1e-12f : 1e-12f) : d);
-}
-
-template <bool ANY_HIT, bool DENSE, bool SHADE2, bool COUNT>
+template <bool ANY_HIT, bool DENSE, bool SHADE2, bool COUNT, bool ALPHA,
+          bool FINE>
 __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
   constexpr int kPerRow = DENSE ? DENSE_PER_ROW : TRI_PER_ROW;
   constexpr int kStride = DENSE ? DENSE_STRIDE : TRI_STRIDE;
@@ -131,7 +130,8 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
   float best_u = 0.0f, best_v = 0.0f, best_det = 1.0f;
   int best_i = -1;
   bool occluded = false;
-  int n_snode = 0, n_rows = 0, n_leaf = 0, n_tests = 0;
+  int n_snode = 0, n_rows = 0, n_leaf = 0, n_tests = 0, n_mask = 0,
+      n_fine = 0;
 
   // Stack entry: >= 0 is a supernode row; < 0 is a leaf child, encoded as
   // -(1 + row * 8 + child) so its meta is re-read from the row at pop time.
@@ -212,6 +212,8 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
         const float v0x = __ldg(r + 0), v0y = __ldg(r + 1), v0z = __ldg(r + 2);
         const float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
         const float e2x = __ldg(r + 6), e2y = __ldg(r + 7), e2z = __ldg(r + 8);
+        // AUX word: bit 0 double-sided, bits 1.. the coarse mask.
+        const int aux = ALPHA ? (int)__ldg(r + 9) : 0;
         if constexpr (COUNT) {
           ++tested;
           a.seen_rec[rec] = 1;
@@ -224,7 +226,8 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
         const bool det_ok = fabsf(det) > kDetEps;
         bool facing = det_ok;
         if constexpr (!ANY_HIT) {
-          const bool double_sided = __ldg(r + 9) > 0.5f;
+          const bool double_sided =
+              ALPHA ? (aux & 1) != 0 : __ldg(r + 9) > 0.5f;
           if (a.cull) facing = det > kDetEps || (double_sided && det_ok);
         }
         const float inv_det = 1.0f / (det_ok ? det : 1.0f);
@@ -237,8 +240,28 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
         const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
         // t <= best_t: a later candidate wins an exact tie, as in the
         // reference kernel.
-        if (facing && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= tmn &&
-            t <= best_t) {
+        bool accept = facing && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+                      t >= tmn && t <= best_t;
+        // Each mask test runs only for a candidate still accepted (&& short-
+        // circuits); the COUNT instances count those candidates.
+        if constexpr (ALPHA) {
+          if constexpr (COUNT) n_mask += accept ? 1 : 0;
+          accept = accept && coarse_keep(aux >> 1, u, v);
+        }
+        if constexpr (FINE) {
+          if constexpr (COUNT) {
+            if (accept) {
+              ++n_fine;
+              a.seen_fine[rec] = 1;
+            }
+          }
+          accept = accept &&
+                   fine_keep<false>(a.fine + (size_t)(rec / TRI_PER_ROW) *
+                                                 LANES +
+                                        FINE_STRIDE * (rec % TRI_PER_ROW),
+                                    u, v, nullptr);
+        }
+        if (accept) {
           if constexpr (ANY_HIT) {
             occluded = true;
             break;
@@ -267,6 +290,8 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
     a.out_cnt[N_COUNTERS * i + 1] = n_rows;
     a.out_cnt[N_COUNTERS * i + 2] = n_leaf;
     a.out_cnt[N_COUNTERS * i + 3] = n_tests;
+    a.out_cnt[N_COUNTERS * i + 4] = n_mask;
+    a.out_cnt[N_COUNTERS * i + 5] = n_fine;
   }
   if constexpr (ANY_HIT) {
     a.out_hit[i] = occluded ? 1 : 0;
@@ -336,23 +361,28 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
   }
 }
 
-template <bool ANY_HIT, bool DENSE, bool SHADE2>
+template <bool ANY_HIT, bool DENSE, bool SHADE2, bool ALPHA = false,
+          bool FINE = false>
 int launch(const TraceArgs& a, bool count, void* stream) {
   const int threads = 128;
   const int blocks = (a.n + threads - 1) / threads;
   if (count) {
-    trace8_kernel<ANY_HIT, DENSE, SHADE2, true>
+    trace8_kernel<ANY_HIT, DENSE, SHADE2, true, ALPHA, FINE>
         <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
   } else {
-    trace8_kernel<ANY_HIT, DENSE, SHADE2, false>
+    trace8_kernel<ANY_HIT, DENSE, SHADE2, false, ALPHA, FINE>
         <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
-// The reference reads ceil(max_leaf / per_row) rows per leaf.
-int leaf_cap(int max_leaf, int per_row) {
-  return (max_leaf + per_row - 1) / per_row * per_row;
+// The alpha-masked instances (K4), with and without fine rows.
+template <bool ANY_HIT>
+int launch_alpha(const TraceArgs& a, bool count, void* stream) {
+  if (a.fine != nullptr) {
+    return launch<ANY_HIT, false, false, true, true>(a, count, stream);
+  }
+  return launch<ANY_HIT, false, false, true, false>(a, count, stream);
 }
 
 }  // namespace
@@ -360,24 +390,30 @@ int leaf_cap(int max_leaf, int per_row) {
 extern "C" {
 
 // Nearest hit of n rays over a BVH8 (K1 for shade modes 0 and 1, K3 for
-// mode 2).  Pointers are device pointers; shade and the shading outputs may
-// be null when shade_mode == 0, out_tan/out_uv/out_uvd when it is not 2,
-// and out_cnt (n x 4 int32 counters) with seen_snode (one byte per supernode
-// row) and seen_rec (one byte per triangle record), all three, when no
-// telemetry is wanted; the seen bytes are set, never cleared.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// mode 2, K4 when alpha != 0: the AUX words carry coarse masks, and fine,
+// when not null, is the int32 fine rows).  Pointers are device pointers;
+// shade and the shading outputs may be null when shade_mode == 0,
+// out_tan/out_uv/out_uvd when it is not 2, and out_cnt (n x N_COUNTERS
+// int32 counters) with seen_snode (one byte per supernode row), seen_rec and
+// seen_fine (one byte per triangle record each), all four, when no
+// telemetry is wanted; the seen bytes are set, never cleared.  The alpha
+// instances have shade mode 0 only.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 int steeljax_trace_nearest8(const void* snodes, const void* tris,
-                            const void* shade, const void* o, const void* d,
+                            const void* shade, const void* fine,
+                            const void* o, const void* d,
                             const void* t_min, const void* t_max,
                             void* out_t, void* out_u, void* out_v,
                             void* out_tri, void* out_n, void* out_mat,
                             void* out_tan, void* out_uv, void* out_uvd,
                             void* out_cnt, void* seen_snode, void* seen_rec,
-                            int n, int max_leaf, int depth, int cull,
-                            int shade_mode, void* stream) {
+                            void* seen_fine, int n, int max_leaf, int depth,
+                            int cull, int shade_mode, int alpha,
+                            void* stream) {
   if (n < 0 || max_leaf <= 0 || depth <= 0 || 8 * depth + 16 > MAX_STACK ||
-      (out_cnt != nullptr &&
-       (seen_snode == nullptr || seen_rec == nullptr)) ||
+      (out_cnt != nullptr && (seen_snode == nullptr || seen_rec == nullptr ||
+                              seen_fine == nullptr)) ||
+      (fine != nullptr && !alpha) || (alpha && shade_mode != 0) ||
       shade_mode < 0 || shade_mode > 2 ||
       (shade_mode != 0 && (shade == nullptr || out_n == nullptr ||
                            out_mat == nullptr)) ||
@@ -390,6 +426,7 @@ int steeljax_trace_nearest8(const void* snodes, const void* tris,
   a.snodes = (const float*)snodes;
   a.tris = (const float*)tris;
   a.shade = (const float*)shade;
+  a.fine = (const int*)fine;
   a.o = (const float*)o;
   a.d = (const float*)d;
   a.t_min = (const float*)t_min;
@@ -406,11 +443,13 @@ int steeljax_trace_nearest8(const void* snodes, const void* tris,
   a.out_cnt = (int*)out_cnt;
   a.seen_snode = (unsigned char*)seen_snode;
   a.seen_rec = (unsigned char*)seen_rec;
+  a.seen_fine = (unsigned char*)seen_fine;
   a.n = n;
   a.leaf_cap = leaf_cap(max_leaf, TRI_PER_ROW);
   a.cull = cull;
   a.shade_mode = shade_mode;
   const bool count = out_cnt != nullptr;
+  if (alpha) return launch_alpha<false>(a, count, stream);
   if (shade_mode == 2) return launch<false, false, true>(a, count, stream);
   return launch<false, false, false>(a, count, stream);
 }
@@ -418,23 +457,27 @@ int steeljax_trace_nearest8(const void* snodes, const void* tris,
 // Occlusion of n rays over a BVH8 (K2): out_hit[i] = 1 when any triangle
 // (no culling) is hit with t in [t_min, t_max], else 0; a dead ray (t_max <
 // t_min) is never occluded.  dense != 0 reads the 14-record rows of
-// pack_tris_dense over their own supernode rows.  out_cnt, seen_snode and
-// seen_rec as above.
-int steeljax_trace_any8(const void* snodes, const void* tris, const void* o,
-                        const void* d, const void* t_min, const void* t_max,
-                        void* out_hit, void* out_cnt, void* seen_snode,
-                        void* seen_rec, int n, int max_leaf, int depth,
-                        int dense, void* stream) {
+// pack_tris_dense over their own supernode rows.  alpha != 0 (K4 any-hit)
+// applies the coarse masks and, when fine is not null, the fine PASS plane,
+// as steeljax_trace_nearest8 does.  out_cnt and the seen bytes as above.
+int steeljax_trace_any8(const void* snodes, const void* tris,
+                        const void* fine, const void* o, const void* d,
+                        const void* t_min, const void* t_max, void* out_hit,
+                        void* out_cnt, void* seen_snode, void* seen_rec,
+                        void* seen_fine, int n, int max_leaf, int depth,
+                        int dense, int alpha, void* stream) {
   if (n < 0 || max_leaf <= 0 || depth <= 0 || 8 * depth + 16 > MAX_STACK ||
-      out_hit == nullptr ||
-      (out_cnt != nullptr &&
-       (seen_snode == nullptr || seen_rec == nullptr))) {
+      out_hit == nullptr || (fine != nullptr && !alpha) ||
+      (dense && alpha) ||
+      (out_cnt != nullptr && (seen_snode == nullptr || seen_rec == nullptr ||
+                              seen_fine == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return (int)cudaSuccess;
   TraceArgs a = {};
   a.snodes = (const float*)snodes;
   a.tris = (const float*)tris;
+  a.fine = (const int*)fine;
   a.o = (const float*)o;
   a.d = (const float*)d;
   a.t_min = (const float*)t_min;
@@ -443,6 +486,7 @@ int steeljax_trace_any8(const void* snodes, const void* tris, const void* o,
   a.out_cnt = (int*)out_cnt;
   a.seen_snode = (unsigned char*)seen_snode;
   a.seen_rec = (unsigned char*)seen_rec;
+  a.seen_fine = (unsigned char*)seen_fine;
   a.n = n;
   const bool count = out_cnt != nullptr;
   if (dense) {
@@ -450,6 +494,7 @@ int steeljax_trace_any8(const void* snodes, const void* tris, const void* o,
     return launch<true, true, false>(a, count, stream);
   }
   a.leaf_cap = leaf_cap(max_leaf, TRI_PER_ROW);
+  if (alpha) return launch_alpha<true>(a, count, stream);
   return launch<true, false, false>(a, count, stream);
 }
 

@@ -7,8 +7,9 @@ same tree from one source.  Unlike the reference (which falls back to a
 numpy Morton builder, a different tree), a failed build or load raises.
 
 `cuda_library()` builds `csrc/*.cu` with nvcc for sm_90a into a shared
-library with a plain C interface, loaded with ctypes.  Both libraries are
-built at first use and rebuilt when a source is newer than the library.
+library with a plain C interface, loaded with ctypes: one nvcc process per
+source, all started together, then one link.  Both libraries are built at
+first use and rebuilt when a source is newer than the library.
 """
 
 from __future__ import annotations
@@ -25,9 +26,13 @@ import numpy as np
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG / "_build"
 BVH_SOURCE = _PKG.parent / "steeljax" / "native" / "bvh_builder.cpp"
-CUDA_SOURCES = (_PKG / "csrc" / "traverse8.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CUDA_SOURCES = (_PKG / "csrc" / "traverse8.cu",
+                _PKG / "csrc" / "multihit8.cu")
+# Headers the sources include: a change rebuilds the library too.
+CUDA_HEADERS = (_PKG / "csrc" / "trace8_common.cuh",)
+NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
 # Compiler output of the last build in this process, by library name
@@ -63,13 +68,38 @@ def _build(target: Path, command_head: list[str], sources) -> None:
             os.unlink(tmp)
 
 
-def _load(name: str, sources, command_head, declare) -> ctypes.CDLL:
-    """The library `name`, built from `sources` by `command_head()` when
+def _build_cuda(target: Path) -> None:
+    """Compile each of CUDA_SOURCES to an object with its own nvcc, all at
+    once, then link them into `target` (atomically, as _build)."""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [Path(tmp) / (src.stem + ".o") for src in CUDA_SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(CUDA_SOURCES, objects)]
+        logs = []
+        for src, proc in zip(CUDA_SOURCES, procs):
+            out, _ = proc.communicate(timeout=600)
+            logs.append(out)
+            if proc.returncode != 0:
+                for other in procs:
+                    if other.poll() is None:
+                        other.kill()
+                        other.wait()
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+        _build(target, [nvcc, *NVCC_ARCH, "-shared"], objects)
+        BUILD_LOGS[target.name] = "".join(logs)
+
+
+def _load(name: str, sources, build, declare) -> ctypes.CDLL:
+    """The library `name`, built from `sources` by `build(target)` when
     stale, loaded once per process; `declare` sets its ctypes signatures."""
     if name not in _libs:
         target = BUILD_DIR / name
         if _stale(target, sources):
-            _build(target, command_head(), sources)
+            build(target)
         lib = ctypes.CDLL(str(target))
         declare(lib)
         _libs[name] = lib
@@ -92,10 +122,13 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
     ptr = ctypes.c_void_p
     lib.steeljax_trace_nearest8.restype = ctypes.c_int
     lib.steeljax_trace_nearest8.argtypes = (
-        [ptr] * 19 + [ctypes.c_int] * 5 + [ptr])
+        [ptr] * 21 + [ctypes.c_int] * 6 + [ptr])
     lib.steeljax_trace_any8.restype = ctypes.c_int
     lib.steeljax_trace_any8.argtypes = (
-        [ptr] * 10 + [ctypes.c_int] * 4 + [ptr])
+        [ptr] * 12 + [ctypes.c_int] * 5 + [ptr])
+    lib.steeljax_trace_multihit8.restype = ctypes.c_int
+    lib.steeljax_trace_multihit8.argtypes = (
+        [ptr] * 15 + [ctypes.c_int] * 6 + [ptr])
 
 
 def bvh_library() -> ctypes.CDLL:
@@ -103,8 +136,10 @@ def bvh_library() -> ctypes.CDLL:
         raise FileNotFoundError(
             f"BVH builder source not found at {BVH_SOURCE}")
     return _load("libsteeljax_torch_bvh.so", [BVH_SOURCE],
-                 lambda: ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                          "-std=c++17"], _declare_bvh)
+                 lambda target: _build(
+                     target, ["g++", "-O3", "-march=native", "-shared",
+                              "-fPIC", "-std=c++17"], [BVH_SOURCE]),
+                 _declare_bvh)
 
 
 def find_nvcc() -> str:
@@ -122,8 +157,8 @@ def find_nvcc() -> str:
 
 
 def cuda_library() -> ctypes.CDLL:
-    return _load("libsteeljax_torch_cuda.so", CUDA_SOURCES,
-                 lambda: [find_nvcc(), *NVCC_FLAGS], _declare_cuda)
+    return _load("libsteeljax_torch_cuda.so", CUDA_SOURCES + CUDA_HEADERS,
+                 _build_cuda, _declare_cuda)
 
 
 def build_bvh_sah(tri_pos: np.ndarray, max_leaf: int

@@ -12,8 +12,15 @@ dead lanes ride along with an inverted t interval (RAY_DEAD_T) and cost the
 trace nothing.  Above REPACK_MIN_TRIS the in-flight rays are repacked
 before every secondary bounce (repack_rays).
 
-Alpha-tested materials (the any-hit re-trace) and multi-chunk scenes are
-not ported; prepare_scene refuses them.
+Alpha-tested materials (the reference's any-hit shader, AnyHit.rahit:
+25-52): the trace kernel K4 drops candidates the coverage masks prove
+transparent, and the integrator's exact test (_alpha_rejected) re-traces
+past the rest, a bounded number of passes; with tables.multihit_k > 0 the
+multi-hit kernel K5 returns K candidates per walk instead.  Every pass runs
+unconditionally, with the rays that need no re-trace given the dead
+interval, so the loop never reads a device value on the host: the output
+is the reference's, whose lax.cond skips only passes in which no ray would
+change.  Multi-chunk scenes are not ported; prepare_scene refuses them.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import numpy as np
 import torch
 
 from steeljax_torch.accel.dispatch import (TraceTables, trace_any,
-                                           trace_nearest)
+                                           trace_multihit, trace_nearest)
 from steeljax_torch.core import rng
 from steeljax_torch.core.colors import luminance, to_linear
 from steeljax_torch.core.config import RenderConfig
@@ -34,7 +41,7 @@ from steeljax_torch.core.constants import (BIAS, DIRECT_LIGHT_DISK_RADIUS,
 from steeljax_torch.render.pt import brdf as brdf_lib
 from steeljax_torch.render.texture import sample_bilinear
 from steeljax_torch.scene.flatten import FlatScene
-
+from steeljax_torch.scene.material import MaterialFlags
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
@@ -144,6 +151,87 @@ def material_select(scene: FlatScene, mid: torch.Tensor):
             scene.mat_tex[mid])
 
 
+def shade_rows(scene: FlatScene, rec: dict) -> torch.Tensor:
+    """The (N, 56) tri_shade rows of the hits (the flat branch of the
+    reference's shade_rows, integrator.py:82-94): one row gather."""
+    return scene.tri_shade[rec["tri"].clamp(min=0).long()]
+
+
+def _alpha_rejected(scene: FlatScene, rec: dict, row: torch.Tensor
+                    ) -> torch.Tensor:
+    """hit & alpha-test & alpha < cutoff at a hit (AnyHit.rahit:35-52,
+    integrator.py:132-148).  One shading row covers the flags, cutoff,
+    alpha factor, base texture id and the uv triangle."""
+    flags = row[:, 40].to(torch.int32)
+    is_alpha_test = (flags & int(MaterialFlags.ALPHA_TEST)) != 0
+    alpha = row[:, 35]
+    if scene.has_textures:
+        u, v = rec["u"], rec["v"]
+        w = (1.0 - u - v)[..., None]
+        uv = (row[:, 18:20] * w + row[:, 20:22] * u[..., None]
+              + row[:, 22:24] * v[..., None])
+        tex = row[:, 41].to(torch.int32)
+        sampled = sample_bilinear(scene.atlas, scene.tex_offset,
+                                  scene.tex_size, tex, uv)[..., 3]
+        alpha = alpha * torch.where(tex >= 0, sampled, 1.0)
+    return rec["hit"] & is_alpha_test & (alpha < row[:, 38])
+
+
+def unpack_material(scene: FlatScene, rec: dict, ray_d: torch.Tensor,
+                    shade: torch.Tensor):
+    """Attribute interpolation and UnpackMaterial from the hits' tri_shade
+    rows (RayGen.rgen:72-115, integrator.py:602-688), the path of tables
+    without fused shading.  The normal is flipped where geom_n . d > 0
+    (ClosestHit.rchit:67-70).  Returns (surface, tbn)."""
+    u, v = rec["u"], rec["v"]
+    w = (1.0 - u - v)[..., None]
+    uw = u[..., None]
+    vw = v[..., None]
+    normal = _normalize(shade[:, 0:3] * w + shade[:, 3:6] * uw
+                        + shade[:, 6:9] * vw)
+    if scene.has_textures:
+        tangent = _normalize(shade[:, 9:12] * w + shade[:, 12:15] * uw
+                             + shade[:, 15:18] * vw)
+        uv = (shade[:, 18:20] * w + shade[:, 20:22] * uw
+              + shade[:, 22:24] * vw)
+    backface = (shade[:, 24:27] * ray_d).sum(dim=-1) > 0.0
+    normal = torch.where(backface[..., None], -normal, normal)
+
+    tbn = brdf_lib.make_tbn(normal)
+    if not scene.has_textures:
+        surface = brdf_lib.make_surface(shade[:, 32:35], shade[:, 36],
+                                        shade[:, 37], shade[:, 29:32])
+        return surface, tbn
+
+    def sample(col):
+        return sample_bilinear(scene.atlas, scene.tex_offset, scene.tex_size,
+                               shade[:, col].to(torch.int32), uv)
+
+    def tex_rgb(col):
+        return torch.where((shade[:, col] >= 0)[..., None],
+                           sample(col)[..., :3], 1.0)
+
+    ns = sample(43)[..., :3] * 2.0 - 1.0
+    scale = shade[:, 39]
+    ns = _normalize(ns * torch.stack(
+        [scale, scale, torch.ones_like(scale)], dim=-1))
+    tbn_t = brdf_lib.make_tbn_with_tangent(normal, tangent)
+    perturbed = _normalize(brdf_lib.tangent_to_world(ns, tbn_t))
+    tbn_nm = brdf_lib.make_tbn(perturbed)
+    has_nm = (shade[:, 43] >= 0)[..., None]
+    tbn = tuple(torch.where(has_nm, a, b) for a, b in zip(tbn_nm, tbn))
+
+    base_color = to_linear(shade[:, 46:49] * tex_rgb(41))
+    rm = sample(42)
+    has_rm = shade[:, 42] >= 0
+    roughness = shade[:, 36] * torch.where(has_rm, rm[..., 1], 1.0)
+    metallic = shade[:, 37] * torch.where(has_rm, rm[..., 2], 1.0)
+    emission = to_linear(shade[:, 49:52] * tex_rgb(45))
+    surface = brdf_lib.make_surface(base_color, roughness, metallic,
+                                    emission)
+    return surface, tbn
+
+
 def unpack_material_fused(scene: FlatScene, rec: dict):
     """Surface + TBN from the trace kernel's fused outputs: the
     interpolated, normalized, back-face-flipped normal and the material id,
@@ -191,28 +279,160 @@ def unpack_material_fused(scene: FlatScene, rec: dict):
     return surface, tbn
 
 
+def _retrace_tmin(t: torch.Tensor) -> torch.Tensor:
+    """The re-trace interval's start past a rejected hit at t: relative, as
+    an absolute 1e-4 is below one fp32 ulp of far t and would find the
+    same triangle again (integrator.py:360-363)."""
+    return t * (1.0 + 1e-4) + 1e-4
+
+
+class _Compaction:
+    """Rejected-first compaction of a re-trace loop's rays (integrator.py:
+    324-354): one stable sort moves the rays still to re-trace to the front,
+    Morton-ordered by their current hit point, so the re-trace passes' live
+    rays are neighbours; `restore` scatters results back to the caller's
+    order.  Active above REPACK_MIN_TRIS for batches of 8192 rays or more."""
+
+    def __init__(self, tables: TraceTables, count: int):
+        self.active = (_total_triangles(tables) > REPACK_MIN_TRIS
+                       and count >= 64 * 128)
+        self.slot = None
+
+    def apply(self, tables, pending, o, d, t_hit, columns):
+        """Sort (pending, o, d, *columns) by the compaction key; returns
+        (pending, o, d, columns) in the new order."""
+        lo, inv_extent = scene_bounds(tables)
+        p = o + d * torch.clamp(t_hit, min=0.0)[..., None]
+        key = (((~pending).to(torch.int32) << 19)
+               | _ray_sort_key(p, d, lo, inv_extent))
+        self.slot = torch.arange(o.shape[0], device=o.device)
+        key, cols = repack_rays(key, [o, d, self.slot] + list(columns))
+        o, d, self.slot = cols[:3]
+        return (key >> 19) == 0, o, d, cols[3:]
+
+    def restore(self, rec: dict) -> dict:
+        out = {}
+        for k, x in rec.items():
+            out[k] = torch.empty_like(x)
+            out[k][self.slot] = x
+        return out
+
+
 def trace_material_ray(scene: FlatScene, tables: TraceTables, o, d,
-                       t_min, t_max, cull_backface: bool) -> dict:
-    """Nearest hit of a material ray (the reference's non-alpha branch,
-    steeljax/render/pt/integrator.py:268-313)."""
-    if scene.any_alpha_test:
-        raise NotImplementedError(
-            "alpha-tested materials need the any-hit re-trace, not ported "
-            "yet (ROADMAP item 16)")
-    return trace_nearest(tables, o, d, t_min, t_max,
-                         cull_backface=cull_backface)
+                       t_min, t_max, cull_backface: bool,
+                       max_alpha_retrace: int = 4,
+                       retrace_log: list | None = None) -> dict:
+    """Nearest hit of a material ray honouring alpha tests
+    (integrator.py:268-384): in an alpha-tested scene, re-trace past
+    alpha-rejected hits up to `max_alpha_retrace` times; a hit still
+    rejected then counts as a miss.  With tables.multihit_k each pass runs
+    the K-nearest kernel K5 and resolves its slots (integrator.py:417-503):
+    one walk yields K candidates for the exact test, and a pass past slot
+    K-1 runs only for rays whose K candidates were all rejected.
+    `retrace_log`, when a list, gets (label, counts): the rays still to
+    re-trace before the first pass and after each, as 0-d tensors."""
+    if not scene.any_alpha_test:
+        return trace_nearest(tables, o, d, t_min, t_max,
+                             cull_backface=cull_backface)
+    k_hits = tables.multihit_k
+    if k_hits > 0 and tables.shade_mode == 0 and len(tables.chunks) == 1:
+        def trace(o, d, t_min, t_max):
+            slots = trace_multihit(tables, o, d, t_min, t_max, k_hits,
+                                   cull_backface=cull_backface)
+            rec, exhausted = _resolve_multihit(scene, slots)
+            return rec, exhausted, slots["t"][k_hits - 1]
+    else:
+        def trace(o, d, t_min, t_max):
+            rec = trace_nearest(tables, o, d, t_min, t_max,
+                                cull_backface=cull_backface)
+            return (rec, _alpha_rejected(scene, rec, shade_rows(scene, rec)),
+                    rec["t"])
+    rec, counts = _bounded_retrace(tables, o, d, t_min, t_max, trace,
+                                   max_alpha_retrace, retrace_log is not None)
+    if retrace_log is not None:
+        retrace_log.append(("material" if cull_backface else "shadow",
+                            counts))
+    return rec
+
+
+def _bounded_retrace(tables: TraceTables, o, d, t_min, t_max, trace,
+                     max_alpha_retrace: int, count_pending: bool):
+    """The bounded re-trace of an alpha-tested trace (integrator.py:
+    311-384, 417-503).  `trace(o, d, t_min, t_max)` returns (rec, pending,
+    restart_t): the resolved hits, the rays whose hit is still unresolved,
+    and the t each such ray re-traces from.  Every pass is launched, with
+    the dead interval for the rays already resolved, so no pass waits on
+    the host; above REPACK_MIN_TRIS the pending rays are compacted first.
+    Returns (rec, counts): counts, when count_pending, the pending rays
+    before the first pass and after each, as 0-d tensors."""
+    count = o.shape[0]
+    tmax = torch.as_tensor(t_max, dtype=torch.float32,
+                           device=o.device).expand(count)
+    rec, pending, restart_t = trace(o, d, t_min, tmax)
+    compaction = _Compaction(tables, count)
+    keys = sorted(rec)
+    if compaction.active:
+        pending, o, d, cols = compaction.apply(
+            tables, pending, o, d, restart_t,
+            [tmax, restart_t] + [rec[k] for k in keys])
+        tmax, restart_t = cols[:2]
+        rec = dict(zip(keys, cols[2:]))
+    counts = [pending.sum()] if count_pending else None
+    for _ in range(max_alpha_retrace):
+        again, pending_again, restart_again = trace(
+            o, d, _retrace_tmin(restart_t),
+            torch.where(pending, tmax, RAY_DEAD_T))
+        rec = {k: torch.where(pending, again[k], rec[k]) for k in rec}
+        restart_t = torch.where(pending, restart_again, restart_t)
+        # Only pending rays changed, so the pending set only shrinks.
+        pending = pending & pending_again
+        if count_pending:
+            counts.append(pending.sum())
+    rec["hit"] = rec["hit"] & ~pending
+    rec["tri"] = torch.where(rec["hit"], rec["tri"], -1)
+    rec["t"] = torch.where(rec["hit"], rec["t"], -1.0)
+    return (compaction.restore(rec) if compaction.active else rec), counts
+
+
+def _resolve_multihit(scene: FlatScene, slots: dict):
+    """Winner selection over K sorted candidate slots (integrator.py:
+    387-414): the first slot that is a hit and survives the exact alpha
+    test wins; an empty slot means the ray ran out of surfaces (a resolved
+    miss).  Returns (rec, exhausted), exhausted where all K slots hit and
+    all were rejected (more surfaces may lie past slot K-1)."""
+    k_hits, n = slots["t"].shape
+    device = slots["t"].device
+    rec = {"t": torch.full((n,), -1.0, device=device),
+           "tri": torch.full((n,), -1, dtype=torch.int32, device=device),
+           "u": torch.zeros((n,), device=device),
+           "v": torch.zeros((n,), device=device),
+           "hit": torch.zeros((n,), dtype=torch.bool, device=device)}
+    resolved = torch.zeros((n,), dtype=torch.bool, device=device)
+    for k in range(k_hits):
+        rec_k = {f: slots[f][k] for f in ("t", "u", "v", "tri")}
+        rec_k["hit"] = rec_k["tri"] >= 0
+        rejected = _alpha_rejected(scene, rec_k, shade_rows(scene, rec_k))
+        take = ~resolved & rec_k["hit"] & ~rejected
+        for f in ("t", "u", "v", "tri"):
+            rec[f] = torch.where(take, rec_k[f], rec[f])
+        rec["hit"] = rec["hit"] | take
+        resolved = resolved | take | ~rec_k["hit"]
+    return rec, ~resolved
 
 
 def trace_visibility(scene: FlatScene, tables: TraceTables, o, d,
-                     t_min, t_max) -> torch.Tensor:
+                     t_min, t_max, max_alpha_retrace: int = 4,
+                     retrace_log: list | None = None) -> torch.Tensor:
     """TraceVisibilityRay (RayGen.rgen:127-178): occlusion without backface
-    culling, (N,) bool (the reference's non-alpha branch,
-    steeljax/render/pt/integrator.py:506-525)."""
-    if scene.any_alpha_test:
-        raise NotImplementedError(
-            "alpha-tested shadow rays need the any-hit re-trace, not ported "
-            "yet (ROADMAP item 16)")
-    return trace_any(tables, o, d, t_min, t_max)
+    culling, (N,) bool (integrator.py:506-525).  Alpha-tested scenes trace
+    it as a material ray with culling off, so transparent texels let the
+    shadow ray through (`retrace_log` as in trace_material_ray)."""
+    if not scene.any_alpha_test:
+        return trace_any(tables, o, d, t_min, t_max)
+    return trace_material_ray(scene, tables, o, d, t_min, t_max,
+                              cull_backface=False,
+                              max_alpha_retrace=max_alpha_retrace,
+                              retrace_log=retrace_log)["hit"]
 
 
 # ---------------------------------------------------------------------------
@@ -303,17 +523,21 @@ def shadow_rays(p, n, light):
 
 
 def direct_lighting(scene: FlatScene, tables: TraceTables, surface, tbn,
-                    p, wo, seed, compose: str = "both"):
+                    p, wo, seed, compose: str = "both",
+                    max_alpha_retrace: int = 4,
+                    retrace_log: list | None = None):
     """DirectLighting (RayGen.rgen:268-305).  Returns (radiance, seed).
     `compose` isolates the diffuse/specular BRDF term (ComposeBRDF,
-    PathTracing.glsl:59)."""
+    PathTracing.glsl:59); `retrace_log` as in trace_material_ray."""
     n = tbn[2]
     light, seed = sample_light(scene, n, p, seed)
     wi = brdf_lib.world_to_tangent(light["direction"], tbn)
     wh = _normalize(wo + wi)
     # Lanes with no light get an inverted interval: the kernel reports them
     # unoccluded without descending, and has_light zeroes them anyway.
-    occluded = trace_visibility(scene, tables, *shadow_rays(p, n, light))
+    occluded = trace_visibility(scene, tables, *shadow_rays(p, n, light),
+                                max_alpha_retrace=max_alpha_retrace,
+                                retrace_log=retrace_log)
 
     f = brdf_lib.evaluate_brdf(surface, wo, wi, wh, compose=compose)
     contrib = (f * brdf_lib.cos_theta(wi)[..., None] * light["color"]
@@ -338,12 +562,15 @@ def _environment(scene: FlatScene, d: torch.Tensor) -> torch.Tensor:
 
 
 def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
-                t_min, t_max, config: RenderConfig):
+                t_min, t_max, config: RenderConfig,
+                retrace_log: list | None = None):
     """The bounce loop for a prepared ray batch (RayGen.rgen:344-407).
 
     Returns (irradiance (N, 3) clamped, seed, rays_traced) with rays_traced
     (path segments and shadow rays) a 0-d float32 tensor on the render
-    device (no host sync per bounce)."""
+    device (no host sync per bounce).  `retrace_log`, when a list, gets
+    the alpha re-trace counts of every material and shadow trace, in
+    bounce order (trace_material_ray)."""
     count = o.shape[0]
     device = o.device
     f32 = dict(dtype=torch.float32, device=device)
@@ -384,7 +611,9 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
                 torch.float32)
         rays_traced = rays_traced + alive.sum(dtype=torch.float32)
         rec = trace_material_ray(scene, tables, o, d, t_min, t_max,
-                                 cull_backface=config.backface_culling)
+                                 cull_backface=config.backface_culling,
+                                 max_alpha_retrace=config.max_alpha_retrace,
+                                 retrace_log=retrace_log)
 
         weight = throughput / torch.clamp(ray_pdf, min=1e-30)[..., None]
 
@@ -392,7 +621,11 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
         miss = miss | (alive & ~rec["hit"])
         alive = alive & rec["hit"]
 
-        surface, tbn = unpack_material_fused(scene, rec)
+        if "n" in rec:  # the fused kernel's shading outputs
+            surface, tbn = unpack_material_fused(scene, rec)
+        else:
+            surface, tbn = unpack_material(scene, rec, d,
+                                           shade_rows(scene, rec))
         if config.override_material is not None:
             # DEBUG_OVERRIDE_MATERIAL (RayGen.rgen:99-102).
             r_ov, m_ov = config.override_material
@@ -412,8 +645,10 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
         # NEE against punctual lights (RayGen.rgen:366-371).
         if scene.light_count > 0:
             rays_traced = rays_traced + alive.sum(dtype=torch.float32)
-            direct, seed = direct_lighting(scene, tables, surface, tbn, p,
-                                           wo, seed, compose=compose)
+            direct, seed = direct_lighting(
+                scene, tables, surface, tbn, p, wo, seed, compose=compose,
+                max_alpha_retrace=config.max_alpha_retrace,
+                retrace_log=retrace_log)
             irradiance = irradiance + torch.where(
                 alive[..., None], direct * weight, 0.0)
 
@@ -477,13 +712,18 @@ def render_pixels(scene: FlatScene, tables: TraceTables,
     """One path-traced irradiance sample for each pixel in (px, py);
     returns (N, 3) float32 linear (pre-tonemap, clamped), on the device the
     scene was prepared on.  px/py may be arrays or tensors; they are moved
-    to that device.  With return_stats also {"rays_traced": 0-d tensor}."""
+    to that device.  With return_stats also {"rays_traced": 0-d tensor,
+    "alpha_retrace": [(label, counts), ...]}: in alpha-tested scenes, for
+    every material and shadow trace in bounce order, the rays still to
+    re-trace before the first re-trace pass and after each, as 0-d tensors
+    (trace_material_ray; empty otherwise).  No stat is read back."""
     device = scene.device
     px = torch.as_tensor(px, device=device).to(torch.int64)
     py = torch.as_tensor(py, device=device).to(torch.int64)
     count = px.shape[0]
     total = torch.zeros((count, 3), dtype=torch.float32, device=device)
     rays_traced = torch.zeros((), dtype=torch.float32, device=device)
+    retrace_log = [] if return_stats else None
 
     for s in range(config.sample_count):
         seed = rng.make_seed(px, py, s + int(sample_index),
@@ -491,13 +731,15 @@ def render_pixels(scene: FlatScene, tables: TraceTables,
         o, d, seed = primary_rays(inverse_view, inverse_proj, width, height,
                                   px, py, seed)
         sample, seed, rays = trace_paths(scene, tables, o, d, seed,
-                                         camera_near, camera_far, config)
+                                         camera_near, camera_far, config,
+                                         retrace_log)
         total = total + sample
         rays_traced = rays_traced + rays
 
     result = total / config.sample_count
     if return_stats:
-        return result, {"rays_traced": rays_traced}
+        return result, {"rays_traced": rays_traced,
+                        "alpha_retrace": retrace_log}
     return result
 
 

@@ -17,7 +17,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from steeljax_torch.accel.alphamask import (compute_alpha_masks,
+                                             compute_fine_masks)
 from steeljax_torch.accel.bvh import apply_permutation
+from steeljax_torch.accel.cuda_traverse import MULTIHIT_K
 from steeljax_torch.accel.dispatch import (TraceTables, attach_shade_tables,
                                            prepare_tables)
 from steeljax_torch.core import camera as camera_lib
@@ -54,18 +57,32 @@ def check_slice_scope(flat: FlatScene, tables: TraceTables) -> None:
     """Refuse a prepared scene that needs a part not ported yet, naming
     the ROADMAP item that brings it; such a scene is never rendered in
     part."""
-    if flat.any_alpha_test:
-        raise NotImplementedError(
-            "alpha-tested materials are not ported yet (ROADMAP item 16)")
     if len(tables.chunks) != 1:
         raise NotImplementedError(
             "multi-chunk scenes are not ported yet (ROADMAP item 13)")
 
 
+def _alpha_masks(flat: FlatScene, scene: Scene, fine_masks: bool):
+    """The coarse masks, and the fine masks when asked, of an alpha-tested
+    scene's unpermuted triangles (alphamask.compute_alpha_masks,
+    compute_fine_masks), computed on the scene's device."""
+    args = tuple(getattr(flat, name).cpu().numpy() for name in (
+        "tri_uv", "tri_mat", "mat_base_color", "mat_params", "mat_tex",
+        "mat_flags")) + (scene.textures,)
+    with record_function("prepare_scene.alpha_masks"):
+        coarse = compute_alpha_masks(*args, device=flat.device)
+    fine = None
+    if fine_masks:
+        with record_function("prepare_scene.fine_masks"):
+            fine = compute_fine_masks(*args, device=flat.device)
+    return coarse, fine
+
+
 def prepare_scene(scene: Scene, device: torch.device | str,
                   env_resolution: int = 256,
                   use_default_environment: bool = True,
-                  leaf_size: int | None = None, dense_anyhit: bool = False
+                  leaf_size: int | None = None, dense_anyhit: bool = False,
+                  fine_masks: bool = True, multihit_k: int = 0
                   ) -> tuple[FlatScene, TraceTables]:
     """Flatten, build the acceleration tables and the environment, on
     `device`.
@@ -76,8 +93,21 @@ def prepare_scene(scene: Scene, device: torch.device | str,
     `dense_anyhit` builds the dense any-hit tables, which shadow rays then
     read (the reference's STEELJAX_DENSE_ANYHIT=1, off by default; the
     reference's prepare_scene reaches them through that variable, the port's
-    through this argument).  Each step is a `prepare_scene.<step>` or
-    `prepare_tables.<step>` range for torch.profiler."""
+    through this argument).
+
+    A scene with alpha-tested materials gets coarse alpha masks in its
+    triangle records and, with `fine_masks` (the reference's
+    STEELJAX_FINEMASK, on by default), the fine mask rows, which the
+    reference builds only for its TPU kernels; `fine_masks=False` gives the
+    reference's CPU tables.  It gets no fused shading tables: its shading
+    reads tri_shade rows.  `multihit_k` (0, 2, 4 or 8; the reference's
+    STEELJAX_MULTIHIT_K, 0 by default) traces its material and shadow rays
+    with the K-nearest kernel K5 instead of the single-hit re-trace.  Each
+    step is a `prepare_scene.<step>` or `prepare_tables.<step>` range for
+    torch.profiler."""
+    if multihit_k and multihit_k not in MULTIHIT_K:
+        raise ValueError(f"multihit_k must be 0 or one of {MULTIHIT_K}, "
+                         f"got {multihit_k}")
     env_cube = None
     env_analytic = False
     if scene.environment_cube is not None or (
@@ -100,21 +130,28 @@ def prepare_scene(scene: Scene, device: torch.device | str,
                              env_analytic=env_analytic)
 
     tri_pos = flat.tri_pos.cpu().numpy()
+    coarse = fine = None
+    if flat.any_alpha_test:
+        coarse, fine = _alpha_masks(flat, scene, fine_masks)
     if leaf_size is None:
         leaf_size = 48 if len(tri_pos) <= 50_000 else 24
     tables, order, total_padded = prepare_tables(
         tri_pos, flat.tri_double_sided.cpu().numpy(), device,
-        leaf_size=leaf_size, dense_anyhit=dense_anyhit)
+        leaf_size=leaf_size, dense_anyhit=dense_anyhit,
+        tri_alpha_mask=coarse, tri_fine_mask=fine)
+    tables = tables.replace(multihit_k=multihit_k)
     with record_function("prepare_scene.apply_permutation"):
         permuted = apply_permutation((None, order, total_padded), {
             name: getattr(flat, name).cpu().numpy()
             for name in ("tri_pos", "tri_nrm", "tri_tan", "tri_uv",
                          "tri_mat", "tri_double_sided", "tri_shade")})
-    with record_function("prepare_scene.attach_shade_tables"):
-        tables = attach_shade_tables(
-            tables, permuted["tri_nrm"], permuted["tri_mat"],
-            textured=flat.has_textures, tri_tan=permuted["tri_tan"],
-            tri_uv=permuted["tri_uv"], tri_uvd=permuted["tri_shade"][:, 27])
+    if not flat.any_alpha_test:
+        with record_function("prepare_scene.attach_shade_tables"):
+            tables = attach_shade_tables(
+                tables, permuted["tri_nrm"], permuted["tri_mat"],
+                textured=flat.has_textures, tri_tan=permuted["tri_tan"],
+                tri_uv=permuted["tri_uv"],
+                tri_uvd=permuted["tri_shade"][:, 27])
     with record_function("prepare_scene.upload_permuted"):
         flat = flat.replace(**{name: torch.from_numpy(arr).to(device)
                                for name, arr in permuted.items()})

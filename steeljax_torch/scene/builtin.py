@@ -7,7 +7,9 @@ spheres.  Used by tests and the smoke scripts so the framework is
 exercisable without the reference checkout.  `make_parity_scene` carries a
 directional light; `make_stress_scene` fills the box with a grid of spheres
 and boxes, optionally textured; `make_sunlit_stress_scene` is the JAX
-bench's hybrid scene, a stress scene under a directional sun.
+bench's hybrid scene, a stress scene under a directional sun;
+`make_foliage_scene` is a canopy of alpha-tested leaf cards over a ground
+quad (steeljax/scene/builtin.py:199-307).
 """
 
 from __future__ import annotations
@@ -196,6 +198,117 @@ def make_parity_scene(sphere_detail: int = 8) -> Scene:
         up=camera_lib.UP)
     scene.camera_projection = camera_lib.CameraProjection(
         y_fov=0.9, width=1.77777, height=1.0, z_near=0.01, z_far=100.0)
+    return scene
+
+
+def _leaf_texture(size: int = 128, serrated: bool = True) -> np.ndarray:
+    """Procedural RGBA leaf card: green lobes with an alpha mask
+    (~45% coverage) — the San Miguel foliage pattern that makes the
+    reference's AnyHit shader (AnyHit.rahit:25-52) the hot path.
+
+    serrated=True adds texel-scale perforations everywhere (periodic
+    sin x sin cuts, period ~8 texels): the ADVERSARIAL case where no
+    coverage cell is provably opaque.  serrated=False models the common
+    real-asset profile — solid leaflet interiors, smooth boundaries —
+    where the fine OPAQUE plane (accel.alphamask) lets interior hits
+    terminate traversal exactly like opaque geometry."""
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / (size - 1)
+    alpha = np.zeros((size, size), bool)
+    # Three elliptical leaflets fanning from the bottom-center stem.
+    for cx, cy, rx, ry, rot in ((0.5, 0.42, 0.16, 0.34, 0.0),
+                                (0.30, 0.55, 0.13, 0.27, 0.6),
+                                (0.70, 0.55, 0.13, 0.27, -0.6)):
+        dx, dy = x - cx, y - cy
+        u = dx * np.cos(rot) - dy * np.sin(rot)
+        v = dx * np.sin(rot) + dy * np.cos(rot)
+        alpha |= (u / rx) ** 2 + (v / ry) ** 2 < 1.0
+    # Serrated edge + midrib cut so the mask is high-frequency.
+    alpha &= ~((np.abs(x - 0.5) < 0.012) & (y < 0.45))
+    if serrated:
+        alpha &= (np.sin(x * 97.0) * np.sin(y * 83.0)) > -0.92
+    tex = np.zeros((size, size, 4), np.uint8)
+    shade = (90 + 100 * y).astype(np.uint8)
+    tex[..., 0] = 30
+    tex[..., 1] = shade
+    tex[..., 2] = 25
+    tex[..., 3] = np.where(alpha, 255, 0)
+    return tex
+
+
+def make_foliage_scene(cards: int = 500_000, region: float = 9.0,
+                       card_size: float = 0.55, seed: int = 11,
+                       serrated: bool = True) -> Scene:
+    """San Miguel-class alpha-test workload: a dense canopy of randomly
+    oriented textured leaf cards (2 tris each) over a ground plane.
+    Every leaf intersection runs the alpha-test re-trace loop
+    (render/pt/integrator trace_material_ray; reference AnyHit.rahit:
+    25-52) — the actual hard part of San Miguel-style scenes, which the
+    sphere/box stress scene does not exercise.  serrated=False swaps in
+    the solid-interior leaf texture (see _leaf_texture) — the realistic
+    asset profile where opaque-plane termination applies."""
+    rng = np.random.default_rng(seed)
+    scene = Scene()
+    scene.textures.append(_leaf_texture(serrated=serrated))
+    scene.materials.append(Material(
+        base_color_factor=np.ones(4, np.float32),
+        base_color_texture=0, roughness_factor=0.8, metallic_factor=0.0,
+        alpha_cutoff=0.5,
+        flags=MaterialFlags.ALPHA_TEST | MaterialFlags.DOUBLE_SIDED))
+    scene.materials.append(Material(
+        base_color_factor=np.array([0.45, 0.4, 0.32, 1.0], np.float32),
+        roughness_factor=0.95, metallic_factor=0.0,
+        flags=MaterialFlags.DOUBLE_SIDED))
+
+    # One merged primitive: `cards` quads with random position/orientation
+    # inside a canopy slab (vectorized — no per-card Python entities).
+    h = card_size * 0.5
+    base = np.array([[-h, -h, 0], [h, -h, 0], [h, h, 0], [-h, h, 0]],
+                    np.float32)                                   # (4, 3)
+    axis = rng.normal(size=(cards, 3)).astype(np.float32)
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    ang = rng.uniform(0, np.pi, cards).astype(np.float32)
+    c, s = np.cos(ang)[:, None, None], np.sin(ang)[:, None, None]
+    k = np.zeros((cards, 3, 3), np.float32)  # cross-product matrices
+    k[:, 0, 1], k[:, 0, 2] = -axis[:, 2], axis[:, 1]
+    k[:, 1, 0], k[:, 1, 2] = axis[:, 2], -axis[:, 0]
+    k[:, 2, 0], k[:, 2, 1] = axis[:, 1], -axis[:, 0]
+    rot = np.eye(3, dtype=np.float32)[None] + s * k + (1 - c) * (k @ k)
+    centers = np.empty((cards, 3), np.float32)
+    centers[:, 0] = rng.uniform(-region, region, cards)
+    centers[:, 2] = rng.uniform(-region, region, cards)
+    centers[:, 1] = rng.uniform(0.3, max(region * 0.65, 0.3 + 1e-6), cards)
+    pos = (base[None] @ rot.transpose(0, 2, 1) + centers[:, None])
+    nrm = np.broadcast_to(rot[:, None, :, 2], (cards, 4, 3))
+    uv = np.tile(np.array([[0, 1], [1, 1], [1, 0], [0, 0]], np.float32),
+                 (cards, 1))
+    quad_idx = np.array([0, 1, 2, 0, 2, 3], np.uint32)
+    idx = (quad_idx[None] + 4 * np.arange(cards, dtype=np.uint32)[:, None])
+    scene.primitives.append(Primitive.create(
+        idx.reshape(-1), pos.reshape(-1, 3).astype(np.float32),
+        np.ascontiguousarray(nrm.reshape(-1, 3), np.float32),
+        None, uv))
+    scene.primitives.append(make_quad(region * 4.0))
+
+    scene.add_entity(Entity(name="canopy", local_transform=_trs((0, 0, 0)),
+                            render_objects=[RenderObject(0, 0)]))
+    scene.add_entity(Entity(
+        name="ground",
+        local_transform=_trs((0, 0, 0), (1, 0, 0), float(np.pi / 2)),
+        render_objects=[RenderObject(1, 1)]))
+
+    sun = Entity(name="sun", local_transform=_trs((0, 0, 0), (0, 0, 1),
+                                                  -2.1))
+    sun.light = Light(type=LightType.DIRECTIONAL,
+                      color=np.array([3.0, 2.9, 2.7], np.float32))
+    scene.add_entity(sun)
+
+    scene.camera_location = camera_lib.CameraLocation(
+        position=np.array([0, region * 0.45, region * 1.6], np.float32),
+        direction=np.array([0, -0.12, -1], np.float32),
+        up=camera_lib.UP)
+    scene.camera_projection = camera_lib.CameraProjection(
+        y_fov=0.872664626, width=1.77777, height=1.0,
+        z_near=0.01, z_far=200.0)
     return scene
 
 

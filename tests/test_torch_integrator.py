@@ -7,7 +7,9 @@ PyTorch evaluates op by op), a few ulp of values of order 1.  BRDF values
 and pdfs also get 1e-4 relative: they reach ~1e3 at sharp GGX peaks, and
 d_ggx's denominator (noh * a2 - noh) * noh + 1 cancels near noh = 1, which
 amplifies an ulp of noh (one of 4096 seeded samples differs by 2.2e-5
-relative).
+relative).  The sampled BRDF direction is held to 1e-5 only where its
+conditioning allows; elsewhere both packages are held to a float64
+evaluation (test_sample_evaluate_and_pdf_brdf).
 
 The slice as a whole: `render_pixels` on the `__graft_entry__` tile (Cornell
 sphere detail 6, 32x18, 1 spp, accumulation index 0, near 0.01, far 100,
@@ -33,6 +35,7 @@ from steeljax.render.pt import brdf as brdf_ref
 from steeljax.render.pt import integrator as integrator_ref
 from steeljax.render.pt import renderer as renderer_ref
 from steeljax.scene import builtin as builtin_ref
+from steeljax_torch.core import rng
 from steeljax_torch.core.colors import to_linear, tone_map
 from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.env.sky import sky_radiance
@@ -83,23 +86,115 @@ def test_make_tbn(inputs):
         _close(a, b)
 
 
+F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def _sample_f64(e, a2, spec, wo):
+    """sample_brdf's direction in float64 from the same uniforms, and the
+    bound on an fp32 evaluation's error in each component of wi.
+
+    GGX lobe: cos_t = sqrt(num / den) with num = 1 - e1 and den = 1 + (a2 -
+    1) e1, which cancels for small a2 and e1 near 1, so its fp32 rounding
+    (eps times 1 + |a2 - 1| e1) is a relative error of q = num / den of
+    eps (1 + |a2 - 1| e1) / den; three more roundings (num, the division,
+    the square root) add 3 eps.  Then sin_t = sqrt(1 - cos_t^2) turns an
+    error dc of cos_t into (cos_t dc + eps) / sin_t, large where sin_t is
+    small (low roughness).  The half vector's components err by at most dc
+    + ds, and wi = 2 (wo . h) h - wo by at most 4 times that.  Cosine lobe:
+    cos_t = sqrt(e1), the same sin_t step.  The float64 result stands in for
+    the exact value."""
+    e = e.astype(np.float64)
+    wo = wo.astype(np.float64)
+    phi = 2.0 * np.pi * e[:, 0]
+    num = 1.0 - e[:, 1]
+    den = 1.0 + (a2 - 1.0) * e[:, 1]
+    c_s = np.sqrt(num / den)
+    s_s = np.sqrt(np.maximum(1.0 - c_s * c_s, 0.0))
+    h = np.stack([s_s * np.cos(phi), s_s * np.sin(phi), c_s], axis=-1)
+    wi_s = 2.0 * (wo * h).sum(-1, keepdims=True) * h - wo
+    c_d = np.sqrt(e[:, 1])
+    s_d = np.sqrt(np.maximum(1.0 - e[:, 1], 0.0))
+    wi_d = np.stack([s_d * np.cos(phi), s_d * np.sin(phi), c_d], axis=-1)
+
+    dq = F32_EPS * (3.0 + (1.0 + np.abs(a2 - 1.0) * e[:, 1]) / den)
+    dc_s = 0.5 * c_s * dq + F32_EPS * c_s
+    ds_s = (c_s * dc_s + F32_EPS) / np.maximum(s_s, 1e-12) + F32_EPS * s_s
+    ds_d = F32_EPS / np.maximum(s_d, 1e-12) + F32_EPS
+    tol = 4.0 * np.where(spec, dc_s + ds_s, F32_EPS + ds_d)
+    return np.where(spec[:, None], wi_s, wi_d), tol
+
+
+def _evaluate_f64(surface, wo, wi, wh):
+    """evaluate_brdf and pdf_brdf in float64 at the given directions, and
+    the relative error bound of an fp32 evaluation: d_ggx's denominator d =
+    (noh a2 - noh) noh + 1 rounds to eps (2 + noh^2) absolute and cancels
+    near noh = 1, and D = a2 / (pi d^2) doubles its relative error."""
+    g = {k: v.numpy().astype(np.float64) for k, v in surface.items()}
+    wo, wi, wh = (x.astype(np.float64) for x in (wo, wi, wh))
+    nov, nol, noh = (np.maximum(x[:, 2], 0.0) for x in (wo, wi, wh))
+    voh = np.maximum((wo * wh).sum(-1), 0.0)
+    dd = (noh * g["a2"] - noh) * noh + 1.0
+    d = g["a2"] / (np.pi * dd * dd)
+    fr = g["f0"] + (1.0 - g["f0"]) * ((1.0 - voh) ** 5)[:, None]
+    k = g["a"] * 0.5
+    vis = 0.25 / ((nov * (1.0 - k) + k) * (nol * (1.0 - k) + k))
+    f = ((1.0 - fr) * (1.0 - g["metallic"])[:, None] * g["base_color"]
+         / np.pi + d[:, None] * fr * vis[:, None])
+    spec = noh * d / np.maximum(4.0 * (wi * wh).sum(-1), 1e-6)
+    pdf = nol / np.pi * (1.0 - g["sw"]) + spec * g["sw"]
+    return f, pdf, 4.0 * F32_EPS * (2.0 + noh * noh) / dd
+
+
 def test_sample_evaluate_and_pdf_brdf(inputs):
+    """The sampled direction is ill-conditioned where sin_t is small (GGX
+    at low roughness, and the cosine lobe near its pole): there an ulp of
+    cos_t, which XLA's fused and approximate fp32 arithmetic (an FMA in den,
+    its own sqrt) and PyTorch's round differently, becomes up to ~2e-4 in
+    wi, so two correct fp32 programs disagree beyond 1e-5.  Each sample's
+    error bound comes from that conditioning (_sample_f64).  Where it is
+    below 1e-5, wi, f and pdf are held to the reference at 1e-5 as before;
+    where it is above, the port's wi and the reference's are each held to
+    the float64 evaluation within the bound, and the port's f and pdf to
+    float64 at the port's own directions, within 1e-4 relative or d_ggx's
+    own conditioning where that is larger (_evaluate_f64)."""
     _, wo, surface_args, seed = inputs
     surface = brdf.make_surface(*(torch.from_numpy(a) for a in surface_args))
     surface_r = brdf_ref.make_surface(*(jnp.asarray(a) for a in surface_args))
     for key in surface:
         _close(surface[key], surface_r[key])
 
-    f, wi, pdf, s = brdf.sample_brdf(surface, torch.from_numpy(wo),
-                                     torch.from_numpy(seed.astype(np.int64)))
+    seed_t = torch.from_numpy(seed.astype(np.int64))
+    f, wi, pdf, s = brdf.sample_brdf(surface, torch.from_numpy(wo), seed_t)
     f_r, wi_r, pdf_r, s_r = brdf_ref.sample_brdf(surface_r, jnp.asarray(wo),
                                                  jnp.asarray(seed))
     np.testing.assert_array_equal(s.numpy(), np.asarray(s_r))
-    _close(wi, wi_r)
-    np.testing.assert_allclose(pdf.numpy(), np.asarray(pdf_r), rtol=RTOL,
+    f_r, wi_r, pdf_r = (np.asarray(x) for x in (f_r, wi_r, pdf_r))
+
+    e = rng.next_vec3(seed_t)[0].numpy()
+    spec = e[:, 2] < surface["sw"].numpy()
+    wi64, tol = _sample_f64(e, surface["a2"].numpy().astype(np.float64),
+                            spec, wo)
+    ill = tol > ATOL
+    assert 0 < ill.sum() < N_RAYS // 2
+    well = ~ill
+    _close(wi[well], wi_r[well])
+    np.testing.assert_allclose(pdf.numpy()[well], pdf_r[well], rtol=RTOL,
                                atol=ATOL)
-    np.testing.assert_allclose(f.numpy(), np.asarray(f_r), rtol=RTOL,
+    np.testing.assert_allclose(f.numpy()[well], f_r[well], rtol=RTOL,
                                atol=ATOL)
+    for ours in (wi.numpy(), wi_r):
+        assert (np.abs(ours - wi64).max(-1)[ill] <= tol[ill]).all()
+    wh = np.where(spec[:, None],
+                  brdf.importance_sample_ggx(torch.from_numpy(e[:, :2]),
+                                             surface["a2"]).numpy(),
+                  wo + wi.numpy())
+    wh /= np.linalg.norm(wh, axis=-1, keepdims=True)
+    f64, pdf64, rtol = _evaluate_f64(surface, wo, wi.numpy(), wh)
+    rtol = np.maximum(rtol, RTOL)[ill]
+    f_err = np.abs(f.numpy()[ill] - f64[ill])
+    assert (f_err <= ATOL + rtol[:, None] * np.abs(f64[ill])).all()
+    pdf_err = np.abs(pdf.numpy()[ill] - pdf64[ill])
+    assert (pdf_err <= ATOL + rtol * np.abs(pdf64[ill])).all()
 
     wh = wo + wi.numpy()
     wh /= np.maximum(np.linalg.norm(wh, axis=-1, keepdims=True), 1e-20)
@@ -215,8 +310,6 @@ def test_renderer_two_frame_accumulation_matches_reference():
 @pytest.mark.parametrize("make,item", [
     (lambda: _with_environment_cube(builtin.make_parity_scene(4)),
      "ROADMAP item 14"),
-    (lambda: _with_alpha_test(builtin.make_cornell_scene(4)),
-     "ROADMAP item 16"),
 ])
 def test_out_of_slice_scenes_raise(make, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -226,10 +319,11 @@ def test_out_of_slice_scenes_raise(make, item):
 @pytest.mark.parametrize("make", [
     lambda: builtin.make_parity_scene(4),
     lambda: _with_texture(builtin.make_cornell_scene(4)),
-], ids=["lit", "textured"])
+    lambda: _with_alpha_test(_with_texture(builtin.make_cornell_scene(4))),
+], ids=["lit", "textured", "alpha-tested"])
 def test_lit_and_textured_scenes_render(make):
-    """Scenes the first slice refused (a punctual light; a texture) now
-    render."""
+    """Scenes earlier slices refused (a punctual light; a texture; an
+    alpha-tested material) now render."""
     image = renderer.PathTracingRenderer(make(), 8, 8,
                                          device="cpu").render_frame()
     assert image.shape == (8, 8, 3) and np.isfinite(image).all()
@@ -255,7 +349,11 @@ def _with_alpha_test(scene):
 
 
 def _with_texture(scene):
-    scene.textures.append(np.zeros((2, 2, 4), np.uint8))
+    """A 2x2 texture, opaque in its left column, transparent in its
+    right."""
+    texture = np.zeros((2, 2, 4), np.uint8)
+    texture[:, 0, 3] = 255
+    scene.textures.append(texture)
     return scene
 
 
