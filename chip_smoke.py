@@ -15,9 +15,19 @@ kernel against its plain PyTorch version:
     solid leaves, coarse and fine alpha masks): K4, nearest hit with
     in-kernel alpha masks, for every material and shadow ray and each of
     their re-trace passes; and path F once more with multihit_k = 4: K5,
-    the K-nearest multi-hit kernel, in K4's place.
-Paths L, T, F and S are above the repack threshold, so their rays are
-repacked before every secondary bounce, and the alpha paths' re-traces
+    the K-nearest multi-hit kernel, in K4's place;
+  * paths I and J, path L's and path T's scenes through the two-level
+    structure (PathTracingRenderer(instancing=True): 310 and 490
+    instances of three BLAS): K6, the two-level kernel, with fused mode-1
+    shading and its any-hit query for the shadow rays on I, fused mode 2 on
+    J; after path I's frames one entity moves and refresh_scene() rebuilds
+    the instance tables alone;
+  * paths U and UL, path T's and path L's scenes prepared with
+    treelets=True: K7, the treelet kernel, one launch per round of the
+    treelet scheduler (mode 2 on U; mode 1 and any-hit on UL).
+Paths L, T, F, S, J, U and UL are above the repack threshold (path I's 310
+instances of 544 records on average are not), so their rays are repacked
+before every secondary bounce, and the alpha paths' re-traces
 compact their rejected rays first.  Every phase raises on failure, so the
 script exits non-zero; it refuses to run without a card.
 
@@ -25,11 +35,16 @@ Phases:
   1. device and toolchain (nvidia-smi, torch, CUDA, nvcc, g++);
   2. build of the BVH builder and the CUDA kernel library from the sources,
      with ptxas' registers and spills for every kernel instance;
-  3. preparation of paths L, T, F, S and F with multihit_k = 4 (host
-     seconds by step); kernel parity, kernel against plain version
+  3. preparation of paths L, T, F, S, F with multihit_k = 4, U and UL
+     through prepare_scene and of paths I and J through the renderer, each
+     of these two with a refresh_scene() after an edit (host seconds by
+     step); kernel parity, kernel against plain version
      (apps.kernel_parity); each kernel's time alone at its path's shapes,
-     its plain version's time, its work counts (mask tests included) and
-     the least time the card could take for the same work;
+     its plain version's time, its work counts (mask tests and instance
+     enters included) and the least time the card could take for the same
+     work (a dead ray, t_max < t_min, is charged its interval alone), for
+     K7 summed over the rounds of one trace, beside the bound of that trace
+     as one function;
   4. the Cornell main path: one warm and 4 timed frames, K1's launches, the
      kernel's share of a frame, the render CLI;
   5. path L: the same frames and checks, K1 and K2 launches, then the
@@ -39,8 +54,17 @@ Phases:
      and K5 launches, and the rays still to re-trace before and after each
      re-trace pass of the first timed frame;
   8. 32x18 tiles on the card against the CPU: Cornell, the lit parity
-     scene (next-event estimation) and a small foliage scene (alpha
-     re-trace).
+     scene (next-event estimation), a small foliage scene (alpha
+     re-trace), and the lit parity scene through the two-level structure
+     and through treelets;
+  9. paths I and J: the same frames and checks, K6 and K6 any-hit launches,
+     the image against path L's and path T's; then path I's edit and
+     refresh_scene() (no BLAS rebuilt, the same triangle tensor), its
+     seconds beside a flat prepare_scene of the edited scene, and the
+     refreshed frame against the flat one;
+  10. paths U and UL: the same frames and checks, K7 launches equal to the
+     scheduler's rounds, the rounds, launches and host reads per frame,
+     the image against path T's and path L's.
 The second-to-last line is the kernels' JSON summary, the last line the
 device JSON.
 
@@ -82,13 +106,22 @@ PEAK_FP32_PER_S = 67e12
 OPS_PER_SUPERNODE_POP = 8 * 25
 OPS_PER_TRIANGLE_TEST = 53
 OPS_PER_MASK_TEST = 16
+# K6 also rotates the winner's normal (and tangent) by an instance matrix
+# (9 products, 6 sums each) and scales the uv density; entering an instance
+# transforms the ray (origin 9 products and 9 sums, direction 9 and 6) and
+# takes three guarded reciprocals: 45.
 OPS_EPILOGUE = {"K1": 25, "K3": 60, "K2": 0, "K2_dense": 0, "K4": 0,
-                "K4_anyhit": 0, "K5": 0}
-# Bytes each ray reads (o, d, t_min, t_max) and writes, by kernel (K5
-# writes K = 4 slots of t, u, v and tri).
+                "K4_anyhit": 0, "K5": 0, "K6": 40, "K6_shade2": 91,
+                "K6_anyhit": 0, "K7": 60, "K7_shade1": 25, "K7_anyhit": 0}
+OPS_PER_INSTANCE_ENTER = 45
+# Bytes each ray reads (o, d, t_min, t_max; a dead ray, t_max < t_min, only
+# its interval: the function needs no more to reject it) and writes, by
+# kernel (K5 writes K = 4 slots of t, u, v and tri).
 RAY_IN_BYTES = 32
+DEAD_RAY_IN_BYTES = 8
 RAY_OUT_BYTES = {"K1": 32, "K3": 56, "K2": 1, "K2_dense": 1, "K4": 16,
-                 "K4_anyhit": 1, "K5": 64}
+                 "K4_anyhit": 1, "K5": 64, "K6": 36, "K6_shade2": 60,
+                 "K6_anyhit": 1, "K7": 56, "K7_shade1": 32, "K7_anyhit": 1}
 # Table bytes a kernel reads per distinct entry its walk touches: a
 # supernode pop reads floats 0-7 of each of the row's 8 children; a triangle
 # test reads one record (nearest: v0, e1, e2 and the double-sided flag;
@@ -98,10 +131,32 @@ RAY_OUT_BYTES = {"K1": 32, "K3": 56, "K2": 1, "K2_dense": 1, "K4": 16,
 # mode 2: 26).
 SNODE_ROW_BYTES = 8 * 8 * 4
 TRI_RECORD_BYTES = {"K1": 40, "K3": 40, "K2": 36, "K2_dense": 36,
-                    "K4": 40, "K4_anyhit": 40, "K5": 40}
+                    "K4": 40, "K4_anyhit": 40, "K5": 40, "K6": 40,
+                    "K6_shade2": 40, "K6_anyhit": 36, "K7": 40,
+                    "K7_shade1": 40, "K7_anyhit": 36}
 FINE_WORD_BYTES = {"K4": 4, "K4_anyhit": 4, "K5": 8}
 SHADE_RECORD_BYTES = {"K1": 40, "K3": 104, "K2": 0, "K2_dense": 0, "K4": 0,
-                      "K4_anyhit": 0, "K5": 0}
+                      "K4_anyhit": 0, "K5": 0, "K6": 40, "K6_shade2": 104,
+                      "K6_anyhit": 0, "K7": 104, "K7_shade1": 40,
+                      "K7_anyhit": 0}
+# K6 reads of an instance row: entering it, the inverse 3x4, the BLAS root
+# and the double-sided flag (14 floats); shading a winner, the material id
+# and the normal matrix (10 floats), in mode 2 also 1 / scale and the world
+# linear matrix (20 floats).  K7 reads one treelet id per packet.
+INST_ENTER_BYTES = 56
+INST_SHADE_BYTES = {"K6": 40, "K6_shade2": 80, "K6_anyhit": 0}
+# A path through another acceleration structure renders the flat path's
+# frame: the same seeds and the same transport, and only exact-t ties and
+# last-bit differences of t (object space against world space) can part two
+# paths of one pixel.  The frames' means must agree within IMAGE_MEAN_RTOL,
+# rays_traced per frame within RAYS_RTOL, and at most IMAGE_PIXEL_FRACTION
+# of the pixels may differ by more than IMAGE_PIXEL_ATOL (on the H100 the
+# instanced paths part in 0.001-0.002% of the pixels, the treelet paths in
+# none).
+IMAGE_MEAN_RTOL = 1e-3
+IMAGE_PIXEL_ATOL = 1e-2
+IMAGE_PIXEL_FRACTION = 1e-3
+RAYS_RTOL = 1e-4
 # Runtime calls counted per profiled frame: the host waits for the device
 # in the first two, and in a copy from or to pageable host memory.
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -156,99 +211,301 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(kernel: str, rec: dict) -> dict:
+def _live_rays(n_rays: int, t_min, t_max) -> int:
+    """The rays of a call with t_max >= t_min (a scalar bound holds for
+    every ray)."""
+    if isinstance(t_min, torch.Tensor) or isinstance(t_max, torch.Tensor):
+        return int((t_max >= t_min).expand(n_rays).sum())
+    return n_rays if t_max >= t_min else 0
+
+
+def _bound(kernel: str, rec: dict, live_rays: int, tri_base=None) -> dict:
     """The least time the card could take for one call, from a counting
     launch's `rec`: the larger of the bytes it must move over the HBM rate
     and the fp32 operations this run's walk did (the kernel's own counters)
     over the fp32 peak.  The bytes are each ray's inputs and outputs once
+    (of the `live_rays` with t_max >= t_min origin, direction and interval,
+    of a dead ray the interval alone; every ray's outputs are written)
     and, of the tables, only what this run's walks read, each entry once:
     the distinct supernode rows popped, triangle records tested and records
     whose fine words were read (the kernel's seen flags), and the distinct
-    winners' shade records."""
+    winners' shade records.  The two-level kernel K6 (a `rec` with
+    "seen_inst") counts instance enters where the flat kernels count mask
+    tests, and adds the rows of the distinct instances entered and of the
+    distinct winners' instances.  `tri_base` ((N,), the treelet kernel K7)
+    is each ray's offset from its treelet-local triangle id to an id over
+    the whole stack."""
     n_rays = rec["counters"].shape[0]
-    pops, rows, leaves, tests, mask_tests, fine_tests = (
+    pops, rows, leaves, tests, col4, col5 = (
         rec["counters"].to(torch.int64).sum(dim=0).tolist())
-    winners = (int(torch.unique(rec["tri"][rec["tri"] >= 0]).numel())
-               if SHADE_RECORD_BYTES[kernel] else 0)
+    instanced = "seen_inst" in rec
+    hit = rec["tri"] >= 0 if "tri" in rec else None
+    winners = 0
+    if SHADE_RECORD_BYTES[kernel]:
+        ids = rec["tri"].to(torch.int64)
+        if tri_base is not None:
+            ids = ids + tri_base
+        winners = int(torch.unique(ids[hit]).numel())
     touched = {"supernode_rows": int(rec["seen_nodes"].sum()),
                "triangle_records": int(rec["seen_records"].sum()),
-               "fine_records": int(rec["seen_fine"].sum()),
+               "fine_records": (int(rec["seen_fine"].sum())
+                                if "seen_fine" in rec else 0),
                "shade_records": winners}
     table_bytes = (SNODE_ROW_BYTES * touched["supernode_rows"]
                    + TRI_RECORD_BYTES[kernel] * touched["triangle_records"]
                    + FINE_WORD_BYTES.get(kernel, 0) * touched["fine_records"]
                    + SHADE_RECORD_BYTES[kernel] * winners)
-    moved = n_rays * (RAY_IN_BYTES + RAY_OUT_BYTES[kernel]) + table_bytes
     ops = (OPS_PER_SUPERNODE_POP * pops + OPS_PER_TRIANGLE_TEST * tests
-           + OPS_PER_MASK_TEST * (mask_tests + fine_tests)
            + OPS_EPILOGUE[kernel] * n_rays)
+    if instanced:
+        touched["instances_entered"] = int(rec["seen_inst"].sum())
+        touched["winner_instances"] = (
+            int(torch.unique(rec["inst"][hit]).numel())
+            if INST_SHADE_BYTES[kernel] else 0)
+        table_bytes += (INST_ENTER_BYTES * touched["instances_entered"]
+                        + INST_SHADE_BYTES[kernel]
+                        * touched["winner_instances"])
+        ops += OPS_PER_INSTANCE_ENTER * col4
+        names = ("instance_enters", "tlas_pops")
+    else:
+        ops += OPS_PER_MASK_TEST * (col4 + col5)
+        names = ("mask_tests", "fine_tests")
+    moved = (live_rays * RAY_IN_BYTES
+             + (n_rays - live_rays) * DEAD_RAY_IN_BYTES
+             + n_rays * RAY_OUT_BYTES[kernel] + table_bytes)
     bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_FP32_PER_S * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": moved, "table_bytes": table_bytes, "ops": ops,
-            "touched": touched,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bytes": moved,
+            "table_bytes": table_bytes, "ops": ops,
+            "live_rays": live_rays, "touched": touched,
             "per_ray": {"supernode_pops": pops / n_rays,
                         "row_bodies": rows / n_rays,
                         "leaf_pops": leaves / n_rays,
                         "triangle_tests": tests / n_rays,
-                        "mask_tests": mask_tests / n_rays,
-                        "fine_tests": fine_tests / n_rays}}
+                        names[0]: col4 / n_rays, names[1]: col5 / n_rays}}
 
 
-def _timed_kernel(name, launcher, plain, n_rays, plain_rays):
+def _timed_kernel(name, launcher, plain, rays, plain_rays):
     """Time the kernel alone over 50 launches of `launcher(False)`
-    (kernel_launcher or anyhit_launcher with fixed arguments and
-    counters=False) and `plain` over 3 calls; take the work counts from one
-    launch of `launcher(True)`.  Print and return the kernel's entry."""
+    (kernel_launcher or anyhit_launcher with fixed arguments, the `rays`
+    (o, d, t_min, t_max) among them, and counters=False) and `plain` over 3
+    calls; take the work counts from one launch of `launcher(True)`.  Print
+    and return the kernel's entry."""
+    n_rays = rays[0].shape[0]
     kernel_ms = _time_ms(launcher(False)[0], 50)
     plain_ms = _time_ms(plain, 3)
     launch, rec = launcher(True)
     launch()
-    bound = _bound(name, rec)
+    bound = _bound(name, rec, _live_rays(n_rays, rays[2], rays[3]))
     print(f"{name}: {n_rays} rays, kernel {kernel_ms:.4f} ms; plain "
           f"{plain_ms:.4f} ms on {plain_rays} rays"
-          f"{'' if plain_rays == n_rays else ' (a strided subset)'}; bound "
-          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
-          f"({bound['bytes']:.4e} B, of them {bound['table_bytes']:.4e} B "
-          "of tables: distinct "
-          + ", ".join(f"{k} {v}" for k, v in bound["touched"].items())
-          + f"; {bound['ops']:.4e} fp32 ops; per ray "
-          + ", ".join(f"{k} {v:.2f}" for k, v in bound["per_ray"].items())
-          + ")")
+          f"{'' if plain_rays == n_rays else ' (a strided subset)'}; "
+          + _bound_text(bound))
     return {"ms": kernel_ms, "plain_ms": plain_ms, "plain_rays": plain_rays,
             "rays": n_rays, **bound}
 
 
-def phase_prepare(device) -> dict:
-    """Prepare paths L, T, F, S and F with multihit_k = 4 through
-    prepare_scene, each under a host-only torch.profiler window that reads
-    the host seconds of its steps (the `prepare_scene.*` and
-    `prepare_tables.*` ranges)."""
+def _bound_text(bound: dict) -> str:
+    return (f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+            f"({bound['bytes']:.4e} B for {bound['live_rays']} live rays, of "
+            f"them {bound['table_bytes']:.4e} B of tables: distinct "
+            + ", ".join(f"{k} {v}" for k, v in bound["touched"].items())
+            + f"; {bound['ops']:.4e} fp32 ops; per ray "
+            + ", ".join(f"{k} {v:.2f}" for k, v in bound["per_ray"].items())
+            + ")")
+
+
+def _timed_treelet_trace(name, tt, rays, subset, cull, any_hit) -> dict:
+    """The treelet kernel K7 over one trace of `rays` through the scheduler:
+    the trace's rounds are recorded (each round's treelet ids and
+    intervals), then every round's launch is timed alone over 50 launches
+    and counted by one counting launch.  The kernel's time and its bound
+    are the sums over the rounds: a round is one call of the kernel, which
+    reads its live rays (the others' intervals) and writes every ray's
+    outputs.  Beside it stands the bound of the trace as one function: every
+    ray read and written once, the table entries any round touched once,
+    the rounds' operations; the difference is what the scheduler's rounds
+    cost in ray traffic.  The plain version's time is one trace of the
+    strided `subset` through the scheduler with the plain round."""
+    from steeljax_torch.accel import cuda_traverse as ct
+    from steeljax_torch.accel import treelets as treelets_lib
+    from steeljax_torch.apps import kernel_parity as kp
+
+    recorded = []
+
+    def recording(pid, o, d, t_min, t_max):
+        recorded.append((pid.clone(), o, d, t_min, t_max.clone()))
+        return ct.trace_treelet_round(tt, pid, o, d, t_min, t_max, cull,
+                                      any_hit)
+
+    final = treelets_lib.trace_treelets(tt, *rays, cull, any_hit,
+                                        trace_fn=recording)
+    n_rays = rays[0].shape[0]
+    block = treelets_lib.PACKET_RAYS
+    records_per_treelet = tt.tri_stack.shape[1] * 12
+    per_round, totals = [], dict.fromkeys(
+        ("ms", "bound_ms", "bytes_ms", "ops_ms", "bytes", "ops"), 0.0)
+    union = None
+    for pid, o, d, t_min, t_max in recorded:
+        def launcher(counters):
+            return ct.treelet_launcher(tt, pid, o, d, t_min, t_max, cull,
+                                       any_hit, counters=counters)
+
+        ms = _time_ms(launcher(False)[0], 50)
+        launch, rec = launcher(True)
+        launch()
+        live = _live_rays(o.shape[0], t_min, t_max)
+        bound = _bound(name, rec, live, tri_base=pid.long().repeat_interleave(
+            block) * records_per_treelet)
+        per_round.append({"ms": ms,
+                          "treelets": int(torch.unique(pid).numel()),
+                          **bound})
+        totals["ms"] += ms
+        for key in ("bound_ms", "bytes_ms", "ops_ms", "bytes", "ops"):
+            totals[key] += bound[key]
+        # The trace as one function: the padded tail of the last packet is
+        # no ray of it.
+        if union is None:
+            union = {"counters": rec["counters"][:n_rays].to(torch.int64),
+                     "seen_nodes": rec["seen_nodes"],
+                     "seen_records": rec["seen_records"]}
+        else:
+            union["counters"] += rec["counters"][:n_rays]
+            union["seen_nodes"] |= rec["seen_nodes"]
+            union["seen_records"] |= rec["seen_records"]
+    if not any_hit:
+        union["tri"] = final["tri"]  # ids over the whole stack
+    whole = _bound(name, union, _live_rays(n_rays, rays[2], rays[3]))
+    plain = kp.plain_round(tt, cull, any_hit)
+    plain_ms = _time_ms(lambda: treelets_lib.trace_treelets(
+        tt, *subset, cull, any_hit, trace_fn=plain), 1)
+    bound_by = ("bytes" if totals["bytes_ms"] >= totals["ops_ms"]
+                else "operations")
+    print(f"{name}: {n_rays} rays, {tt.count} treelets, {len(recorded)} "
+          f"rounds of one trace, kernel {totals['ms']:.4f} ms summed over "
+          f"the rounds; plain {plain_ms:.4f} ms for one trace of "
+          f"{subset[0].shape[0]} rays (a strided subset) through the "
+          f"scheduler; bound {totals['bound_ms']:.4f} ms summed over the "
+          f"rounds, by {bound_by} ({totals['bytes']:.4e} B, "
+          f"{totals['ops']:.4e} fp32 ops)")
+    print("  the trace as one function: " + _bound_text(whole))
+    for i, r in enumerate(per_round):
+        print(f"  round {i}: {r['live_rays']} live rays on {r['treelets']} "
+              f"treelets, kernel {r['ms']:.4f} ms; " + _bound_text(r))
+    return {"ms": totals["ms"], "plain_ms": plain_ms,
+            "plain_rays": subset[0].shape[0], "rays": n_rays,
+            "bound_ms": totals["bound_ms"], "bound_by": bound_by,
+            "trace_bound_ms": whole["bound_ms"],
+            "trace_bound_by": whole["bound_by"], "rounds": len(recorded)}
+
+
+def _profiled_steps(fn) -> tuple:
+    """Run `fn()` under a host-only torch.profiler window: (its result, its
+    host seconds, {step: host seconds} of the `prepare_scene.*`,
+    `prepare_tables.*` and `instances.*` ranges)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from steeljax_torch.apps import kernel_parity
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    steps = {evt.key: evt.cpu_time_total / 1e6 for evt in prof.key_averages()
+             if evt.key.startswith(("prepare_scene.", "prepare_tables.",
+                                    "instances."))}
+    return out, total, steps
 
-    scenes = {}
-    for name in kernel_parity.PATH_SCENES + kernel_parity.FOLIAGE_SCENES:
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            t0 = time.perf_counter()
-            scenes[name] = kernel_parity.prepare_path_scene(name, device)
-            total = time.perf_counter() - t0
-        steps = {evt.key.split(".", 1)[1]: evt.cpu_time_total / 1e6
-                 for evt in prof.key_averages()
-                 if evt.key.startswith(("prepare_scene.", "prepare_tables."))}
+
+def _steps_text(steps: dict) -> str:
+    return ", ".join(f"{k.split('.', 1)[1]} {v:.3f}" for k, v in steps.items())
+
+
+def _describe_tables(tables) -> str:
+    from steeljax_torch.accel.instances import InstancedTables
+
+    if isinstance(tables, InstancedTables):
+        return (f"{tables.instance_count} instances of "
+                f"{len(tables.blas_tri_offset)} BLAS, "
+                f"{tables.tris_packed.shape[0] * 12} pooled records, "
+                f"{tables.snode_rows.shape[0]} supernode rows ("
+                f"{tables.n_tlas} of the TLAS), two-level depth "
+                f"{tables.depth}, shade mode {tables.shade_mode}")
+    chunk = tables.chunks[0]
+    if tables.treelets is not None:
+        tt = tables.treelets
+        return (f"{chunk.rows} padded, {tt.count} treelets of at most "
+                f"{tt.node_stack.shape[1]} BVH8 rows and "
+                f"{tt.tri_stack.shape[1] * 12} records, BVH8 depth "
+                f"{tt.depth}, shade mode {tables.shade_mode}, alpha masked "
+                f"{tables.alpha_masked}")
+    return (f"{chunk.rows} padded, {chunk.bvh8.rows.shape[0]} BVH8 rows, "
+            f"BVH8 depth {chunk.bvh8.depth}, shade mode {tables.shade_mode}, "
+            f"alpha masked {tables.alpha_masked}, multihit_k "
+            f"{tables.multihit_k}, fine mask rows "
+            f"{chunk.fine_mask_rows is not None}")
+
+
+def phase_prepare(device) -> tuple[dict, dict, dict]:
+    """Prepare paths L, T, F, S, F with multihit_k = 4, U and UL through
+    prepare_scene, and paths I and J through PathTracingRenderer(
+    instancing=True), each under a host-only torch.profiler window that
+    reads the host seconds of its steps.  Each instanced path is then
+    edited (one entity moved), refreshed through refresh_scene() with the
+    seconds of that re-preparation, and put back.  Returns ({name: (scene,
+    flat, tables)}, {name: renderer} of the instanced paths, {name: host
+    seconds of the preparation})."""
+    from steeljax_torch.apps import kernel_parity
+    from steeljax_torch.core.config import RenderConfig
+    from steeljax_torch.render.pt.renderer import PathTracingRenderer
+
+    scenes, renderers, seconds = {}, {}, {}
+    for name in (kernel_parity.PATH_SCENES + kernel_parity.FOLIAGE_SCENES
+                 + kernel_parity.TREELET_SCENES):
+        scenes[name], seconds[name], steps = _profiled_steps(
+            lambda: kernel_parity.prepare_path_scene(name, device))
         _, flat, tables = scenes[name]
-        chunk = tables.chunks[0]
         print(f"prepare_scene {name}: {flat.source_tri_count} triangles, "
-              f"{chunk.rows} padded, {chunk.bvh8.rows.shape[0]} BVH8 rows, "
-              f"BVH8 depth {chunk.bvh8.depth}, shade mode "
-              f"{tables.shade_mode}, alpha masked {tables.alpha_masked}, "
-              f"multihit_k {tables.multihit_k}, fine mask rows "
-              f"{chunk.fine_mask_rows is not None}, {total:.3f} s (scene "
-              "construction included): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
-    return scenes
+              f"{_describe_tables(tables)}, {seconds[name]:.3f} s (scene "
+              f"construction included): {_steps_text(steps)}")
+
+    config = RenderConfig(width=WIDTH, height=HEIGHT)
+    for name in kernel_parity.INSTANCED_SCENES:
+        scene = kernel_parity.make_path_scene(name)
+        renderer, seconds[name], steps = _profiled_steps(
+            lambda: PathTracingRenderer(scene, WIDTH, HEIGHT, config,
+                                        instancing=True, device=device))
+        renderers[name] = renderer
+        first = renderer.tables
+        scenes[name] = (scene, renderer.flat, first)
+        print(f"PathTracingRenderer(instancing=True) {name}: "
+              f"{renderer.flat.source_tri_count} triangles when flattened, "
+              f"{_describe_tables(first)}, {seconds[name]:.3f} s (the "
+              f"renderer's prepare_scene): {_steps_text(steps)}")
+        # An edit and its re-preparation, then the scene as it was.
+        entity = scene.entities[scene.renderable_entities()[-1]]
+        before = entity.local_transform
+        builds = renderer._accel.blas_builds
+        kernel_parity.move_entity(scene)
+        _, again, steps = _profiled_steps(renderer.refresh_scene)
+        edited = renderer.tables
+        if renderer._accel.blas_builds != builds or \
+                edited.tris_packed is not first.tris_packed or \
+                torch.equal(edited.inst_trace, first.inst_trace):
+            raise RuntimeError(f"{name}: the re-preparation after an edit "
+                               "rebuilt a BLAS or changed nothing")
+        print(f"  refresh_scene() after moving one entity: {again:.4f} s "
+              f"against {seconds[name]:.3f} s, {builds} BLAS built before "
+              f"and after, the same triangle tensor: {_steps_text(steps)}")
+        entity.local_transform = before
+        scene.revision += 1
+        renderer.refresh_scene()
+        if not torch.equal(renderer.tables.inst_trace, first.inst_trace):
+            raise RuntimeError(f"{name}: the scene put back gives other "
+                               "instance rows")
+        scenes[name] = (scene, renderer.flat, renderer.tables)
+    return scenes, renderers, seconds
 
 
 def phase_parity(device, scenes) -> dict:
@@ -314,7 +571,7 @@ def phase_parity(device, scenes) -> dict:
             chunk.shade_packed, 1)
     kernels["K1"].update(_timed_kernel(
         "K1", lambda counters: ct.kernel_launcher(*args, counters=counters),
-        lambda: ct.trace_nearest_bvh8_plain(*args), o.shape[0],
+        lambda: ct.trace_nearest_bvh8_plain(*args), (o, d, tmn, tmx),
         o.shape[0]))
     kernels["K1"]["shapes"] = "Cornell primary rays, 1280x720"
 
@@ -331,7 +588,7 @@ def phase_parity(device, scenes) -> dict:
             name, lambda counters: ct.anyhit_launcher(
                 bvh8, tris, *rays, dense=dense, counters=counters),
             lambda: ct.trace_any_bvh8_plain(bvh8, tris, *subset, dense),
-            rays[0].shape[0], subset[0].shape[0]))
+            rays, subset[0].shape[0]))
         kernels[name]["shapes"] = ("path L first-bounce shadow rays, "
                                    "1280x720")
 
@@ -346,7 +603,7 @@ def phase_parity(device, scenes) -> dict:
             *args, *rays, True, chunk.shade_packed, 2, counters=counters),
         lambda: ct.trace_nearest_bvh8_plain(*args, *subset, True,
                                             chunk.shade_packed, 2),
-        rays[0].shape[0], subset[0].shape[0]))
+        rays, subset[0].shape[0]))
     kernels["K3"]["shapes"] = "path T primary rays, 1280x720"
 
     # K4, K4_anyhit and K5 on path F: its primaries, and for the any-hit
@@ -364,7 +621,7 @@ def phase_parity(device, scenes) -> dict:
             *args, *rays, True, None, 0, counters=counters, **kw),
         lambda: ct.trace_nearest_bvh8_plain(*args, *subset, True, None, 0,
                                             **kw),
-        rays[0].shape[0], subset[0].shape[0]))
+        rays, subset[0].shape[0]))
     kernels["K4"]["shapes"] = ("path F primary rays, 1280x720, coarse and "
                                "fine masks")
     k_hits = kp.FOLIAGE_MULTIHIT_K
@@ -373,7 +630,7 @@ def phase_parity(device, scenes) -> dict:
             *args, *rays, k_hits, True, counters=counters, **kw),
         lambda: ct.trace_multihit_bvh8_plain(*args, *subset, k_hits, True,
                                              **kw),
-        rays[0].shape[0], subset[0].shape[0]))
+        rays, subset[0].shape[0]))
     kernels["K5"]["shapes"] = (f"path F primary rays, 1280x720, K = "
                                f"{k_hits}, coarse and fine masks")
     shadow = kp.foliage_shadow_case(scene, flat, tables, WIDTH, HEIGHT)
@@ -381,9 +638,112 @@ def phase_parity(device, scenes) -> dict:
         "K4_anyhit", lambda counters: ct.anyhit_launcher(
             *args, *shadow, counters=counters, **kw),
         lambda: ct.trace_any_bvh8_plain(*args, *cases["shadow"], **kw),
-        shadow[0].shape[0], cases["shadow"][0].shape[0]))
+        shadow, cases["shadow"][0].shape[0]))
     kernels["K4_anyhit"]["shapes"] = ("path F first-bounce sun rays, "
                                       "1280x720, coarse and fine masks")
+    kernels.update(_k6_k7_kernels(device, scenes, var, max_err))
+    return kernels
+
+
+def _k6_k7_kernels(device, scenes, var, max_err) -> dict:
+    """The entries of the two-level kernel K6 and the treelet kernel K7:
+    parity errors of their variants, and their times alone at their paths'
+    shapes.  K6 in shade mode 1 and its any-hit query on path I's primaries
+    and first-bounce shadow rays, K6 in mode 2 ("K6_shade2") on path J's
+    primaries; K7 in mode 2 on path U's primaries, in mode 1 ("K7_shade1")
+    and as the any-hit query on path UL's primaries and shadow rays.  Each
+    entry's error comes from variants of its own mode, the path's own rays
+    and tables among them (K7_shade1: treelets_shade1 on the soup and
+    treelets_lit_primary on path UL's primaries; K7_anyhit: treelets_anyhit
+    and treelets_shadow on path UL's first-bounce shadow rays)."""
+    from steeljax_torch.accel import cuda_traverse as ct
+    from steeljax_torch.apps import kernel_parity as kp
+
+    fused = ("max_t_delta", "max_normal_delta", "max_tan_delta",
+             "max_uv_delta", "max_uvd_rel_delta")
+    nearest_tol = ("|dt| < 2e-3, |dn|, |dtan|, |duv| < 5e-3, uv density "
+                   "within 5e-3 relative, 0 material mismatches, hit "
+                   "mismatches <= max(2, N/5000)")
+    flags_tol = "hit mismatches <= max(2, N/5000)"
+
+    def flags(names):
+        return {"max_abs_err": float(max(var[n]["hit_mismatches"] > 0
+                                         for n in names)),
+                "mismatches": {n: var[n]["hit_mismatches"] for n in names},
+                "tolerance": flags_tol}
+
+    kernels = {
+        "K6": {"max_abs_err": max_err(
+            ["instanced_fused", "instanced_shade0", "instanced_primary"],
+            fused), "tolerance": nearest_tol},
+        "K6_shade2": {"max_abs_err": max_err(
+            ["instanced_shade2", "instanced_tex_primary"], fused),
+            "tolerance": nearest_tol},
+        "K6_anyhit": flags(["instanced_anyhit", "instanced_shadow"]),
+        "K7": {"max_abs_err": max_err(
+            ["treelets_shade0", "treelets_alpha_mask", "treelets_shade2",
+             "treelets_primary"], fused),
+            "tolerance": nearest_tol},
+        "K7_shade1": {"max_abs_err": max_err(
+            ["treelets_shade1", "treelets_lit_primary"], fused),
+            "tolerance": nearest_tol},
+        "K7_anyhit": flags(["treelets_anyhit", "treelets_shadow"]),
+    }
+
+    scene, flat, tables = scenes["sunlit_inst"]
+    rays = kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]
+    subset = kp.strided_subset(rays, kp.SHADOW_SUBSET)
+    kernels["K6"].update(_timed_kernel(
+        "K6", lambda counters: ct.inst_launcher(
+            tables, *rays, True, counters=counters),
+        lambda: ct.trace_nearest_bvh8_inst_plain(tables, *subset, True),
+        rays, subset[0].shape[0]))
+    kernels["K6"]["shapes"] = ("path I primary rays, 1280x720, shade mode "
+                               f"1, {tables.instance_count} instances")
+    shadow = kp.sunlit_shadow_case(scene, flat, tables, WIDTH, HEIGHT)
+    subset = kp.strided_subset(shadow, kp.SHADOW_SUBSET)
+    kernels["K6_anyhit"].update(_timed_kernel(
+        "K6_anyhit", lambda counters: ct.inst_launcher(
+            tables, *shadow, False, True, counters=counters),
+        lambda: ct.trace_nearest_bvh8_inst_plain(tables, *subset, False,
+                                                 True),
+        shadow, subset[0].shape[0]))
+    kernels["K6_anyhit"]["shapes"] = ("path I first-bounce shadow rays, "
+                                      "1280x720")
+
+    scene, flat, tables_j = scenes["stress_tex_inst"]
+    rays_j = kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]
+    subset_j = kp.strided_subset(rays_j, kp.TEX_SUBSET)
+    kernels["K6_shade2"].update(_timed_kernel(
+        "K6_shade2", lambda counters: ct.inst_launcher(
+            tables_j, *rays_j, True, counters=counters),
+        lambda: ct.trace_nearest_bvh8_inst_plain(tables_j, *subset_j, True),
+        rays_j, subset_j[0].shape[0]))
+    kernels["K6_shade2"]["shapes"] = (
+        "path J primary rays, 1280x720, shade mode 2, "
+        f"{tables_j.instance_count} instances")
+
+    scene, flat, tables_u = scenes["stress_tex_treelets"]
+    rays_u = kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]
+    kernels["K7"].update(_timed_treelet_trace(
+        "K7", tables_u.treelets, rays_u,
+        kp.strided_subset(rays_u, kp.TEX_SUBSET), True, False))
+    kernels["K7"]["shapes"] = ("path U primary rays, 1280x720, shade mode "
+                               "2, every round of one trace")
+    scene, flat, tables_ul = scenes["sunlit_treelets"]
+    rays_ul = kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]
+    kernels["K7_shade1"].update(_timed_treelet_trace(
+        "K7_shade1", tables_ul.treelets, rays_ul,
+        kp.strided_subset(rays_ul, kp.TEX_SUBSET), True, False))
+    kernels["K7_shade1"]["shapes"] = ("path UL primary rays, 1280x720, "
+                                      "shade mode 1, every round of one "
+                                      "trace")
+    shadow = kp.sunlit_shadow_case(scene, flat, tables_ul, WIDTH, HEIGHT)
+    kernels["K7_anyhit"].update(_timed_treelet_trace(
+        "K7_anyhit", tables_ul.treelets, shadow,
+        kp.strided_subset(shadow, kp.TEX_SUBSET), False, True))
+    kernels["K7_anyhit"]["shapes"] = ("path UL first-bounce shadow rays, "
+                                      "1280x720, every round of one trace")
     return kernels
 
 
@@ -412,16 +772,22 @@ def _png_pixels(path: Path) -> np.ndarray:
 def _kernel_of(key: str) -> str | None:
     """The trace kernel a profiler event belongs to, from the kernel's name
     and the template arguments of its instance (trace8_kernel: ANY_HIT,
-    DENSE, SHADE2, COUNT, ALPHA, FINE)."""
+    DENSE, SHADE2, COUNT, ALPHA, FINE, TREELET; inst8_kernel: ANY_HIT, SHADE,
+    COUNT)."""
     if "multihit8_kernel" in key:
         return "K5"
+    if "inst8_kernel<" in key:
+        any_hit = key.split("inst8_kernel<", 1)[1].split(",", 1)[0]
+        return "K6_anyhit" if any_hit.strip() in ("true", "1") else "K6"
     if "trace8_kernel<" not in key:
         return None
     args = key.split("trace8_kernel<", 1)[1].split(">", 1)[0]
-    flags = [a.strip() == "true" for a in args.split(",")]
-    if len(flags) != 6:
+    flags = [a.strip() in ("true", "1") for a in args.split(",")]
+    if len(flags) != 7:
         return "trace"
-    any_hit, dense, shade2, _, alpha, _ = flags
+    any_hit, dense, shade2, _, alpha, _, treelet = flags
+    if treelet:
+        return "K7_anyhit" if any_hit else "K7"
     if alpha:
         return "K4_anyhit" if any_hit else "K4"
     if any_hit:
@@ -470,10 +836,11 @@ def _profile_frames(run_frame, frames: int = 2) -> dict:
 
 
 def _reset_launches() -> None:
-    from steeljax_torch.accel import cuda_traverse
+    from steeljax_torch.accel import cuda_traverse, treelets
 
-    for name in cuda_traverse.LAUNCHES:
-        cuda_traverse.LAUNCHES[name] = 0
+    for counts in (cuda_traverse.LAUNCHES, treelets.SCHEDULER):
+        for name in counts:
+            counts[name] = 0
 
 
 def drive_path(label, scene, flat, tables, expected: dict,
@@ -487,8 +854,15 @@ def drive_path(label, scene, flat, tables, expected: dict,
     scenes, the rejected-first compaction of every material and shadow
     ray's re-trace); profile 2 more frames.  In alpha-tested scenes print
     the rays still to re-trace before and after each re-trace pass of the
-    first timed frame.  Returns the launches, ms/frame and rays/s."""
-    from steeljax_torch.accel import cuda_traverse
+    first timed frame.  A kernel whose `expected` count is None launches as
+    often as the data asks (the treelet kernel: once per round of the
+    scheduler): it must launch at least once per bounce, and the scheduler
+    must have traced once per material and per shadow trace and read the
+    device's packets-left flag once per round and at most once more per
+    trace; the traces, rounds (the launches) and host reads per frame are
+    printed.  Returns the launches, ms/frame, rays/s, rays per frame and
+    the last frame."""
+    from steeljax_torch.accel import cuda_traverse, treelets
     from steeljax_torch.core import camera as camera_lib
     from steeljax_torch.core.config import RenderConfig
     from steeljax_torch.render.pt import integrator
@@ -531,18 +905,41 @@ def drive_path(label, scene, flat, tables, expected: dict,
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = dict(cuda_traverse.LAUNCHES)
+        scheduler = dict(treelets.SCHEDULER)
     finally:
         integrator.repack_rays = repack
 
     total = 1 + frames
     bounces = config.max_bounce_count
     for name, count in launches.items():
+        if name in expected and expected[name] is None:
+            if count < total * bounces:
+                raise RuntimeError(
+                    f"{label}: {name} launched {count} times over {total} "
+                    f"frames of {bounces} bounces")
+            continue
         want = total * bounces * expected.get(name, 0)
         if count != want:
             raise RuntimeError(f"{label}: {name} launched {count} times "
                                f"over {total} frames, expected {want}")
     repacks = integrator._total_triangles(tables) > integrator.REPACK_MIN_TRIS
     traced = 1 + (flat.light_count > 0)  # material and shadow rays
+    if getattr(tables, "treelets", None) is not None:
+        rounds = launches["K7"] + launches["K7_anyhit"]
+        traces, reads = scheduler["traces"], scheduler["host_reads"]
+        if traces != total * bounces * traced or \
+                not rounds <= reads <= rounds + traces:
+            raise RuntimeError(
+                f"{label}: the treelet scheduler counted {traces} traces "
+                f"and {reads} host reads for {rounds} launches")
+        print(f"{label} treelet scheduler over {total} frames: "
+              f"{traces} traces, rounds (= launches) "
+              + ", ".join(f"{k} {launches[k]}" for k in ("K7", "K7_anyhit"))
+              + f", {reads} host reads of the device's "
+              "packets-left flag (a synchronization each); per frame "
+              f"{traces / total:.1f} traces, {rounds / total:.1f} rounds, "
+              f"{reads / total:.1f} host reads; "
+              f"{rounds / traces:.2f} rounds per trace")
     compacts = (flat.any_alpha_test
                 and integrator._Compaction(tables, WIDTH * HEIGHT).active)
     want_sorts = total * ((bounces - 1 if repacks else 0)
@@ -603,7 +1000,28 @@ def drive_path(label, scene, flat, tables, expected: dict,
         print(f"{label}: torch.profiler recorded no device time: kernel "
               "share and idle share not measured")
     return {"launches": launches, "ms_frame": ms_frame,
-            "rays_per_s": rays_per_s}
+            "rays_per_s": rays_per_s, "rays_frame": sum(per_frame) / frames,
+            "image": image, "scheduler": scheduler}
+
+
+def _same_frame(label, ours: dict, ref_label, ref: dict) -> None:
+    """Hold a path's last frame and rays_traced against the flat path of
+    the same scene (IMAGE_MEAN_RTOL, IMAGE_PIXEL_ATOL, IMAGE_PIXEL_FRACTION,
+    RAYS_RTOL)."""
+    image, flat_image = ours["image"], ref["image"]
+    mean, flat_mean = float(image.mean()), float(flat_image.mean())
+    beyond = float((np.abs(image - flat_image).max(axis=-1)
+                    > IMAGE_PIXEL_ATOL).mean())
+    rays, flat_rays = ours["rays_frame"], ref["rays_frame"]
+    print(f"{label} against {ref_label}: image mean {mean:.6f} vs "
+          f"{flat_mean:.6f}, {100.0 * beyond:.4f}% of the pixels differ by "
+          f"more than {IMAGE_PIXEL_ATOL}, max |delta| "
+          f"{float(np.abs(image - flat_image).max()):.3e}; rays per frame "
+          f"{rays:.0f} vs {flat_rays:.0f}")
+    if abs(mean - flat_mean) > IMAGE_MEAN_RTOL * flat_mean or \
+            beyond > IMAGE_PIXEL_FRACTION or \
+            abs(rays - flat_rays) > RAYS_RTOL * flat_rays:
+        raise RuntimeError(f"{label} does not render {ref_label}'s frame")
 
 
 def phase_cornell(device) -> dict:
@@ -634,10 +1052,13 @@ def phase_cornell(device) -> dict:
 
 def phase_cross_device(device) -> None:
     """32x18 tiles on the card against the port on the CPU: the
-    __graft_entry__ Cornell tile, the lit parity scene, and a small foliage
+    __graft_entry__ Cornell tile, the lit parity scene, a small foliage
     scene (300 serrated leaf cards in a 6 x 6 region, coarse and fine
     masks) seen from inside the canopy, as tests/test_torch_foliage_slice.py
-    renders it."""
+    renders it, and the lit parity scene through the two-level structure
+    and through treelets (cut at 16 triangles, leaf size 8, so that the
+    tile's rays cross several treelets)."""
+    from steeljax_torch.accel.instances import InstancedAccel
     from steeljax_torch.core import camera as camera_lib
     from steeljax_torch.core.config import RenderConfig
     from steeljax_torch.render.pt.integrator import render_pixels
@@ -654,19 +1075,47 @@ def phase_cross_device(device) -> None:
             up=camera_lib.UP)
         return scene
 
+    def flat_tables(scene, dev):
+        flat, tables = prepare_scene(scene, dev, env_resolution=16)
+        chunk = tables.chunks[0]
+        return flat, tables, {"tris_packed": chunk.tris_packed,
+                              "fine_mask_rows": chunk.fine_mask_rows}
+
+    def instanced_tables(scene, dev):
+        flat, tables = prepare_scene(scene, dev, env_resolution=16,
+                                     accel=InstancedAccel(device=dev))
+        return flat, tables, {name: getattr(tables, name) for name in (
+            "snode_rows", "tris_packed", "inst_trace", "shade_rows")}
+
+    def treelet_tables(scene, dev):
+        flat, tables = prepare_scene(scene, dev, env_resolution=16,
+                                     leaf_size=8, treelets=True,
+                                     treelet_tris=16)
+        tt = tables.treelets
+        if tt.count < 4:
+            raise RuntimeError(f"only {tt.count} treelets in the tile's "
+                               "scene")
+        return flat, tables, {name: getattr(tt, name) for name in (
+            "node_stack", "tri_stack", "shade_stack")}
+
     ys, xs = np.meshgrid(np.arange(TILE_H), np.arange(TILE_W), indexing="ij")
     # A diverging pixel may trace up to `per_pixel` rays more or fewer: 4
     # segments, and with a light 4 shadow rays too.
-    for label, make, per_pixel in (
-            ("Cornell", lambda: make_cornell_scene(6), 4),
-            ("parity (lit)", lambda: make_parity_scene(4), 8),
-            ("foliage (alpha)", foliage, 8)):
+    for label, make, prepare, per_pixel in (
+            ("Cornell", lambda: make_cornell_scene(6), flat_tables, 4),
+            ("parity (lit)", lambda: make_parity_scene(4), flat_tables, 8),
+            ("foliage (alpha)", foliage, flat_tables, 8),
+            ("parity (lit, instanced)", lambda: make_parity_scene(4),
+             instanced_tables, 8),
+            ("parity (lit, treelets)", lambda: make_parity_scene(4),
+             treelet_tables, 8)):
         outs = {}
         prepared = {}
+        # One scene for both devices: the two-level structure pools its BLAS
+        # in the order of the primitives' identities.
+        scene = make()
         for dev in (device, "cpu"):
-            scene = make()
-            flat, tables = prepare_scene(scene, dev, env_resolution=16)
-            prepared[str(dev)] = tables.chunks[0]
+            flat, tables, prepared[str(dev)] = prepare(scene, dev)
             frame = camera_lib.make_frame(scene.camera_location,
                                           scene.camera_projection)
             result, stats = render_pixels(
@@ -678,8 +1127,8 @@ def phase_cross_device(device) -> None:
                               float(stats["rays_traced"]))
         # Both devices build the same tables (the alpha masks are computed
         # on each device).
-        for name in ("tris_packed", "fine_mask_rows"):
-            a, b = (getattr(prepared[k], name) for k in (str(device), "cpu"))
+        for name in prepared["cpu"]:
+            a, b = (prepared[k][name] for k in (str(device), "cpu"))
             if (a is None) != (b is None) or (
                     a is not None and not torch.equal(a.cpu(), b)):
                 raise RuntimeError(f"{label}: {name} differ between the "
@@ -695,6 +1144,67 @@ def phase_cross_device(device) -> None:
                 abs(gpu_rays - cpu_rays) > per_pixel * diverging:
             raise RuntimeError(f"the card's {label} tile diverges from the "
                                "CPU's")
+
+
+def phase_instanced_edit(device, scenes, renderers, flat_prepare_s) -> None:
+    """Path I's edit: after its frames, one entity moves, the scene's
+    revision is bumped and refresh_scene() re-prepares.  No BLAS may be
+    rebuilt and the triangle tensor must be the same object.  The seconds of
+    the re-preparation are printed beside a flat prepare_scene of the edited
+    scene (and of path L in phase 3a), and the refreshed renderer's frame
+    is held against the flat renderer's."""
+    from steeljax_torch.apps import kernel_parity
+    from steeljax_torch.core.config import RenderConfig
+    from steeljax_torch.render.pt.renderer import (PathTracingRenderer,
+                                                   prepare_scene)
+
+    scene = scenes["sunlit_inst"][0]
+    renderer = renderers["sunlit_inst"]
+    before = renderer.render_frame()
+    builds = renderer._accel.blas_builds
+    tris, rows = renderer.tables.tris_packed, renderer.tables.inst_trace
+    kernel_parity.move_entity(scene)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    renderer.refresh_scene()
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    if renderer._accel.blas_builds != builds:
+        raise RuntimeError("refresh_scene() rebuilt a BLAS")
+    if renderer.tables.tris_packed is not tris:
+        raise RuntimeError("refresh_scene() replaced the triangle tensor")
+    if torch.equal(renderer.tables.inst_trace, rows):
+        raise RuntimeError("refresh_scene() left the instance rows as they "
+                           "were")
+    if renderer.state.index != 0:
+        raise RuntimeError("refresh_scene() kept the accumulation")
+    t0 = time.perf_counter()
+    prepared = prepare_scene(scene, device, env_resolution=64)
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t0
+    print(f"path I edit: refresh_scene() {refresh_s:.4f} s "
+          f"({renderer.tables.instance_count} instances, {builds} BLAS "
+          "built before and after, the same triangle tensor); a flat "
+          f"prepare_scene of the edited scene {flat_s:.3f} s, path L's in "
+          f"phase 3a {flat_prepare_s:.3f} s")
+    after = renderer.render_frame()
+    flat_frame = PathTracingRenderer(
+        scene, WIDTH, HEIGHT, RenderConfig(width=WIDTH, height=HEIGHT),
+        prepared=prepared, device=device).render_frame()
+    moved = float(np.abs(after - before).max())
+    beyond = float((np.abs(after - flat_frame).max(axis=-1)
+                    > IMAGE_PIXEL_ATOL).mean())
+    print(f"path I edit: the refreshed frame differs from the frame before "
+          f"by up to {moved:.3f}; against the flat renderer's frame of the "
+          f"edited scene mean {float(after.mean()):.6f} vs "
+          f"{float(flat_frame.mean()):.6f}, {100.0 * beyond:.4f}% of the "
+          f"pixels beyond {IMAGE_PIXEL_ATOL} (display values)")
+    if moved <= IMAGE_PIXEL_ATOL:
+        raise RuntimeError("the edit does not show in the refreshed frame")
+    if abs(float(after.mean()) - float(flat_frame.mean())) > \
+            IMAGE_MEAN_RTOL * float(flat_frame.mean()) or \
+            beyond > IMAGE_PIXEL_FRACTION:
+        raise RuntimeError("the refreshed frame is not the flat renderer's")
 
 
 def main() -> int:
@@ -715,8 +1225,9 @@ def main() -> int:
 
     smi = phase("1. device and toolchain", phase_device)
     phase("2. build", phase_build)
-    scenes = phase("3a. prepare paths L, T, F, S and F multihit",
-                   phase_prepare, device)
+    scenes, renderers, prepare_s = phase(
+        "3a. prepare paths L, T, F, S, F multihit, U, UL, I and J",
+        phase_prepare, device)
     kernels = phase("3b. parity and kernel times", phase_parity, device,
                     scenes)
     cornell = phase("4. Cornell main path", phase_cornell, device)
@@ -738,6 +1249,26 @@ def main() -> int:
                     "path F multihit", *scenes["foliage_multihit"],
                     {"K5": alpha_passes})
     phase("8. cross-device tiles", phase_cross_device, device)
+
+    def against(title, label, name, expected, ref_label, ref):
+        def run():
+            out = drive_path(label, *scenes[name], expected)
+            _same_frame(label, out, ref_label, ref)
+            return out
+        return phase(title, run)
+
+    path_i = against("9a. path I (sunlit stress, instanced)", "path I",
+                     "sunlit_inst", {"K6": 1, "K6_anyhit": 1}, "path L",
+                     path_l)
+    phase("9a. path I, edit and refresh_scene()", phase_instanced_edit,
+          device, scenes, renderers, prepare_s["sunlit"])
+    path_j = against("9b. path J (textured stress, instanced)", "path J",
+                     "stress_tex_inst", {"K6": 1}, "path T", path_t)
+    path_u = against("10a. path U (textured stress, treelets)", "path U",
+                     "stress_tex_treelets", {"K7": None}, "path T", path_t)
+    path_ul = against("10b. path UL (sunlit stress, treelets)", "path UL",
+                      "sunlit_treelets", {"K7": None, "K7_anyhit": None},
+                      "path L", path_l)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
 
@@ -748,9 +1279,17 @@ def main() -> int:
                 "K4": path_f["launches"]["K4"],
                 "K4_anyhit": max(p["launches"]["K4_anyhit"] for p in (
                     path_f, path_s, path_fm)),
-                "K5": path_fm["launches"]["K5"]}
+                "K5": path_fm["launches"]["K5"],
+                "K6": path_i["launches"]["K6"],
+                "K6_shade2": path_j["launches"]["K6"],
+                "K6_anyhit": path_i["launches"]["K6_anyhit"],
+                "K7": path_u["launches"]["K7"],
+                "K7_shade1": path_ul["launches"]["K7"],
+                "K7_anyhit": path_ul["launches"]["K7_anyhit"]}
     sources = {k: "steeljax_torch/csrc/traverse8.cu" for k in launches}
     sources["K5"] = "steeljax_torch/csrc/multihit8.cu"
+    for k in ("K6", "K6_shade2", "K6_anyhit"):
+        sources[k] = "steeljax_torch/csrc/instanced8.cu"
     titles = {
         "K1": "K1 trace_nearest8 (BVH8 nearest hit, cull, shade mode 1)",
         "K2": "K2 trace_any8 (BVH8 any-hit occlusion, 12-record rows)",
@@ -761,7 +1300,19 @@ def main() -> int:
               "fine)",
         "K4_anyhit": "K4 trace_any8 (any-hit occlusion with alpha masks)",
         "K5": "K5 trace_multihit8 (K nearest hits with alpha masks and the "
-              "opaque bound)"}
+              "opaque bound)",
+        "K6": "K6 trace_inst8 (two-level TLAS/BLAS nearest hit, shade mode "
+              "1; launches on path I)",
+        "K6_shade2": "K6 trace_inst8 (two-level nearest hit, textured shade "
+                     "mode 2; launches on path J)",
+        "K6_anyhit": "K6 trace_inst8 (two-level any-hit occlusion)",
+        "K7": "K7 trace_treelet8 (treelet rounds, nearest hit, shade mode 2; "
+              "launches on path U; ms and bound summed over the rounds of "
+              "one trace)",
+        "K7_shade1": "K7 trace_treelet8 (treelet rounds, nearest hit, shade "
+                     "mode 1; launches on path UL)",
+        "K7_anyhit": "K7 trace_treelet8 (treelet rounds, any-hit "
+                     "occlusion; launches on path UL)"}
     replaces = {
         "K1": "steeljax/accel/pallas_traverse.py:249",
         "K2": "steeljax/accel/pallas_traverse.py:506",
@@ -769,7 +1320,13 @@ def main() -> int:
         "K3": "steeljax/accel/pallas_traverse.py:548",
         "K4": "steeljax/accel/pallas_traverse.py:457",
         "K4_anyhit": "steeljax/accel/pallas_traverse.py:506",
-        "K5": "steeljax/accel/pallas_traverse.py:812"}
+        "K5": "steeljax/accel/pallas_traverse.py:812",
+        "K6": "steeljax/accel/pallas_traverse.py:1283",
+        "K6_shade2": "steeljax/accel/pallas_traverse.py:1568",
+        "K6_anyhit": "steeljax/accel/pallas_traverse.py:1524",
+        "K7": "steeljax/accel/pallas_traverse.py:1252",
+        "K7_shade1": "steeljax/accel/pallas_traverse.py:1252",
+        "K7_anyhit": "steeljax/accel/pallas_traverse.py:1252"}
     print(json.dumps({"kernels": [{
         "name": titles[k], "route": "cuda", "source": sources[k],
         "replaces": replaces[k], "launches": launches[k],
@@ -777,6 +1334,7 @@ def main() -> int:
         "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"],
         "bound_ms": kernels[k]["bound_ms"],
         "bound_by": kernels[k]["bound_by"], "library_ms": None,
+        "trace_bound_ms": kernels[k].get("trace_bound_ms"),
         "tolerance": kernels[k]["tolerance"],
         "shapes": kernels[k]["shapes"], "rays": kernels[k]["rays"],
         "plain_rays": kernels[k]["plain_rays"]}

@@ -1,6 +1,6 @@
 """BVH construction on the host: binned object SAH, leaf alignment, BVH8.
 
-Port of steeljax/accel/bvh.py:28-351.  The arrays are built by the same
+Port of steeljax/accel/bvh.py:28-387.  The arrays are built by the same
 numpy code and the same C++ builder (native.build_bvh_sah), so they equal
 the reference's.  Node format:
 
@@ -209,3 +209,39 @@ def collapse_bvh8(nodes: np.ndarray, max_leaf: int,
     finally:
         sys.setrecursionlimit(old_limit)
     return np.stack(rows), depth
+
+
+def subtree_tri_ranges(nodes: np.ndarray) -> tuple[np.ndarray, np.ndarray,
+                                                   np.ndarray]:
+    """Per-node (count, lo, hi) over the aligned triangle layout.
+
+    The SAH build partitions triangles in place, so every subtree owns a
+    contiguous range of the permuted arrays; after _align_leaves each leaf
+    range is TRI_PER_ROW-aligned.  `hi` is the exclusive row-aligned end of
+    the last leaf.  Iterative post-order (trees reach ~10^5 nodes)."""
+    nodes = np.asarray(nodes)
+    n = len(nodes)
+    count = np.zeros(n, np.int64)
+    lo = np.full(n, np.iinfo(np.int64).max)
+    hi = np.zeros(n, np.int64)
+    is_leaf = nodes[:, 7] > 0
+    stack = [(0, False)]
+    while stack:
+        i, expanded = stack.pop()
+        if is_leaf[i]:
+            start = int(nodes[i, 6])
+            cnt = int(nodes[i, 7])
+            count[i] = cnt
+            lo[i] = start
+            hi[i] = start + -(-cnt // TRI_PER_ROW) * TRI_PER_ROW
+        elif not expanded:
+            left = int(nodes[i, 6])
+            stack.append((i, True))
+            stack.append((left, False))
+            stack.append((left + 1, False))
+        else:
+            left = int(nodes[i, 6])
+            count[i] = count[left] + count[left + 1]
+            lo[i] = min(lo[left], lo[left + 1])
+            hi[i] = max(hi[left], hi[left + 1])
+    return count, lo, hi

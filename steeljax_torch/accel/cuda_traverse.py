@@ -2,16 +2,20 @@
 PyTorch versions.
 
 Port of steeljax/accel/pallas_traverse.py:48-191 (packers), :249-794
-(`_traverse_kernel8`) and :812-1138 (`_multihit_kernel`): the nearest-hit
-query with shade modes 0 and 1 (K1) and 2 (K3), the any-hit occlusion query
-over the 12-record rows or the dense 14-record rows (K2), both queries with
-in-kernel alpha-coverage masks (K4: the coarse mask in the records' AUX
-lane, optionally the fine PASS plane of a parallel int32 row table), and the
-K-nearest multi-hit query (K5).  The kernels are `csrc/traverse8.cu` and
-`csrc/multihit8.cu`, built by native.cuda_library() and called through
-plain C functions.
+(`_traverse_kernel8`), :812-1138 (`_multihit_kernel`), :1149-1261
+(`_trace_packed8_treelet`) and :1283-1801 (`_traverse_kernel8_inst`): the
+nearest-hit query with shade modes 0 and 1 (K1) and 2 (K3), the any-hit
+occlusion query over the 12-record rows or the dense 14-record rows (K2),
+both queries with in-kernel alpha-coverage masks (K4: the coarse mask in the
+records' AUX lane, optionally the fine PASS plane of a parallel int32 row
+table), the K-nearest multi-hit query (K5), the two-level query over an
+instance TLAS and object-space BLAS (K6) and the flat query over one
+treelet per ray packet (K7).  The kernels are `csrc/traverse8.cu` (K1-K4,
+K7), `csrc/multihit8.cu` (K5) and `csrc/instanced8.cu` (K6), built by
+native.cuda_library() and called through plain C functions.
 
-`trace_nearest_bvh8`, `trace_any_bvh8` and `trace_multihit_bvh8` launch
+`trace_nearest_bvh8`, `trace_any_bvh8`, `trace_multihit_bvh8`,
+`trace_nearest_bvh8_inst` and `trace_treelet_round` launch
 their kernel for CUDA tensors and run the plain version only because their
 tensors lie on the CPU; mixed devices raise, and a build or launch failure
 raises — nothing falls back.  Every launch adds one to the kernel's entry in
@@ -46,9 +50,13 @@ MAX_STACK = 256
 # start counting): K1 nearest hit (shade modes 0/1), K3 nearest hit with
 # textured shading (mode 2), K2 any-hit on the 12-record rows, K2_dense
 # any-hit on the dense rows, K4 nearest hit with alpha masks, K4_anyhit
-# any-hit with alpha masks, K5 the K-nearest multi-hit query.
+# any-hit with alpha masks, K5 the K-nearest multi-hit query, K6 the two-level
+# instanced nearest hit (every shade mode), K6_anyhit its any-hit query, K7
+# one treelet round of nearest hits (every shade mode, with or without
+# coarse alpha masks), K7_anyhit a treelet round of occlusion flags.
 LAUNCHES = {"K1": 0, "K2": 0, "K2_dense": 0, "K3": 0, "K4": 0,
-            "K4_anyhit": 0, "K5": 0}
+            "K4_anyhit": 0, "K5": 0, "K6": 0, "K6_anyhit": 0, "K7": 0,
+            "K7_anyhit": 0}
 # The slot counts the multi-hit kernel is compiled for.
 MULTIHIT_K = (2, 4, 8)
 # The telemetry a kernel writes per ray when asked (the reference's
@@ -57,6 +65,12 @@ MULTIHIT_K = (2, 4, 8)
 # mask test and the fine one (0 in the other kernels).
 COUNTERS = ("supernode_pops", "row_bodies", "leaf_pops", "triangle_tests",
             "mask_tests", "fine_tests")
+# The two-level kernel K6's per-ray telemetry: its last two counters are
+# the instances a ray entered (each a ray transform) and, of its supernode
+# pops, those of TLAS rows.
+INST_COUNTERS = COUNTERS[:4] + ("instance_enters", "tlas_pops")
+# Floats per instance row of the two-level tables (instances.INST_COLS).
+INST_COLS = 48
 # The plain versions keep each ray chunk's (rays x records) intermediates
 # near this many bytes: 256 MiB on the host, 4 GiB on the card, whose 80 GB
 # let the brute force over a million records take a dozen rays at a time.
@@ -367,13 +381,20 @@ def _telemetry(n: int, bvh8, tris, per_row: int) -> dict:
     (R * per_row,) uint8, 1 for every triangle record some ray tested, and
     for every record whose fine mask words some ray read.  The seen flags
     are set by every launch and never cleared."""
-    device = tris.device
+    rec = _telemetry_sized(n, bvh8.rows.shape[0], tris.shape[0] * per_row,
+                           tris.device)
+    rec["seen_fine"] = torch.zeros_like(rec["seen_records"])
+    return rec
+
+
+def _telemetry_sized(n: int, nodes: int, records: int, device) -> dict:
+    """"counters", "seen_nodes" and "seen_records" of _telemetry for tables
+    of `nodes` supernode rows and `records` triangle records."""
     u8 = dict(dtype=torch.uint8, device=device)
     return {"counters": torch.empty((n, len(COUNTERS)), dtype=torch.int32,
                                     device=device),
-            "seen_nodes": torch.zeros(bvh8.rows.shape[0], **u8),
-            "seen_records": torch.zeros(tris.shape[0] * per_row, **u8),
-            "seen_fine": torch.zeros(tris.shape[0] * per_row, **u8)}
+            "seen_nodes": torch.zeros(nodes, **u8),
+            "seen_records": torch.zeros(records, **u8)}
 
 
 def _ptr(x):
@@ -641,11 +662,23 @@ def trace_nearest_bvh8_plain(bvh8: BVH8, tris_packed: torch.Tensor,
     return rec
 
 
-def _shade_plain(shade_rows, shade_mode, tri, u, v, det) -> dict:
+def rotate(m, vec):
+    """Row-major 3x3 matrices m (N, 9) applied to vec (N, 3), in the
+    kernel's order of sums."""
+    return torch.stack([m[:, 3 * r] * vec[:, 0] + m[:, 3 * r + 1] * vec[:, 1]
+                        + m[:, 3 * r + 2] * vec[:, 2] for r in range(3)],
+                       dim=-1)
+
+
+def _shade_plain(shade_rows, shade_mode, tri, u, v, det, inst=None) -> dict:
     """The nearest kernels' epilogue: interpolate the winner's normal at
     (u, v), normalize, flip when det < 0; misses get n = +z and mat 0.  Mode
     2 adds the tangent (normalized, not flipped; +x on a miss), the uv and
-    the uv density (0 on a miss)."""
+    the uv density (0 on a miss).  `inst` ((N, 48), the winners' inst_trace
+    rows, K6) rotates the interpolated object-space normal by the normal
+    matrix and the tangent by the world linear matrix before they are
+    normalized, takes the material id from the row and scales the uv
+    density by the row's 1 / scale."""
     per_row, stride = ((TRI_PER_ROW, SHADE1_STRIDE) if shade_mode == 1
                        else (SHADE2_PER_ROW, SHADE2_STRIDE))
     # Record k of the mode-2 table sits at row (k / 12) * 3 + (k % 12) / 4,
@@ -668,20 +701,29 @@ def _shade_plain(shade_rows, shade_mode, tri, u, v, det) -> dict:
             miss[:, one_at] = 1.0
         return torch.where(hit[:, None], value, miss)
 
-    nrm = on_hit(interp(slice(0, 3), slice(3, 6), slice(6, 9)), one_at=2)
+    nrm = interp(slice(0, 3), slice(3, 6), slice(6, 9))
+    mat = s[:, 9:10]
+    if inst is not None:
+        nrm = rotate(inst[:, 16:25], nrm)
+        mat = inst[:, 14:15]
+    nrm = on_hit(nrm, one_at=2)
     n2 = (nrm * nrm).sum(dim=-1)
     sgn = torch.where(det < 0.0, -1.0, 1.0)
     inv_n = sgn * torch.rsqrt(torch.clamp(n2, min=1e-20))
     out = {"n": nrm * inv_n[:, None],
-           "mat": on_hit(s[:, 9:10])[:, 0].to(torch.int32)}
+           "mat": on_hit(mat)[:, 0].to(torch.int32)}
     if shade_mode == 2:
-        tan = on_hit(interp(slice(10, 13), slice(13, 16), slice(16, 19)),
-                     one_at=0)
+        tan = interp(slice(10, 13), slice(13, 16), slice(16, 19))
+        uvd = s[:, 25:26]
+        if inst is not None:
+            tan = rotate(inst[:, 25:34], tan)
+            uvd = uvd * inst[:, 15:16]
+        tan = on_hit(tan, one_at=0)
         t2 = (tan * tan).sum(dim=-1)
         out["tan"] = tan * torch.rsqrt(torch.clamp(t2, min=1e-20))[:, None]
         out["uv"] = on_hit(interp(slice(19, 21), slice(21, 23),
                                   slice(23, 25)))
-        out["uvd"] = on_hit(s[:, 25:26])[:, 0]
+        out["uvd"] = on_hit(uvd)[:, 0]
     return out
 
 
@@ -773,4 +815,374 @@ def trace_multihit_bvh8_plain(bvh8: BVH8, tris: torch.Tensor,
                                            0.0).T
         out["tri"][:take, s:e] = torch.where(found, best, -1).to(
             torch.int32).T
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: the two-level query over instanced tables (accel.instances)
+# ---------------------------------------------------------------------------
+
+def _inst_tensors(tables, any_hit: bool) -> tuple[dict, int]:
+    """The tensors one two-level trace reads, by name, and its shade mode
+    (occlusion queries skip the fused shading)."""
+    mode = 0 if any_hit else tables.shade_mode
+    if mode not in (0, 1, 2):
+        raise ValueError(f"shade_mode must be 0, 1 or 2, got {mode}")
+    tensors = {"snode_rows": tables.snode_rows,
+               "tris_packed": tables.tris_packed,
+               "inst_trace": tables.inst_trace}
+    if mode:
+        if tables.shade_rows is None:
+            raise ValueError(f"shade_mode {mode} needs shade_rows")
+        tensors["shade_rows"] = tables.shade_rows
+    return tensors, mode
+
+
+def trace_nearest_bvh8_inst(tables, o: torch.Tensor, d: torch.Tensor,
+                            t_min, t_max, cull_backface: bool = True,
+                            any_hit: bool = False) -> dict:
+    """Nearest hit of each ray over instances.InstancedTables (K6); the
+    contract of the reference's trace_nearest_packet8_inst
+    (pallas_traverse.py:1788-1801).
+
+    Returns the record of trace_nearest_bvh8 plus "inst" (N,) int32, the
+    instance hit (-1 on a miss): t is the world ray parameter, tri indexes
+    the pooled BLAS records, u and v are the object-space barycentrics (an
+    affine map keeps them), and in the tables' shade mode 1 or 2 n is the
+    world normal (the interpolated object-space normal times the
+    instance's normal matrix, normalized, flipped where the object-space
+    det < 0), mat the instance's material id, and in mode 2 tan the
+    world tangent (times the world linear matrix, normalized), uv, and uvd
+    the uv density times the instance's 1 / scale.  Facing is decided by
+    object-space winding; a triangle is double-sided when its record or
+    its instance says so.  With any_hit the record holds only "hit": (N,)
+    bool, true when any triangle of any instance is hit (no culling) with
+    t in [t_min, t_max]; a dead ray is never occluded."""
+    tensors, _ = _inst_tensors(tables, any_hit)
+    tensors.update(o=o, d=d)
+    device = _one_device(tensors, t_min, t_max)
+    if device.type == "cuda":
+        launch, rec = inst_launcher(tables, o, d, t_min, t_max,
+                                    cull_backface, any_hit)
+        launch()
+        if not any_hit:
+            rec["hit"] = rec["tri"] >= 0
+        return rec
+    return trace_nearest_bvh8_inst_plain(tables, o, d, t_min, t_max,
+                                         cull_backface, any_hit)
+
+
+def inst_launcher(tables, o, d, t_min, t_max, cull_backface: bool = True,
+                  any_hit: bool = False, counters: bool = False):
+    """The two-level kernel K6's launcher, as kernel_launcher.  rec holds
+    t, u, v, tri, inst and the shading outputs of the tables' mode, or with
+    any_hit only "hit".  counters=True adds "counters" (N, 6) int32, the
+    per-ray telemetry named in INST_COUNTERS, and the flags "seen_nodes"
+    (S,), "seen_records" (R * 12,) and "seen_inst" (I,) of the supernode
+    rows popped, the records tested and the instances entered."""
+    device = o.device
+    tensors, mode = _inst_tensors(tables, any_hit)
+    if device.type != "cuda":
+        raise ValueError(f"the trace kernel needs CUDA tensors, got {device}")
+    for name in ("snode_rows", "tris_packed", "shade_rows"):
+        if name in tensors:
+            _check_table(name, tensors[name], device)
+    inst = tables.inst_trace
+    if (inst.dtype != torch.float32 or inst.dim() != 2
+            or inst.shape[1] != INST_COLS or inst.device != device
+            or not inst.is_contiguous()):
+        raise ValueError(f"inst_trace must be contiguous (I, {INST_COLS}) "
+                         f"float32 on {device}, got {tuple(inst.shape)} "
+                         f"{inst.dtype} on {inst.device}")
+    rows = tables.tris_packed.shape[0]
+    if mode and tables.shade_rows.shape[0] < (1 if mode == 1 else 3) * rows:
+        raise ValueError(f"shade_rows has {tables.shade_rows.shape[0]} rows "
+                         f"for {rows} triangle rows in mode {mode}")
+    if not 1 <= tables.n_tlas <= tables.snode_rows.shape[0]:
+        raise ValueError(f"n_tlas {tables.n_tlas} outside the "
+                         f"{tables.snode_rows.shape[0]} supernode rows")
+    if 8 * tables.depth + 32 > MAX_STACK:
+        raise ValueError(f"two-level depth {tables.depth} needs a stack of "
+                         f"{8 * tables.depth + 32} > {MAX_STACK} entries")
+    o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
+    n = o.shape[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    if any_hit:
+        rec = {"hit": torch.empty(n, dtype=torch.bool, device=device)}
+    else:
+        rec = {"t": torch.empty(n, **f32), "u": torch.empty(n, **f32),
+               "v": torch.empty(n, **f32), "tri": torch.empty(n, **i32),
+               "inst": torch.empty(n, **i32)}
+    if mode:
+        rec["n"] = torch.empty((n, 3), **f32)
+        rec["mat"] = torch.empty(n, **i32)
+    if mode == 2:
+        rec["tan"] = torch.empty((n, 3), **f32)
+        rec["uv"] = torch.empty((n, 2), **f32)
+        rec["uvd"] = torch.empty(n, **f32)
+    if counters:
+        rec.update(_telemetry_sized(n, tables.snode_rows.shape[0],
+                                    rows * TRI_PER_ROW, device))
+        rec["seen_inst"] = torch.zeros(inst.shape[0], dtype=torch.uint8,
+                                       device=device)
+
+    def ptr(name):
+        return rec[name].data_ptr() if name in rec else None
+
+    args = (tables.snode_rows.data_ptr(), tables.tris_packed.data_ptr(),
+            inst.data_ptr(), _ptr(tables.shade_rows if mode else None),
+            o.data_ptr(), d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
+            ptr("t"), ptr("u"), ptr("v"), ptr("tri"), ptr("inst"), ptr("n"),
+            ptr("mat"), ptr("tan"), ptr("uv"), ptr("uvd"), ptr("hit"),
+            ptr("counters"), ptr("seen_nodes"), ptr("seen_records"),
+            ptr("seen_inst"), n, int(tables.n_tlas), inst.shape[0],
+            tables.max_leaf, tables.depth, int(bool(cull_backface)), mode,
+            int(bool(any_hit)))
+    return _launch_fn("K6_anyhit" if any_hit else "K6",
+                      "steeljax_trace_inst8", args,
+                      (*tensors.values(), o, d, tmn, tmx,
+                       *rec.values())), rec
+
+
+def trace_nearest_bvh8_inst_plain(tables, o: torch.Tensor, d: torch.Tensor,
+                                  t_min, t_max, cull_backface: bool = True,
+                                  any_hit: bool = False) -> dict:
+    """Plain version of the two-level kernel K6, same signature and
+    outputs.
+
+    Brute force over the instances in turn: the ray is moved into the
+    instance's object space with the kernel's arithmetic (the inverse 3x4
+    of inst_trace, direction not renormalized, so t stays the world
+    parameter), tested against every record of the instance's BLAS with
+    the per-candidate arithmetic of the flat kernels, and the interval
+    shrinks to the best t so far before the next instance.  It differs
+    from the kernel as trace_nearest_bvh8_plain does from K1."""
+    _, mode = _inst_tensors(tables, any_hit)
+    device = o.device
+    o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
+    n = o.shape[0]
+    pool = tables.tris_packed[:, :TRI_PER_ROW * TRI_STRIDE].reshape(
+        -1, TRI_STRIDE)
+    bounds = list(tables.blas_tri_offset) + [pool.shape[0]]
+    f32 = dict(dtype=torch.float32, device=device)
+    best_t = tmx.clone()
+    best_u = torch.zeros(n, **f32)
+    best_v = torch.zeros(n, **f32)
+    best_det = torch.ones(n, **f32)
+    best_tri = torch.full((n,), -1, dtype=torch.int32, device=device)
+    best_inst = torch.full((n,), -1, dtype=torch.int32, device=device)
+    occluded = torch.zeros(n, dtype=torch.bool, device=device)
+    ox, oy, oz = o.unbind(dim=1)
+    dx, dy, dz = d.unbind(dim=1)
+    for i, blas in enumerate(tables.inst_blas):
+        row = tables.inst_trace[i]
+        first = bounds[blas]
+        rec = pool[first:bounds[blas + 1]]
+        v0 = [rec[:, c] for c in range(0, 3)]
+        e1 = [rec[:, c] for c in range(3, 6)]
+        e2 = [rec[:, c] for c in range(6, 9)]
+        o2 = torch.stack([row[4 * r] * ox + row[4 * r + 1] * oy
+                          + row[4 * r + 2] * oz + row[4 * r + 3]
+                          for r in range(3)], dim=1)
+        d2 = torch.stack([row[4 * r] * dx + row[4 * r + 1] * dy
+                          + row[4 * r + 2] * dz for r in range(3)], dim=1)
+        double_sided = (rec[:, 9] > 0.5) | (row[13] > 0.5)
+        chunk = _chunk_rays(rec.shape[0], False, device)
+        for s in range(0, n, chunk):
+            e = min(s + chunk, n)
+            det, det_ok, u, v, t, inside = _candidates(
+                v0, e1, e2, o2[s:e], d2[s:e], tmn[s:e],
+                tmx[s:e] if any_hit else best_t[s:e])
+            if any_hit:
+                occluded[s:e] |= (det_ok & inside).any(dim=1)
+                continue
+            facing = ((det > DET_EPS) | (double_sided & det_ok)
+                      if cull_backface else det_ok)
+            t_acc = torch.where(facing & inside, t,
+                                torch.full_like(t, float("inf")))
+            found_t, pick = t_acc.min(dim=1)
+            found = torch.isfinite(found_t)
+            col = pick[:, None]
+
+            def take(new, old):
+                return torch.where(found, new, old)
+
+            best_t[s:e] = take(found_t, best_t[s:e])
+            best_u[s:e] = take(u.gather(1, col)[:, 0], best_u[s:e])
+            best_v[s:e] = take(v.gather(1, col)[:, 0], best_v[s:e])
+            best_det[s:e] = take(det.gather(1, col)[:, 0], best_det[s:e])
+            best_tri[s:e] = take((pick + first).to(torch.int32),
+                                 best_tri[s:e])
+            best_inst[s:e] = take(torch.full_like(best_inst[s:e], i),
+                                  best_inst[s:e])
+    if any_hit:
+        return {"hit": occluded}
+    hit = best_tri >= 0
+    out = {"t": torch.where(hit, best_t, -1.0), "tri": best_tri,
+           "u": best_u, "v": best_v, "hit": hit, "inst": best_inst}
+    if mode:
+        rows = tables.inst_trace[best_inst.clamp(min=0).long()]
+        out.update(_shade_plain(tables.shade_rows, mode, best_tri, best_u,
+                                best_v, best_det, inst=rows))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7: one round of the treelet scheduler (accel.treelets)
+# ---------------------------------------------------------------------------
+
+def _treelet_args(tt, pid, o, any_hit: bool, block: int) -> tuple[dict, int]:
+    """Check one treelet round's arguments; returns its tensors by name
+    and its shade mode."""
+    mode = 0 if any_hit else tt.shade_mode
+    if mode not in (0, 1, 2):
+        raise ValueError(f"shade_mode must be 0, 1 or 2, got {mode}")
+    if tt.alpha_mask and mode:
+        raise ValueError("the alpha-masked kernels have no fused shading "
+                         f"(shade_mode {mode})")
+    tensors = {"node_stack": tt.node_stack, "tri_stack": tt.tri_stack,
+               "pid": pid}
+    if mode:
+        if tt.shade_stack is None:
+            raise ValueError(f"shade_mode {mode} needs a shade stack")
+        tensors["shade_stack"] = tt.shade_stack
+    packets = -(-o.shape[0] // block)
+    if (not isinstance(pid, torch.Tensor) or pid.dtype != torch.int32
+            or tuple(pid.shape) != (packets,)):
+        raise ValueError(f"pid must be ({packets},) int32: one treelet id "
+                         f"per packet of {block} rays")
+    return tensors, mode
+
+
+def trace_treelet_round(tt, pid: torch.Tensor, o: torch.Tensor,
+                        d: torch.Tensor, t_min, t_max,
+                        cull_backface: bool = True, any_hit: bool = False,
+                        block: int = 4096) -> dict:
+    """One round of the treelet scheduler (K7), the contract of the
+    reference's _trace_packed8_treelet (pallas_traverse.py:1149-1249):
+    rays [p * block, (p + 1) * block) are traced against treelet pid[p] of
+    treelets.TreeletTables `tt` alone (pid in [0, K)).  Returns the record
+    of trace_nearest_bvh8 with treelet-LOCAL triangle ids (the caller adds
+    the treelet's triangle offset) and the fused shading outputs of
+    tt.shade_mode; the tables' coarse alpha masks are applied when
+    tt.alpha_mask.  With any_hit the record holds only "hit", the
+    occlusion flags (no culling).  A dead ray (t_max < t_min) is rejected
+    at its treelet's root."""
+    tensors, _ = _treelet_args(tt, pid, o, any_hit, block)
+    tensors.update(o=o, d=d)
+    device = _one_device(tensors, t_min, t_max)
+    if device.type == "cuda":
+        launch, rec = treelet_launcher(tt, pid, o, d, t_min, t_max,
+                                       cull_backface, any_hit, block)
+        launch()
+        if not any_hit:
+            rec["hit"] = rec["tri"] >= 0
+        return rec
+    return trace_treelet_round_plain(tt, pid, o, d, t_min, t_max,
+                                     cull_backface, any_hit, block)
+
+
+def treelet_launcher(tt, pid, o, d, t_min, t_max, cull_backface: bool = True,
+                     any_hit: bool = False, block: int = 4096,
+                     counters: bool = False):
+    """The treelet kernel K7's launcher, as kernel_launcher.
+    counters=True adds "counters" (N, 6) int32 (COUNTERS) and the flags
+    "seen_nodes" (K * S,) and "seen_records" (K * R * 12,) over the
+    stacked tables."""
+    device = o.device
+    tensors, mode = _treelet_args(tt, pid, o, any_hit, block)
+    if device.type != "cuda":
+        raise ValueError(f"the trace kernel needs CUDA tensors, got {device}")
+    for name, x in tensors.items():
+        if x.device != device or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {device}")
+    k, node_rows = tt.node_stack.shape[:2]
+    tri_rows = tt.tri_stack.shape[1]
+    for name, x, rows in (("node_stack", tt.node_stack, node_rows),
+                          ("tri_stack", tt.tri_stack, tri_rows),
+                          ("shade_stack", tt.shade_stack if mode else None,
+                           tri_rows * (1 if mode == 1 else 3))):
+        if x is not None and (x.dtype != torch.float32
+                              or tuple(x.shape) != (k, rows, LANES)):
+            raise ValueError(f"{name} must be ({k}, {rows}, {LANES}) "
+                             f"float32, got {tuple(x.shape)} {x.dtype}")
+    if 8 * tt.depth + 16 > MAX_STACK:
+        raise ValueError(f"treelet depth {tt.depth} needs a stack of "
+                         f"{8 * tt.depth + 16} > {MAX_STACK} entries")
+    o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
+    n = o.shape[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    if any_hit:
+        rec = {"hit": torch.empty(n, dtype=torch.bool, device=device)}
+    else:
+        rec = {"t": torch.empty(n, **f32), "u": torch.empty(n, **f32),
+               "v": torch.empty(n, **f32), "tri": torch.empty(n, **i32)}
+    if mode:
+        rec["n"] = torch.empty((n, 3), **f32)
+        rec["mat"] = torch.empty(n, **i32)
+    if mode == 2:
+        rec["tan"] = torch.empty((n, 3), **f32)
+        rec["uv"] = torch.empty((n, 2), **f32)
+        rec["uvd"] = torch.empty(n, **f32)
+    if counters:
+        rec.update(_telemetry_sized(n, k * node_rows,
+                                    k * tri_rows * TRI_PER_ROW, device))
+
+    def ptr(name):
+        return rec[name].data_ptr() if name in rec else None
+
+    args = (tt.node_stack.data_ptr(), tt.tri_stack.data_ptr(),
+            _ptr(tt.shade_stack if mode else None), pid.data_ptr(),
+            o.data_ptr(), d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
+            ptr("t"), ptr("u"), ptr("v"), ptr("tri"), ptr("n"), ptr("mat"),
+            ptr("tan"), ptr("uv"), ptr("uvd"), ptr("hit"), ptr("counters"),
+            ptr("seen_nodes"), ptr("seen_records"), n, block, k, node_rows,
+            tri_rows, tt.max_leaf, tt.depth, int(bool(cull_backface)), mode,
+            int(bool(tt.alpha_mask)), int(bool(any_hit)))
+    return _launch_fn("K7_anyhit" if any_hit else "K7",
+                      "steeljax_trace_treelet8", args,
+                      (*tensors.values(), o, d, tmn, tmx,
+                       *rec.values())), rec
+
+
+def trace_treelet_round_plain(tt, pid: torch.Tensor, o: torch.Tensor,
+                              d: torch.Tensor, t_min, t_max,
+                              cull_backface: bool = True,
+                              any_hit: bool = False,
+                              block: int = 4096) -> dict:
+    """Plain version of the treelet kernel K7, same signature and outputs:
+    the rays of every packet, grouped by treelet, go through the flat
+    kernels' plain versions over that treelet's records (brute force;
+    padding records are all zero and fail the determinant test)."""
+    _, mode = _treelet_args(tt, pid, o, any_hit, block)
+    device = o.device
+    o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
+    n = o.shape[0]
+    ray_pid = pid.long().repeat_interleave(block)[:n]
+    f32 = dict(dtype=torch.float32, device=device)
+    if any_hit:
+        out = {"hit": torch.zeros(n, dtype=torch.bool, device=device)}
+    else:
+        out = {"t": torch.full((n,), -1.0, **f32),
+               "tri": torch.full((n,), -1, dtype=torch.int32, device=device),
+               "u": torch.zeros(n, **f32), "v": torch.zeros(n, **f32),
+               "hit": torch.zeros(n, dtype=torch.bool, device=device)}
+    for treelet in torch.unique(ray_pid).tolist():
+        rays = (ray_pid == treelet).nonzero()[:, 0]
+        args = (None, tt.tri_stack[treelet], o[rays], d[rays], tmn[rays],
+                tmx[rays])
+        if any_hit:
+            out["hit"][rays] = trace_any_bvh8_plain(
+                *args, alpha_mask=tt.alpha_mask)
+            continue
+        rec = trace_nearest_bvh8_plain(
+            *args, cull_backface, tt.shade_stack[treelet] if mode else None,
+            mode, tt.alpha_mask)
+        for key, value in rec.items():
+            if key not in out:
+                out[key] = torch.zeros((n,) + tuple(value.shape[1:]),
+                                       dtype=value.dtype, device=device)
+            out[key][rays] = value
     return out

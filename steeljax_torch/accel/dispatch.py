@@ -1,10 +1,11 @@
 """Trace tables, the nearest-hit query and the any-hit query.
 
 Port of steeljax/accel/dispatch.py:76-135 (ChunkTables/TraceTables),
-:159-306 (prepare_tables), :368-418 (attach_shade_tables), :451-530
-(trace_nearest) and :533-589 (trace_any).  The reference picks its backend
-with a `use_pallas` flag; here the device of the tensors decides
-(cuda_traverse.trace_nearest_bvh8, trace_any_bvh8).  Fused-shading tables
+:159-343 (prepare_tables, _prepare_treelet_tables), :368-418
+(attach_shade_tables), :451-530 (trace_nearest) and :533-589 (trace_any).
+The reference picks its backend with a `use_pallas` flag; here the device
+of the tensors decides (cuda_traverse.trace_nearest_bvh8,
+trace_any_bvh8).  Fused-shading tables
 are always attached for scenes without alpha-tested materials, so the CPU
 runs the same fused path as the card.  Alpha-masked tables carry the
 coarse masks in the triangle records and, unless asked otherwise, the fine
@@ -12,7 +13,9 @@ mask rows on every device (the reference builds those only for the TPU),
 so the CPU and the card run the same kernel instances' arithmetic.
 
 The port traces one chunk.  A scene larger than `max_chunk` raises: the
-multi-chunk sweep is ROADMAP item 13.
+multi-chunk sweep is ROADMAP item 13.  `prepare_tables(treelets=True)`
+builds the streamed-treelet tables instead (accel.treelets, kernel K7), and
+both queries route instances.InstancedTables to the two-level trace (K6).
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ import torch
 
 from torch.profiler import record_function
 
-from steeljax_torch.accel import cuda_traverse
+from steeljax_torch.accel import cuda_traverse, treelets as treelets_lib
 from steeljax_torch.accel.alphamask import MASK_FULL
 from steeljax_torch.accel.bvh import (BVH, BVH8, DENSE_PER_ROW, _align_leaves,
                                       build_bvh, collapse_bvh8)
+from steeljax_torch.accel.instances import (InstancedTables,
+                                            trace_nearest_instanced)
 
 # The reference's chunk size (steeljax/accel/dispatch.py MAX_CHUNK_TRIS):
 # scenes up to this count are one chunk there, and so here.
@@ -37,8 +42,10 @@ MAX_CHUNK_TRIS = 1_900_000
 @dataclasses.dataclass
 class ChunkTables:
     bvh: BVH                   # binary tree (host)
-    bvh8: BVH8                 # supernode rows (device)
-    tris_packed: torch.Tensor  # (R, 128) pack_tris rows (device)
+    # Supernode rows and (R, 128) pack_tris rows (device); both None in the
+    # metadata-only chunk of treelet tables.
+    bvh8: BVH8 | None
+    tris_packed: torch.Tensor | None
     # Fused-shading rows (pack_shade_records in the tables' shade mode),
     # None until attach_shade_tables.
     shade_packed: torch.Tensor | None = None
@@ -64,6 +71,11 @@ class ChunkTables:
 @dataclasses.dataclass
 class TraceTables:
     chunks: tuple  # tuple[ChunkTables, ...]; one chunk in the port
+    # Streamed-treelet tables (treelets.TreeletTables), set by
+    # prepare_tables(treelets=True); the one chunk then carries metadata
+    # only (binary tree, row count, scene AABB) for the integrator's bounds
+    # and size queries.
+    treelets: treelets_lib.TreeletTables | None = None
     # 0 = trace only; 1 = fuse (normal, mat id) into the kernel; 2 = also
     # (tangent, uv, uv density).
     shade_mode: int = 0
@@ -100,9 +112,17 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
                    leaf_size: int = 24, max_chunk: int | None = None,
                    dense_anyhit: bool = False,
                    tri_alpha_mask: np.ndarray | None = None,
-                   tri_fine_mask: np.ndarray | None = None
+                   tri_fine_mask: np.ndarray | None = None,
+                   treelets: bool = False,
+                   treelet_tris: int = treelets_lib.TREELET_TRIS
                    ) -> tuple[TraceTables, np.ndarray, int]:
     """Build the acceleration tables of one chunk on `device`.
+
+    `treelets` builds the streamed-treelet tables instead (the reference's
+    STEELJAX_TREELETS=1 and prepare_tables(treelets=True), off by default;
+    an argument here, not an environment variable), cut into treelets of at
+    most `treelet_tris` triangles: they carry the coarse masks but neither
+    fine rows nor dense any-hit tables.
 
     `dense_anyhit` also builds the dense any-hit tables, the counterpart of
     the reference's STEELJAX_DENSE_ANYHIT=1 (off by default there and here).
@@ -129,6 +149,9 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
     fine = (np.asarray(tri_fine_mask, np.int32)
             if tri_fine_mask is not None and mask is not None else None)
     dense_anyhit = dense_anyhit and mask is None
+    if treelets:
+        return _prepare_treelet_tables(tri_pos, ds, device, leaf_size, mask,
+                                       treelet_tris)
     if count > max_chunk:
         raise NotImplementedError(
             f"{count} triangles need {-(-count // max_chunk)} chunks of "
@@ -182,6 +205,36 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
             order, padded)
 
 
+def _prepare_treelet_tables(tri_pos, ds, device, leaf_size: int,
+                            mask: np.ndarray | None, max_tris: int
+                            ) -> tuple[TraceTables, np.ndarray, int]:
+    """One global SAH BVH cut into streamed treelets (accel.treelets).  The
+    kept chunk carries metadata only; the kernel reads the per-treelet
+    stacks."""
+    with record_function("prepare_tables.build_bvh"):
+        bvh, order, padded = build_bvh(tri_pos, leaf_size)
+    with record_function("prepare_tables.pack_tris"):
+        permuted_pos, permuted_ds = _permuted(order, padded, tri_pos, ds)
+        permuted_mask = (None if mask is None
+                         else _permute(order, padded, mask, np.uint32(0)))
+        packed = cuda_traverse.pack_tris(permuted_pos, permuted_ds,
+                                         tri_alpha_mask=permuted_mask)
+    with record_function("prepare_tables.build_treelet_tables"):
+        tt = treelets_lib.build_treelet_tables(
+            bvh.nodes, packed, leaf_size, device, max_tris=max_tris)
+        tt = tt.replace(alpha_mask=mask is not None)
+    real_pos = tri_pos.reshape(-1, 3)
+    aabb = (tuple(float(v) for v in real_pos.min(axis=0)),
+            tuple(float(v) for v in real_pos.max(axis=0)))
+    chunk = ChunkTables(
+        bvh=bvh, bvh8=None, tris_packed=None,
+        tri_mask=(None if mask is None else torch.from_numpy(
+            permuted_mask.astype(np.int32)).to(device)),
+        row_offset=0, rows=padded, aabb=aabb)
+    return (TraceTables(chunks=(chunk,), treelets=tt,
+                        alpha_masked=mask is not None), order, padded)
+
+
 def attach_shade_tables(tables: TraceTables, tri_nrm, tri_mat,
                         textured: bool = False, tri_tan=None, tri_uv=None,
                         tri_uvd=None) -> TraceTables:
@@ -191,6 +244,17 @@ def attach_shade_tables(tables: TraceTables, tri_nrm, tri_mat,
     and tri_uv; tri_uvd is the uv density, tri_shade column 27)."""
     tri_nrm = np.asarray(tri_nrm)
     tri_mat = np.asarray(tri_mat)
+    mode = 2 if textured else 1
+    if tables.treelets is not None:
+        # The treelet shade stack, at any treelet size (the reference's
+        # budget for it sizes another chip's memory and is not ported).
+        packed = cuda_traverse.pack_shade_records(
+            tri_nrm, tri_mat, textured, tri_tan=tri_tan, tri_uv=tri_uv,
+            tri_uvd=tri_uvd)
+        return tables.replace(
+            treelets=treelets_lib.attach_shade_stack(tables.treelets, packed,
+                                                     mode),
+            shade_mode=mode)
 
     def part(arr, s):
         return None if arr is None else np.asarray(arr)[s]
@@ -203,8 +267,7 @@ def attach_shade_tables(tables: TraceTables, tri_nrm, tri_mat,
             tri_uv=part(tri_uv, s), tri_uvd=part(tri_uvd, s))
         chunks.append(chunk.replace(shade_packed=torch.from_numpy(packed).to(
             chunk.tris_packed.device)))
-    return tables.replace(chunks=tuple(chunks),
-                          shade_mode=2 if textured else 1)
+    return tables.replace(chunks=tuple(chunks), shade_mode=mode)
 
 
 def _one_chunk(tables: TraceTables) -> ChunkTables:
@@ -214,12 +277,22 @@ def _one_chunk(tables: TraceTables) -> ChunkTables:
     return tables.chunks[0]
 
 
-def trace_nearest(tables: TraceTables, o: torch.Tensor, d: torch.Tensor,
-                  t_min, t_max, cull_backface: bool = True) -> dict:
+def trace_nearest(tables: TraceTables | InstancedTables, o: torch.Tensor,
+                  d: torch.Tensor, t_min, t_max, cull_backface: bool = True
+                  ) -> dict:
     """Nearest hit over the scene's one chunk; the record of
     cuda_traverse.trace_nearest_bvh8, with tri as an index into the permuted
     triangle arrays (-1 on a miss).  Alpha-masked tables trace with their
-    masks (K4)."""
+    masks (K4), instanced tables through the two-level trace (K6, with
+    "inst" in the record and tri indexing the BLAS pool), treelet tables
+    through the treelet scheduler (K7)."""
+    if isinstance(tables, InstancedTables):
+        return trace_nearest_instanced(tables, o, d, t_min, t_max,
+                                       cull_backface=cull_backface)
+    if tables.treelets is not None:
+        return treelets_lib.trace_treelets(tables.treelets, o, d, t_min,
+                                           t_max,
+                                           cull_backface=cull_backface)
     chunk = _one_chunk(tables)
     return cuda_traverse.trace_nearest_bvh8(
         chunk.bvh8, chunk.tris_packed, o, d, t_min, t_max,
@@ -228,11 +301,20 @@ def trace_nearest(tables: TraceTables, o: torch.Tensor, d: torch.Tensor,
         fine_rows=chunk.fine_mask_rows)
 
 
-def trace_any(tables: TraceTables, o: torch.Tensor, d: torch.Tensor,
-              t_min, t_max) -> torch.Tensor:
+def trace_any(tables: TraceTables | InstancedTables, o: torch.Tensor,
+              d: torch.Tensor, t_min, t_max) -> torch.Tensor:
     """Occlusion over the scene's one chunk, (N,) bool: the dense any-hit
     tables when they are attached, else the nearest tables' rows with
-    culling off (and their masks, K4_anyhit, when alpha-masked)."""
+    culling off (and their masks, K4_anyhit, when alpha-masked); instanced
+    and treelet tables through their own any-hit queries."""
+    if isinstance(tables, InstancedTables):
+        return trace_nearest_instanced(tables, o, d, t_min, t_max,
+                                       cull_backface=False,
+                                       any_hit=True)["hit"]
+    if tables.treelets is not None:
+        return treelets_lib.trace_treelets(
+            tables.treelets, o, d, t_min, t_max, cull_backface=False,
+            any_hit=True)["hit"]
     chunk = _one_chunk(tables)
     if chunk.anyhit_tris is not None:
         return cuda_traverse.trace_any_bvh8(

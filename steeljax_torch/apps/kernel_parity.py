@@ -1,4 +1,4 @@
-"""Kernel parity gate for the trace kernels K1 to K5: each CUDA kernel
+"""Kernel parity gate for the trace kernels K1 to K7: each CUDA kernel
 against its plain PyTorch version, on the card.
 
 Port of steeljax/apps/kernel_parity.py for the ported kernels: the inputs
@@ -29,6 +29,21 @@ masks, `foliage_primary`; K5 with K = 4, `foliage_multihit`) and
 first-bounce sun rays (K4 without culling, `foliage_shadow`), each on a
 fixed strided subset, since the brute-force plain version costs O(rays x
 triangles).
+
+The two-level kernel K6 and the treelet kernel K7 have the reference's
+variants (:544-585): `instanced_fused` and `instanced_anyhit` (Cornell at
+sphere detail 8, rays of spread 4) and `treelets_shade0` (the soup cut at
+max_tris = 4096, through the scheduler); besides, `instanced_shade0` and
+`instanced_shade2` (a non-uniformly scaled and a mirrored instance added),
+`treelets_shade1`, `treelets_shade2`, `treelets_anyhit` and
+`treelets_alpha_mask`, and on the paths' own rays `instanced_primary`,
+`instanced_shadow` (path I), `instanced_tex_primary` (path J),
+`treelets_primary` (path U), `treelets_lit_primary` and `treelets_shadow`
+(path UL: K7 in shade mode 1 and its any-hit query).  Fused
+outputs of K6 live in world space per instance, so they are compared
+directly between kernel and plain version where both name the same triangle
+and instance; `inst` is judged like `tri`: it may differ only on exact-t
+ties.
 
 Usage (needs a CUDA card):
     python -m steeljax_torch.apps.kernel_parity [-o parity.json]
@@ -75,12 +90,15 @@ def _numpy(rec):
 
 
 def _compare(name, rec_k, rec_o, tri_pos, results,
-             attrs=None, d=None, atol=2e-3, exact=False):
+             attrs=None, d=None, atol=2e-3, exact=False, direct=False):
     """Record per-field max deltas between kernel and oracle records
     (steeljax/apps/kernel_parity.py:149-222).
 
     tri ids may legitimately differ on exact-tie hits, so geometry parity
-    is judged by |t| and the resolved hit positions, not the id."""
+    is judged by |t| and the resolved hit positions, not the id.  `direct`
+    compares the fused outputs of the two records with each other where
+    both name the same triangle (and instance), for records whose
+    attributes are not world-space per-triangle arrays."""
     rec_k = _numpy(rec_k)
     rec_o = _numpy(rec_o)
     hk = rec_k["hit"]
@@ -134,6 +152,27 @@ def _compare(name, rec_k, rec_o, tri_pos, results,
                 tan_ref = _norm(_interp(attrs["tan"], tri, u, v))
                 entry["max_tan_delta"] = float(np.abs(
                     rec_k["tan"][both] - tan_ref[both]).max())
+        if direct:
+            same = both & (rec_k["tri"] == rec_o["tri"])
+            if "inst" in rec_k:
+                entry["inst_matches_pct"] = float(
+                    (rec_k["inst"][both] == rec_o["inst"][both]).mean()
+                    * 100.0)
+                same &= rec_k["inst"] == rec_o["inst"]
+            for field, key in (("n", "max_normal_delta"),
+                               ("tan", "max_tan_delta"),
+                               ("uv", "max_uv_delta")):
+                if field in rec_k and same.any():
+                    entry[key] = float(np.abs(rec_k[field][same]
+                                              - rec_o[field][same]).max())
+            if "uvd" in rec_k and same.any():
+                ref = rec_o["uvd"][same]
+                entry["max_uvd_rel_delta"] = float(
+                    (np.abs(rec_k["uvd"][same] - ref)
+                     / np.maximum(np.abs(ref), 1.0)).max())
+            if "mat" in rec_k:
+                entry["mat_mismatches"] = int(
+                    (rec_k["mat"][same] != rec_o["mat"][same]).sum())
     # Borderline-grazing rays may flip on fp fusion-order differences
     # between the two programs; tolerate <= 0.02% of rays, record all.
     # Deterministic (non-grazing) variants demand exact agreement.
@@ -144,6 +183,7 @@ def _compare(name, rec_k, rec_o, tri_pos, results,
           and entry.get("max_normal_delta_at_oracle", 0.0) < 5e-3
           and entry.get("mat_mismatches", 0) == 0
           and entry.get("max_uv_delta", 0.0) < 5e-3
+          and entry.get("max_uvd_rel_delta", 0.0) < 5e-3
           and entry.get("max_tan_delta", 0.0) < 5e-3)
     entry["ok"] = bool(ok)
     results[name] = entry
@@ -333,29 +373,54 @@ def prepare_path_scene(name: str, device):
     F and S: make_foliage_scene(cards=500_000), serrated and solid leaves,
     1,000,002 triangles, coarse and fine alpha masks), "foliage_multihit"
     path F prepared with multihit_k = FOLIAGE_MULTIHIT_K (the K-nearest
-    kernel K5 in K4's place)."""
+    kernel K5 in K4's place).  "sunlit_inst" and "stress_tex_inst" are the
+    sunlit and the textured stress scene through the two-level structure
+    (paths I and J: kernel K6 over 310 and 490 instances of three BLAS),
+    "stress_tex_treelets" and "sunlit_treelets" the same scenes prepared
+    with treelets=True (paths U and UL: kernel K7)."""
+    from steeljax_torch.accel.instances import InstancedAccel
     from steeljax_torch.render.pt.renderer import prepare_scene
+
+    scene = make_path_scene(name)
+    flat, tables = prepare_scene(
+        scene, device, env_resolution=64,
+        dense_anyhit=name == "sunlit_dense",
+        multihit_k=FOLIAGE_MULTIHIT_K if name == "foliage_multihit" else 0,
+        accel=(InstancedAccel(device=device) if name in INSTANCED_SCENES
+               else None),
+        treelets=name in TREELET_SCENES)
+    return scene, flat, tables
+
+
+def make_path_scene(name: str):
+    """The scene of one of prepare_path_scene's paths."""
     from steeljax_torch.scene.builtin import (make_foliage_scene,
                                               make_stress_scene,
                                               make_sunlit_stress_scene)
 
-    if name == "stress_tex":
-        scene = make_stress_scene(instances=480, sphere_detail=32,
-                                  textured=True)
-    elif name in FOLIAGE_SCENES:
-        scene = make_foliage_scene(cards=FOLIAGE_CARDS,
-                                   serrated=name != "foliage_solid")
-    else:
-        scene = make_sunlit_stress_scene()
-    flat, tables = prepare_scene(
-        scene, device, env_resolution=64,
-        dense_anyhit=name == "sunlit_dense",
-        multihit_k=FOLIAGE_MULTIHIT_K if name == "foliage_multihit" else 0)
-    return scene, flat, tables
+    if name.startswith("stress_tex"):
+        return make_stress_scene(instances=480, sphere_detail=32,
+                                 textured=True)
+    if name in FOLIAGE_SCENES:
+        return make_foliage_scene(cards=FOLIAGE_CARDS,
+                                  serrated=name != "foliage_solid")
+    return make_sunlit_stress_scene()
+
+
+def move_entity(scene) -> None:
+    """The scene edit of the instanced paths: translate the last renderable
+    entity by 0.5 along y and bump the scene's revision."""
+    entity = scene.entities[scene.renderable_entities()[-1]]
+    moved = np.array(entity.local_transform, np.float32)
+    moved[1, 3] += 0.5
+    entity.local_transform = moved
+    scene.revision += 1
 
 
 PATH_SCENES = ("sunlit", "sunlit_dense", "stress_tex")
 FOLIAGE_SCENES = ("foliage", "foliage_solid", "foliage_multihit")
+INSTANCED_SCENES = ("sunlit_inst", "stress_tex_inst")
+TREELET_SCENES = ("stress_tex_treelets", "sunlit_treelets")
 # The JAX bench's foliage configs (bench.py:189-210).
 FOLIAGE_CARDS = 500_000
 FOLIAGE_MULTIHIT_K = 4
@@ -410,7 +475,7 @@ def foliage_shadow_case(scene, flat, tables, width: int, height: int):
     o, d, near, far, seed = tiled_primary(scene, flat.device, width, height)
     rec = trace_material_ray(flat, tables, o, d, near, far,
                              cull_backface=True)
-    _, tbn = unpack_material(flat, rec, d, shade_rows(flat, rec))
+    _, tbn = unpack_material(flat, rec, d, shade_rows(flat, tables, rec))
     p = o + d * rec["t"][:, None]
     light, _ = sample_light(flat, tbn[2], p, seed)
     so, sd, t_min, t_max = shadow_rays(p, tbn[2], light)
@@ -522,12 +587,245 @@ def _foliage_variants(device, scenes, width, height, variants) -> bool:
     return ok
 
 
+def instanced_case(device, variant: str = "cornell"):
+    """Scene and two-level tables of the instanced variants on `device`:
+    "cornell" is the reference's (Cornell at sphere detail 8, leaf size 24,
+    shade mode 1; its lamp is non-uniformly scaled); "edited" adds a
+    non-uniformly scaled sphere and a mirrored one (negative determinant);
+    "textured" is the small textured stress scene (27 instances, shade mode
+    2) with the same two added.  Returns (scene, tables)."""
+    from steeljax_torch.accel.instances import InstancedAccel
+    from steeljax_torch.scene.builtin import (_trs, make_cornell_scene,
+                                              make_stress_scene)
+    from steeljax_torch.scene.scene import Entity, RenderObject
+
+    if variant == "textured":
+        scene = make_stress_scene(27, 8, textured=True)
+    else:
+        scene = make_cornell_scene(sphere_detail=8)
+    if variant != "cornell":
+        sphere = 2  # make_cornell_scene's primitives: quad, box, sphere
+        scene.add_entity(Entity(
+            name="squashed", render_objects=[RenderObject(sphere, 5)],
+            local_transform=_trs((0.5, 1.0, 0.3), (0, 1, 0), 0.7,
+                                 (1.5, 0.5, 0.8))))
+        scene.add_entity(Entity(
+            name="mirrored", render_objects=[RenderObject(sphere, 4)],
+            local_transform=_trs((-0.8, 1.2, 0.0), None, 0.0,
+                                 (-0.7, 0.7, 0.7))))
+    return scene, InstancedAccel(device=device).prepare(scene)
+
+
+def treelet_soup_case(n_tris: int, device, textured: bool | None = None,
+                      alpha: bool = False):
+    """kernel_parity's soup at leaf size 24 cut into treelets of at most
+    4,096 triangles (kernel_parity.py:568-585): (treelet tables, permuted
+    arrays).
+    `textured` None leaves shade mode 0, else attaches the shade stack of
+    mode 1 (False) or 2 (True); `alpha` bakes alpha_soup_case's random
+    coarse masks into the records."""
+    from steeljax_torch.accel import treelets as treelets_lib
+    from steeljax_torch.accel.alphamask import MASK_FULL
+    from steeljax_torch.accel.bvh import apply_permutation, build_bvh
+    from steeljax_torch.accel.cuda_traverse import (pack_shade_records,
+                                                    pack_tris)
+
+    tris = _soup(n_tris, 1)
+    r = np.random.default_rng(2)
+    ds = r.uniform(size=n_tris) < 0.3
+    arrays = {"pos": tris, "ds": ds,
+              "nrm": _norm(r.normal(size=(n_tris, 3, 3))).astype(np.float32),
+              "tan": _norm(r.normal(size=(n_tris, 3, 3))).astype(np.float32),
+              "uv": r.uniform(size=(n_tris, 3, 2)).astype(np.float32),
+              "mat": r.integers(0, 7, n_tris).astype(np.int32)}
+    if alpha:
+        arrays["mask"] = np.random.default_rng(5).integers(
+            0, MASK_FULL + 1, n_tris).astype(np.uint32)
+    bvh, order, padded = build_bvh(tris, 24)
+    perm = apply_permutation((None, order, padded), arrays)
+    packed = pack_tris(perm["pos"], perm["ds"],
+                       tri_alpha_mask=perm.get("mask"))
+    tt = treelets_lib.build_treelet_tables(bvh.nodes, packed, 24, device,
+                                           max_tris=4096)
+    tt = tt.replace(alpha_mask=alpha)
+    if textured is not None:
+        tt = treelets_lib.attach_shade_stack(tt, pack_shade_records(
+            perm["nrm"], perm["mat"], textured, tri_tan=perm["tan"],
+            tri_uv=perm["uv"]), 2 if textured else 1)
+    return tt, perm
+
+
+def plain_round(tt, cull_backface: bool = True, any_hit: bool = False,
+                block: int | None = None):
+    """A `trace_fn` for treelets.trace_treelets that runs the plain version
+    of the treelet kernel K7 in every round."""
+    from steeljax_torch.accel import cuda_traverse, treelets as treelets_lib
+
+    block = block or treelets_lib.PACKET_RAYS
+
+    def trace(pid, o, d, t_min, t_max):
+        return cuda_traverse.trace_treelet_round_plain(
+            tt, pid, o, d, t_min, t_max, cull_backface, any_hit, block)
+
+    return trace
+
+
+def _instanced_variants(device, n_rays: int, variants) -> bool:
+    """K6 against its plain version: the reference's instanced_fused and
+    instanced_anyhit, and shade modes 0 and 2 over scenes with a
+    non-uniformly scaled and a mirrored instance."""
+    import dataclasses
+
+    from steeljax_torch.accel.cuda_traverse import (
+        trace_nearest_bvh8_inst, trace_nearest_bvh8_inst_plain)
+
+    def both(tables, o, d, t_max, cull, any_hit=False):
+        args = (tables, o, d, 0.001, t_max, cull, any_hit)
+        rec_k = trace_nearest_bvh8_inst(*args)
+        rec_p = trace_nearest_bvh8_inst_plain(*args)
+        torch.cuda.synchronize(device)
+        return rec_k, rec_p
+
+    ok = True
+    for spread, cases in (
+            (4.0, (("cornell", "instanced_fused", 1),
+                   ("edited", "instanced_shade0", 0))),
+            (5.0, (("textured", "instanced_shade2", 2),))):
+        o_np, d_np = _rays(n_rays, 11, spread=spread)
+        o = torch.as_tensor(o_np, device=device)
+        d = torch.as_tensor(d_np, device=device)
+        for variant, name, mode in cases:
+            _, tables = instanced_case(device, variant)
+            if tables.shade_mode != max(mode, 1):
+                raise RuntimeError(f"{name}: shade mode {tables.shade_mode}")
+            if mode == 0:
+                tables = dataclasses.replace(tables, shade_mode=0,
+                                             shade_rows=None)
+            rec_k, rec_p = both(tables, o, d, 1000.0, mode != 0)
+            ok &= _compare(name, rec_k, rec_p, None, variants, direct=True)
+            if variant == "cornell":
+                rec_k, rec_p = both(tables, o, d, 6.0, False, any_hit=True)
+                ok &= _compare_hits("instanced_anyhit", rec_k["hit"],
+                                    rec_p["hit"], variants)
+    return ok
+
+
+def _treelet_variants(device, o, d, n_tris: int, variants) -> bool:
+    """K7 through the scheduler against its plain version in every round:
+    shade modes 0 (the reference's treelets_shade0), 1 and 2, any-hit, and
+    coarse alpha masks, on the soup cut at max_tris = 4096."""
+    from steeljax_torch.accel.treelets import trace_treelets
+
+    ok = True
+    for name, textured, alpha, any_hit in (
+            ("treelets_shade0", None, False, False),
+            ("treelets_shade1", False, False, False),
+            ("treelets_shade2", True, False, False),
+            ("treelets_anyhit", None, False, True),
+            ("treelets_alpha_mask", None, True, False)):
+        tt, perm = treelet_soup_case(n_tris, device, textured=textured,
+                                     alpha=alpha)
+        t_max, cull = (40.0, False) if any_hit else (1000.0, True)
+        rec_k = trace_treelets(tt, o, d, 0.001, t_max, cull, any_hit)
+        rec_p = trace_treelets(tt, o, d, 0.001, t_max, cull, any_hit,
+                               trace_fn=plain_round(tt, cull, any_hit))
+        torch.cuda.synchronize(device)
+        if any_hit:
+            ok &= _compare_hits(name, rec_k["hit"], rec_p["hit"], variants)
+        else:
+            ok &= _compare(
+                name, rec_k, rec_p, perm["pos"], variants,
+                attrs=(None if textured is None else
+                       {k: perm[k] for k in (
+                           ("nrm", "tan", "uv", "mat") if textured
+                           else ("nrm", "mat"))}),
+                d=d.cpu().numpy())
+        variants[name]["treelets"] = tt.count
+    return ok
+
+
+def _k6_k7_path_variants(device, scenes, width, height, variants) -> bool:
+    """K6 and K7 on their paths' own rays, strided subsets: path I's
+    primaries (mode 1) and first-bounce shadow rays (any-hit), path J's
+    primaries (mode 2), and through the scheduler path U's primaries (mode
+    2) and path UL's primaries (mode 1) and first-bounce shadow rays
+    (any-hit)."""
+    from steeljax_torch.accel.cuda_traverse import (
+        trace_nearest_bvh8_inst, trace_nearest_bvh8_inst_plain)
+    from steeljax_torch.accel.treelets import trace_treelets
+
+    ok = True
+    scene, flat, tables = scenes["sunlit_inst"]
+    rays = strided_subset(tiled_primary(scene, device, width, height)[:4],
+                          SHADOW_SUBSET)
+    rec_k = trace_nearest_bvh8_inst(tables, *rays, True)
+    rec_p = trace_nearest_bvh8_inst_plain(tables, *rays, True)
+    torch.cuda.synchronize(device)
+    ok &= _compare("instanced_primary", rec_k, rec_p, None, variants,
+                   direct=True)
+    rays = strided_subset(sunlit_shadow_case(scene, flat, tables, width,
+                                             height), SHADOW_SUBSET)
+    hit_k = trace_nearest_bvh8_inst(tables, *rays, False, True)["hit"]
+    hit_p = trace_nearest_bvh8_inst_plain(tables, *rays, False, True)["hit"]
+    torch.cuda.synchronize(device)
+    ok &= _compare_hits("instanced_shadow", hit_k, hit_p, variants)
+
+    scene, flat, tables = scenes["stress_tex_inst"]
+    rays = strided_subset(tiled_primary(scene, device, width, height)[:4],
+                          TEX_SUBSET)
+    rec_k = trace_nearest_bvh8_inst(tables, *rays, True)
+    rec_p = trace_nearest_bvh8_inst_plain(tables, *rays, True)
+    torch.cuda.synchronize(device)
+    ok &= _compare("instanced_tex_primary", rec_k, rec_p, None, variants,
+                   direct=True)
+
+    scene, flat, tables = scenes["stress_tex_treelets"]
+    tt = tables.treelets
+    rays = strided_subset(tiled_primary(scene, device, width, height)[:4],
+                          TEX_SUBSET)
+    rec_k = trace_treelets(tt, *rays, True)
+    rec_p = trace_treelets(tt, *rays, True, trace_fn=plain_round(tt))
+    torch.cuda.synchronize(device)
+    ok &= _compare("treelets_primary", rec_k, rec_p,
+                   flat.tri_pos.cpu().numpy(), variants,
+                   attrs={"nrm": flat.tri_nrm.cpu().numpy(),
+                          "tan": flat.tri_tan.cpu().numpy(),
+                          "uv": flat.tri_uv.cpu().numpy(),
+                          "mat": flat.tri_mat.cpu().numpy()},
+                   d=rays[1].cpu().numpy())
+    variants["treelets_primary"]["treelets"] = tt.count
+
+    scene, flat, tables = scenes["sunlit_treelets"]
+    tt = tables.treelets
+    rays = strided_subset(tiled_primary(scene, device, width, height)[:4],
+                          SHADOW_SUBSET)
+    rec_k = trace_treelets(tt, *rays, True)
+    rec_p = trace_treelets(tt, *rays, True, trace_fn=plain_round(tt))
+    torch.cuda.synchronize(device)
+    ok &= _compare("treelets_lit_primary", rec_k, rec_p,
+                   flat.tri_pos.cpu().numpy(), variants,
+                   attrs={"nrm": flat.tri_nrm.cpu().numpy(),
+                          "mat": flat.tri_mat.cpu().numpy()},
+                   d=rays[1].cpu().numpy())
+    rays = strided_subset(sunlit_shadow_case(scene, flat, tables, width,
+                                             height), SHADOW_SUBSET)
+    hit_k = trace_treelets(tt, *rays, False, True)["hit"]
+    hit_p = trace_treelets(tt, *rays, False, True,
+                           trace_fn=plain_round(tt, False, True))["hit"]
+    torch.cuda.synchronize(device)
+    ok &= _compare_hits("treelets_shadow", hit_k, hit_p, variants)
+    for name in ("treelets_lit_primary", "treelets_shadow"):
+        variants[name]["treelets"] = tt.count
+    return ok
+
+
 def run(device, n_rays: int = 10240, n_tris: int = 30000,
         width: int = 1280, height: int = 720, scenes: dict | None = None
         ) -> dict:
-    """Every variant of K1 to K5, kernel against plain version, on a CUDA
-    `device`.  `scenes` maps names of PATH_SCENES and "foliage" to their
-    prepare_path_scene results; those not given are built here.  Returns
+    """Every variant of K1 to K7, kernel against plain version, on a CUDA
+    `device`.  `scenes` maps names of PATH_SCENES, "foliage",
+    INSTANCED_SCENES and TREELET_SCENES to their prepare_path_scene
+    results; those not given are built here.  Returns
     {"n_rays", "n_tris", "variants": {...}, "ok"}."""
     from steeljax_torch.accel.cuda_traverse import (trace_any_bvh8,
                                                     trace_any_bvh8_plain,
@@ -601,7 +899,8 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
                            d=cd.cpu().numpy())
 
     scenes = dict(scenes or {})
-    for name in PATH_SCENES + ("foliage",):
+    for name in (PATH_SCENES + ("foliage",) + INSTANCED_SCENES
+                 + TREELET_SCENES):
         if name not in scenes:
             scenes[name] = prepare_path_scene(name, device)
     scene, lflat, ltables = scenes["sunlit"]
@@ -628,6 +927,9 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
 
     all_ok &= _alpha_variants(device, tables, o, d, n_tris, variants)
     all_ok &= _foliage_variants(device, scenes, width, height, variants)
+    all_ok &= _instanced_variants(device, n_rays, variants)
+    all_ok &= _treelet_variants(device, o, d, n_tris, variants)
+    all_ok &= _k6_k7_path_variants(device, scenes, width, height, variants)
     return {"n_rays": n_rays, "n_tris": n_tris, "variants": variants,
             "ok": bool(all_ok)}
 

@@ -4,7 +4,7 @@ PT mode only).
 Renders N accumulated frames of a builtin scene and writes a PNG:
 
     python -m steeljax_torch.apps.render_cli builtin:cornell -o out.png \
-        --size 320x180 --spp 8 --device cuda
+        --size 320x180 --spp 8 --device cuda [--instancing]
 """
 
 from __future__ import annotations
@@ -28,6 +28,9 @@ def main(argv=None) -> int:
                         help="accumulated samples per pixel")
     parser.add_argument("--device", default="cuda",
                         help="render device: cuda (default), cuda:N or cpu")
+    parser.add_argument("--instancing", action="store_true",
+                        help="two-level acceleration structure (per-"
+                             "primitive BLAS + instance TLAS)")
     args = parser.parse_args(argv)
 
     try:
@@ -51,7 +54,8 @@ def main(argv=None) -> int:
 
     renderer = PathTracingRenderer(
         make_cornell_scene(), width, height,
-        RenderConfig(width=width, height=height), device=device)
+        RenderConfig(width=width, height=height),
+        instancing=args.instancing, device=device)
     image = None
     for i in range(args.spp):
         t0 = time.perf_counter()

@@ -13,6 +13,12 @@ Alpha-masked tables come across with their AUX rows, coarse masks and
 kernels; with `fine_masks` (and a `scene` to take the textures from) the
 port builds them here from the permuted arrays, as its own prepare_scene
 does.  Alpha-tested scenes get no fused shade rows.
+
+Instanced tables (the reference's InstancedTables, as
+`InstancedAccel(use_pallas=True).prepare(scene)` packs them on the host,
+fused rows included) and TraceTables with treelet stacks come across too.
+The reference's CPU tables (`use_pallas=False`) carry no fused rows: the
+port then traces in shade mode 0 and shades from the composed rows.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from steeljax_torch.accel.bvh import BVH, BVH8
 from steeljax_torch.accel.cuda_traverse import (pack_fine_mask_rows,
                                                 pack_shade_records)
 from steeljax_torch.accel.dispatch import ChunkTables, TraceTables
+from steeljax_torch.accel.instances import InstancedTables
+from steeljax_torch.accel.treelets import TreeletTables
 from steeljax_torch.scene.flatten import FlatScene
 
 _STATIC_FIELDS = ("light_count", "env_enabled", "env_analytic",
@@ -48,24 +56,38 @@ def _fine_rows(flat, chunk, scene) -> np.ndarray:
     return pack_fine_mask_rows(masks)
 
 
+def _instanced(tables, dev) -> InstancedTables:
+    """The reference's InstancedTables on the port's device."""
+    fused = tables.shade_rows is not None and int(tables.shade_mode) > 0
+    return InstancedTables(
+        snode_rows=dev(tables.snode_rows), tris_packed=dev(tables.tris_packed),
+        inst_trace=dev(tables.inst_trace), inst_shade=dev(tables.inst_shade),
+        blas_shade=dev(tables.blas_shade), n_tlas=int(tables.n_tlas),
+        shade_rows=dev(tables.shade_rows) if fused else None,
+        shade_mode=int(tables.shade_mode) if fused else 0,
+        depth=int(tables.depth), max_leaf=int(tables.max_leaf),
+        aabb_lo=tuple(float(v) for v in np.asarray(tables.aabb_lo)),
+        aabb_hi=tuple(float(v) for v in np.asarray(tables.aabb_hi)),
+        inst_blas=tuple(int(b) for b in tables.inst_blas),
+        blas_tri_offset=tuple(int(t) for t in tables.blas_tri_offset))
+
+
+def _treelets(tt, dev) -> TreeletTables:
+    """The reference's TreeletTables on the port's device."""
+    shade = tt.shade_stack
+    return TreeletTables(
+        node_stack=dev(tt.node_stack), tri_stack=dev(tt.tri_stack),
+        aabb_lo=dev(tt.aabb_lo), aabb_hi=dev(tt.aabb_hi),
+        tri_offsets=dev(tt.tri_offsets),
+        shade_stack=None if shade is None else dev(shade),
+        depth=int(tt.depth), max_leaf=int(tt.max_leaf),
+        shade_mode=int(tt.shade_mode), alpha_mask=bool(tt.alpha_mask),
+        ranges=tuple((int(lo), int(hi)) for lo, hi in tt.ranges))
+
+
 def from_jax_prepared(flat, tables, device: torch.device | str,
                       fine_masks: bool = False, scene=None
-                      ) -> tuple[FlatScene, TraceTables]:
-    if not hasattr(tables, "chunks"):
-        raise NotImplementedError(
-            "instanced tables are not ported yet (ROADMAP item 17)")
-    if getattr(tables, "treelets", None) is not None:
-        raise NotImplementedError(
-            "streamed-treelet tables are not ported yet (ROADMAP item 19)")
-    alpha = bool(getattr(tables, "alpha_masked", False))
-    if fine_masks and alpha and scene is None:
-        raise ValueError("fine masks need the scene's textures")
-    if len(tables.chunks) != 1:
-        raise NotImplementedError(
-            "multi-chunk tables are not ported yet (ROADMAP item 13)")
-    if getattr(tables.chunks[0].bvh8, "width", 8) != 8:
-        raise NotImplementedError("only 8-wide supernode rows are ported")
-
+                      ) -> tuple[FlatScene, TraceTables | InstancedTables]:
     def dev(x):
         return torch.from_numpy(np.array(np.asarray(x))).to(device)
 
@@ -74,8 +96,34 @@ def from_jax_prepared(flat, tables, device: torch.device | str,
     port_flat = FlatScene(
         **{name: dev(getattr(flat, name)) for name in tensor_fields},
         **{name: getattr(flat, name) for name in _STATIC_FIELDS})
+    if not hasattr(tables, "chunks"):
+        return port_flat, _instanced(tables, dev)
 
+    alpha = bool(getattr(tables, "alpha_masked", False))
+    if fine_masks and alpha and scene is None:
+        raise ValueError("fine masks need the scene's textures")
+    if len(tables.chunks) != 1:
+        raise NotImplementedError(
+            "multi-chunk tables are not ported yet (ROADMAP item 13)")
     chunk = tables.chunks[0]
+    if tables.treelets is not None:
+        # The kept chunk carries metadata only.
+        meta = ChunkTables(
+            bvh=BVH(nodes=np.array(np.asarray(chunk.bvh.nodes)),
+                    depth=int(chunk.bvh.depth),
+                    max_leaf=int(chunk.bvh.max_leaf)),
+            bvh8=None, tris_packed=None,
+            tri_mask=(dev(np.asarray(chunk.tri_mask).astype(np.int32))
+                      if alpha else None),
+            row_offset=int(chunk.row_offset), rows=int(chunk.rows),
+            aabb=tuple(tuple(float(v) for v in corner)
+                       for corner in chunk.aabb))
+        return port_flat, TraceTables(
+            chunks=(meta,), treelets=_treelets(tables.treelets, dev),
+            shade_mode=int(tables.shade_mode), alpha_masked=alpha)
+    if getattr(chunk.bvh8, "width", 8) != 8:
+        raise NotImplementedError("only 8-wide supernode rows are ported")
+
     shade = chunk.shade_packed
     mode = int(tables.shade_mode)
     if flat.any_alpha_test:

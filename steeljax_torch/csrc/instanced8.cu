@@ -1,0 +1,471 @@
+// Two-level BVH8 ray traversal for Hopper (sm_90a), one thread per ray: an
+// instance TLAS over object-space BLAS.
+//
+// K6, the counterpart of steeljax/accel/pallas_traverse.py:
+// _traverse_kernel8_inst (:1283, host wrapper _trace_packed8_inst,
+// pallas_call at :1758): nearest hit with shade modes 0, 1 and 2, and
+// any-hit occlusion.  Each instance of the template is specialized at
+// compile time on (ANY_HIT, SHADE, COUNT).
+//
+// Tables, in the reference's formats unchanged (accel/instances.py):
+//   snodes (S, 128) f32: TLAS rows [0, n_tlas), then every BLAS's rows; the
+//     child layout of traverse8.cu, with a third child kind: meta1 < 0 is an
+//     instance (meta0 = instance id).  Leaf children's meta0 index the
+//     record pool, internal children's the unified table.
+//   tris (R, 128) f32: the BLAS records concatenated, 12 per row, in object
+//     space; their double-sided float is 0 (the instance carries the flag).
+//   inst (I, 48) f32: inverse world 3x4 row-major (0:12), BLAS root
+//     supernode (12), double-sided flag (13), material id (14), 1 / uniform
+//     scale (15), normal matrix (16:25), world linear matrix (25:34).
+//   shade: the object-space fused records of traverse8.cu's modes 1 and 2,
+//     addressed by the pool index.
+//
+// One stack serves both levels.  An entry >= 0 is a supernode row: a TLAS
+// row (entry < n_tlas) is slab-tested with the world ray, a BLAS row with
+// the current object-space ray.  An entry < 0 is code = -entry - 1 with
+// code & 1 the kind: 0 a leaf child (code >> 1 = row * 8 + child, its meta
+// re-read at pop time as in traverse8.cu), 1 an instance to enter (code >> 1
+// = instance id).  Entering an instance moves the ray into object space by
+// the instance's inverse 3x4 (the direction is not renormalized, so t is
+// the world parameter on both levels and entry distances of the two levels
+// compare) and pushes the BLAS root.  There is no restore entry: the stack
+// is last-in first-out, so everything an instance pushed is popped before
+// the next TLAS entry, and one object-space copy per thread is enough.
+//
+// The Moller-Trumbore test, the |det| > 1e-12 threshold and the facing test
+// run on the object-space ray, so facing follows object-space winding; a
+// triangle is double-sided when its record or its instance says so.  The
+// winner's attributes are interpolated once, after the walk: the kernel
+// keeps the winner's instance id and det, rotates the interpolated normal
+// by the instance's normal matrix (tangent: world linear matrix) before
+// normalizing, flips the normal where the object-space det < 0, takes the
+// material id from the instance row and scales the uv density by the row's
+// 1 / scale (pallas_traverse.py:1543-1598, :1661-1680).
+//
+// What bounds it on this card: as K1, the latency of dependent table reads
+// and warp divergence; neighbouring rays that enter different instances
+// diverge for a whole BLAS walk.  The tables of an instanced scene are
+// small (one BLAS per primitive), so they stay in L2, and the least time
+// for its work is set by its operations (the slab tests of the TLAS rows a
+// ray pops), not by its bytes.  What the design does
+// about it: far-to-near insertion with pop-time culling on both levels, so
+// instances behind the nearest hit are never entered; the any-hit query
+// keeps no entry distances and leaves at the first accepted candidate.
+//
+// Optional telemetry (COUNT instances): per ray [supernode pops on both
+// levels, triangle-row bodies, leaf pops, triangle tests, instances
+// entered, TLAS supernode pops], and flags of the supernode rows popped,
+// the records tested and the instances entered.
+
+#include "trace8_common.cuh"
+
+using namespace steeljax;
+
+#define INST_COLS 48
+// The instanced stack also holds instance entries: the host requires
+// 8 * depth + 32 <= MAX_STACK with depth = TLAS depth + 1 + deepest BLAS
+// (the reference's bound, pallas_traverse.py:1735).
+#define INST_STACK_SLACK 32
+
+namespace {
+
+struct InstArgs {
+  const float* snodes;
+  const float* tris;
+  const float* inst;
+  const float* shade;
+  const float* o;
+  const float* d;
+  const float* t_min;
+  const float* t_max;
+  float* out_t;
+  float* out_u;
+  float* out_v;
+  int* out_tri;
+  int* out_inst;
+  float* out_n;
+  int* out_mat;
+  float* out_tan;
+  float* out_uv;
+  float* out_uvd;
+  unsigned char* out_hit;
+  int* out_cnt;
+  unsigned char* seen_snode;
+  unsigned char* seen_rec;
+  unsigned char* seen_inst;
+  int n;
+  int n_tlas;
+  int leaf_cap;
+  int cull;
+};
+
+template <bool ANY_HIT, int SHADE, bool COUNT>
+__global__ void __launch_bounds__(128) inst8_kernel(const InstArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+
+  // World ray, and the ray in the current instance's object space.
+  const float ox = a.o[3 * i + 0], oy = a.o[3 * i + 1], oz = a.o[3 * i + 2];
+  const float dx = a.d[3 * i + 0], dy = a.d[3 * i + 1], dz = a.d[3 * i + 2];
+  const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy),
+              inv_dz = safe_inv(dz);
+  float cox = ox, coy = oy, coz = oz, cdx = dx, cdy = dy, cdz = dz;
+  float cinv_dx = inv_dx, cinv_dy = inv_dy, cinv_dz = inv_dz;
+  int cur_inst = -1;
+  bool cur_ds = false;
+  const float tmn = a.t_min[i];
+
+  float best_t = a.t_max[i];
+  float best_u = 0.0f, best_v = 0.0f, best_det = 1.0f;
+  int best_i = -1, best_inst = -1;
+  bool occluded = false;
+  int n_snode = 0, n_rows = 0, n_leaf = 0, n_tests = 0, n_enter = 0,
+      n_tlas_pops = 0;
+
+  int stack_e[MAX_STACK];
+  // Entry distances, for the nearest query's pop-time cull only.
+  float stack_near[ANY_HIT ? 1 : MAX_STACK];
+  int sp = 0;
+  // A dead ray (inverted interval) traces nothing.
+  if (best_t >= tmn) {
+    stack_e[0] = 0;
+    if constexpr (!ANY_HIT) stack_near[0] = -3.0e38f;
+    sp = 1;
+  }
+
+  while (sp > 0) {
+    --sp;
+    const int entry = stack_e[sp];
+    float entry_near = -3.0e38f;
+    if constexpr (!ANY_HIT) {
+      entry_near = stack_near[sp];
+      if (entry_near > best_t) continue;
+    }
+
+    if (entry >= 0) {
+      const bool world = entry < a.n_tlas;
+      if constexpr (COUNT) {
+        ++n_snode;
+        n_tlas_pops += world ? 1 : 0;
+        a.seen_snode[entry] = 1;
+      }
+      const float sox = world ? ox : cox, soy = world ? oy : coy,
+                  soz = world ? oz : coz;
+      const float six = world ? inv_dx : cinv_dx,
+                  siy = world ? inv_dy : cinv_dy,
+                  siz = world ? inv_dz : cinv_dz;
+      const float* row = a.snodes + (size_t)entry * LANES;
+      const int base = sp;
+#pragma unroll
+      for (int c = 0; c < SNODE_WIDTH; ++c) {
+        const float* ch = row + CHILD_STRIDE * c;
+        const float t0x = (__ldg(ch + 0) - sox) * six;
+        const float t1x = (__ldg(ch + 3) - sox) * six;
+        const float t0y = (__ldg(ch + 1) - soy) * siy;
+        const float t1y = (__ldg(ch + 4) - soy) * siy;
+        const float t0z = (__ldg(ch + 2) - soz) * siz;
+        const float t1z = (__ldg(ch + 5) - soz) * siz;
+        const float tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                                  fminf(t0z, t1z));
+        const float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                                 fmaxf(t0z, t1z));
+        const int meta0 = (int)__ldg(ch + 6);
+        const int meta1 = (int)__ldg(ch + 7);
+        if (meta0 >= 0 && tnear <= tfar && tfar >= tmn && tnear <= best_t) {
+          int value = meta0;  // an internal child
+          if (meta1 > 0) {
+            value = -(1 + ((entry * SNODE_WIDTH + c) << 1));
+          } else if (meta1 < 0) {
+            value = -(1 + ((meta0 << 1) | 1));
+          }
+          if constexpr (ANY_HIT) {
+            stack_e[sp++] = value;
+          } else {
+            // Insertion keeps stack[base..sp) sorted by entry distance,
+            // largest at the bottom, so the nearest child is popped first.
+            int j = sp;
+            while (j > base && stack_near[j - 1] < tnear) {
+              stack_e[j] = stack_e[j - 1];
+              stack_near[j] = stack_near[j - 1];
+              --j;
+            }
+            stack_e[j] = value;
+            stack_near[j] = tnear;
+            ++sp;
+          }
+        }
+      }
+      continue;
+    }
+
+    const int code = -entry - 1;
+    if (code & 1) {
+      // Enter an instance: the ray in its object space, then its BLAS root
+      // at the instance's own entry distance.
+      const int iid = code >> 1;
+      const float* m = a.inst + (size_t)iid * INST_COLS;
+      cox = __ldg(m + 0) * ox + __ldg(m + 1) * oy + __ldg(m + 2) * oz +
+            __ldg(m + 3);
+      coy = __ldg(m + 4) * ox + __ldg(m + 5) * oy + __ldg(m + 6) * oz +
+            __ldg(m + 7);
+      coz = __ldg(m + 8) * ox + __ldg(m + 9) * oy + __ldg(m + 10) * oz +
+            __ldg(m + 11);
+      cdx = __ldg(m + 0) * dx + __ldg(m + 1) * dy + __ldg(m + 2) * dz;
+      cdy = __ldg(m + 4) * dx + __ldg(m + 5) * dy + __ldg(m + 6) * dz;
+      cdz = __ldg(m + 8) * dx + __ldg(m + 9) * dy + __ldg(m + 10) * dz;
+      cinv_dx = safe_inv(cdx);
+      cinv_dy = safe_inv(cdy);
+      cinv_dz = safe_inv(cdz);
+      cur_inst = iid;
+      cur_ds = __ldg(m + 13) > 0.5f;
+      if constexpr (COUNT) {
+        ++n_enter;
+        a.seen_inst[iid] = 1;
+      }
+      stack_e[sp] = (int)__ldg(m + 12);
+      if constexpr (!ANY_HIT) stack_near[sp] = entry_near;
+      ++sp;
+      continue;
+    }
+
+    // A leaf of the current instance's BLAS.
+    const int slot = code >> 1;
+    const float* ch = a.snodes + (size_t)(slot / SNODE_WIDTH) * LANES +
+                      CHILD_STRIDE * (slot % SNODE_WIDTH);
+    const int start = (int)__ldg(ch + 6);
+    const int count = min((int)__ldg(ch + 7), a.leaf_cap);
+    int tested = 0;
+    for (int l = 0; l < count; ++l) {
+      const int rec = start + l;
+      const float* r = a.tris + (size_t)(rec / TRI_PER_ROW) * LANES +
+                       TRI_STRIDE * (rec % TRI_PER_ROW);
+      const float v0x = __ldg(r + 0), v0y = __ldg(r + 1), v0z = __ldg(r + 2);
+      const float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
+      const float e2x = __ldg(r + 6), e2y = __ldg(r + 7), e2z = __ldg(r + 8);
+      if constexpr (COUNT) {
+        ++tested;
+        a.seen_rec[rec] = 1;
+      }
+
+      const float px = cdy * e2z - cdz * e2y;
+      const float py = cdz * e2x - cdx * e2z;
+      const float pz = cdx * e2y - cdy * e2x;
+      const float det = e1x * px + e1y * py + e1z * pz;
+      const bool det_ok = fabsf(det) > kDetEps;
+      bool facing = det_ok;
+      if constexpr (!ANY_HIT) {
+        const bool double_sided = cur_ds || __ldg(r + 9) > 0.5f;
+        if (a.cull) facing = det > kDetEps || (double_sided && det_ok);
+      }
+      const float inv_det = 1.0f / (det_ok ? det : 1.0f);
+      const float tx = cox - v0x, ty = coy - v0y, tz = coz - v0z;
+      const float u = (tx * px + ty * py + tz * pz) * inv_det;
+      const float qx = ty * e1z - tz * e1y;
+      const float qy = tz * e1x - tx * e1z;
+      const float qz = tx * e1y - ty * e1x;
+      const float v = (cdx * qx + cdy * qy + cdz * qz) * inv_det;
+      const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+      // t <= best_t: a later candidate wins an exact tie, as in the
+      // reference kernel.
+      if (facing && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= tmn &&
+          t <= best_t) {
+        if constexpr (ANY_HIT) {
+          occluded = true;
+          break;
+        } else {
+          best_t = t;
+          best_u = u;
+          best_v = v;
+          best_i = rec;
+          best_det = det;
+          best_inst = cur_inst;
+        }
+      }
+    }
+    if constexpr (COUNT) {
+      ++n_leaf;
+      n_rows += (tested + TRI_PER_ROW - 1) / TRI_PER_ROW;
+      n_tests += tested;
+    }
+    if constexpr (ANY_HIT) {
+      if (occluded) break;
+    }
+  }
+
+  if constexpr (COUNT) {
+    a.out_cnt[N_COUNTERS * i + 0] = n_snode;
+    a.out_cnt[N_COUNTERS * i + 1] = n_rows;
+    a.out_cnt[N_COUNTERS * i + 2] = n_leaf;
+    a.out_cnt[N_COUNTERS * i + 3] = n_tests;
+    a.out_cnt[N_COUNTERS * i + 4] = n_enter;
+    a.out_cnt[N_COUNTERS * i + 5] = n_tlas_pops;
+  }
+  if constexpr (ANY_HIT) {
+    a.out_hit[i] = occluded ? 1 : 0;
+    return;
+  }
+
+  a.out_t[i] = best_i >= 0 ? best_t : -1.0f;
+  a.out_u[i] = best_u;
+  a.out_v[i] = best_v;
+  a.out_tri[i] = best_i;
+  a.out_inst[i] = best_inst;
+  if constexpr (SHADE != 0) {
+    // Miss: the reference's initial values (n = +z, mat 0, tangent = +x,
+    // uv = 0, uv density 0).
+    float nx = 0.0f, ny = 0.0f, nz = 1.0f, mat = 0.0f;
+    float tnx = 1.0f, tny = 0.0f, tnz = 0.0f, ux = 0.0f, uy = 0.0f,
+          uvd = 0.0f;
+    if (best_i >= 0) {
+      const float* m = a.inst + (size_t)best_inst * INST_COLS;
+      const float* s;
+      if constexpr (SHADE == 2) {
+        s = a.shade +
+            (size_t)((best_i / TRI_PER_ROW) * (TRI_PER_ROW / SHADE2_PER_ROW) +
+                     (best_i % TRI_PER_ROW) / SHADE2_PER_ROW) * LANES +
+            SHADE2_STRIDE * (best_i % SHADE2_PER_ROW);
+      } else {
+        s = a.shade + (size_t)(best_i / TRI_PER_ROW) * LANES +
+            SHADE1_STRIDE * (best_i % TRI_PER_ROW);
+      }
+      const float wb = 1.0f - best_u - best_v;
+      const float onx =
+          __ldg(s + 0) * wb + __ldg(s + 3) * best_u + __ldg(s + 6) * best_v;
+      const float ony =
+          __ldg(s + 1) * wb + __ldg(s + 4) * best_u + __ldg(s + 7) * best_v;
+      const float onz =
+          __ldg(s + 2) * wb + __ldg(s + 5) * best_u + __ldg(s + 8) * best_v;
+      // Object-space normal into world space by the normal matrix.
+      nx = __ldg(m + 16) * onx + __ldg(m + 17) * ony + __ldg(m + 18) * onz;
+      ny = __ldg(m + 19) * onx + __ldg(m + 20) * ony + __ldg(m + 21) * onz;
+      nz = __ldg(m + 22) * onx + __ldg(m + 23) * ony + __ldg(m + 24) * onz;
+      mat = __ldg(m + 14);
+      if constexpr (SHADE == 2) {
+        const float otx = __ldg(s + 10) * wb + __ldg(s + 13) * best_u +
+                          __ldg(s + 16) * best_v;
+        const float oty = __ldg(s + 11) * wb + __ldg(s + 14) * best_u +
+                          __ldg(s + 17) * best_v;
+        const float otz = __ldg(s + 12) * wb + __ldg(s + 15) * best_u +
+                          __ldg(s + 18) * best_v;
+        // Tangents rotate with the plain linear part.
+        tnx = __ldg(m + 25) * otx + __ldg(m + 26) * oty + __ldg(m + 27) * otz;
+        tny = __ldg(m + 28) * otx + __ldg(m + 29) * oty + __ldg(m + 30) * otz;
+        tnz = __ldg(m + 31) * otx + __ldg(m + 32) * oty + __ldg(m + 33) * otz;
+        ux = __ldg(s + 19) * wb + __ldg(s + 21) * best_u +
+             __ldg(s + 23) * best_v;
+        uy = __ldg(s + 20) * wb + __ldg(s + 22) * best_u +
+             __ldg(s + 24) * best_v;
+        uvd = __ldg(s + 25) * __ldg(m + 15);
+      }
+    }
+    // Normalize and flip back-face hits: the normal matrix keeps the
+    // object-space winding sign.
+    const float n2 = nx * nx + ny * ny + nz * nz;
+    const float inv_n =
+        (best_det < 0.0f ? -1.0f : 1.0f) * rsqrtf(fmaxf(n2, 1e-20f));
+    a.out_n[3 * i + 0] = nx * inv_n;
+    a.out_n[3 * i + 1] = ny * inv_n;
+    a.out_n[3 * i + 2] = nz * inv_n;
+    a.out_mat[i] = (int)mat;
+    if constexpr (SHADE == 2) {
+      const float t2 = tnx * tnx + tny * tny + tnz * tnz;
+      const float inv_t = rsqrtf(fmaxf(t2, 1e-20f));
+      a.out_tan[3 * i + 0] = tnx * inv_t;
+      a.out_tan[3 * i + 1] = tny * inv_t;
+      a.out_tan[3 * i + 2] = tnz * inv_t;
+      a.out_uv[2 * i + 0] = ux;
+      a.out_uv[2 * i + 1] = uy;
+      a.out_uvd[i] = uvd;
+    }
+  }
+}
+
+template <bool ANY_HIT, int SHADE>
+int launch_inst(const InstArgs& a, bool count, void* stream) {
+  const int threads = 128;
+  const int blocks = (a.n + threads - 1) / threads;
+  if (count) {
+    inst8_kernel<ANY_HIT, SHADE, true>
+        <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  } else {
+    inst8_kernel<ANY_HIT, SHADE, false>
+        <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Two-level nearest hit (K6) of n rays, or with any_hit != 0 their
+// occlusion flags (out_hit: one byte per ray; no culling, shade mode 0).
+// Pointers are device pointers; shade and the shading outputs may be null
+// when shade_mode == 0, out_tan/out_uv/out_uvd when it is not 2, the
+// nearest outputs when any_hit, and out_cnt (n x N_COUNTERS int32) with
+// seen_snode (one byte per supernode row), seen_rec (one per pooled
+// record) and seen_inst (one per instance), all four, when no telemetry is
+// wanted.  depth is TLAS depth + 1 + the deepest BLAS.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
+int steeljax_trace_inst8(const void* snodes, const void* tris,
+                         const void* inst, const void* shade, const void* o,
+                         const void* d, const void* t_min, const void* t_max,
+                         void* out_t, void* out_u, void* out_v, void* out_tri,
+                         void* out_inst, void* out_n, void* out_mat,
+                         void* out_tan, void* out_uv, void* out_uvd,
+                         void* out_hit, void* out_cnt, void* seen_snode,
+                         void* seen_rec, void* seen_inst, int n, int n_tlas,
+                         int n_inst, int max_leaf, int depth, int cull,
+                         int shade_mode, int any_hit, void* stream) {
+  if (n < 0 || n_tlas < 1 || n_inst < 0 || max_leaf <= 0 || depth <= 0 ||
+      8 * depth + INST_STACK_SLACK > MAX_STACK ||
+      (out_cnt != nullptr && (seen_snode == nullptr || seen_rec == nullptr ||
+                              seen_inst == nullptr)) ||
+      shade_mode < 0 || shade_mode > 2 || (any_hit && shade_mode != 0) ||
+      (any_hit && out_hit == nullptr) ||
+      (!any_hit && (out_t == nullptr || out_u == nullptr ||
+                    out_v == nullptr || out_tri == nullptr ||
+                    out_inst == nullptr)) ||
+      (shade_mode != 0 && (shade == nullptr || out_n == nullptr ||
+                           out_mat == nullptr)) ||
+      (shade_mode == 2 && (out_tan == nullptr || out_uv == nullptr ||
+                           out_uvd == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return (int)cudaSuccess;
+  InstArgs a = {};
+  a.snodes = (const float*)snodes;
+  a.tris = (const float*)tris;
+  a.inst = (const float*)inst;
+  a.shade = (const float*)shade;
+  a.o = (const float*)o;
+  a.d = (const float*)d;
+  a.t_min = (const float*)t_min;
+  a.t_max = (const float*)t_max;
+  a.out_t = (float*)out_t;
+  a.out_u = (float*)out_u;
+  a.out_v = (float*)out_v;
+  a.out_tri = (int*)out_tri;
+  a.out_inst = (int*)out_inst;
+  a.out_n = (float*)out_n;
+  a.out_mat = (int*)out_mat;
+  a.out_tan = (float*)out_tan;
+  a.out_uv = (float*)out_uv;
+  a.out_uvd = (float*)out_uvd;
+  a.out_hit = (unsigned char*)out_hit;
+  a.out_cnt = (int*)out_cnt;
+  a.seen_snode = (unsigned char*)seen_snode;
+  a.seen_rec = (unsigned char*)seen_rec;
+  a.seen_inst = (unsigned char*)seen_inst;
+  a.n = n;
+  a.n_tlas = n_tlas;
+  a.leaf_cap = leaf_cap(max_leaf, TRI_PER_ROW);
+  a.cull = cull;
+  const bool count = out_cnt != nullptr;
+  if (any_hit) return launch_inst<true, 0>(a, count, stream);
+  if (shade_mode == 2) return launch_inst<false, 2>(a, count, stream);
+  if (shade_mode == 1) return launch_inst<false, 1>(a, count, stream);
+  return launch_inst<false, 0>(a, count, stream);
+}
+
+}  // extern "C"

@@ -1,6 +1,6 @@
 // BVH8 ray traversal for Hopper (sm_90a), one thread per ray.
 //
-// One templated body, instanced as four TPU kernels of
+// One templated body, instanced as five TPU kernels of
 // steeljax/accel/pallas_traverse.py:_traverse_kernel8 (host wrapper
 // _trace_packed8, pallas_call at :719):
 //   K1  nearest hit, shade modes 0 and 1 (entry trace_nearest_packet8);
@@ -12,9 +12,20 @@
 //   K4  nearest hit (shade mode 0) and any-hit occlusion with in-kernel
 //       alpha-coverage masks (alpha_mask=True, :457-499; fine=True,
 //       :500-505 with _fine_test :227-246).
+//   K7  the same body over one treelet's node, triangle and shade blocks
+//       (_kernel8_treelet :1252, host wrapper _trace_packed8_treelet :1149,
+//       pallas_call at :1229): every packet of `block` consecutive rays
+//       walks the treelet its entry of `pid` names, whose tables start
+//       pid * stride floats into the stacked (K, S, 128), (K, R, 128) and
+//       (K, R * {1, 3}, 128) arrays; triangle ids are treelet-local.  Shade
+//       modes 0, 1 and 2, any-hit, and the coarse alpha masks.  A round
+//       launches every ray, the finished ones with the dead interval (they
+//       leave before the root), so on this card a late round is bound by
+//       the ray reads and writes of all its rays, not by its few walks.
 // Each instance is specialized at compile time on (ANY_HIT, DENSE, SHADE2,
-// COUNT, ALPHA, FINE), so K1's instance has no code of the others.  The
-// K-nearest multi-hit kernel K5 is multihit8.cu.
+// COUNT, ALPHA, FINE, TREELET), so K1's instance has no code of the others.
+// The K-nearest multi-hit kernel K5 is multihit8.cu, the two-level kernel K6
+// instanced8.cu.
 //
 // Tables, in the reference's formats unchanged:
 //   snodes (S, 128) f32: 8 children per supernode row, child c at floats
@@ -110,15 +121,40 @@ struct TraceArgs {
   int leaf_cap;
   int cull;
   int shade_mode;
+  // Treelet instances only: one treelet id per packet of `block` rays, the
+  // number of treelets, and the rows of one treelet's node, triangle and
+  // shade tables.
+  const int* pid;
+  int block;
+  int n_treelets;
+  int node_rows;
+  int tri_rows;
+  int shade_rows;
 };
 
 template <bool ANY_HIT, bool DENSE, bool SHADE2, bool COUNT, bool ALPHA,
-          bool FINE>
+          bool FINE, bool TREELET>
 __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
   constexpr int kPerRow = DENSE ? DENSE_PER_ROW : TRI_PER_ROW;
   constexpr int kStride = DENSE ? DENSE_STRIDE : TRI_STRIDE;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
+
+  // The tables this ray walks: the scene's, or its packet's treelet's
+  // blocks of the stacks (the COUNT flags then index the whole stacks).
+  const float* snodes = a.snodes;
+  const float* tris = a.tris;
+  const float* shade = a.shade;
+  size_t seen_snode_base = 0, seen_rec_base = 0;
+  if constexpr (TREELET) {
+    const int treelet =
+        min(max(__ldg(a.pid + i / a.block), 0), a.n_treelets - 1);
+    snodes += (size_t)treelet * a.node_rows * LANES;
+    tris += (size_t)treelet * a.tri_rows * LANES;
+    if (shade != nullptr) shade += (size_t)treelet * a.shade_rows * LANES;
+    seen_snode_base = (size_t)treelet * a.node_rows;
+    seen_rec_base = (size_t)treelet * a.tri_rows * TRI_PER_ROW;
+  }
 
   const float ox = a.o[3 * i + 0], oy = a.o[3 * i + 1], oz = a.o[3 * i + 2];
   const float dx = a.d[3 * i + 0], dy = a.d[3 * i + 1], dz = a.d[3 * i + 2];
@@ -158,9 +194,9 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
     if (entry >= 0) {
       if constexpr (COUNT) {
         ++n_snode;
-        a.seen_snode[entry] = 1;
+        a.seen_snode[seen_snode_base + entry] = 1;
       }
-      const float* row = a.snodes + (size_t)entry * LANES;
+      const float* row = snodes + (size_t)entry * LANES;
       const int base = sp;
 #pragma unroll
       for (int c = 0; c < SNODE_WIDTH; ++c) {
@@ -200,14 +236,14 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
       }
     } else {
       const int code = -entry - 1;
-      const float* ch = a.snodes + (size_t)(code / SNODE_WIDTH) * LANES +
+      const float* ch = snodes + (size_t)(code / SNODE_WIDTH) * LANES +
                         CHILD_STRIDE * (code % SNODE_WIDTH);
       const int start = (int)__ldg(ch + 6);
       const int count = min((int)__ldg(ch + 7), a.leaf_cap);
       int tested = 0;
       for (int l = 0; l < count; ++l) {
         const int rec = start + l;
-        const float* r = a.tris + (size_t)(rec / kPerRow) * LANES +
+        const float* r = tris + (size_t)(rec / kPerRow) * LANES +
                          kStride * (rec % kPerRow);
         const float v0x = __ldg(r + 0), v0y = __ldg(r + 1), v0z = __ldg(r + 2);
         const float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
@@ -216,7 +252,7 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
         const int aux = ALPHA ? (int)__ldg(r + 9) : 0;
         if constexpr (COUNT) {
           ++tested;
-          a.seen_rec[rec] = 1;
+          a.seen_rec[seen_rec_base + rec] = 1;
         }
 
         const float px = dy * e2z - dz * e2y;
@@ -311,12 +347,12 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
     if (best_i >= 0) {
       const float* s;
       if constexpr (SHADE2) {
-        s = a.shade +
+        s = shade +
             (size_t)((best_i / TRI_PER_ROW) * (TRI_PER_ROW / SHADE2_PER_ROW) +
                      (best_i % TRI_PER_ROW) / SHADE2_PER_ROW) * LANES +
             SHADE2_STRIDE * (best_i % SHADE2_PER_ROW);
       } else {
-        s = a.shade + (size_t)(best_i / TRI_PER_ROW) * LANES +
+        s = shade + (size_t)(best_i / TRI_PER_ROW) * LANES +
             SHADE1_STRIDE * (best_i % TRI_PER_ROW);
       }
       const float wb = 1.0f - best_u - best_v;
@@ -362,15 +398,15 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
 }
 
 template <bool ANY_HIT, bool DENSE, bool SHADE2, bool ALPHA = false,
-          bool FINE = false>
+          bool FINE = false, bool TREELET = false>
 int launch(const TraceArgs& a, bool count, void* stream) {
   const int threads = 128;
   const int blocks = (a.n + threads - 1) / threads;
   if (count) {
-    trace8_kernel<ANY_HIT, DENSE, SHADE2, true, ALPHA, FINE>
+    trace8_kernel<ANY_HIT, DENSE, SHADE2, true, ALPHA, FINE, TREELET>
         <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
   } else {
-    trace8_kernel<ANY_HIT, DENSE, SHADE2, false, ALPHA, FINE>
+    trace8_kernel<ANY_HIT, DENSE, SHADE2, false, ALPHA, FINE, TREELET>
         <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
   }
   return (int)cudaGetLastError();
@@ -496,6 +532,92 @@ int steeljax_trace_any8(const void* snodes, const void* tris,
   a.leaf_cap = leaf_cap(max_leaf, TRI_PER_ROW);
   if (alpha) return launch_alpha<true>(a, count, stream);
   return launch<true, false, false>(a, count, stream);
+}
+
+// One round of the treelet scheduler (K7): rays [p * block, (p + 1) *
+// block) walk treelet pid[p] (in [0, n_treelets)) of the stacked tables
+// node_stack (n_treelets x node_rows x 128), tri_stack (n_treelets x
+// tri_rows x 128) and, in shade modes 1 and 2, shade_stack (n_treelets x
+// tri_rows * {1, 3} x 128).  Nearest hits as steeljax_trace_nearest8 with
+// treelet-local triangle ids, or with any_hit != 0 occlusion flags as
+// steeljax_trace_any8 (the nearest outputs may then be null, else out_hit);
+// alpha != 0 applies the records' coarse masks (shade mode 0 only, no fine
+// rows).  out_cnt with seen_snode (one byte per row of node_stack) and
+// seen_rec (one per record of tri_stack) as above.
+int steeljax_trace_treelet8(const void* node_stack, const void* tri_stack,
+                            const void* shade_stack, const void* pid,
+                            const void* o, const void* d, const void* t_min,
+                            const void* t_max, void* out_t, void* out_u,
+                            void* out_v, void* out_tri, void* out_n,
+                            void* out_mat, void* out_tan, void* out_uv,
+                            void* out_uvd, void* out_hit, void* out_cnt,
+                            void* seen_snode, void* seen_rec, int n,
+                            int block, int n_treelets, int node_rows,
+                            int tri_rows, int max_leaf, int depth, int cull,
+                            int shade_mode, int alpha, int any_hit,
+                            void* stream) {
+  if (n < 0 || block <= 0 || n_treelets <= 0 || node_rows <= 0 ||
+      tri_rows <= 0 || pid == nullptr || max_leaf <= 0 || depth <= 0 ||
+      8 * depth + 16 > MAX_STACK ||
+      (out_cnt != nullptr && (seen_snode == nullptr || seen_rec == nullptr)) ||
+      shade_mode < 0 || shade_mode > 2 ||
+      ((alpha || any_hit) && shade_mode != 0) ||
+      (any_hit && out_hit == nullptr) ||
+      (!any_hit && (out_t == nullptr || out_u == nullptr ||
+                    out_v == nullptr || out_tri == nullptr)) ||
+      (shade_mode != 0 && (shade_stack == nullptr || out_n == nullptr ||
+                           out_mat == nullptr)) ||
+      (shade_mode == 2 && (out_tan == nullptr || out_uv == nullptr ||
+                           out_uvd == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return (int)cudaSuccess;
+  TraceArgs a = {};
+  a.snodes = (const float*)node_stack;
+  a.tris = (const float*)tri_stack;
+  a.shade = (const float*)shade_stack;
+  a.o = (const float*)o;
+  a.d = (const float*)d;
+  a.t_min = (const float*)t_min;
+  a.t_max = (const float*)t_max;
+  a.out_t = (float*)out_t;
+  a.out_u = (float*)out_u;
+  a.out_v = (float*)out_v;
+  a.out_tri = (int*)out_tri;
+  a.out_n = (float*)out_n;
+  a.out_mat = (int*)out_mat;
+  a.out_tan = (float*)out_tan;
+  a.out_uv = (float*)out_uv;
+  a.out_uvd = (float*)out_uvd;
+  a.out_hit = (unsigned char*)out_hit;
+  a.out_cnt = (int*)out_cnt;
+  a.seen_snode = (unsigned char*)seen_snode;
+  a.seen_rec = (unsigned char*)seen_rec;
+  a.n = n;
+  a.leaf_cap = leaf_cap(max_leaf, TRI_PER_ROW);
+  a.cull = cull;
+  a.shade_mode = shade_mode;
+  a.pid = (const int*)pid;
+  a.block = block;
+  a.n_treelets = n_treelets;
+  a.node_rows = node_rows;
+  a.tri_rows = tri_rows;
+  a.shade_rows = tri_rows * (shade_mode == 2 ? TRI_PER_ROW / SHADE2_PER_ROW
+                                             : 1);
+  const bool count = out_cnt != nullptr;
+  if (any_hit) {
+    if (alpha) {
+      return launch<true, false, false, true, false, true>(a, count, stream);
+    }
+    return launch<true, false, false, false, false, true>(a, count, stream);
+  }
+  if (alpha) {
+    return launch<false, false, false, true, false, true>(a, count, stream);
+  }
+  if (shade_mode == 2) {
+    return launch<false, false, true, false, false, true>(a, count, stream);
+  }
+  return launch<false, false, false, false, false, true>(a, count, stream);
 }
 
 }  // extern "C"

@@ -21,6 +21,11 @@ unconditionally, with the rays that need no re-trace given the dead
 interval, so the loop never reads a device value on the host: the output
 is the reference's, whose lax.cond skips only passes in which no ray would
 change.  Multi-chunk scenes are not ported; prepare_scene refuses them.
+
+Instanced tables (accel.instances, kernel K6) and treelet tables
+(accel.treelets, K7) answer the same queries through accel.dispatch; with
+instanced tables the unfused shading rows are composed from the BLAS's
+object-space row and the instance's material row (shade_rows).
 """
 
 from __future__ import annotations
@@ -30,8 +35,11 @@ import functools
 import numpy as np
 import torch
 
+from steeljax_torch.accel.bvh import TRI_PER_ROW
+from steeljax_torch.accel.cuda_traverse import rotate as rotate3
 from steeljax_torch.accel.dispatch import (TraceTables, trace_any,
                                            trace_multihit, trace_nearest)
+from steeljax_torch.accel.instances import InstancedTables
 from steeljax_torch.core import rng
 from steeljax_torch.core.colors import luminance, to_linear
 from steeljax_torch.core.config import RenderConfig
@@ -112,17 +120,29 @@ def _ray_sort_key(o, d, lo, inv_extent) -> torch.Tensor:
 REPACK_MIN_TRIS = 200_000
 
 
-def _total_triangles(tables: TraceTables) -> int:
-    """Triangle count (padded rows) of the flat tables, for the repack
-    gate."""
+def _total_triangles(tables: TraceTables | InstancedTables) -> int:
+    """Triangle count (padded rows) of the tables, for the repack gate.
+    Instanced tables count instances x mean BLAS size (the world the rays
+    traverse), not the deduplicated BLAS pool."""
+    if isinstance(tables, InstancedTables):
+        n_blas = max(len(tables.blas_tri_offset), 1)
+        mean_blas = max(tables.tris_packed.shape[0] * TRI_PER_ROW // n_blas,
+                        1)
+        return tables.instance_count * mean_blas
     return sum(c.rows for c in tables.chunks)
 
 
-def scene_bounds(tables: TraceTables) -> tuple[tuple, tuple]:
-    """(lo, inv_extent) of the chunk AABBs for ray-sort keys, as float32
-    values in Python floats (a constant of the key needs no device copy)."""
-    lo = np.min([c.aabb[0] for c in tables.chunks], axis=0)
-    hi = np.max([c.aabb[1] for c in tables.chunks], axis=0)
+def scene_bounds(tables: TraceTables | InstancedTables
+                 ) -> tuple[tuple, tuple]:
+    """(lo, inv_extent) of the chunk AABBs (or the instances' world bounds)
+    for ray-sort keys, as float32 values in Python floats (a constant of
+    the key needs no device copy)."""
+    if isinstance(tables, InstancedTables):
+        lo = np.asarray(tables.aabb_lo, np.float32)
+        hi = np.asarray(tables.aabb_hi, np.float32)
+    else:
+        lo = np.min([c.aabb[0] for c in tables.chunks], axis=0)
+        hi = np.max([c.aabb[1] for c in tables.chunks], axis=0)
     inv = 1.0 / np.maximum(hi - lo, 1e-6)
     return (tuple(float(v) for v in lo.astype(np.float32)),
             tuple(float(v) for v in inv.astype(np.float32)))
@@ -151,10 +171,33 @@ def material_select(scene: FlatScene, mid: torch.Tensor):
             scene.mat_tex[mid])
 
 
-def shade_rows(scene: FlatScene, rec: dict) -> torch.Tensor:
-    """The (N, 56) tri_shade rows of the hits (the flat branch of the
-    reference's shade_rows, integrator.py:82-94): one row gather."""
-    return scene.tri_shade[rec["tri"].clamp(min=0).long()]
+def shade_rows(scene: FlatScene, tables, rec: dict) -> torch.Tensor:
+    """The (N, 56) shading rows of the hits, tri_shade layout, world space
+    (integrator.py:82-129).  Flat tables: one tri_shade row gather.
+    Instanced tables: the object-space geometric BLAS row composed with
+    the instance's material row, normals rotated by the instance's normal
+    matrix and tangents by its world linear matrix (plain indexing of
+    inst_shade; the reference's select chain over few instances gives the
+    same rows)."""
+    tri = rec["tri"].clamp(min=0).long()
+    if not isinstance(tables, InstancedTables):
+        return scene.tri_shade[tri]
+    geo = tables.blas_shade[tri]                              # (N, 28)
+    irow = tables.inst_shade[rec["inst"].clamp(min=0).long()]  # (N, 48)
+    nm = irow[:, 0:9]
+    wl = irow[:, 9:18]
+
+    def rotate(vecs, m, k):
+        return torch.cat([rotate3(m, vecs[:, 3 * i:3 * i + 3])
+                          for i in range(k)], dim=-1)
+
+    normals = rotate(geo[:, 0:9], nm, 3)
+    tangents = rotate(geo[:, 9:18], wl, 3)
+    geom_n = rotate(geo[:, 24:27], nm, 1)
+    # The uv density is per world length: divide by the instance scale.
+    uvd = geo[:, 27:28] / torch.clamp(irow[:, 46:47], min=1e-6)
+    return torch.cat([normals, tangents, geo[:, 18:24], geom_n, uvd,
+                      irow[:, 18:46]], dim=-1)
 
 
 def _alpha_rejected(scene: FlatScene, rec: dict, row: torch.Tensor
@@ -334,18 +377,23 @@ def trace_material_ray(scene: FlatScene, tables: TraceTables, o, d,
     if not scene.any_alpha_test:
         return trace_nearest(tables, o, d, t_min, t_max,
                              cull_backface=cull_backface)
-    k_hits = tables.multihit_k
+    # The multi-hit path is the flat one-chunk tables' (integrator.py:
+    # 297-300): instanced and treelet tables re-trace hit by hit.
+    flat_tables = (not isinstance(tables, InstancedTables)
+                   and tables.treelets is None)
+    k_hits = tables.multihit_k if flat_tables else 0
     if k_hits > 0 and tables.shade_mode == 0 and len(tables.chunks) == 1:
         def trace(o, d, t_min, t_max):
             slots = trace_multihit(tables, o, d, t_min, t_max, k_hits,
                                    cull_backface=cull_backface)
-            rec, exhausted = _resolve_multihit(scene, slots)
+            rec, exhausted = _resolve_multihit(scene, tables, slots)
             return rec, exhausted, slots["t"][k_hits - 1]
     else:
         def trace(o, d, t_min, t_max):
             rec = trace_nearest(tables, o, d, t_min, t_max,
                                 cull_backface=cull_backface)
-            return (rec, _alpha_rejected(scene, rec, shade_rows(scene, rec)),
+            return (rec, _alpha_rejected(scene, rec,
+                                         shade_rows(scene, tables, rec)),
                     rec["t"])
     rec, counts = _bounded_retrace(tables, o, d, t_min, t_max, trace,
                                    max_alpha_retrace, retrace_log is not None)
@@ -394,7 +442,7 @@ def _bounded_retrace(tables: TraceTables, o, d, t_min, t_max, trace,
     return (compaction.restore(rec) if compaction.active else rec), counts
 
 
-def _resolve_multihit(scene: FlatScene, slots: dict):
+def _resolve_multihit(scene: FlatScene, tables: TraceTables, slots: dict):
     """Winner selection over K sorted candidate slots (integrator.py:
     387-414): the first slot that is a hit and survives the exact alpha
     test wins; an empty slot means the ray ran out of surfaces (a resolved
@@ -411,7 +459,8 @@ def _resolve_multihit(scene: FlatScene, slots: dict):
     for k in range(k_hits):
         rec_k = {f: slots[f][k] for f in ("t", "u", "v", "tri")}
         rec_k["hit"] = rec_k["tri"] >= 0
-        rejected = _alpha_rejected(scene, rec_k, shade_rows(scene, rec_k))
+        rejected = _alpha_rejected(scene, rec_k,
+                                   shade_rows(scene, tables, rec_k))
         take = ~resolved & rec_k["hit"] & ~rejected
         for f in ("t", "u", "v", "tri"):
             rec[f] = torch.where(take, rec_k[f], rec[f])
@@ -625,7 +674,7 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
             surface, tbn = unpack_material_fused(scene, rec)
         else:
             surface, tbn = unpack_material(scene, rec, d,
-                                           shade_rows(scene, rec))
+                                           shade_rows(scene, tables, rec))
         if config.override_material is not None:
             # DEBUG_OVERRIDE_MATERIAL (RayGen.rgen:99-102).
             r_ov, m_ov = config.override_material

@@ -3,9 +3,11 @@ step around the integrator.
 
 Port of steeljax/render/pt/renderer.py:34-264 (PathTracingRenderer.cpp):
 owns the accumulation image as a tensor on the render device, resets it on
-camera changes, and applies the filmic tone map for display output
-(RayGen.rgen:420-424).  Every entry point takes the render device
-explicitly.
+camera, scene and resize events, and applies the filmic tone map for
+display output (RayGen.rgen:420-424).  Every entry point takes the render
+device explicitly.  `PathTracingRenderer(instancing=True)` renders through
+the two-level structure (accel.instances), whose `refresh_scene` after a
+scene edit rebuilds only the instance tables.
 """
 
 from __future__ import annotations
@@ -23,11 +25,14 @@ from steeljax_torch.accel.bvh import apply_permutation
 from steeljax_torch.accel.cuda_traverse import MULTIHIT_K
 from steeljax_torch.accel.dispatch import (TraceTables, attach_shade_tables,
                                            prepare_tables)
+from steeljax_torch.accel.instances import InstancedAccel, InstancedTables
+from steeljax_torch.accel.treelets import TREELET_TRIS
 from steeljax_torch.core import camera as camera_lib
 from steeljax_torch.core.colors import tone_map
 from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.render.pt.integrator import render_sample
-from steeljax_torch.scene.flatten import FlatScene, flatten_scene
+from steeljax_torch.scene.flatten import (FlatScene, flatten_scene,
+                                          refresh_lights)
 from steeljax_torch.scene.scene import Scene
 
 
@@ -53,11 +58,12 @@ def accumulate(state: AccumulationState,
     return AccumulationState(accumulated=merged, index=state.index + 1)
 
 
-def check_slice_scope(flat: FlatScene, tables: TraceTables) -> None:
+def check_slice_scope(flat: FlatScene,
+                      tables: TraceTables | InstancedTables) -> None:
     """Refuse a prepared scene that needs a part not ported yet, naming
     the ROADMAP item that brings it; such a scene is never rendered in
     part."""
-    if len(tables.chunks) != 1:
+    if not isinstance(tables, InstancedTables) and len(tables.chunks) != 1:
         raise NotImplementedError(
             "multi-chunk scenes are not ported yet (ROADMAP item 13)")
 
@@ -82,10 +88,22 @@ def prepare_scene(scene: Scene, device: torch.device | str,
                   env_resolution: int = 256,
                   use_default_environment: bool = True,
                   leaf_size: int | None = None, dense_anyhit: bool = False,
-                  fine_masks: bool = True, multihit_k: int = 0
-                  ) -> tuple[FlatScene, TraceTables]:
+                  fine_masks: bool = True, multihit_k: int = 0,
+                  accel: InstancedAccel | None = None, treelets: bool = False,
+                  treelet_tris: int = TREELET_TRIS
+                  ) -> tuple[FlatScene, TraceTables | InstancedTables]:
     """Flatten, build the acceleration tables and the environment, on
     `device`.
+
+    An accel.instances.InstancedAccel as `accel` selects the two-level
+    structure: per-primitive BLAS (cached inside `accel`) and an instance
+    TLAS, so a later `accel.prepare(scene)` re-prepares in O(instances); the
+    flat scene then keeps the flatten order and serves only its material,
+    texture, light and environment tensors.  `treelets` builds the
+    streamed-treelet tables (dispatch.prepare_tables(treelets=True), the
+    reference's STEELJAX_TREELETS=1), cut at `treelet_tris` triangles: with
+    coarse masks in alpha-tested scenes, without fine mask rows, dense
+    any-hit tables or the multi-hit path.
 
     The environment is the scene's constant colour when it has one, else
     the procedural sky when `use_default_environment`, else none.  Leaf
@@ -128,17 +146,26 @@ def prepare_scene(scene: Scene, device: torch.device | str,
     with record_function("prepare_scene.flatten_scene"):
         flat = flatten_scene(scene, device, env_cube,
                              env_analytic=env_analytic)
+    if accel is not None:
+        with record_function("prepare_scene.instanced_accel"):
+            tables = accel.prepare(scene)
+        if tables.inst_trace.device != flat.device:
+            raise ValueError(f"accel is on {tables.inst_trace.device}, the "
+                             f"scene on {flat.device}")
+        return flat, tables
 
     tri_pos = flat.tri_pos.cpu().numpy()
     coarse = fine = None
     if flat.any_alpha_test:
-        coarse, fine = _alpha_masks(flat, scene, fine_masks)
+        coarse, fine = _alpha_masks(flat, scene,
+                                    fine_masks and not treelets)
     if leaf_size is None:
         leaf_size = 48 if len(tri_pos) <= 50_000 else 24
     tables, order, total_padded = prepare_tables(
         tri_pos, flat.tri_double_sided.cpu().numpy(), device,
         leaf_size=leaf_size, dense_anyhit=dense_anyhit,
-        tri_alpha_mask=coarse, tri_fine_mask=fine)
+        tri_alpha_mask=coarse, tri_fine_mask=fine, treelets=treelets,
+        treelet_tris=treelet_tris)
     tables = tables.replace(multihit_k=multihit_k)
     with record_function("prepare_scene.apply_permutation"):
         permuted = apply_permutation((None, order, total_padded), {
@@ -167,20 +194,34 @@ class PathTracingRenderer:
                  config: RenderConfig = RenderConfig(), prepared=None,
                  instancing: bool = False, *,
                  device: torch.device | str):
-        if instancing:
-            raise NotImplementedError(
-                "the two-level instanced structure (kernel K6) is not "
-                "ported yet (ROADMAP item 17)")
         self.scene = scene
         self.width = width
         self.height = height
         self.config = config
         self.device = torch.device(device)
+        self._accel = None
+        if instancing and prepared is None:
+            self._accel = InstancedAccel(device=self.device)
         self.flat, self.tables = prepared or prepare_scene(
-            scene, self.device)
+            scene, self.device, accel=self._accel)
         check_slice_scope(self.flat, self.tables)
         self.state = init_accumulation(width, height, self.device)
         self._set_camera_arrays()
+
+    def refresh_scene(self, prepared=None) -> None:
+        """Refresh the device tables after a scene mutation and reset the
+        accumulation.  With instancing only the O(instances) instance
+        tables, the TLAS and the light rows are rebuilt: the BLAS and
+        triangle tensors stay on the device."""
+        if prepared is not None:
+            self.flat, self.tables = prepared
+        elif self._accel is not None:
+            self.tables = self._accel.prepare(self.scene)
+            self.flat = refresh_lights(self.flat, self.scene)
+        else:
+            self.flat, self.tables = prepare_scene(self.scene, self.device)
+        check_slice_scope(self.flat, self.tables)
+        self.reset_accumulation()
 
     def _set_camera_arrays(self) -> None:
         frame = camera_lib.make_frame(
@@ -192,6 +233,26 @@ class PathTracingRenderer:
                                             device=self.device)
         self.camera_near = frame.camera_near
         self.camera_far = frame.camera_far
+
+    def reset_accumulation(self) -> None:
+        """The camera-update, resize and scene-register reset
+        (PathTracingRenderer.cpp:346-349)."""
+        self.state = init_accumulation(self.width, self.height, self.device)
+
+    def resize(self, width: int, height: int) -> None:
+        """New render and accumulation extent; accumulation restarts
+        (PathTracingRenderer.cpp:293-311)."""
+        self.width = width
+        self.height = height
+        self.reset_accumulation()
+
+    def set_camera(self, location=None, projection=None) -> None:
+        if location is not None:
+            self.scene.camera_location = location
+        if projection is not None:
+            self.scene.camera_projection = projection
+        self._set_camera_arrays()
+        self.reset_accumulation()
 
     def render_frame(self) -> np.ndarray:
         """One frame of config.sample_count samples folded into the

@@ -1,6 +1,8 @@
 """Scene -> FlatScene: flat per-triangle and per-material tensors.
 
-Port of steeljax/scene/flatten.py:23-398.  The host packing is the same
+Port of steeljax/scene/flatten.py:23-398 (refresh_lights and
+refresh_materials, :204-257, re-pack the light rows and the material tables
+alone for the instanced refresh path).  The host packing is the same
 numpy code, so every array equals the reference's; `FlatScene` then holds
 the arrays as tensors on the render device, and its static fields stay
 plain Python values.
@@ -220,6 +222,49 @@ def _material_arrays(scene: Scene):
     return mat_base_color, mat_emission, mat_params, mat_tex, mat_flags
 
 
+def _light_rows(scene: Scene):
+    """(light_location, light_color, light_count) padded to the reference's
+    fixed UBO size (Common.h:4)."""
+    locations, colors = scene.gather_lights()
+    light_count = min(len(locations), MAX_LIGHT_COUNT)
+    light_location = np.zeros((MAX_LIGHT_COUNT, 4), np.float32)
+    light_color = np.zeros((MAX_LIGHT_COUNT, 4), np.float32)
+    light_location[:light_count] = locations[:light_count]
+    light_color[:light_count] = colors[:light_count]
+    return light_location, light_color, int(light_count)
+
+
+def refresh_lights(flat: FlatScene, scene: Scene) -> FlatScene:
+    """Re-pack just the light rows from the entity view, O(entities): the
+    instanced refresh path keeps its geometry tables on the device."""
+    light_location, light_color, light_count = _light_rows(scene)
+    device = flat.device
+    return flat.replace(
+        light_location=torch.from_numpy(light_location).to(device),
+        light_color=torch.from_numpy(light_color).to(device),
+        light_count=light_count)
+
+
+def refresh_materials(flat: FlatScene, scene: Scene) -> FlatScene:
+    """Re-pack just the material tables, O(materials), for the instanced
+    refresh path (the per-instance material rows are rebuilt inside
+    InstancedAccel.prepare; these are the tables material_select reads)."""
+    mat_base_color, mat_emission, mat_params, mat_tex, mat_flags = \
+        _material_arrays(scene)
+    device = flat.device
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return flat.replace(
+        mat_base_color=dev(mat_base_color), mat_emission=dev(mat_emission),
+        mat_params=dev(mat_params), mat_tex=dev(mat_tex),
+        mat_flags=dev(mat_flags),
+        mat_packed=dev(pack_materials(mat_base_color, mat_emission,
+                                      mat_params, mat_flags)),
+        mat_emission_linear=dev(_to_linear_np(mat_emission)))
+
+
 def flatten_scene(scene: Scene, device: torch.device | str,
                   env_cube: np.ndarray | None = None,
                   env_analytic: bool = False) -> FlatScene:
@@ -267,13 +312,7 @@ def flatten_scene(scene: Scene, device: torch.device | str,
         _material_arrays(scene)
     atlas, tex_offset, tex_size = _texture_pool(scene.textures)
 
-    # Lights, padded to the reference's fixed UBO size (Common.h:4).
-    locations, colors = scene.gather_lights()
-    light_count = min(len(locations), MAX_LIGHT_COUNT)
-    light_location = np.zeros((MAX_LIGHT_COUNT, 4), np.float32)
-    light_color = np.zeros((MAX_LIGHT_COUNT, 4), np.float32)
-    light_location[:light_count] = locations[:light_count]
-    light_color[:light_count] = colors[:light_count]
+    light_location, light_color, light_count = _light_rows(scene)
 
     env_enabled = env_cube is not None
     if env_cube is None:

@@ -37,6 +37,8 @@ from steeljax_torch.render.pt import integrator, renderer
 from steeljax_torch.scene import builtin
 from steeljax_torch.scene.material import Material, MaterialFlags
 from steeljax_torch.scene.scene import Entity, RenderObject, Scene
+from test_torch_support import one_torch_thread  # noqa: F401
+
 
 N_TRIS, N_RAYS = 3000, 2048
 K = 4
@@ -252,7 +254,7 @@ def test_resolve_multihit_matches_reference():
     for f in slots:
         slots[f][1, 2] = slots[f][0, 2]       # ray 2: front twice
         slots[f][:, 3] = -1 if f in ("t", "tri") else 0
-    rec, exhausted = integrator._resolve_multihit(flat, slots)
+    rec, exhausted = integrator._resolve_multihit(flat, tables, slots)
     rec_r, exhausted_r = integrator_ref._resolve_multihit(
         flat_r, tables_r, {f: jnp.asarray(v.numpy())
                            for f, v in slots.items()})

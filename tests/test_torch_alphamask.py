@@ -22,6 +22,8 @@ from steeljax_torch.accel import alphamask, cuda_traverse
 from steeljax_torch.accel.bvh import TRI_PER_ROW
 from steeljax_torch.accel.dispatch import prepare_tables
 from steeljax_torch.scene import builtin
+from test_torch_support import one_torch_thread  # noqa: F401
+
 
 N_TRIS = 3000
 

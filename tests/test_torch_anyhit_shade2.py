@@ -28,6 +28,8 @@ from steeljax_torch.accel.dispatch import trace_any, trace_nearest
 from steeljax_torch.apps import kernel_parity as kp
 from steeljax_torch.render.pt import renderer
 from steeljax_torch.scene import builtin
+from test_torch_support import one_torch_thread  # noqa: F401
+
 
 N_TRIS, N_RAYS = 3000, 2048
 

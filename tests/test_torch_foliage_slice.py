@@ -34,6 +34,8 @@ from steeljax_torch.render.pt import integrator, renderer
 from steeljax_torch.scene import builtin
 
 from test_torch_alpha_trace import two_quad_scenes
+from test_torch_support import one_torch_thread  # noqa: F401
+
 
 W, H = 32, 18
 PIXEL_ATOL = 1e-4

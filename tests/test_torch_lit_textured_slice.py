@@ -27,6 +27,8 @@ from steeljax.scene import builtin as builtin_ref
 from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.render.pt import integrator, renderer
 from steeljax_torch.scene import builtin
+from test_torch_support import one_torch_thread  # noqa: F401
+
 
 W, H = 32, 18
 PIXEL_ATOL = 1e-4

@@ -25,6 +25,8 @@ from steeljax_torch.render.pt import brdf, integrator, renderer
 from steeljax_torch.scene import builtin
 from steeljax_torch.scene import scene as scene_lib
 from steeljax_torch.scene.flatten import flatten_scene
+from test_torch_support import one_torch_thread  # noqa: F401
+
 
 ATOL = 1e-5
 RTOL = 1e-4

@@ -26,7 +26,8 @@ def _submodules():
 def test_slice_modules_are_present():
     names = set(_submodules())
     for mod in ("core.rng", "scene.flatten", "accel.bvh",
-                "accel.cuda_traverse", "accel.dispatch", "native",
+                "accel.cuda_traverse", "accel.dispatch", "accel.instances",
+                "accel.treelets", "accel.alphamask", "native",
                 "render.pt.integrator", "render.pt.renderer", "convert",
                 "apps.kernel_parity", "apps.render_cli", "io.image"):
         assert f"steeljax_torch.{mod}" in names, mod

@@ -20,6 +20,8 @@ from steeljax_torch.convert import from_jax_prepared
 from steeljax_torch.render.pt import renderer
 from steeljax_torch.scene import builtin
 from steeljax_torch.scene.flatten import FlatScene, flatten_scene
+from test_torch_support import one_torch_thread  # noqa: F401
+
 
 STATIC = ("light_count", "env_enabled", "env_analytic", "any_alpha_test",
           "any_alpha_blend", "has_textures", "source_tri_count")

@@ -24,6 +24,8 @@ from steeljax.scene.builtin import make_cornell_scene as cornell_ref
 from steeljax_torch.accel import cuda_traverse
 from steeljax_torch.accel.dispatch import trace_nearest
 from steeljax_torch.apps import kernel_parity as kp
+from test_torch_support import one_torch_thread  # noqa: F401
+
 
 N_TRIS, N_RAYS = 3000, 2048
 
