@@ -68,7 +68,12 @@ Phases:
 The second-to-last line is the kernels' JSON summary, the last line the
 device JSON.
 
-Usage: python3 chip_smoke.py
+With --ab-old DIR, phase 3c times K4 and K5 against the earlier kernels
+built from DIR (steeljax_torch/apps/alpha_ab.py says how to unpack them):
+its "A/B" lines give old and new ms in turns (old, new, new, old) for every
+K4 and K5 call of one frame, and the frames' sums.
+
+Usage: python3 chip_smoke.py [--ab-old DIR]
 """
 
 from __future__ import annotations
@@ -114,6 +119,20 @@ OPS_EPILOGUE = {"K1": 25, "K3": 60, "K2": 0, "K2_dense": 0, "K4": 0,
                 "K4_anyhit": 0, "K5": 0, "K6": 40, "K6_shade2": 91,
                 "K6_anyhit": 0, "K7": 60, "K7_shade1": 25, "K7_anyhit": 0}
 OPS_PER_INSTANCE_ENTER = 45
+# The earlier design of K4 and K5 (one thread per ray, scalar loads, a
+# stack in local memory), per ray on the same rays as phase 3b: counted by
+# its COUNT instances in the A/B phase (steeljax_torch/apps/alpha_ab.py) on
+# the H100.  The bounds of K4, K4_anyhit and K5 take the smaller of these
+# and the new kernel's counts: a walk order that pops more nodes does not
+# raise the least time of the function.
+EARLIER_PER_RAY = {
+    "K4": {"supernode_pops": 28.61, "triangle_tests": 449.69,
+           "mask_tests": 8.45, "fine_tests": 5.56},
+    "K4_anyhit": {"supernode_pops": 5.43, "triangle_tests": 56.47,
+                  "mask_tests": 1.12, "fine_tests": 0.80},
+    "K5": {"supernode_pops": 34.52, "triangle_tests": 641.19,
+           "mask_tests": 52.88, "fine_tests": 39.20},
+}
 # Bytes each ray reads (o, d, t_min, t_max; a dead ray, t_max < t_min, only
 # its interval: the function needs no more to reject it) and writes, by
 # kernel (K5 writes K = 4 slots of t, u, v and tri).
@@ -183,7 +202,16 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def _print_ptxas(label: str, table: dict) -> None:
+    for name, (regs, frame, st, ld, smem) in sorted(table.items()):
+        print(f"ptxas {label}: {name}: {regs} registers, {frame} B stack "
+              f"frame, spill stores {st} B, spill loads {ld} B, static smem "
+              f"{smem} B")
+
+
+def phase_build() -> dict:
+    """Build both libraries; print ptxas' registers, stack frame, spills and
+    static shared memory of every kernel instance, and return that table."""
     from steeljax_torch import native
 
     for name, build in (("BVH builder (g++)", native.bvh_library),
@@ -191,11 +219,10 @@ def phase_build() -> None:
         t0 = time.perf_counter()
         build()
         print(f"built {name} in {time.perf_counter() - t0:.3f} s")
-    log = native.BUILD_LOGS.get("libsteeljax_torch_cuda.so", "")
-    for line in log.splitlines():
-        if "Compiling entry" in line or "registers" in line or \
-                "spill" in line:
-            print("ptxas:", line.strip())
+    table = native.ptxas_table(native.BUILD_LOGS.get(
+        "libsteeljax_torch_cuda.so", ""))
+    _print_ptxas("this tree", table)
+    return table
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -219,7 +246,8 @@ def _live_rays(n_rays: int, t_min, t_max) -> int:
     return n_rays if t_max >= t_min else 0
 
 
-def _bound(kernel: str, rec: dict, live_rays: int, tri_base=None) -> dict:
+def _bound(kernel: str, rec: dict, live_rays: int, tri_base=None,
+           cap: dict | None = None) -> dict:
     """The least time the card could take for one call, from a counting
     launch's `rec`: the larger of the bytes it must move over the HBM rate
     and the fp32 operations this run's walk did (the kernel's own counters)
@@ -234,10 +262,19 @@ def _bound(kernel: str, rec: dict, live_rays: int, tri_base=None) -> dict:
     tests, and adds the rows of the distinct instances entered and of the
     distinct winners' instances.  `tri_base` ((N,), the treelet kernel K7)
     is each ray's offset from its treelet-local triangle id to an id over
-    the whole stack."""
+    the whole stack.  `cap` ({counter: per-ray mean}, EARLIER_PER_RAY)
+    caps each summed counter at that mean times the rays, so that a walk
+    that does more work than an earlier design did on the same rays does
+    not raise its own bound."""
     n_rays = rec["counters"].shape[0]
-    pops, rows, leaves, tests, col4, col5 = (
-        rec["counters"].to(torch.int64).sum(dim=0).tolist())
+    raw = rec["counters"].to(torch.int64).sum(dim=0).tolist()
+    sums = raw
+    if cap:
+        from steeljax_torch.accel.cuda_traverse import COUNTERS
+
+        sums = [min(total, cap[name] * n_rays) if name in cap else total
+                for name, total in zip(COUNTERS, raw)]
+    pops, rows, leaves, tests, col4, col5 = sums
     instanced = "seen_inst" in rec
     hit = rec["tri"] >= 0 if "tri" in rec else None
     winners = 0
@@ -280,25 +317,26 @@ def _bound(kernel: str, rec: dict, live_rays: int, tri_base=None) -> dict:
             "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bytes": moved,
             "table_bytes": table_bytes, "ops": ops,
             "live_rays": live_rays, "touched": touched,
-            "per_ray": {"supernode_pops": pops / n_rays,
-                        "row_bodies": rows / n_rays,
-                        "leaf_pops": leaves / n_rays,
-                        "triangle_tests": tests / n_rays,
-                        names[0]: col4 / n_rays, names[1]: col5 / n_rays}}
+            "capped": sums != raw,
+            "per_ray": dict(zip(("supernode_pops", "row_bodies", "leaf_pops",
+                                 "triangle_tests") + names,
+                                (x / n_rays for x in raw)))}
 
 
 def _timed_kernel(name, launcher, plain, rays, plain_rays):
     """Time the kernel alone over 50 launches of `launcher(False)`
     (kernel_launcher or anyhit_launcher with fixed arguments, the `rays`
     (o, d, t_min, t_max) among them, and counters=False) and `plain` over 3
-    calls; take the work counts from one launch of `launcher(True)`.  Print
-    and return the kernel's entry."""
+    calls; take the work counts from one launch of `launcher(True)`, capped
+    by EARLIER_PER_RAY where it has the kernel.  Print and return the
+    kernel's entry."""
     n_rays = rays[0].shape[0]
     kernel_ms = _time_ms(launcher(False)[0], 50)
     plain_ms = _time_ms(plain, 3)
     launch, rec = launcher(True)
     launch()
-    bound = _bound(name, rec, _live_rays(n_rays, rays[2], rays[3]))
+    bound = _bound(name, rec, _live_rays(n_rays, rays[2], rays[3]),
+                   cap=EARLIER_PER_RAY.get(name))
     print(f"{name}: {n_rays} rays, kernel {kernel_ms:.4f} ms; plain "
           f"{plain_ms:.4f} ms on {plain_rays} rays"
           f"{'' if plain_rays == n_rays else ' (a strided subset)'}; "
@@ -312,7 +350,9 @@ def _bound_text(bound: dict) -> str:
             f"({bound['bytes']:.4e} B for {bound['live_rays']} live rays, of "
             f"them {bound['table_bytes']:.4e} B of tables: distinct "
             + ", ".join(f"{k} {v}" for k, v in bound["touched"].items())
-            + f"; {bound['ops']:.4e} fp32 ops; per ray "
+            + f"; {bound['ops']:.4e} fp32 ops"
+            + (" from the counts capped by EARLIER_PER_RAY"
+               if bound.get("capped") else "") + "; per ray "
             + ", ".join(f"{k} {v:.2f}" for k, v in bound["per_ray"].items())
             + ")")
 
@@ -641,6 +681,10 @@ def phase_parity(device, scenes) -> dict:
         shadow, cases["shadow"][0].shape[0]))
     kernels["K4_anyhit"]["shapes"] = ("path F first-bounce sun rays, "
                                       "1280x720, coarse and fine masks")
+    print("per-ray counts of alpha8.cu: " + "; ".join(
+        f"{k} ({kernels[k]['shapes'].split(',')[0]}): " + ", ".join(
+            f"{c} {v:.2f}" for c, v in kernels[k]["per_ray"].items())
+        for k in ("K4", "K4_anyhit", "K5")))
     kernels.update(_k6_k7_kernels(device, scenes, var, max_err))
     return kernels
 
@@ -771,11 +815,14 @@ def _png_pixels(path: Path) -> np.ndarray:
 
 def _kernel_of(key: str) -> str | None:
     """The trace kernel a profiler event belongs to, from the kernel's name
-    and the template arguments of its instance (trace8_kernel: ANY_HIT,
-    DENSE, SHADE2, COUNT, ALPHA, FINE, TREELET; inst8_kernel: ANY_HIT, SHADE,
-    COUNT)."""
-    if "multihit8_kernel" in key:
-        return "K5"
+    and the template arguments of its instance (alpha8_kernel: MODE, K,
+    ALPHA, FINE, COUNT with MODE 0 K4, 1 K4 any-hit, 2 K5;
+    trace8_kernel: ANY_HIT, DENSE, SHADE2, COUNT, ALPHA, TREELET;
+    inst8_kernel: ANY_HIT, SHADE, COUNT).  "trace" is a trace kernel of an
+    unknown instance."""
+    if "alpha8_kernel<" in key:
+        mode = key.split("alpha8_kernel<", 1)[1].split(",", 1)[0].strip()
+        return {"0": "K4", "1": "K4_anyhit", "2": "K5"}.get(mode, "trace")
     if "inst8_kernel<" in key:
         any_hit = key.split("inst8_kernel<", 1)[1].split(",", 1)[0]
         return "K6_anyhit" if any_hit.strip() in ("true", "1") else "K6"
@@ -783,13 +830,11 @@ def _kernel_of(key: str) -> str | None:
         return None
     args = key.split("trace8_kernel<", 1)[1].split(">", 1)[0]
     flags = [a.strip() in ("true", "1") for a in args.split(",")]
-    if len(flags) != 7:
+    if len(flags) != 6:
         return "trace"
-    any_hit, dense, shade2, _, alpha, _, treelet = flags
+    any_hit, dense, shade2, _, _, treelet = flags
     if treelet:
         return "K7_anyhit" if any_hit else "K7"
-    if alpha:
-        return "K4_anyhit" if any_hit else "K4"
     if any_hit:
         return "K2_dense" if dense else "K2"
     return "K3" if shade2 else "K1"
@@ -1207,7 +1252,25 @@ def phase_instanced_edit(device, scenes, renderers, flat_prepare_s) -> None:
         raise RuntimeError("the refreshed frame is not the flat renderer's")
 
 
-def main() -> int:
+def phase_alpha_ab(scenes, old_dir, ptxas: dict) -> None:
+    """K4 and K5 of csrc/alpha8.cu against the earlier kernels built from
+    `old_dir`, in turns, on every K4 and K5 call of a frame of path F and of
+    path F with multihit_k = 4 (apps/alpha_ab.py); then the earlier
+    library's ptxas registers beside this tree's."""
+    from steeljax_torch.apps import alpha_ab
+
+    result = alpha_ab.run(scenes, old_dir, WIDTH, HEIGHT)
+    alpha_ab.compare_ptxas(result["old_ptxas"], ptxas)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ab-old", default=None, metavar="DIR",
+                    help="also time K4 and K5 against the earlier kernels "
+                         "built from this csrc directory (phase 3c)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: chip_smoke.py runs only on the GPU")
     import steeljax_torch  # noqa: F401  (fails outside a checkout)
@@ -1224,12 +1287,15 @@ def main() -> int:
         return out
 
     smi = phase("1. device and toolchain", phase_device)
-    phase("2. build", phase_build)
+    ptxas = phase("2. build", phase_build)
     scenes, renderers, prepare_s = phase(
         "3a. prepare paths L, T, F, S, F multihit, U, UL, I and J",
         phase_prepare, device)
     kernels = phase("3b. parity and kernel times", phase_parity, device,
                     scenes)
+    if args.ab_old:
+        phase("3c. K4 and K5, old against new", phase_alpha_ab, scenes,
+              args.ab_old, ptxas)
     cornell = phase("4. Cornell main path", phase_cornell, device)
     path_l = phase("5a. path L (sunlit stress)", drive_path, "path L",
                    *scenes["sunlit"], {"K1": 1, "K2": 1})
@@ -1287,7 +1353,8 @@ def main() -> int:
                 "K7_shade1": path_ul["launches"]["K7"],
                 "K7_anyhit": path_ul["launches"]["K7_anyhit"]}
     sources = {k: "steeljax_torch/csrc/traverse8.cu" for k in launches}
-    sources["K5"] = "steeljax_torch/csrc/multihit8.cu"
+    for k in ("K4", "K4_anyhit", "K5"):
+        sources[k] = "steeljax_torch/csrc/alpha8.cu"
     for k in ("K6", "K6_shade2", "K6_anyhit"):
         sources[k] = "steeljax_torch/csrc/instanced8.cu"
     titles = {
@@ -1296,11 +1363,12 @@ def main() -> int:
         "K2_dense": "K2-dense trace_any8 (any-hit occlusion, dense "
                     "14-record rows)",
         "K3": "K3 trace_nearest8 (nearest hit, textured shade mode 2)",
-        "K4": "K4 trace_nearest8 (nearest hit with alpha masks, coarse and "
-              "fine)",
-        "K4_anyhit": "K4 trace_any8 (any-hit occlusion with alpha masks)",
-        "K5": "K5 trace_multihit8 (K nearest hits with alpha masks and the "
-              "opaque bound)",
+        "K4": "K4 trace_alpha8 NEAREST (nearest hit with alpha masks, coarse "
+              "and fine)",
+        "K4_anyhit": "K4 trace_alpha8 ANY (any-hit occlusion with alpha "
+                     "masks)",
+        "K5": "K5 trace_alpha8 K_NEAREST (K nearest hits with alpha masks "
+              "and the opaque bound)",
         "K6": "K6 trace_inst8 (two-level TLAS/BLAS nearest hit, shade mode "
               "1; launches on path I)",
         "K6_shade2": "K6 trace_inst8 (two-level nearest hit, textured shade "

@@ -10,9 +10,10 @@ both queries with in-kernel alpha-coverage masks (K4: the coarse mask in the
 records' AUX lane, optionally the fine PASS plane of a parallel int32 row
 table), the K-nearest multi-hit query (K5), the two-level query over an
 instance TLAS and object-space BLAS (K6) and the flat query over one
-treelet per ray packet (K7).  The kernels are `csrc/traverse8.cu` (K1-K4,
-K7), `csrc/multihit8.cu` (K5) and `csrc/instanced8.cu` (K6), built by
-native.cuda_library() and called through plain C functions.
+treelet per ray packet (K7).  The kernels are `csrc/traverse8.cu` (K1-K3,
+K7), `csrc/alpha8.cu` (K4 and K5: one walk with three candidate policies,
+over the Hopper record table of `hopper_records`) and `csrc/instanced8.cu`
+(K6), built by native.cuda_library() and called through plain C functions.
 
 `trace_nearest_bvh8`, `trace_any_bvh8`, `trace_multihit_bvh8`,
 `trace_nearest_bvh8_inst` and `trace_treelet_round` launch
@@ -44,8 +45,11 @@ SHADE1_STRIDE = 10
 SHADE2_STRIDE = 26
 SHADE2_PER_ROW = 4
 DET_EPS = 1e-12
-# Per-thread stack capacity of the kernels (MAX_STACK in csrc/traverse8.cu).
+# Per-thread stack capacity of the kernels (MAX_STACK in
+# csrc/trace8_common.cuh).
 MAX_STACK = 256
+# Floats per record of the Hopper record table (hopper_records).
+HOPPER_RECORD = 12
 # Kernel launches by kernel since the last reset (set the entries to 0 to
 # start counting): K1 nearest hit (shade modes 0/1), K3 nearest hit with
 # textured shading (mode 2), K2 any-hit on the 12-record rows, K2_dense
@@ -168,6 +172,22 @@ def pack_shade_records(tri_nrm, tri_mat, textured: bool = False,
     return _pack_rows(packed, SHADE2_PER_ROW if textured else TRI_PER_ROW)
 
 
+def hopper_records(tris: torch.Tensor) -> torch.Tensor:
+    """The Hopper record table of csrc/alpha8.cu, derived from pack_tris
+    rows on their device: (R * TRI_PER_ROW, HOPPER_RECORD) float32, record k
+    as three 16-byte float4s [v0.xyz, f9], [e1.xyz, 0], [e2.xyz, 0], where f9
+    is the reference record's last float (the AUX word, or the double-sided
+    flag).  Record ids are the reference's, so leaf starts and counts hold."""
+    rec = tris[:, :TRI_PER_ROW * TRI_STRIDE].reshape(-1, TRI_STRIDE)
+    out = torch.zeros((rec.shape[0], HOPPER_RECORD), dtype=torch.float32,
+                      device=tris.device)
+    out[:, 0:3] = rec[:, 0:3]
+    out[:, 3] = rec[:, 9]
+    out[:, 4:7] = rec[:, 3:6]
+    out[:, 8:11] = rec[:, 6:9]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: kernel for CUDA tensors, plain version for CPU tensors
 # ---------------------------------------------------------------------------
@@ -231,7 +251,8 @@ def trace_nearest_bvh8(bvh8: BVH8, tris_packed: torch.Tensor,
                        cull_backface: bool = True,
                        shade_rows: torch.Tensor | None = None,
                        shade_mode: int = 0, alpha_mask: bool = False,
-                       fine_rows: torch.Tensor | None = None) -> dict:
+                       fine_rows: torch.Tensor | None = None,
+                       records: torch.Tensor | None = None) -> dict:
     """Nearest hit of each ray over a BVH8; the contract of the reference's
     trace_nearest_packet8 (pallas_traverse.py:752-778).
 
@@ -243,7 +264,9 @@ def trace_nearest_bvh8(bvh8: BVH8, tris_packed: torch.Tensor,
     uv (N, 2) and uvd (N,).  A ray with t_max < t_min is dead and misses.
     alpha_mask=True (K4) decodes the AUX words of tris packed with masks
     and drops candidates whose coverage cell is provably transparent;
-    `fine_rows` (pack_fine_mask_rows) adds the fine PASS plane."""
+    `fine_rows` (pack_fine_mask_rows) adds the fine PASS plane.  `records`
+    is hopper_records(tris_packed), which the alpha kernel reads (derived
+    anew for the call when None; the plain version reads tris_packed)."""
     tensors = {"bvh8.rows": bvh8.rows, "tris_packed": tris_packed, "o": o,
                "d": d}
     if shade_mode not in (0, 1, 2):
@@ -258,7 +281,7 @@ def trace_nearest_bvh8(bvh8: BVH8, tris_packed: torch.Tensor,
         launch, rec = kernel_launcher(bvh8, tris_packed, o, d, t_min, t_max,
                                       cull_backface, shade_rows, shade_mode,
                                       alpha_mask=alpha_mask,
-                                      fine_rows=fine_rows)
+                                      fine_rows=fine_rows, records=records)
         launch()
         rec["hit"] = rec["tri"] >= 0
         return rec
@@ -270,14 +293,15 @@ def trace_nearest_bvh8(bvh8: BVH8, tris_packed: torch.Tensor,
 def trace_any_bvh8(bvh8: BVH8, tris: torch.Tensor, o: torch.Tensor,
                    d: torch.Tensor, t_min, t_max, dense: bool = False,
                    alpha_mask: bool = False,
-                   fine_rows: torch.Tensor | None = None) -> torch.Tensor:
+                   fine_rows: torch.Tensor | None = None,
+                   records: torch.Tensor | None = None) -> torch.Tensor:
     """Occlusion of each ray over a BVH8: (N,) bool, true when any triangle
     is hit (no culling) with t in [t_min, t_max]; a dead ray (t_max <
     t_min) is never occluded.  `tris` is pack_tris rows, or with dense=True
     pack_tris_dense rows over their own supernode rows (the contracts of
     trace_nearest_packet8(any_hit=True) and trace_anyhit_dense,
-    pallas_traverse.py:574-594, :781-794).  alpha_mask and fine_rows as in
-    trace_nearest_bvh8 (K4_anyhit; not with dense rows)."""
+    pallas_traverse.py:574-594, :781-794).  alpha_mask, fine_rows and
+    records as in trace_nearest_bvh8 (K4_anyhit; not with dense rows)."""
     tensors = {"bvh8.rows": bvh8.rows, "tris": tris, "o": o, "d": d}
     _alpha_tensors(tensors, alpha_mask, fine_rows)
     if dense and alpha_mask:
@@ -286,7 +310,7 @@ def trace_any_bvh8(bvh8: BVH8, tris: torch.Tensor, o: torch.Tensor,
     if device.type == "cuda":
         launch, rec = anyhit_launcher(bvh8, tris, o, d, t_min, t_max, dense,
                                       alpha_mask=alpha_mask,
-                                      fine_rows=fine_rows)
+                                      fine_rows=fine_rows, records=records)
         launch()
         return rec["hit"]
     return trace_any_bvh8_plain(bvh8, tris, o, d, t_min, t_max, dense,
@@ -302,7 +326,8 @@ def _check_k(k_hits: int) -> None:
 def trace_multihit_bvh8(bvh8: BVH8, tris: torch.Tensor, o: torch.Tensor,
                         d: torch.Tensor, t_min, t_max, k_hits: int,
                         cull_backface: bool = True, alpha_mask: bool = False,
-                        fine_rows: torch.Tensor | None = None) -> dict:
+                        fine_rows: torch.Tensor | None = None,
+                        records: torch.Tensor | None = None) -> dict:
     """The K nearest hits of each ray (K5), the contract of the reference's
     trace_multihit_packet8 (pallas_traverse.py:1117-1138): {"t", "u", "v",
     "tri"}, each (K, N), sorted ascending by t per ray; slot k holds t -1,
@@ -310,7 +335,7 @@ def trace_multihit_bvh8(bvh8: BVH8, tris: torch.Tensor, o: torch.Tensor,
     [t_min, t_max).  alpha_mask drops candidates the coarse masks reject;
     `fine_rows` also applies the fine PASS plane and bounds each ray by its
     nearest OPAQUE-plane hit ob: the slots then hold the K nearest PASS hits
-    with t <= ob."""
+    with t <= ob.  `records` as in trace_nearest_bvh8."""
     _check_k(k_hits)
     tensors = {"bvh8.rows": bvh8.rows, "tris": tris, "o": o, "d": d}
     _alpha_tensors(tensors, alpha_mask, fine_rows)
@@ -319,7 +344,7 @@ def trace_multihit_bvh8(bvh8: BVH8, tris: torch.Tensor, o: torch.Tensor,
         launch, rec = multihit_launcher(bvh8, tris, o, d, t_min, t_max,
                                         k_hits, cull_backface,
                                         alpha_mask=alpha_mask,
-                                        fine_rows=fine_rows)
+                                        fine_rows=fine_rows, records=records)
         launch()
         return rec
     return trace_multihit_bvh8_plain(bvh8, tris, o, d, t_min, t_max, k_hits,
@@ -344,9 +369,13 @@ def _check_launch(bvh8, tris, device, fine_rows=None):
         if fine_rows.shape[0] < tris.shape[0]:
             raise ValueError(f"fine_rows has {fine_rows.shape[0]} rows for "
                              f"{tris.shape[0]} triangle rows")
-    if 8 * bvh8.depth + 16 > MAX_STACK:
-        raise ValueError(f"BVH8 depth {bvh8.depth} needs a stack of "
-                         f"{8 * bvh8.depth + 16} > {MAX_STACK} entries")
+    _check_depth(bvh8.depth)
+
+
+def _check_depth(depth: int) -> None:
+    if 8 * depth + 16 > MAX_STACK:
+        raise ValueError(f"BVH8 depth {depth} needs a stack of "
+                         f"{8 * depth + 16} > {MAX_STACK} entries")
 
 
 def _launch_fn(kernel: str, entry: str, args, tensors):
@@ -374,16 +403,19 @@ def _launch_fn(kernel: str, entry: str, args, tensors):
     return launch
 
 
-def _telemetry(n: int, bvh8, tris, per_row: int) -> dict:
+def _telemetry(n: int, bvh8, tris, per_row: int,
+               fine: bool = False) -> dict:
     """The tensors a counting launch writes: "counters" (N, 6) int32, the
     per-ray telemetry named in COUNTERS; "seen_nodes" (S,) uint8, 1 for
-    every supernode row some ray popped; "seen_records" and "seen_fine"
-    (R * per_row,) uint8, 1 for every triangle record some ray tested, and
-    for every record whose fine mask words some ray read.  The seen flags
-    are set by every launch and never cleared."""
+    every supernode row some ray popped; "seen_records" (R * per_row,)
+    uint8, 1 for every triangle record some ray tested, and with `fine` (the
+    alpha kernels) "seen_fine", 1 for every record whose fine mask words
+    some ray read.  The seen flags are set by every launch and never
+    cleared."""
     rec = _telemetry_sized(n, bvh8.rows.shape[0], tris.shape[0] * per_row,
                            tris.device)
-    rec["seen_fine"] = torch.zeros_like(rec["seen_records"])
+    if fine:
+        rec["seen_fine"] = torch.zeros_like(rec["seen_records"])
     return rec
 
 
@@ -404,16 +436,21 @@ def _ptr(x):
 def kernel_launcher(bvh8, tris_packed, o, d, t_min, t_max,
                     cull_backface: bool = True, shade_rows=None,
                     shade_mode: int = 0, counters: bool = False,
-                    alpha_mask: bool = False, fine_rows=None):
+                    alpha_mask: bool = False, fine_rows=None, records=None):
     """Check the inputs of one nearest-hit kernel call (K1; K3 for shade
-    mode 2; K4 with alpha_mask) on CUDA tensors and allocate its outputs.
-    Returns (launch, rec): each `launch()` runs the kernel on the current
-    stream into rec's tensors and adds one to LAUNCHES.  The wrapper calls
-    it once; a benchmark can repeat it without the wrapper's host work.
-    counters=True adds the telemetry of _telemetry."""
-    device = o.device
+    mode 2; K4 with alpha_mask, through alpha_launcher) on CUDA tensors and
+    allocate its outputs.  Returns (launch, rec): each `launch()` runs the
+    kernel on the current stream into rec's tensors and adds one to
+    LAUNCHES.  The wrapper calls it once; a benchmark can repeat it without
+    the wrapper's host work.  counters=True adds the telemetry of
+    _telemetry."""
     _alpha_tensors({}, alpha_mask, fine_rows, shade_mode)
-    _check_launch(bvh8, tris_packed, device, fine_rows)
+    if alpha_mask:
+        return alpha_launcher("nearest", bvh8, tris_packed, o, d, t_min,
+                              t_max, cull_backface, counters=counters,
+                              fine_rows=fine_rows, records=records)
+    device = o.device
+    _check_launch(bvh8, tris_packed, device)
     if shade_mode:
         _check_table("shade_rows", shade_rows, device)
         per_tri_row = 1 if shade_mode == 1 else TRI_PER_ROW // SHADE2_PER_ROW
@@ -441,30 +478,33 @@ def kernel_launcher(bvh8, tris_packed, o, d, t_min, t_max,
         return rec[name].data_ptr() if name in rec else None
 
     args = (bvh8.rows.data_ptr(), tris_packed.data_ptr(),
-            shade_rows.data_ptr() if shade_mode else None, _ptr(fine_rows),
-            o.data_ptr(), d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
-            ptr("t"), ptr("u"), ptr("v"), ptr("tri"), ptr("n"), ptr("mat"),
-            ptr("tan"), ptr("uv"), ptr("uvd"), ptr("counters"),
-            ptr("seen_nodes"), ptr("seen_records"), ptr("seen_fine"), n,
-            bvh8.max_leaf, bvh8.depth, int(bool(cull_backface)), shade_mode,
-            int(bool(alpha_mask)))
-    kernel = "K4" if alpha_mask else ("K3" if shade_mode == 2 else "K1")
-    return _launch_fn(kernel, "steeljax_trace_nearest8", args,
-                      (bvh8.rows, tris_packed, shade_rows, fine_rows, o, d,
-                       tmn, tmx, *rec.values())), rec
+            shade_rows.data_ptr() if shade_mode else None, o.data_ptr(),
+            d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(), ptr("t"), ptr("u"),
+            ptr("v"), ptr("tri"), ptr("n"), ptr("mat"), ptr("tan"),
+            ptr("uv"), ptr("uvd"), ptr("counters"), ptr("seen_nodes"),
+            ptr("seen_records"), n, bvh8.max_leaf, bvh8.depth,
+            int(bool(cull_backface)), shade_mode)
+    return _launch_fn("K3" if shade_mode == 2 else "K1",
+                      "steeljax_trace_nearest8", args,
+                      (bvh8.rows, tris_packed, shade_rows, o, d, tmn, tmx,
+                       *rec.values())), rec
 
 
 def anyhit_launcher(bvh8, tris, o, d, t_min, t_max, dense: bool = False,
                     counters: bool = False, alpha_mask: bool = False,
-                    fine_rows=None):
-    """The any-hit kernel's launcher (K2; K4_anyhit with alpha_mask), as
-    kernel_launcher: rec["hit"] is (N,) bool; counters=True adds the
-    telemetry of _telemetry."""
-    device = o.device
+                    fine_rows=None, records=None):
+    """The any-hit kernel's launcher (K2; K4_anyhit with alpha_mask, through
+    alpha_launcher), as kernel_launcher: rec["hit"] is (N,) bool;
+    counters=True adds the telemetry of _telemetry."""
     _alpha_tensors({}, alpha_mask, fine_rows)
     if dense and alpha_mask:
         raise ValueError("the dense any-hit rows carry no alpha masks")
-    _check_launch(bvh8, tris, device, fine_rows)
+    if alpha_mask:
+        return alpha_launcher("any", bvh8, tris, o, d, t_min, t_max,
+                              counters=counters, fine_rows=fine_rows,
+                              records=records)
+    device = o.device
+    _check_launch(bvh8, tris, device)
     o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
     n = o.shape[0]
     # The kernel writes one byte, 0 or 1, per ray: a bool tensor's storage.
@@ -476,49 +516,89 @@ def anyhit_launcher(bvh8, tris, o, d, t_min, t_max, dense: bool = False,
     def ptr(name):
         return rec[name].data_ptr() if name in rec else None
 
-    args = (bvh8.rows.data_ptr(), tris.data_ptr(), _ptr(fine_rows),
-            o.data_ptr(), d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
+    args = (bvh8.rows.data_ptr(), tris.data_ptr(), o.data_ptr(),
+            d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
             rec["hit"].data_ptr(), ptr("counters"), ptr("seen_nodes"),
-            ptr("seen_records"), ptr("seen_fine"), n, bvh8.max_leaf,
-            bvh8.depth, int(bool(dense)), int(bool(alpha_mask)))
-    kernel = ("K4_anyhit" if alpha_mask else
-              ("K2_dense" if dense else "K2"))
-    return _launch_fn(kernel, "steeljax_trace_any8", args,
-                      (bvh8.rows, tris, fine_rows, o, d, tmn, tmx,
-                       *rec.values())), rec
+            ptr("seen_records"), n, bvh8.max_leaf, bvh8.depth,
+            int(bool(dense)))
+    return _launch_fn("K2_dense" if dense else "K2", "steeljax_trace_any8",
+                      args, (bvh8.rows, tris, o, d, tmn, tmx,
+                             *rec.values())), rec
 
 
 def multihit_launcher(bvh8, tris, o, d, t_min, t_max, k_hits: int,
                       cull_backface: bool = True, counters: bool = False,
-                      alpha_mask: bool = False, fine_rows=None):
-    """The multi-hit kernel K5's launcher, as kernel_launcher: rec holds
-    (K, N) "t", "u", "v" and "tri"; counters=True adds the telemetry of
-    _telemetry."""
-    _check_k(k_hits)
-    device = o.device
+                      alpha_mask: bool = False, fine_rows=None, records=None):
+    """The multi-hit kernel K5's launcher (alpha_launcher), as
+    kernel_launcher: rec holds (K, N) "t", "u", "v" and "tri"; counters=True
+    adds the telemetry of _telemetry."""
+    return alpha_launcher("multihit", bvh8, tris, o, d, t_min, t_max,
+                          cull_backface, k_hits=k_hits, counters=counters,
+                          alpha_mask=alpha_mask, fine_rows=fine_rows,
+                          records=records)
+
+
+# The queries of csrc/alpha8.cu, by its mode argument, and their LAUNCHES
+# keys.
+_ALPHA_MODES = {"nearest": (0, "K4"), "any": (1, "K4_anyhit"),
+                "multihit": (2, "K5")}
+
+
+def alpha_launcher(query: str, bvh8, tris, o, d, t_min, t_max,
+                   cull_backface: bool = True, k_hits: int = 1,
+                   counters: bool = False, alpha_mask: bool = True,
+                   fine_rows=None, records=None):
+    """The launcher of csrc/alpha8.cu, as kernel_launcher: `query` "nearest"
+    (K4: rec t, u, v, tri (N,)), "any" (K4_anyhit: rec["hit"] (N,) bool, no
+    culling) or "multihit" (K5: (k_hits, N) slots).  K4 always applies the
+    coarse masks; `fine_rows` adds the fine planes.  `records` is
+    hopper_records(tris), derived here when None.  counters=True adds the
+    telemetry of _telemetry, seen_fine included."""
+    mode, kernel = _ALPHA_MODES[query]
     _alpha_tensors({}, alpha_mask, fine_rows)
+    if mode != 2 and not alpha_mask:
+        raise ValueError("K4 applies alpha masks: alpha_mask=True")
+    if mode == 2:
+        _check_k(k_hits)
+    _check_depth(bvh8.depth)
+    if records is not None and (
+            records.dtype != torch.float32 or records.dim() != 2
+            or records.shape[1] != HOPPER_RECORD
+            or records.shape[0] < tris.shape[0] * TRI_PER_ROW):
+        raise ValueError(f"records must be (>= {tris.shape[0] * TRI_PER_ROW}"
+                         f", {HOPPER_RECORD}) float32 (hopper_records), got "
+                         f"{tuple(records.shape)} {records.dtype}")
+    device = o.device
     _check_launch(bvh8, tris, device, fine_rows)
+    if records is None:
+        records = hopper_records(tris)
+    if records.device != device or not records.is_contiguous():
+        raise ValueError(f"records must be contiguous on {device}")
     o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
     n = o.shape[0]
     f32 = dict(dtype=torch.float32, device=device)
-    rec = {"t": torch.empty((k_hits, n), **f32),
-           "u": torch.empty((k_hits, n), **f32),
-           "v": torch.empty((k_hits, n), **f32),
-           "tri": torch.empty((k_hits, n), dtype=torch.int32, device=device)}
+    if mode == 1:
+        rec = {"hit": torch.empty(n, dtype=torch.bool, device=device)}
+    else:
+        shape = (k_hits, n) if mode == 2 else (n,)
+        rec = {"t": torch.empty(shape, **f32), "u": torch.empty(shape, **f32),
+               "v": torch.empty(shape, **f32),
+               "tri": torch.empty(shape, dtype=torch.int32, device=device)}
     if counters:
-        rec.update(_telemetry(n, bvh8, tris, TRI_PER_ROW))
+        rec.update(_telemetry(n, bvh8, tris, TRI_PER_ROW, fine=True))
 
     def ptr(name):
         return rec[name].data_ptr() if name in rec else None
 
-    args = (bvh8.rows.data_ptr(), tris.data_ptr(), _ptr(fine_rows),
-            o.data_ptr(), d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
-            ptr("t"), ptr("u"), ptr("v"), ptr("tri"), ptr("counters"),
-            ptr("seen_nodes"), ptr("seen_records"), ptr("seen_fine"), n,
-            bvh8.max_leaf, bvh8.depth, k_hits, int(bool(cull_backface)),
+    args = (bvh8.rows.data_ptr(), records.data_ptr(), _ptr(fine_rows),
+            o.data_ptr(), d.data_ptr(), tmn.data_ptr(),
+            tmx.data_ptr(), ptr("t"), ptr("u"), ptr("v"), ptr("tri"),
+            ptr("hit"), ptr("counters"), ptr("seen_nodes"),
+            ptr("seen_records"), ptr("seen_fine"), n, bvh8.max_leaf,
+            bvh8.depth, int(bool(cull_backface)), mode, k_hits,
             int(bool(alpha_mask)))
-    return _launch_fn("K5", "steeljax_trace_multihit8", args,
-                      (bvh8.rows, tris, fine_rows, o, d, tmn, tmx,
+    return _launch_fn(kernel, "steeljax_trace_alpha8", args,
+                      (bvh8.rows, records, tris, fine_rows, o, d, tmn, tmx,
                        *rec.values())), rec
 
 

@@ -59,6 +59,9 @@ class ChunkTables:
     # pack_fine_mask_rows, parallel to tris_packed), or None.
     tri_mask: torch.Tensor | None = None
     fine_mask_rows: torch.Tensor | None = None
+    # Alpha-masked tables: the Hopper record table of the alpha kernels K4
+    # and K5 (cuda_traverse.hopper_records of tris_packed), or None.
+    tri_records: torch.Tensor | None = None
     row_offset: int = 0
     rows: int = 0
     # Chunk AABB of the real triangles.
@@ -131,7 +134,9 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
     `tri_fine_mask` ((T, FINE_STRIDE) int32, alphamask.compute_fine_masks)
     adds the fine mask rows; both are dropped when every triangle's coarse
     mask is MASK_FULL (masking is then a no-op), and masked tables get no
-    dense any-hit tables (their rows carry no masks).
+    dense any-hit tables (their rows carry no masks).  Masked tables also
+    get the Hopper record table the alpha kernels read, derived on the
+    device from the triangle rows (cuda_traverse.hopper_records).
     Each step is a `prepare_tables.<step>` range for torch.profiler.
 
     Returns (tables, order, total_padded): reorder every per-triangle array
@@ -196,6 +201,10 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
             tri_mask=(None if mask is None else torch.from_numpy(
                 permuted_mask.astype(np.int32)).to(device)),
             row_offset=0, rows=padded, aabb=(lo, hi))
+    if mask is not None:
+        with record_function("prepare_tables.hopper_records"):
+            chunk = chunk.replace(tri_records=cuda_traverse.hopper_records(
+                chunk.tris_packed))
     if fine is not None:
         with record_function("prepare_tables.pack_fine_mask_rows"):
             chunk = chunk.replace(fine_mask_rows=torch.from_numpy(
@@ -298,7 +307,7 @@ def trace_nearest(tables: TraceTables | InstancedTables, o: torch.Tensor,
         chunk.bvh8, chunk.tris_packed, o, d, t_min, t_max,
         cull_backface=cull_backface, shade_rows=chunk.shade_packed,
         shade_mode=tables.shade_mode, alpha_mask=tables.alpha_masked,
-        fine_rows=chunk.fine_mask_rows)
+        fine_rows=chunk.fine_mask_rows, records=chunk.tri_records)
 
 
 def trace_any(tables: TraceTables | InstancedTables, o: torch.Tensor,
@@ -322,7 +331,8 @@ def trace_any(tables: TraceTables | InstancedTables, o: torch.Tensor,
             dense=True)
     return cuda_traverse.trace_any_bvh8(
         chunk.bvh8, chunk.tris_packed, o, d, t_min, t_max,
-        alpha_mask=tables.alpha_masked, fine_rows=chunk.fine_mask_rows)
+        alpha_mask=tables.alpha_masked, fine_rows=chunk.fine_mask_rows,
+        records=chunk.tri_records)
 
 
 def trace_multihit(tables: TraceTables, o: torch.Tensor, d: torch.Tensor,
@@ -330,9 +340,10 @@ def trace_multihit(tables: TraceTables, o: torch.Tensor, d: torch.Tensor,
                    ) -> dict:
     """The k_hits nearest hits over the scene's one chunk (K5), with the
     tables' masks: cuda_traverse.trace_multihit_bvh8's (K, N) slots, tri
-    indexing the permuted triangle arrays."""
+    indexing the permuted triangle arrays (tables without masks have no
+    Hopper record table: the wrapper derives one for the call)."""
     chunk = _one_chunk(tables)
     return cuda_traverse.trace_multihit_bvh8(
         chunk.bvh8, chunk.tris_packed, o, d, t_min, t_max, k_hits,
         cull_backface=cull_backface, alpha_mask=tables.alpha_masked,
-        fine_rows=chunk.fine_mask_rows)
+        fine_rows=chunk.fine_mask_rows, records=chunk.tri_records)

@@ -268,14 +268,13 @@ def soup_case(n_tris: int, n_rays: int, device, leaf_size: int = 24,
     return tables, perm, o, d
 
 
-def alpha_soup_case(n_tris: int, device, fine: bool = False):
-    """kernel_parity's soup with random coarse alpha masks (every 21-bit
-    value equally likely) and, with `fine`, random two-plane fine masks
-    (PASS bits set with probability 3/4, OPAQUE 3/8; kernel_parity.py:
-    341-345, :446-457).  Returns (tables, permuted {"pos", "ds"})."""
+def alpha_soup_inputs(n_tris: int, fine: bool = False):
+    """The inputs of alpha_soup_case: the soup's (T, 3, 3) positions and
+    double-sided flags, random coarse alpha masks (every 21-bit value
+    equally likely) and, with `fine`, random two-plane fine masks (PASS bits
+    set with probability 3/4, OPAQUE 3/8; kernel_parity.py:341-345,
+    :446-457), else None."""
     from steeljax_torch.accel.alphamask import MASK_FULL
-    from steeljax_torch.accel.bvh import apply_permutation
-    from steeljax_torch.accel.dispatch import prepare_tables
 
     tris = _soup(n_tris, 1)
     ds = np.random.default_rng(2).uniform(size=n_tris) < 0.3
@@ -287,6 +286,16 @@ def alpha_soup_case(n_tris: int, device, fine: bool = False):
                  | r.integers(0, 1 << 31, (n_tris, 10), dtype=np.int64))
         words[:, 5:] &= r.integers(0, 1 << 31, (n_tris, 5), dtype=np.int64)
         fine_masks = words.astype(np.int32)
+    return tris, ds, coarse, fine_masks
+
+
+def alpha_soup_case(n_tris: int, device, fine: bool = False):
+    """kernel_parity's soup with the masks of alpha_soup_inputs.  Returns
+    (tables, permuted {"pos", "ds"})."""
+    from steeljax_torch.accel.bvh import apply_permutation
+    from steeljax_torch.accel.dispatch import prepare_tables
+
+    tris, ds, coarse, fine_masks = alpha_soup_inputs(n_tris, fine)
     tables, order, padded = prepare_tables(
         tris, ds, device, leaf_size=24, tri_alpha_mask=coarse,
         tri_fine_mask=fine_masks)

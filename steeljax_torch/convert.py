@@ -30,7 +30,8 @@ import torch
 
 from steeljax_torch.accel.alphamask import compute_fine_masks
 from steeljax_torch.accel.bvh import BVH, BVH8
-from steeljax_torch.accel.cuda_traverse import (pack_fine_mask_rows,
+from steeljax_torch.accel.cuda_traverse import (hopper_records,
+                                                pack_fine_mask_rows,
                                                 pack_shade_records)
 from steeljax_torch.accel.dispatch import ChunkTables, TraceTables
 from steeljax_torch.accel.instances import InstancedTables
@@ -157,5 +158,8 @@ def from_jax_prepared(flat, tables, device: torch.device | str,
                         if alpha and fine_masks else None),
         row_offset=int(chunk.row_offset), rows=int(chunk.rows),
         aabb=tuple(tuple(float(v) for v in corner) for corner in chunk.aabb))
+    if alpha:
+        port_chunk = port_chunk.replace(
+            tri_records=hopper_records(port_chunk.tris_packed))
     return port_flat, TraceTables(chunks=(port_chunk,), shade_mode=mode,
                                   alpha_masked=alpha)

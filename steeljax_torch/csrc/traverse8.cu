@@ -1,6 +1,6 @@
 // BVH8 ray traversal for Hopper (sm_90a), one thread per ray.
 //
-// One templated body, instanced as five TPU kernels of
+// One templated body, instanced as four TPU kernels of
 // steeljax/accel/pallas_traverse.py:_traverse_kernel8 (host wrapper
 // _trace_packed8, pallas_call at :719):
 //   K1  nearest hit, shade modes 0 and 1 (entry trace_nearest_packet8);
@@ -9,23 +9,21 @@
 //   K2  any-hit occlusion (any_hit=True, :506-517, :574-594), over the
 //       12-record rows or the dense 14-record rows (trace_anyhit_dense,
 //       :781-794);
-//   K4  nearest hit (shade mode 0) and any-hit occlusion with in-kernel
-//       alpha-coverage masks (alpha_mask=True, :457-499; fine=True,
-//       :500-505 with _fine_test :227-246).
 //   K7  the same body over one treelet's node, triangle and shade blocks
 //       (_kernel8_treelet :1252, host wrapper _trace_packed8_treelet :1149,
 //       pallas_call at :1229): every packet of `block` consecutive rays
 //       walks the treelet its entry of `pid` names, whose tables start
 //       pid * stride floats into the stacked (K, S, 128), (K, R, 128) and
 //       (K, R * {1, 3}, 128) arrays; triangle ids are treelet-local.  Shade
-//       modes 0, 1 and 2, any-hit, and the coarse alpha masks.  A round
-//       launches every ray, the finished ones with the dead interval (they
-//       leave before the root), so on this card a late round is bound by
-//       the ray reads and writes of all its rays, not by its few walks.
+//       modes 0, 1 and 2, any-hit, and the coarse alpha masks (ALPHA, the
+//       treelet instances only).  A round launches every ray, the finished
+//       ones with the dead interval (they leave before the root), so on this
+//       card a late round is bound by the ray reads and writes of all its
+//       rays, not by its few walks.
 // Each instance is specialized at compile time on (ANY_HIT, DENSE, SHADE2,
-// COUNT, ALPHA, FINE, TREELET), so K1's instance has no code of the others.
-// The K-nearest multi-hit kernel K5 is multihit8.cu, the two-level kernel K6
-// instanced8.cu.
+// COUNT, ALPHA, TREELET), so K1's instance has no code of the others.  The
+// alpha-masked kernels K4 (nearest and any-hit) and K5 (K nearest) are
+// alpha8.cu, the two-level kernel K6 instanced8.cu.
 //
 // Tables, in the reference's formats unchanged:
 //   snodes (S, 128) f32: 8 children per supernode row, child c at floats
@@ -43,11 +41,12 @@
 //     (k % 12) / 4, floats (k % 4) * 26 .. +25 = [n0.xyz, n1.xyz, n2.xyz,
 //     mat, t0.xyz, t1.xyz, t2.xyz, uv0.xy, uv1.xy, uv2.xy, uv_density]
 //     (pallas_traverse.py:437-441, cuda_traverse.pack_shade_records).
-//   With alpha masks (K4) float 9 of a triangle record is the AUX word ds |
+//   With alpha masks float 9 of a triangle record is the AUX word ds |
 //     mask << 1, an exact integer below 2^22 (cuda_traverse.pack_tris), and
 //     fine (R, 128) int32 rows run parallel to the triangle rows: record k
 //     at row k / 12, words (k % 12) * 10 .. +9 = 5 PASS words, 5 OPAQUE
-//     words of the 153-cell fine grid (pack_fine_mask_rows).
+//     words of the 153-cell fine grid (pack_fine_mask_rows; read by
+//     alpha8.cu).
 //
 // What bounds it on this card.  K1: the scene tables of small scenes stay
 // resident in L1/L2, so HBM bandwidth is not the limit; each ray walks its
@@ -55,9 +54,7 @@
 // dependent table reads and by warp divergence when neighbouring rays take
 // different paths.  K3: the same as K1, plus one 104-byte shade record per
 // ray after the walk.  K2: the dependent-load latency of the walk, which
-// ends at the first occluder found.  K4: as K1 and K2, plus the mask test
-// of each candidate inside its triangle (a cast, a shift, and with fine
-// rows one 4-byte read of the PASS word beside the record).
+// ends at the first occluder found.  K7: as K1, per treelet.
 //
 // What the design does about it: one thread per ray with a private stack
 // in local memory, so no ray waits on a packet-wide union of nodes (the
@@ -80,13 +77,12 @@
 //
 // Optional telemetry (COUNT instances, the reference's counters=True,
 // :618-628): per ray, [supernode pops, triangle-row bodies, leaf pops,
-// triangle tests, coarse mask tests, fine mask tests], where a mask test
-// counts a candidate that reached it (inside its triangle and its interval,
-// and for the fine test past the coarse one); besides, a COUNT instance
-// sets seen_snode[row] for every supernode row popped, seen_rec[k] for
-// every triangle record tested and seen_fine[k] for every record whose
-// fine words were read, so the caller can count the distinct table bytes
-// the walk read.  The render path never launches a COUNT instance.
+// triangle tests, coarse mask tests, 0], where a mask test counts a
+// candidate that reached it (inside its triangle and its interval);
+// besides, a COUNT instance sets seen_snode[row] for every supernode row
+// popped and seen_rec[k] for every triangle record tested, so the caller
+// can count the distinct table bytes the walk read.  The render path never
+// launches a COUNT instance.
 
 #include "trace8_common.cuh"
 
@@ -98,7 +94,6 @@ struct TraceArgs {
   const float* snodes;
   const float* tris;
   const float* shade;
-  const int* fine;
   const float* o;
   const float* d;
   const float* t_min;
@@ -116,7 +111,6 @@ struct TraceArgs {
   int* out_cnt;
   unsigned char* seen_snode;
   unsigned char* seen_rec;
-  unsigned char* seen_fine;
   int n;
   int leaf_cap;
   int cull;
@@ -133,7 +127,7 @@ struct TraceArgs {
 };
 
 template <bool ANY_HIT, bool DENSE, bool SHADE2, bool COUNT, bool ALPHA,
-          bool FINE, bool TREELET>
+          bool TREELET>
 __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
   constexpr int kPerRow = DENSE ? DENSE_PER_ROW : TRI_PER_ROW;
   constexpr int kStride = DENSE ? DENSE_STRIDE : TRI_STRIDE;
@@ -166,8 +160,7 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
   float best_u = 0.0f, best_v = 0.0f, best_det = 1.0f;
   int best_i = -1;
   bool occluded = false;
-  int n_snode = 0, n_rows = 0, n_leaf = 0, n_tests = 0, n_mask = 0,
-      n_fine = 0;
+  int n_snode = 0, n_rows = 0, n_leaf = 0, n_tests = 0, n_mask = 0;
 
   // Stack entry: >= 0 is a supernode row; < 0 is a leaf child, encoded as
   // -(1 + row * 8 + child) so its meta is re-read from the row at pop time.
@@ -278,24 +271,11 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
         // reference kernel.
         bool accept = facing && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
                       t >= tmn && t <= best_t;
-        // Each mask test runs only for a candidate still accepted (&& short-
+        // The mask test runs only for a candidate still accepted (&& short-
         // circuits); the COUNT instances count those candidates.
         if constexpr (ALPHA) {
           if constexpr (COUNT) n_mask += accept ? 1 : 0;
           accept = accept && coarse_keep(aux >> 1, u, v);
-        }
-        if constexpr (FINE) {
-          if constexpr (COUNT) {
-            if (accept) {
-              ++n_fine;
-              a.seen_fine[rec] = 1;
-            }
-          }
-          accept = accept &&
-                   fine_keep<false>(a.fine + (size_t)(rec / TRI_PER_ROW) *
-                                                 LANES +
-                                        FINE_STRIDE * (rec % TRI_PER_ROW),
-                                    u, v, nullptr);
         }
         if (accept) {
           if constexpr (ANY_HIT) {
@@ -327,7 +307,7 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
     a.out_cnt[N_COUNTERS * i + 2] = n_leaf;
     a.out_cnt[N_COUNTERS * i + 3] = n_tests;
     a.out_cnt[N_COUNTERS * i + 4] = n_mask;
-    a.out_cnt[N_COUNTERS * i + 5] = n_fine;
+    a.out_cnt[N_COUNTERS * i + 5] = 0;
   }
   if constexpr (ANY_HIT) {
     a.out_hit[i] = occluded ? 1 : 0;
@@ -398,27 +378,18 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
 }
 
 template <bool ANY_HIT, bool DENSE, bool SHADE2, bool ALPHA = false,
-          bool FINE = false, bool TREELET = false>
+          bool TREELET = false>
 int launch(const TraceArgs& a, bool count, void* stream) {
   const int threads = 128;
   const int blocks = (a.n + threads - 1) / threads;
   if (count) {
-    trace8_kernel<ANY_HIT, DENSE, SHADE2, true, ALPHA, FINE, TREELET>
+    trace8_kernel<ANY_HIT, DENSE, SHADE2, true, ALPHA, TREELET>
         <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
   } else {
-    trace8_kernel<ANY_HIT, DENSE, SHADE2, false, ALPHA, FINE, TREELET>
+    trace8_kernel<ANY_HIT, DENSE, SHADE2, false, ALPHA, TREELET>
         <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
   }
   return (int)cudaGetLastError();
-}
-
-// The alpha-masked instances (K4), with and without fine rows.
-template <bool ANY_HIT>
-int launch_alpha(const TraceArgs& a, bool count, void* stream) {
-  if (a.fine != nullptr) {
-    return launch<ANY_HIT, false, false, true, true>(a, count, stream);
-  }
-  return launch<ANY_HIT, false, false, true, false>(a, count, stream);
 }
 
 }  // namespace
@@ -426,30 +397,23 @@ int launch_alpha(const TraceArgs& a, bool count, void* stream) {
 extern "C" {
 
 // Nearest hit of n rays over a BVH8 (K1 for shade modes 0 and 1, K3 for
-// mode 2, K4 when alpha != 0: the AUX words carry coarse masks, and fine,
-// when not null, is the int32 fine rows).  Pointers are device pointers;
-// shade and the shading outputs may be null when shade_mode == 0,
-// out_tan/out_uv/out_uvd when it is not 2, and out_cnt (n x N_COUNTERS
-// int32 counters) with seen_snode (one byte per supernode row), seen_rec and
-// seen_fine (one byte per triangle record each), all four, when no
-// telemetry is wanted; the seen bytes are set, never cleared.  The alpha
-// instances have shade mode 0 only.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// mode 2).  Pointers are device pointers; shade and the shading outputs may
+// be null when shade_mode == 0, out_tan/out_uv/out_uvd when it is not 2,
+// and out_cnt (n x N_COUNTERS int32 counters) with seen_snode (one byte per
+// supernode row) and seen_rec (one byte per triangle record), all three,
+// when no telemetry is wanted; the seen bytes are set, never cleared.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 int steeljax_trace_nearest8(const void* snodes, const void* tris,
-                            const void* shade, const void* fine,
-                            const void* o, const void* d,
+                            const void* shade, const void* o, const void* d,
                             const void* t_min, const void* t_max,
                             void* out_t, void* out_u, void* out_v,
                             void* out_tri, void* out_n, void* out_mat,
                             void* out_tan, void* out_uv, void* out_uvd,
                             void* out_cnt, void* seen_snode, void* seen_rec,
-                            void* seen_fine, int n, int max_leaf, int depth,
-                            int cull, int shade_mode, int alpha,
-                            void* stream) {
+                            int n, int max_leaf, int depth, int cull,
+                            int shade_mode, void* stream) {
   if (n < 0 || max_leaf <= 0 || depth <= 0 || 8 * depth + 16 > MAX_STACK ||
-      (out_cnt != nullptr && (seen_snode == nullptr || seen_rec == nullptr ||
-                              seen_fine == nullptr)) ||
-      (fine != nullptr && !alpha) || (alpha && shade_mode != 0) ||
+      (out_cnt != nullptr && (seen_snode == nullptr || seen_rec == nullptr)) ||
       shade_mode < 0 || shade_mode > 2 ||
       (shade_mode != 0 && (shade == nullptr || out_n == nullptr ||
                            out_mat == nullptr)) ||
@@ -462,7 +426,6 @@ int steeljax_trace_nearest8(const void* snodes, const void* tris,
   a.snodes = (const float*)snodes;
   a.tris = (const float*)tris;
   a.shade = (const float*)shade;
-  a.fine = (const int*)fine;
   a.o = (const float*)o;
   a.d = (const float*)d;
   a.t_min = (const float*)t_min;
@@ -479,13 +442,11 @@ int steeljax_trace_nearest8(const void* snodes, const void* tris,
   a.out_cnt = (int*)out_cnt;
   a.seen_snode = (unsigned char*)seen_snode;
   a.seen_rec = (unsigned char*)seen_rec;
-  a.seen_fine = (unsigned char*)seen_fine;
   a.n = n;
   a.leaf_cap = leaf_cap(max_leaf, TRI_PER_ROW);
   a.cull = cull;
   a.shade_mode = shade_mode;
   const bool count = out_cnt != nullptr;
-  if (alpha) return launch_alpha<false>(a, count, stream);
   if (shade_mode == 2) return launch<false, false, true>(a, count, stream);
   return launch<false, false, false>(a, count, stream);
 }
@@ -493,27 +454,22 @@ int steeljax_trace_nearest8(const void* snodes, const void* tris,
 // Occlusion of n rays over a BVH8 (K2): out_hit[i] = 1 when any triangle
 // (no culling) is hit with t in [t_min, t_max], else 0; a dead ray (t_max <
 // t_min) is never occluded.  dense != 0 reads the 14-record rows of
-// pack_tris_dense over their own supernode rows.  alpha != 0 (K4 any-hit)
-// applies the coarse masks and, when fine is not null, the fine PASS plane,
-// as steeljax_trace_nearest8 does.  out_cnt and the seen bytes as above.
-int steeljax_trace_any8(const void* snodes, const void* tris,
-                        const void* fine, const void* o, const void* d,
-                        const void* t_min, const void* t_max, void* out_hit,
-                        void* out_cnt, void* seen_snode, void* seen_rec,
-                        void* seen_fine, int n, int max_leaf, int depth,
-                        int dense, int alpha, void* stream) {
+// pack_tris_dense over their own supernode rows.  out_cnt and the seen
+// bytes as above.
+int steeljax_trace_any8(const void* snodes, const void* tris, const void* o,
+                        const void* d, const void* t_min, const void* t_max,
+                        void* out_hit, void* out_cnt, void* seen_snode,
+                        void* seen_rec, int n, int max_leaf, int depth,
+                        int dense, void* stream) {
   if (n < 0 || max_leaf <= 0 || depth <= 0 || 8 * depth + 16 > MAX_STACK ||
-      out_hit == nullptr || (fine != nullptr && !alpha) ||
-      (dense && alpha) ||
-      (out_cnt != nullptr && (seen_snode == nullptr || seen_rec == nullptr ||
-                              seen_fine == nullptr))) {
+      out_hit == nullptr ||
+      (out_cnt != nullptr && (seen_snode == nullptr || seen_rec == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return (int)cudaSuccess;
   TraceArgs a = {};
   a.snodes = (const float*)snodes;
   a.tris = (const float*)tris;
-  a.fine = (const int*)fine;
   a.o = (const float*)o;
   a.d = (const float*)d;
   a.t_min = (const float*)t_min;
@@ -522,7 +478,6 @@ int steeljax_trace_any8(const void* snodes, const void* tris,
   a.out_cnt = (int*)out_cnt;
   a.seen_snode = (unsigned char*)seen_snode;
   a.seen_rec = (unsigned char*)seen_rec;
-  a.seen_fine = (unsigned char*)seen_fine;
   a.n = n;
   const bool count = out_cnt != nullptr;
   if (dense) {
@@ -530,7 +485,6 @@ int steeljax_trace_any8(const void* snodes, const void* tris,
     return launch<true, true, false>(a, count, stream);
   }
   a.leaf_cap = leaf_cap(max_leaf, TRI_PER_ROW);
-  if (alpha) return launch_alpha<true>(a, count, stream);
   return launch<true, false, false>(a, count, stream);
 }
 
@@ -607,17 +561,17 @@ int steeljax_trace_treelet8(const void* node_stack, const void* tri_stack,
   const bool count = out_cnt != nullptr;
   if (any_hit) {
     if (alpha) {
-      return launch<true, false, false, true, false, true>(a, count, stream);
+      return launch<true, false, false, true, true>(a, count, stream);
     }
-    return launch<true, false, false, false, false, true>(a, count, stream);
+    return launch<true, false, false, false, true>(a, count, stream);
   }
   if (alpha) {
-    return launch<false, false, false, true, false, true>(a, count, stream);
+    return launch<false, false, false, true, true>(a, count, stream);
   }
   if (shade_mode == 2) {
-    return launch<false, false, true, false, false, true>(a, count, stream);
+    return launch<false, false, true, false, true>(a, count, stream);
   }
-  return launch<false, false, false, false, false, true>(a, count, stream);
+  return launch<false, false, false, false, true>(a, count, stream);
 }
 
 }  // extern "C"

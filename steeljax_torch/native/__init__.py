@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG / "_build"
 BVH_SOURCE = _PKG.parent / "steeljax" / "native" / "bvh_builder.cpp"
 CUDA_SOURCES = (_PKG / "csrc" / "traverse8.cu",
-                _PKG / "csrc" / "multihit8.cu",
+                _PKG / "csrc" / "alpha8.cu",
                 _PKG / "csrc" / "instanced8.cu")
 # Headers the sources include: a change rebuilds the library too.
 CUDA_HEADERS = (_PKG / "csrc" / "trace8_common.cuh",)
@@ -69,19 +70,21 @@ def _build(target: Path, command_head: list[str], sources) -> None:
             os.unlink(tmp)
 
 
-def _build_cuda(target: Path) -> None:
-    """Compile each of CUDA_SOURCES to an object with its own nvcc, all at
-    once, then link them into `target` (atomically, as _build)."""
+def build_cuda(target: Path, sources=CUDA_SOURCES) -> None:
+    """Compile each of `sources` to an object with its own nvcc, all at
+    once, then link them into `target` (atomically, as _build); the ptxas
+    report goes to BUILD_LOGS[target.name]."""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = [Path(s) for s in sources]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objects = [Path(tmp) / (src.stem + ".o") for src in CUDA_SOURCES]
+        objects = [Path(tmp) / (src.stem + ".o") for src in sources]
         procs = [subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(CUDA_SOURCES, objects)]
+            for src, obj in zip(sources, objects)]
         logs = []
-        for src, proc in zip(CUDA_SOURCES, procs):
+        for src, proc in zip(sources, procs):
             out, _ = proc.communicate(timeout=600)
             logs.append(out)
             if proc.returncode != 0:
@@ -123,13 +126,13 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
     ptr = ctypes.c_void_p
     lib.steeljax_trace_nearest8.restype = ctypes.c_int
     lib.steeljax_trace_nearest8.argtypes = (
-        [ptr] * 21 + [ctypes.c_int] * 6 + [ptr])
+        [ptr] * 19 + [ctypes.c_int] * 5 + [ptr])
     lib.steeljax_trace_any8.restype = ctypes.c_int
     lib.steeljax_trace_any8.argtypes = (
-        [ptr] * 12 + [ctypes.c_int] * 5 + [ptr])
-    lib.steeljax_trace_multihit8.restype = ctypes.c_int
-    lib.steeljax_trace_multihit8.argtypes = (
-        [ptr] * 15 + [ctypes.c_int] * 6 + [ptr])
+        [ptr] * 10 + [ctypes.c_int] * 4 + [ptr])
+    lib.steeljax_trace_alpha8.restype = ctypes.c_int
+    lib.steeljax_trace_alpha8.argtypes = (
+        [ptr] * 16 + [ctypes.c_int] * 7 + [ptr])
     lib.steeljax_trace_inst8.restype = ctypes.c_int
     lib.steeljax_trace_inst8.argtypes = (
         [ptr] * 23 + [ctypes.c_int] * 8 + [ptr])
@@ -163,9 +166,40 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin/nvcc: the CUDA kernels cannot be built")
 
 
+def ptxas_table(log: str) -> dict:
+    """{kernel instance: (registers, stack frame bytes, spill stores, spill
+    loads, static shared memory bytes)} from nvcc's -Xptxas -v report, the
+    names demangled by c++filt where the machine has it, without namespaces
+    and parameter lists."""
+    table, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            table[entry] = [0, 0, 0, 0, 0]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry:
+            table[entry][1:4] = [int(g) for g in m.groups()]
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and entry:
+            table[entry][0] = int(m.group(1))
+            table[entry][4] = int(m.group(2) or 0)
+    names = list(table)
+    if names and shutil.which("c++filt"):
+        plain = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True).stdout
+        plain = plain.splitlines()
+        if len(plain) == len(names):
+            table = {re.sub(r"^void ", "", re.sub(
+                r"\(anonymous namespace\)::", "", p).split("(")[0]): table[n]
+                for n, p in zip(names, plain)}
+    return {k: tuple(v) for k, v in table.items()}
+
+
 def cuda_library() -> ctypes.CDLL:
     return _load("libsteeljax_torch_cuda.so", CUDA_SOURCES + CUDA_HEADERS,
-                 _build_cuda, _declare_cuda)
+                 build_cuda, _declare_cuda)
 
 
 def build_bvh_sah(tri_pos: np.ndarray, max_leaf: int
