@@ -24,7 +24,9 @@ kernel against its plain PyTorch version:
     the instance tables alone;
   * paths U and UL, path T's and path L's scenes prepared with
     treelets=True: K7, the treelet kernel, one launch per round of the
-    treelet scheduler (mode 2 on U; mode 1 and any-hit on UL).
+    treelet scheduler and K rounds per trace with no host read, after one
+    launch of the scheduler's pick kernel (mode 2 on U; mode 1 and any-hit
+    on UL).
 Paths L, T, F, S, J, U and UL are above the repack threshold (path I's 310
 instances of 544 records on average are not), so their rays are repacked
 before every secondary bounce, and the alpha paths' re-traces
@@ -43,8 +45,8 @@ Phases:
      its plain version's time, its work counts (mask tests and instance
      enters included) and the least time the card could take for the same
      work (a dead ray, t_max < t_min, is charged its interval alone), for
-     K7 summed over the rounds of one trace, beside the bound of that trace
-     as one function;
+     K7 the K rounds of one whole trace against the bound of that trace as
+     one function (the trace's first pick is the pick kernel's entry);
   4. the Cornell main path: one warm and 4 timed frames, K1's launches, the
      kernel's share of a frame, the render CLI;
   5. path L: the same frames and checks, K1 and K2 launches, then the
@@ -62,16 +64,17 @@ Phases:
      refresh_scene() (no BLAS rebuilt, the same triangle tensor), its
      seconds beside a flat prepare_scene of the edited scene, and the
      refreshed frame against the flat one;
-  10. paths U and UL: the same frames and checks, K7 launches equal to the
-     scheduler's rounds, the rounds, launches and host reads per frame,
-     the image against path T's and path L's.
+  10. paths U and UL: the same frames and checks, K launches of K7 and one
+     of the pick kernel per trace and no host read of the scheduler, the
+     rounds and launches per frame, the image against path T's and path
+     L's.
 The second-to-last line is the kernels' JSON summary, the last line the
 device JSON.
 
-With --ab-old DIR, phase 3c times K4 and K5 against the earlier kernels
-built from DIR (steeljax_torch/apps/alpha_ab.py says how to unpack them):
-its "A/B" lines give old and new ms in turns (old, new, new, old) for every
-K4 and K5 call of one frame, and the frames' sums.
+With --ab-old DIR, phase 3c times K6 and K7 against the earlier kernels
+built from DIR (steeljax_torch/apps/kernel_ab.py says how to unpack them):
+its "A/B" lines give old and new ms in turns and how far the outputs
+agree.
 
 Usage: python3 chip_smoke.py [--ab-old DIR]
 """
@@ -118,13 +121,17 @@ OPS_PER_MASK_TEST = 16
 OPS_EPILOGUE = {"K1": 25, "K3": 60, "K2": 0, "K2_dense": 0, "K4": 0,
                 "K4_anyhit": 0, "K5": 0, "K6": 40, "K6_shade2": 91,
                 "K6_anyhit": 0, "K7": 60, "K7_shade1": 25, "K7_anyhit": 0}
+# The treelet pick reads each ray's K entry distances, its t_far and its
+# visited words and writes one key per packet; per (ray, treelet) it tests
+# a visited bit and compares twice (4 operations).
+OPS_PER_PICK_ENTRY = 4
 OPS_PER_INSTANCE_ENTER = 45
 # The earlier design of K4 and K5 (one thread per ray, scalar loads, a
 # stack in local memory), per ray on the same rays as phase 3b: counted by
-# its COUNT instances in the A/B phase (steeljax_torch/apps/alpha_ab.py) on
-# the H100.  The bounds of K4, K4_anyhit and K5 take the smaller of these
-# and the new kernel's counts: a walk order that pops more nodes does not
-# raise the least time of the function.
+# its COUNT instances on the H100 (apps/alpha_ab.py at commit 233eaca).
+# The bounds of K4, K4_anyhit and K5 take the smaller of these and the new
+# kernel's counts: a walk order that pops more nodes does not raise the
+# least time of the function.
 EARLIER_PER_RAY = {
     "K4": {"supernode_pops": 28.61, "triangle_tests": 449.69,
            "mask_tests": 8.45, "fine_tests": 5.56},
@@ -225,19 +232,6 @@ def phase_build() -> dict:
     return table
 
 
-def _time_ms(fn, reps: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    fn()
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _live_rays(n_rays: int, t_min, t_max) -> int:
     """The rays of a call with t_max >= t_min (a scalar bound holds for
     every ray)."""
@@ -330,9 +324,11 @@ def _timed_kernel(name, launcher, plain, rays, plain_rays):
     calls; take the work counts from one launch of `launcher(True)`, capped
     by EARLIER_PER_RAY where it has the kernel.  Print and return the
     kernel's entry."""
+    from steeljax_torch.apps.timing import time_ms
+
     n_rays = rays[0].shape[0]
-    kernel_ms = _time_ms(launcher(False)[0], 50)
-    plain_ms = _time_ms(plain, 3)
+    kernel_ms = time_ms(launcher(False)[0], 50)
+    plain_ms = time_ms(plain, 3)
     launch, rec = launcher(True)
     launch()
     bound = _bound(name, rec, _live_rays(n_rays, rays[2], rays[3]),
@@ -359,86 +355,97 @@ def _bound_text(bound: dict) -> str:
 
 def _timed_treelet_trace(name, tt, rays, subset, cull, any_hit) -> dict:
     """The treelet kernel K7 over one trace of `rays` through the scheduler:
-    the trace's rounds are recorded (each round's treelet ids and
-    intervals), then every round's launch is timed alone over 50 launches
-    and counted by one counting launch.  The kernel's time and its bound
-    are the sums over the rounds: a round is one call of the kernel, which
-    reads its live rays (the others' intervals) and writes every ray's
-    outputs.  Beside it stands the bound of the trace as one function: every
-    ray read and written once, the table entries any round touched once,
-    the rounds' operations; the difference is what the scheduler's rounds
-    cost in ray traffic.  The plain version's time is one trace of the
-    strided `subset` through the scheduler with the plain round."""
+    the device time of the trace's K rounds, and of the whole trace, its
+    first pick included (timing.trace_device_ms: the host queues every
+    launch before the first starts), the work counts of one counting trace
+    (summed over its rounds) and the bound of the trace as one function:
+    every ray read and written once, the table entries the rounds touched,
+    each once, the rounds' operations.  The plain version's time is one
+    trace of the strided `subset` through the scheduler with the plain
+    round and pick."""
     from steeljax_torch.accel import cuda_traverse as ct
     from steeljax_torch.accel import treelets as treelets_lib
     from steeljax_torch.apps import kernel_parity as kp
+    from steeljax_torch.apps.timing import time_ms, trace_device_ms
 
-    recorded = []
-
-    def recording(pid, o, d, t_min, t_max):
-        recorded.append((pid.clone(), o, d, t_min, t_max.clone()))
-        return ct.trace_treelet_round(tt, pid, o, d, t_min, t_max, cull,
-                                      any_hit)
-
-    final = treelets_lib.trace_treelets(tt, *rays, cull, any_hit,
-                                        trace_fn=recording)
-    n_rays = rays[0].shape[0]
+    n_rays, k = rays[0].shape[0], tt.count
     block = treelets_lib.PACKET_RAYS
-    records_per_treelet = tt.tri_stack.shape[1] * 12
-    per_round, totals = [], dict.fromkeys(
-        ("ms", "bound_ms", "bytes_ms", "ops_ms", "bytes", "ops"), 0.0)
-    union = None
-    for pid, o, d, t_min, t_max in recorded:
-        def launcher(counters):
-            return ct.treelet_launcher(tt, pid, o, d, t_min, t_max, cull,
-                                       any_hit, counters=counters)
-
-        ms = _time_ms(launcher(False)[0], 50)
-        launch, rec = launcher(True)
-        launch()
-        live = _live_rays(o.shape[0], t_min, t_max)
-        bound = _bound(name, rec, live, tri_base=pid.long().repeat_interleave(
-            block) * records_per_treelet)
-        per_round.append({"ms": ms,
-                          "treelets": int(torch.unique(pid).numel()),
-                          **bound})
-        totals["ms"] += ms
-        for key in ("bound_ms", "bytes_ms", "ops_ms", "bytes", "ops"):
-            totals[key] += bound[key]
-        # The trace as one function: the padded tail of the last packet is
-        # no ray of it.
-        if union is None:
-            union = {"counters": rec["counters"][:n_rays].to(torch.int64),
-                     "seen_nodes": rec["seen_nodes"],
-                     "seen_records": rec["seen_records"]}
-        else:
-            union["counters"] += rec["counters"][:n_rays]
-            union["seen_nodes"] |= rec["seen_nodes"]
-            union["seen_records"] |= rec["seen_records"]
+    state = treelets_lib.treelet_state(tt, *rays, any_hit)
+    telemetry = ct.treelet_telemetry(tt, state)
+    ct.treelet_pick_launcher(tt, state)()
+    live = []
+    for r in range(k):
+        live.append(int((ct.key_treelets(state.keys[r % 3], block, k)
+                         < k).sum()))
+        ct.treelet_launcher(tt, state, r, cull, any_hit,
+                            telemetry=telemetry)[0]()
+    rec = {"counters": telemetry["counters"][:n_rays],
+           "seen_nodes": telemetry["seen_nodes"],
+           "seen_records": telemetry["seen_records"]}
     if not any_hit:
-        union["tri"] = final["tri"]  # ids over the whole stack
-    whole = _bound(name, union, _live_rays(n_rays, rays[2], rays[3]))
+        rec["tri"] = state.rec["tri"][:n_rays]  # ids over the whole stack
+    bound = _bound(name, rec, _live_rays(n_rays, rays[2], rays[3]))
+    kernel_ms = trace_device_ms(tt, rays, cull, any_hit, pick=False)
+    trace_ms = trace_device_ms(tt, rays, cull, any_hit)
     plain = kp.plain_round(tt, cull, any_hit)
-    plain_ms = _time_ms(lambda: treelets_lib.trace_treelets(
+    plain_ms = time_ms(lambda: treelets_lib.trace_treelets(
         tt, *subset, cull, any_hit, trace_fn=plain), 1)
-    bound_by = ("bytes" if totals["bytes_ms"] >= totals["ops_ms"]
-                else "operations")
-    print(f"{name}: {n_rays} rays, {tt.count} treelets, {len(recorded)} "
-          f"rounds of one trace, kernel {totals['ms']:.4f} ms summed over "
-          f"the rounds; plain {plain_ms:.4f} ms for one trace of "
-          f"{subset[0].shape[0]} rays (a strided subset) through the "
-          f"scheduler; bound {totals['bound_ms']:.4f} ms summed over the "
-          f"rounds, by {bound_by} ({totals['bytes']:.4e} B, "
-          f"{totals['ops']:.4e} fp32 ops)")
-    print("  the trace as one function: " + _bound_text(whole))
-    for i, r in enumerate(per_round):
-        print(f"  round {i}: {r['live_rays']} live rays on {r['treelets']} "
-              f"treelets, kernel {r['ms']:.4f} ms; " + _bound_text(r))
-    return {"ms": totals["ms"], "plain_ms": plain_ms,
+    print(f"{name}: {n_rays} rays, {k} treelets, the {k} rounds of one "
+          f"trace: device {kernel_ms:.4f} ms; the whole trace (first pick "
+          f"and {k} rounds) {trace_ms:.4f} ms; plain {plain_ms:.4f} ms "
+          f"for one trace of {subset[0].shape[0]} rays (a strided subset) "
+          f"through the scheduler; live packets of {-(-n_rays // block)} by "
+          f"round {live}; the trace as one function: " + _bound_text(bound))
+    return {"ms": kernel_ms, "trace_ms": trace_ms, "plain_ms": plain_ms,
             "plain_rays": subset[0].shape[0], "rays": n_rays,
-            "bound_ms": totals["bound_ms"], "bound_by": bound_by,
-            "trace_bound_ms": whole["bound_ms"],
-            "trace_bound_by": whole["bound_by"], "rounds": len(recorded)}
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "trace_bound_ms": bound["bound_ms"], "rounds": k,
+            "live_packets": live}
+
+
+def _timed_treelet_pick(tt, rays, any_hit) -> dict:
+    """The scheduler's pick kernel on the first pick of one trace of
+    `rays`: its device time, its keys against pick_keys_plain's (the
+    packets whose keys differ are its error), the plain version's time, and
+    the bound: the entry rows, t_far and visited words read once, a key
+    written per packet, OPS_PER_PICK_ENTRY per entry."""
+    from steeljax_torch.accel import cuda_traverse as ct
+    from steeljax_torch.accel import treelets as treelets_lib
+    from steeljax_torch.apps.timing import device_ms, time_ms
+
+    state = treelets_lib.treelet_state(tt, *rays, any_hit)
+    launch = ct.treelet_pick_launcher(tt, state)
+
+    def reset():
+        state.keys.fill_(ct.EMPTY_KEY)
+
+    ms = device_ms(reset, [launch])
+    reset()
+    launch()
+
+    def plain():
+        return ct.pick_keys_plain(state.entry, state.visited, state.t_far,
+                                  state.block)
+
+    keys = plain()
+    mismatches = int((keys != state.keys[0]).sum())
+    plain_ms = time_ms(plain, 3)
+    n, k = state.entry.shape
+    moved = (n * k * 4 + n * 4 + state.visited.numel() * 4
+             + state.keys.shape[1] * 8)
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n * k * OPS_PER_PICK_ENTRY / PEAK_FP32_PER_S * 1e3
+    print(f"K7_pick: {n} rays (padded), {k} treelets, {state.keys.shape[1]} "
+          f"packets, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; keys "
+          f"differing from the plain pick's: {mismatches}; bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms by "
+          f"{'bytes' if bytes_ms >= ops_ms else 'operations'} ({moved:.4e} "
+          "B)")
+    return {"ms": ms, "plain_ms": plain_ms, "plain_rays": n, "rays": n,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": float(mismatches),
+            "tolerance": "0 packets whose key differs from the plain pick's"}
 
 
 def _profiled_steps(fn) -> tuple:
@@ -614,6 +621,20 @@ def phase_parity(device, scenes) -> dict:
         lambda: ct.trace_nearest_bvh8_plain(*args), (o, d, tmn, tmx),
         o.shape[0]))
     kernels["K1"]["shapes"] = "Cornell primary rays, 1280x720"
+    # K1 on path L's primaries too, where its frames spend 2.5 ms: the
+    # bound of those launches for the ranking of PERF.md section 6.
+    scene, flat, tables = scenes["sunlit"]
+    chunk = tables.chunks[0]
+    rays = kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]
+    subset = kp.strided_subset(rays, kp.SHADOW_SUBSET)
+    args = (chunk.bvh8, chunk.tris_packed)
+    mode = tables.shade_mode
+    kernels["K1"]["path_l"] = _timed_kernel(
+        "K1", lambda counters: ct.kernel_launcher(
+            *args, *rays, True, chunk.shade_packed, mode, counters=counters),
+        lambda: ct.trace_nearest_bvh8_plain(*args, *subset, True,
+                                            chunk.shade_packed, mode),
+        rays, subset[0].shape[0])
 
     # K2 and K2-dense on path L's first-bounce shadow rays.
     scene, flat, tables = scenes["sunlit"]
@@ -774,6 +795,10 @@ def _k6_k7_kernels(device, scenes, var, max_err) -> dict:
         kp.strided_subset(rays_u, kp.TEX_SUBSET), True, False))
     kernels["K7"]["shapes"] = ("path U primary rays, 1280x720, shade mode "
                                "2, every round of one trace")
+    kernels["K7_pick"] = _timed_treelet_pick(tables_u.treelets, rays_u,
+                                             False)
+    kernels["K7_pick"]["shapes"] = ("the first pick of one trace of path U's "
+                                    "primary rays, 1280x720")
     scene, flat, tables_ul = scenes["sunlit_treelets"]
     rays_ul = kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]
     kernels["K7_shade1"].update(_timed_treelet_trace(
@@ -817,9 +842,15 @@ def _kernel_of(key: str) -> str | None:
     """The trace kernel a profiler event belongs to, from the kernel's name
     and the template arguments of its instance (alpha8_kernel: MODE, K,
     ALPHA, FINE, COUNT with MODE 0 K4, 1 K4 any-hit, 2 K5;
-    trace8_kernel: ANY_HIT, DENSE, SHADE2, COUNT, ALPHA, TREELET;
-    inst8_kernel: ANY_HIT, SHADE, COUNT).  "trace" is a trace kernel of an
-    unknown instance."""
+    trace8_kernel: ANY_HIT, DENSE, SHADE2, COUNT; inst8_kernel: ANY_HIT,
+    SHADE, COUNT; treelet8_kernel: ANY_HIT, SHADE, ALPHA, COUNT;
+    treelet_pick_kernel).  "trace" is a trace kernel of an unknown
+    instance."""
+    if "treelet_pick_kernel" in key:
+        return "K7_pick"
+    if "treelet8_kernel<" in key:
+        any_hit = key.split("treelet8_kernel<", 1)[1].split(",", 1)[0]
+        return "K7_anyhit" if any_hit.strip() in ("true", "1") else "K7"
     if "alpha8_kernel<" in key:
         mode = key.split("alpha8_kernel<", 1)[1].split(",", 1)[0].strip()
         return {"0": "K4", "1": "K4_anyhit", "2": "K5"}.get(mode, "trace")
@@ -830,11 +861,9 @@ def _kernel_of(key: str) -> str | None:
         return None
     args = key.split("trace8_kernel<", 1)[1].split(">", 1)[0]
     flags = [a.strip() in ("true", "1") for a in args.split(",")]
-    if len(flags) != 6:
+    if len(flags) != 4:
         return "trace"
-    any_hit, dense, shade2, _, _, treelet = flags
-    if treelet:
-        return "K7_anyhit" if any_hit else "K7"
+    any_hit, dense, shade2, _ = flags
     if any_hit:
         return "K2_dense" if dense else "K2"
     return "K3" if shade2 else "K1"
@@ -902,11 +931,11 @@ def drive_path(label, scene, flat, tables, expected: dict,
     first timed frame.  A kernel whose `expected` count is None launches as
     often as the data asks (the treelet kernel: once per round of the
     scheduler): it must launch at least once per bounce, and the scheduler
-    must have traced once per material and per shadow trace and read the
-    device's packets-left flag once per round and at most once more per
-    trace; the traces, rounds (the launches) and host reads per frame are
-    printed.  Returns the launches, ms/frame, rays/s, rays per frame and
-    the last frame."""
+    must have traced once per material and per shadow trace, with one
+    launch of the pick kernel and K rounds per trace and no host read; the
+    traces, rounds (the launches) and host reads per frame are printed.
+    Returns the launches, ms/frame, rays/s, rays per frame and the last
+    frame."""
     from steeljax_torch.accel import cuda_traverse, treelets
     from steeljax_torch.core import camera as camera_lib
     from steeljax_torch.core.config import RenderConfig
@@ -970,21 +999,21 @@ def drive_path(label, scene, flat, tables, expected: dict,
     repacks = integrator._total_triangles(tables) > integrator.REPACK_MIN_TRIS
     traced = 1 + (flat.light_count > 0)  # material and shadow rays
     if getattr(tables, "treelets", None) is not None:
+        k = tables.treelets.count
         rounds = launches["K7"] + launches["K7_anyhit"]
         traces, reads = scheduler["traces"], scheduler["host_reads"]
-        if traces != total * bounces * traced or \
-                not rounds <= reads <= rounds + traces:
+        if traces != total * bounces * traced or rounds != k * traces or \
+                launches["K7_pick"] != traces or reads != 0:
             raise RuntimeError(
                 f"{label}: the treelet scheduler counted {traces} traces "
-                f"and {reads} host reads for {rounds} launches")
+                f"and {reads} host reads for {rounds} round launches and "
+                f"{launches['K7_pick']} picks ({k} treelets)")
         print(f"{label} treelet scheduler over {total} frames: "
               f"{traces} traces, rounds (= launches) "
               + ", ".join(f"{k} {launches[k]}" for k in ("K7", "K7_anyhit"))
-              + f", {reads} host reads of the device's "
-              "packets-left flag (a synchronization each); per frame "
-              f"{traces / total:.1f} traces, {rounds / total:.1f} rounds, "
-              f"{reads / total:.1f} host reads; "
-              f"{rounds / traces:.2f} rounds per trace")
+              + f", {launches['K7_pick']} picks, {reads} host reads; per "
+              f"frame {traces / total:.1f} traces, {rounds / total:.1f} "
+              f"rounds ({k} per trace), {reads / total:.1f} host reads")
     compacts = (flat.any_alpha_test
                 and integrator._Compaction(tables, WIDTH * HEIGHT).active)
     want_sorts = total * ((bounces - 1 if repacks else 0)
@@ -1252,15 +1281,14 @@ def phase_instanced_edit(device, scenes, renderers, flat_prepare_s) -> None:
         raise RuntimeError("the refreshed frame is not the flat renderer's")
 
 
-def phase_alpha_ab(scenes, old_dir, ptxas: dict) -> None:
-    """K4 and K5 of csrc/alpha8.cu against the earlier kernels built from
-    `old_dir`, in turns, on every K4 and K5 call of a frame of path F and of
-    path F with multihit_k = 4 (apps/alpha_ab.py); then the earlier
+def phase_kernel_ab(scenes, old_dir, ptxas: dict) -> None:
+    """K6 and K7 against the earlier kernels built from `old_dir`, in
+    turns, on paths I, J, U and UL (apps/kernel_ab.py); then the earlier
     library's ptxas registers beside this tree's."""
-    from steeljax_torch.apps import alpha_ab
+    from steeljax_torch.apps import kernel_ab
 
-    result = alpha_ab.run(scenes, old_dir, WIDTH, HEIGHT)
-    alpha_ab.compare_ptxas(result["old_ptxas"], ptxas)
+    result = kernel_ab.run(scenes, old_dir, WIDTH, HEIGHT)
+    kernel_ab.compare_ptxas(result["old_ptxas"], ptxas)
 
 
 def main(argv=None) -> int:
@@ -1268,8 +1296,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ab-old", default=None, metavar="DIR",
-                    help="also time K4 and K5 against the earlier kernels "
-                         "built from this csrc directory (phase 3c)")
+                    help="also time K6 and K7 against the earlier "
+                         "kernels built from this csrc directory "
+                         "(phase 3c)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: chip_smoke.py runs only on the GPU")
@@ -1294,8 +1323,8 @@ def main(argv=None) -> int:
     kernels = phase("3b. parity and kernel times", phase_parity, device,
                     scenes)
     if args.ab_old:
-        phase("3c. K4 and K5, old against new", phase_alpha_ab, scenes,
-              args.ab_old, ptxas)
+        phase("3c. earlier kernels against this tree's", phase_kernel_ab,
+              scenes, args.ab_old, ptxas)
     cornell = phase("4. Cornell main path", phase_cornell, device)
     path_l = phase("5a. path L (sunlit stress)", drive_path, "path L",
                    *scenes["sunlit"], {"K1": 1, "K2": 1})
@@ -1331,10 +1360,11 @@ def main(argv=None) -> int:
     path_j = against("9b. path J (textured stress, instanced)", "path J",
                      "stress_tex_inst", {"K6": 1}, "path T", path_t)
     path_u = against("10a. path U (textured stress, treelets)", "path U",
-                     "stress_tex_treelets", {"K7": None}, "path T", path_t)
+                     "stress_tex_treelets", {"K7": None, "K7_pick": None},
+                     "path T", path_t)
     path_ul = against("10b. path UL (sunlit stress, treelets)", "path UL",
-                      "sunlit_treelets", {"K7": None, "K7_anyhit": None},
-                      "path L", path_l)
+                      "sunlit_treelets", {"K7": None, "K7_anyhit": None,
+                                          "K7_pick": None}, "path L", path_l)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
 
@@ -1351,8 +1381,11 @@ def main(argv=None) -> int:
                 "K6_anyhit": path_i["launches"]["K6_anyhit"],
                 "K7": path_u["launches"]["K7"],
                 "K7_shade1": path_ul["launches"]["K7"],
-                "K7_anyhit": path_ul["launches"]["K7_anyhit"]}
+                "K7_anyhit": path_ul["launches"]["K7_anyhit"],
+                "K7_pick": path_u["launches"]["K7_pick"]}
     sources = {k: "steeljax_torch/csrc/traverse8.cu" for k in launches}
+    for k in ("K7", "K7_shade1", "K7_anyhit", "K7_pick"):
+        sources[k] = "steeljax_torch/csrc/treelet8.cu"
     for k in ("K4", "K4_anyhit", "K5"):
         sources[k] = "steeljax_torch/csrc/alpha8.cu"
     for k in ("K6", "K6_shade2", "K6_anyhit"):
@@ -1374,13 +1407,16 @@ def main(argv=None) -> int:
         "K6_shade2": "K6 trace_inst8 (two-level nearest hit, textured shade "
                      "mode 2; launches on path J)",
         "K6_anyhit": "K6 trace_inst8 (two-level any-hit occlusion)",
-        "K7": "K7 trace_treelet8 (treelet rounds, nearest hit, shade mode 2; "
-              "launches on path U; ms and bound summed over the rounds of "
-              "one trace)",
-        "K7_shade1": "K7 trace_treelet8 (treelet rounds, nearest hit, shade "
-                     "mode 1; launches on path UL)",
-        "K7_anyhit": "K7 trace_treelet8 (treelet rounds, any-hit "
-                     "occlusion; launches on path UL)"}
+        "K7": "K7 treelet_round8 (treelet rounds in place, nearest hit, "
+              "shade mode 2; launches on path U; ms the device time of the "
+              "K rounds of one trace, whose first pick is K7_pick's entry; "
+              "trace_ms the whole trace; bound of the trace)",
+        "K7_shade1": "K7 treelet_round8 (treelet rounds in place, nearest "
+                     "hit, shade mode 1; launches on path UL)",
+        "K7_anyhit": "K7 treelet_round8 (treelet rounds in place, any-hit "
+                     "occlusion; launches on path UL)",
+        "K7_pick": "K7 treelet_pick8 (the treelet scheduler's first packet "
+                   "pick of a trace; launches on path U)"}
     replaces = {
         "K1": "steeljax/accel/pallas_traverse.py:249",
         "K2": "steeljax/accel/pallas_traverse.py:506",
@@ -1394,7 +1430,8 @@ def main(argv=None) -> int:
         "K6_anyhit": "steeljax/accel/pallas_traverse.py:1524",
         "K7": "steeljax/accel/pallas_traverse.py:1252",
         "K7_shade1": "steeljax/accel/pallas_traverse.py:1252",
-        "K7_anyhit": "steeljax/accel/pallas_traverse.py:1252"}
+        "K7_anyhit": "steeljax/accel/pallas_traverse.py:1252",
+        "K7_pick": "steeljax/accel/treelets.py:184"}
     print(json.dumps({"kernels": [{
         "name": titles[k], "route": "cuda", "source": sources[k],
         "replaces": replaces[k], "launches": launches[k],
@@ -1403,6 +1440,7 @@ def main(argv=None) -> int:
         "bound_ms": kernels[k]["bound_ms"],
         "bound_by": kernels[k]["bound_by"], "library_ms": None,
         "trace_bound_ms": kernels[k].get("trace_bound_ms"),
+        "trace_ms": kernels[k].get("trace_ms"),
         "tolerance": kernels[k]["tolerance"],
         "shapes": kernels[k]["shapes"], "rays": kernels[k]["rays"],
         "plain_rays": kernels[k]["plain_rays"]}

@@ -9,14 +9,17 @@ occlusion query over the 12-record rows or the dense 14-record rows (K2),
 both queries with in-kernel alpha-coverage masks (K4: the coarse mask in the
 records' AUX lane, optionally the fine PASS plane of a parallel int32 row
 table), the K-nearest multi-hit query (K5), the two-level query over an
-instance TLAS and object-space BLAS (K6) and the flat query over one
-treelet per ray packet (K7).  The kernels are `csrc/traverse8.cu` (K1-K3,
-K7), `csrc/alpha8.cu` (K4 and K5: one walk with three candidate policies,
-over the Hopper record table of `hopper_records`) and `csrc/instanced8.cu`
-(K6), built by native.cuda_library() and called through plain C functions.
+instance TLAS and object-space BLAS (K6) and the rounds of the treelet
+scheduler, each a flat query over one treelet per ray packet that updates
+the scheduler's state in place and picks every packet's next treelet (K7).
+The kernels are `csrc/traverse8.cu` (K1-K3), `csrc/alpha8.cu` (K4 and K5:
+one walk with three candidate policies), `csrc/instanced8.cu` (K6) and
+`csrc/treelet8.cu` (K7 and the scheduler's first pick), the last three
+over the Hopper record table of `hopper_records`; native.cuda_library()
+builds them, and they are called through plain C functions.
 
 `trace_nearest_bvh8`, `trace_any_bvh8`, `trace_multihit_bvh8`,
-`trace_nearest_bvh8_inst` and `trace_treelet_round` launch
+`trace_nearest_bvh8_inst`, `trace_treelet_round` and `treelet_pick` launch
 their kernel for CUDA tensors and run the plain version only because their
 tensors lie on the CPU; mixed devices raise, and a build or launch failure
 raises — nothing falls back.  Every launch adds one to the kernel's entry in
@@ -29,12 +32,15 @@ TPU's scheduling, not the result, and have no counterpart here.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from steeljax_torch.accel import alphamask
 from steeljax_torch.accel.bvh import (BVH8, DENSE_PER_ROW, DENSE_STRIDE,
                                       TRI_PER_ROW, TRI_STRIDE)
+from steeljax_torch.core.constants import RAY_DEAD_T
 
 LANES = 128
 # Fused-shading record layouts (pack_shade_records): mode 1 has
@@ -50,6 +56,9 @@ DET_EPS = 1e-12
 MAX_STACK = 256
 # Floats per record of the Hopper record table (hopper_records).
 HOPPER_RECORD = 12
+# A treelet pick key with no pick yet (csrc/treelet8.cu kEmptyKey); see
+# pick_keys_plain for the key's fields.
+EMPTY_KEY = (1 << 63) - 1
 # Kernel launches by kernel since the last reset (set the entries to 0 to
 # start counting): K1 nearest hit (shade modes 0/1), K3 nearest hit with
 # textured shading (mode 2), K2 any-hit on the 12-record rows, K2_dense
@@ -57,10 +66,11 @@ HOPPER_RECORD = 12
 # any-hit with alpha masks, K5 the K-nearest multi-hit query, K6 the two-level
 # instanced nearest hit (every shade mode), K6_anyhit its any-hit query, K7
 # one treelet round of nearest hits (every shade mode, with or without
-# coarse alpha masks), K7_anyhit a treelet round of occlusion flags.
+# coarse alpha masks), K7_anyhit a treelet round of occlusion flags, K7_pick
+# the first packet pick of a treelet trace.
 LAUNCHES = {"K1": 0, "K2": 0, "K2_dense": 0, "K3": 0, "K4": 0,
             "K4_anyhit": 0, "K5": 0, "K6": 0, "K6_anyhit": 0, "K7": 0,
-            "K7_anyhit": 0}
+            "K7_anyhit": 0, "K7_pick": 0}
 # The slot counts the multi-hit kernel is compiled for.
 MULTIHIT_K = (2, 4, 8)
 # The telemetry a kernel writes per ray when asked (the reference's
@@ -173,7 +183,8 @@ def pack_shade_records(tri_nrm, tri_mat, textured: bool = False,
 
 
 def hopper_records(tris: torch.Tensor) -> torch.Tensor:
-    """The Hopper record table of csrc/alpha8.cu, derived from pack_tris
+    """The Hopper record table of csrc/alpha8.cu, instanced8.cu and
+    treelet8.cu, derived from pack_tris
     rows on their device: (R * TRI_PER_ROW, HOPPER_RECORD) float32, record k
     as three 16-byte float4s [v0.xyz, f9], [e1.xyz, 0], [e2.xyz, 0], where f9
     is the reference record's last float (the AUX word, or the double-sided
@@ -561,19 +572,13 @@ def alpha_launcher(query: str, bvh8, tris, o, d, t_min, t_max,
     if mode == 2:
         _check_k(k_hits)
     _check_depth(bvh8.depth)
-    if records is not None and (
-            records.dtype != torch.float32 or records.dim() != 2
-            or records.shape[1] != HOPPER_RECORD
-            or records.shape[0] < tris.shape[0] * TRI_PER_ROW):
-        raise ValueError(f"records must be (>= {tris.shape[0] * TRI_PER_ROW}"
-                         f", {HOPPER_RECORD}) float32 (hopper_records), got "
-                         f"{tuple(records.shape)} {records.dtype}")
+    if records is not None:
+        _check_records(records, tris.shape[0] * TRI_PER_ROW)
     device = o.device
     _check_launch(bvh8, tris, device, fine_rows)
     if records is None:
         records = hopper_records(tris)
-    if records.device != device or not records.is_contiguous():
-        raise ValueError(f"records must be contiguous on {device}")
+    _check_records(records, tris.shape[0] * TRI_PER_ROW, device)
     o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
     n = o.shape[0]
     f32 = dict(dtype=torch.float32, device=device)
@@ -910,6 +915,7 @@ def _inst_tensors(tables, any_hit: bool) -> tuple[dict, int]:
         raise ValueError(f"shade_mode must be 0, 1 or 2, got {mode}")
     tensors = {"snode_rows": tables.snode_rows,
                "tris_packed": tables.tris_packed,
+               "tri_records": tables.tri_records,
                "inst_trace": tables.inst_trace}
     if mode:
         if tables.shade_rows is None:
@@ -952,6 +958,24 @@ def trace_nearest_bvh8_inst(tables, o: torch.Tensor, d: torch.Tensor,
                                          cull_backface, any_hit)
 
 
+def _check_records(records, n_records: int, device=None) -> None:
+    """A Hopper record table (hopper_records) of at least `n_records`
+    records and, unless `device` is None, contiguous on `device` and 16-byte
+    aligned (the kernels read it as float4s)."""
+    if (records is None or records.dtype != torch.float32
+            or records.dim() != 2 or records.shape[1] != HOPPER_RECORD
+            or records.shape[0] < n_records):
+        raise ValueError(f"records must be (>= {n_records}, "
+                         f"{HOPPER_RECORD}) float32 (hopper_records), got "
+                         + ("None" if records is None else
+                            f"{tuple(records.shape)} {records.dtype}"))
+    if device is not None and (records.device != device
+                               or not records.is_contiguous()
+                               or records.data_ptr() % 16):
+        raise ValueError(f"records must be contiguous and 16-byte aligned "
+                         f"on {device}")
+
+
 def inst_launcher(tables, o, d, t_min, t_max, cull_backface: bool = True,
                   any_hit: bool = False, counters: bool = False):
     """The two-level kernel K6's launcher, as kernel_launcher.  rec holds
@@ -959,7 +983,9 @@ def inst_launcher(tables, o, d, t_min, t_max, cull_backface: bool = True,
     any_hit only "hit".  counters=True adds "counters" (N, 6) int32, the
     per-ray telemetry named in INST_COUNTERS, and the flags "seen_nodes"
     (S,), "seen_records" (R * 12,) and "seen_inst" (I,) of the supernode
-    rows popped, the records tested and the instances entered."""
+    rows popped, the records tested and the instances entered.  The kernel
+    reads the pool's Hopper records (tables.tri_records) and the instance
+    rows as float4s."""
     device = o.device
     tensors, mode = _inst_tensors(tables, any_hit)
     if device.type != "cuda":
@@ -970,11 +996,12 @@ def inst_launcher(tables, o, d, t_min, t_max, cull_backface: bool = True,
     inst = tables.inst_trace
     if (inst.dtype != torch.float32 or inst.dim() != 2
             or inst.shape[1] != INST_COLS or inst.device != device
-            or not inst.is_contiguous()):
+            or not inst.is_contiguous() or inst.data_ptr() % 16):
         raise ValueError(f"inst_trace must be contiguous (I, {INST_COLS}) "
-                         f"float32 on {device}, got {tuple(inst.shape)} "
-                         f"{inst.dtype} on {inst.device}")
+                         f"float32 on {device}, 16-byte aligned, got "
+                         f"{tuple(inst.shape)} {inst.dtype} on {inst.device}")
     rows = tables.tris_packed.shape[0]
+    _check_records(tables.tri_records, rows * TRI_PER_ROW, device)
     if mode and tables.shade_rows.shape[0] < (1 if mode == 1 else 3) * rows:
         raise ValueError(f"shade_rows has {tables.shade_rows.shape[0]} rows "
                          f"for {rows} triangle rows in mode {mode}")
@@ -1010,7 +1037,7 @@ def inst_launcher(tables, o, d, t_min, t_max, cull_backface: bool = True,
     def ptr(name):
         return rec[name].data_ptr() if name in rec else None
 
-    args = (tables.snode_rows.data_ptr(), tables.tris_packed.data_ptr(),
+    args = (tables.snode_rows.data_ptr(), tables.tri_records.data_ptr(),
             inst.data_ptr(), _ptr(tables.shade_rows if mode else None),
             o.data_ptr(), d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
             ptr("t"), ptr("u"), ptr("v"), ptr("tri"), ptr("inst"), ptr("n"),
@@ -1109,74 +1136,188 @@ def trace_nearest_bvh8_inst_plain(tables, o: torch.Tensor, d: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K7: one round of the treelet scheduler (accel.treelets)
+# K7: the rounds of the treelet scheduler (accel.treelets)
 # ---------------------------------------------------------------------------
 
-def _treelet_args(tt, pid, o, any_hit: bool, block: int) -> tuple[dict, int]:
-    """Check one treelet round's arguments; returns its tensors by name
-    and its shade mode."""
+@dataclasses.dataclass
+class TreeletState:
+    """One treelet trace's scheduler state, which its rounds update in
+    place (csrc/treelet8.cu): the padded rays o, d (N, 3) and t_min (N,);
+    t_far (N,), each ray's running interval end; entry (N, K), the treelet
+    entry distances (treelets._entry_distances); visited (N, ceil(K / 32))
+    int32 words; keys (3, P) int64, the packets' pick keys (round r reads
+    keys[r % 3], fills keys[(r + 1) % 3] and resets keys[(r + 2) % 3]); rec,
+    the running record (t, tri with global ids, u, v and the fused shading
+    fields of the tables' mode, or "hit"); `block` rays per packet."""
+    o: torch.Tensor
+    d: torch.Tensor
+    t_min: torch.Tensor
+    t_far: torch.Tensor
+    entry: torch.Tensor
+    visited: torch.Tensor
+    keys: torch.Tensor
+    rec: dict
+    block: int
+
+    @property
+    def ray_bits(self) -> int:
+        return ray_bits(self.block)
+
+
+def ray_bits(block: int) -> int:
+    """Bits of a pick key's packet-local ray index for packets of `block`
+    rays; the treelet field has the 32 - ray_bits bits below them."""
+    return max(1, (block - 1).bit_length())
+
+
+def pick_keys_plain(entry: torch.Tensor, visited: torch.Tensor,
+                    t_far: torch.Tensor, block: int) -> torch.Tensor:
+    """Plain version of the packet pick of csrc/treelet8.cu: (P,) int64, the
+    least key of each packet of `block` rays.  A ray's key packs its masked
+    nearest entry (not visited, entry < t_far) as an int that orders as the
+    float (the bits of a non-negative value; of a negative one, with the
+    magnitude bits flipped; -0 as +0) in the high 32 bits, then its index in
+    the packet and that entry's treelet (the first on ties; K when no entry
+    is left), so the least key is _next_pid's pick: the packet-wide nearest
+    entry, the first ray on ties."""
+    n, k = entry.shape
+    j = torch.arange(k, device=entry.device)
+    seen = ((visited[:, j // 32] >> (j % 32).to(torch.int32)) & 1) == 1
+    keep = ~seen & (entry < t_far[:, None])
+    best, desired = torch.where(keep, entry, float("inf")).min(dim=1)
+    desired = torch.where(torch.isfinite(best), desired, k)
+    bits = torch.where(best == 0.0, 0.0, best).view(torch.int32)
+    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    local = torch.arange(n, device=entry.device) % block
+    low = (local << (32 - ray_bits(block))) | desired
+    return (bits * (1 << 32) + low).view(-1, block).min(dim=1).values
+
+
+def key_treelets(keys: torch.Tensor, block: int, k: int) -> torch.Tensor:
+    """The treelet of each packet's pick key: (P,) int32 in [0, K], K for a
+    finished packet (or an empty key)."""
+    mask = (1 << (32 - ray_bits(block))) - 1
+    return torch.clamp(keys & mask, max=k).to(torch.int32)
+
+
+def _treelet_tables(tt, any_hit: bool) -> tuple[dict, int]:
+    """The tables one treelet round reads, by name, and its shade mode."""
     mode = 0 if any_hit else tt.shade_mode
     if mode not in (0, 1, 2):
         raise ValueError(f"shade_mode must be 0, 1 or 2, got {mode}")
     if tt.alpha_mask and mode:
         raise ValueError("the alpha-masked kernels have no fused shading "
                          f"(shade_mode {mode})")
-    tensors = {"node_stack": tt.node_stack, "tri_stack": tt.tri_stack,
-               "pid": pid}
+    tensors = {"node_stack": tt.node_stack, "tri_records": tt.tri_records,
+               "tri_offsets": tt.tri_offsets}
     if mode:
         if tt.shade_stack is None:
             raise ValueError(f"shade_mode {mode} needs a shade stack")
         tensors["shade_stack"] = tt.shade_stack
-    packets = -(-o.shape[0] // block)
-    if (not isinstance(pid, torch.Tensor) or pid.dtype != torch.int32
-            or tuple(pid.shape) != (packets,)):
-        raise ValueError(f"pid must be ({packets},) int32: one treelet id "
-                         f"per packet of {block} rays")
     return tensors, mode
 
 
-def trace_treelet_round(tt, pid: torch.Tensor, o: torch.Tensor,
-                        d: torch.Tensor, t_min, t_max,
-                        cull_backface: bool = True, any_hit: bool = False,
-                        block: int = 4096) -> dict:
-    """One round of the treelet scheduler (K7), the contract of the
-    reference's _trace_packed8_treelet (pallas_traverse.py:1149-1249):
-    rays [p * block, (p + 1) * block) are traced against treelet pid[p] of
-    treelets.TreeletTables `tt` alone (pid in [0, K)).  Returns the record
-    of trace_nearest_bvh8 with treelet-LOCAL triangle ids (the caller adds
-    the treelet's triangle offset) and the fused shading outputs of
-    tt.shade_mode; the tables' coarse alpha masks are applied when
-    tt.alpha_mask.  With any_hit the record holds only "hit", the
-    occlusion flags (no culling).  A dead ray (t_max < t_min) is rejected
-    at its treelet's root."""
-    tensors, _ = _treelet_args(tt, pid, o, any_hit, block)
-    tensors.update(o=o, d=d)
-    device = _one_device(tensors, t_min, t_max)
+def _state_tensors(state: TreeletState) -> dict:
+    return {"o": state.o, "d": state.d, "t_min": state.t_min,
+            "t_far": state.t_far, "entry": state.entry,
+            "visited": state.visited, "keys": state.keys,
+            **{f"rec.{k}": v for k, v in state.rec.items()}}
+
+
+def _check_state(tt, state: TreeletState, any_hit: bool) -> None:
+    """The state's shapes against the tables and the query."""
+    n, k = state.t_far.shape[0], tt.count
+    block = state.block
+    if block <= 0 or n % block:
+        raise ValueError(f"{n} rays are not whole packets of {block}")
+    if k >= (1 << (32 - state.ray_bits)) - 1:
+        raise ValueError(f"{k} treelets do not fit the pick key's treelet "
+                         f"field at {block} rays per packet")
+    f32, i32 = torch.float32, torch.int32
+    shapes = {"o": ((n, 3), f32), "d": ((n, 3), f32), "t_min": ((n,), f32),
+              "t_far": ((n,), f32), "entry": ((n, k), f32),
+              "visited": ((n, -(-k // 32)), i32),
+              "keys": ((3, n // block), torch.int64)}
+    for name, (shape, dtype) in shapes.items():
+        x = getattr(state, name)
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f"state.{name} must be {shape} {dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    if tt.tri_offsets.dtype != i32 or tuple(tt.tri_offsets.shape) != (k,):
+        raise ValueError(f"tri_offsets must be ({k},) int32")
+    want = ["hit"] if any_hit else ["t", "tri", "u", "v"]
+    if any_hit != ("hit" in state.rec) or any(w not in state.rec
+                                              for w in want):
+        kind = "an any-hit" if any_hit else "a nearest"
+        raise ValueError(f"state.rec holds {sorted(state.rec)}, not the "
+                         f"record of {kind} trace")
+
+
+def trace_treelet_round(tt, state: TreeletState, r: int,
+                        cull_backface: bool = True,
+                        any_hit: bool = False) -> None:
+    """Round r of the treelet scheduler (K7), in place: every packet of
+    state.block rays whose key in state.keys[r % 3] names a treelet is
+    traced against that treelet of treelets.TreeletTables `tt` alone (the
+    contract of the reference's _trace_packed8_treelet,
+    pallas_traverse.py:1149-1249), and the scheduler's step
+    (steeljax/accel/treelets.py:268-305) follows for each of its rays: a hit
+    strictly nearer than the ray's t_far (or its first hit) writes the
+    record (global triangle id, fused shading of tt.shade_mode; with
+    any_hit the occlusion flag, no culling, and the interval dies) and
+    t_far; the treelet becomes visited; and the packet's next key goes to
+    state.keys[(r + 1) % 3] (which holds EMPTY_KEY), while state.keys[(r +
+    2) % 3] is reset.  A finished packet's rays are not touched.  The
+    tables' coarse alpha masks apply when tt.alpha_mask."""
+    tensors, _ = _treelet_tables(tt, any_hit)
+    tensors.update(_state_tensors(state))
+    device = _one_device(tensors, None, None)
     if device.type == "cuda":
-        launch, rec = treelet_launcher(tt, pid, o, d, t_min, t_max,
-                                       cull_backface, any_hit, block)
-        launch()
-        if not any_hit:
-            rec["hit"] = rec["tri"] >= 0
-        return rec
-    return trace_treelet_round_plain(tt, pid, o, d, t_min, t_max,
-                                     cull_backface, any_hit, block)
+        treelet_launcher(tt, state, r, cull_backface, any_hit)[0]()
+        return
+    trace_treelet_round_plain(tt, state, r, cull_backface, any_hit)
 
 
-def treelet_launcher(tt, pid, o, d, t_min, t_max, cull_backface: bool = True,
-                     any_hit: bool = False, block: int = 4096,
-                     counters: bool = False):
-    """The treelet kernel K7's launcher, as kernel_launcher.
-    counters=True adds "counters" (N, 6) int32 (COUNTERS) and the flags
-    "seen_nodes" (K * S,) and "seen_records" (K * R * 12,) over the
-    stacked tables."""
-    device = o.device
-    tensors, mode = _treelet_args(tt, pid, o, any_hit, block)
+def treelet_pick(tt, state: TreeletState) -> None:
+    """The first pick of a treelet trace: state.keys[0] (all EMPTY_KEY)
+    takes each packet's least key (pick_keys_plain) over its rays' entry
+    rows, visited words and t_far.  Launches the pick kernel of
+    csrc/treelet8.cu (LAUNCHES["K7_pick"]) for CUDA tensors, runs
+    pick_keys_plain for CPU tensors."""
+    tensors = {"entry": state.entry, "t_far": state.t_far,
+               "visited": state.visited, "keys": state.keys}
+    device = _one_device(tensors, None, None)
+    if device.type == "cuda":
+        treelet_pick_launcher(tt, state)()
+        return
+    state.keys[0] = torch.minimum(state.keys[0], pick_keys_plain(
+        state.entry, state.visited, state.t_far, state.block))
+
+
+def _check_treelet_launch(tt, state, tensors: dict, any_hit: bool) -> None:
+    device = state.t_far.device
     if device.type != "cuda":
         raise ValueError(f"the trace kernel needs CUDA tensors, got {device}")
+    if state.block % 32:
+        raise ValueError(f"packets of {state.block} rays: the kernel needs "
+                         "a multiple of 32")
     for name, x in tensors.items():
-        if x.device != device or not x.is_contiguous():
+        if x is None or x.device != device or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {device}")
+    _check_state(tt, state, any_hit)
+
+
+def treelet_launcher(tt, state: TreeletState, r: int,
+                     cull_backface: bool = True, any_hit: bool = False,
+                     telemetry: dict | None = None):
+    """The launch closure of round r of the treelet kernel K7 (as
+    kernel_launcher's; `rec` is state.rec, updated in place by every
+    launch).  `telemetry` (treelet_telemetry) makes it a counting launch
+    that adds to its per-ray counters and sets its flags over the stacked
+    tables."""
+    tensors, mode = _treelet_tables(tt, any_hit)
+    state_tensors = _state_tensors(state)
+    _check_treelet_launch(tt, state, {**tensors, **state_tensors}, any_hit)
     k, node_rows = tt.node_stack.shape[:2]
     tri_rows = tt.tri_stack.shape[1]
     for name, x, rows in (("node_stack", tt.node_stack, node_rows),
@@ -1187,56 +1328,120 @@ def treelet_launcher(tt, pid, o, d, t_min, t_max, cull_backface: bool = True,
                               or tuple(x.shape) != (k, rows, LANES)):
             raise ValueError(f"{name} must be ({k}, {rows}, {LANES}) "
                              f"float32, got {tuple(x.shape)} {x.dtype}")
+    _check_records(tt.tri_records, k * tri_rows * TRI_PER_ROW,
+                   state.t_far.device)
     if 8 * tt.depth + 16 > MAX_STACK:
         raise ValueError(f"treelet depth {tt.depth} needs a stack of "
                          f"{8 * tt.depth + 16} > {MAX_STACK} entries")
-    o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
-    n = o.shape[0]
-    f32 = dict(dtype=torch.float32, device=device)
-    i32 = dict(dtype=torch.int32, device=device)
-    if any_hit:
-        rec = {"hit": torch.empty(n, dtype=torch.bool, device=device)}
-    else:
-        rec = {"t": torch.empty(n, **f32), "u": torch.empty(n, **f32),
-               "v": torch.empty(n, **f32), "tri": torch.empty(n, **i32)}
-    if mode:
-        rec["n"] = torch.empty((n, 3), **f32)
-        rec["mat"] = torch.empty(n, **i32)
-    if mode == 2:
-        rec["tan"] = torch.empty((n, 3), **f32)
-        rec["uv"] = torch.empty((n, 2), **f32)
-        rec["uvd"] = torch.empty(n, **f32)
-    if counters:
-        rec.update(_telemetry_sized(n, k * node_rows,
-                                    k * tri_rows * TRI_PER_ROW, device))
+    rec, keys = state.rec, state.keys
+    tel = telemetry or {}
 
-    def ptr(name):
-        return rec[name].data_ptr() if name in rec else None
+    def ptr(x):
+        return None if x is None else x.data_ptr()
 
-    args = (tt.node_stack.data_ptr(), tt.tri_stack.data_ptr(),
-            _ptr(tt.shade_stack if mode else None), pid.data_ptr(),
-            o.data_ptr(), d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
-            ptr("t"), ptr("u"), ptr("v"), ptr("tri"), ptr("n"), ptr("mat"),
-            ptr("tan"), ptr("uv"), ptr("uvd"), ptr("hit"), ptr("counters"),
-            ptr("seen_nodes"), ptr("seen_records"), n, block, k, node_rows,
-            tri_rows, tt.max_leaf, tt.depth, int(bool(cull_backface)), mode,
-            int(bool(tt.alpha_mask)), int(bool(any_hit)))
+    args = (tt.node_stack.data_ptr(), tt.tri_records.data_ptr(),
+            ptr(tt.shade_stack if mode else None), tt.tri_offsets.data_ptr(),
+            state.entry.data_ptr(), state.o.data_ptr(), state.d.data_ptr(),
+            state.t_min.data_ptr(), state.t_far.data_ptr(),
+            state.visited.data_ptr(), keys[r % 3].data_ptr(),
+            keys[(r + 1) % 3].data_ptr(), keys[(r + 2) % 3].data_ptr(),
+            *(ptr(rec.get(name)) for name in (
+                "t", "u", "v", "tri", "n", "mat", "tan", "uv", "uvd", "hit")),
+            ptr(tel.get("counters")), ptr(tel.get("seen_nodes")),
+            ptr(tel.get("seen_records")), state.t_far.shape[0], state.block,
+            state.ray_bits, k, node_rows, tri_rows, tt.max_leaf, tt.depth,
+            int(bool(cull_backface)), mode, int(bool(tt.alpha_mask)),
+            int(bool(any_hit)))
     return _launch_fn("K7_anyhit" if any_hit else "K7",
-                      "steeljax_trace_treelet8", args,
-                      (*tensors.values(), o, d, tmn, tmx,
-                       *rec.values())), rec
+                      "steeljax_treelet_round8", args,
+                      (*tensors.values(), *state_tensors.values(),
+                       *tel.values())), rec
 
 
-def trace_treelet_round_plain(tt, pid: torch.Tensor, o: torch.Tensor,
-                              d: torch.Tensor, t_min, t_max,
+def treelet_pick_launcher(tt, state: TreeletState):
+    """The launch closure of the first pick of a treelet trace (treelet_pick)
+    into state.keys[0]; each launch adds one to LAUNCHES["K7_pick"]."""
+    tensors = {"entry": state.entry, "t_far": state.t_far,
+               "visited": state.visited, "keys": state.keys}
+    _check_treelet_launch(tt, state, tensors, "hit" in state.rec)
+    args = (state.entry.data_ptr(), state.t_far.data_ptr(),
+            state.visited.data_ptr(), state.keys[0].data_ptr(),
+            state.t_far.shape[0], state.block, state.ray_bits, tt.count)
+    return _launch_fn("K7_pick", "steeljax_treelet_pick8", args,
+                      tuple(tensors.values()))
+
+
+def treelet_telemetry(tt, state: TreeletState) -> dict:
+    """Zeroed telemetry of a counting treelet trace (treelet_launcher's
+    `telemetry`): "counters" (N, 6) int32, summed over the rounds (COUNTERS),
+    and the flags "seen_nodes" (K * S,) and "seen_records" (K * R * 12,)
+    over the stacked tables."""
+    k, node_rows = tt.node_stack.shape[:2]
+    rec = _telemetry_sized(state.t_far.shape[0], k * node_rows,
+                           k * tt.tri_stack.shape[1] * TRI_PER_ROW,
+                           state.t_far.device)
+    rec["counters"].zero_()
+    return rec
+
+
+def trace_treelet_round_plain(tt, state: TreeletState, r: int,
                               cull_backface: bool = True,
-                              any_hit: bool = False,
-                              block: int = 4096) -> dict:
-    """Plain version of the treelet kernel K7, same signature and outputs:
-    the rays of every packet, grouped by treelet, go through the flat
-    kernels' plain versions over that treelet's records (brute force;
-    padding records are all zero and fail the determinant test)."""
-    _, mode = _treelet_args(tt, pid, o, any_hit, block)
+                              any_hit: bool = False, walk=None) -> None:
+    """Plain version of trace_treelet_round, same contract: the reference
+    scheduler's step (steeljax/accel/treelets.py:268-305) in place.  The
+    packets' walks are treelet_walk_plain, or `walk(pid, o, d, t_min,
+    t_max)` (the trace_fn of treelets.trace_treelets), called on every
+    packet with pid clamped to K - 1 and a finished packet's rays given the
+    dead interval, as the reference launches them."""
+    k, block, rec = tt.count, state.block, state.rec
+    state.keys[(r + 2) % 3] = EMPTY_KEY
+    pid = key_treelets(state.keys[r % 3], block, k)
+    done = (pid >= k).repeat_interleave(block)
+    pid_safe = pid.clamp(max=k - 1)
+    if walk is None:
+        def walk(pid, o, d, t_min, t_max):
+            return treelet_walk_plain(tt, pid, o, d, t_min, t_max, block,
+                                      cull_backface, any_hit)
+    rk = walk(pid_safe, state.o, state.d, state.t_min,
+              torch.where(done, RAY_DEAD_T, state.t_far))
+    if any_hit:
+        rec["hit"] |= rk["hit"]
+        state.t_far[rec["hit"]] = RAY_DEAD_T
+    else:
+        better = rk["hit"] & ((rec["tri"] < 0) | (rk["t"] < state.t_far))
+        off = tt.tri_offsets[pid_safe.long()].repeat_interleave(block)
+        new = dict(rk, tri=rk["tri"] + off)
+        for key, value in rec.items():
+            value[better] = new[key][better].to(value.dtype)
+        state.t_far[better] = rk["t"][better]
+    # Every ray of a live packet has visited its treelet.
+    live = (~done).nonzero()[:, 0]
+    treelet = pid_safe.repeat_interleave(block)[live]
+    word = (treelet // 32).long()
+    state.visited[live, word] |= torch.ones_like(treelet) << (treelet % 32)
+    nxt = pick_keys_plain(state.entry, state.visited, state.t_far, block)
+    state.keys[(r + 1) % 3] = torch.where(
+        pid >= k, state.keys[(r + 1) % 3],
+        torch.minimum(state.keys[(r + 1) % 3], nxt))
+
+
+def treelet_walk_plain(tt, pid: torch.Tensor, o: torch.Tensor,
+                       d: torch.Tensor, t_min, t_max, block: int,
+                       cull_backface: bool = True,
+                       any_hit: bool = False) -> dict:
+    """The walks of one round, by brute force: rays [p * block, (p + 1) *
+    block) against treelet pid[p] of `tt` alone (pid in [0, K)), through
+    the flat kernels' plain versions over that treelet's records (padding
+    records are all zero and fail the determinant test).  Returns the
+    record of trace_nearest_bvh8 with treelet-LOCAL triangle ids and the
+    fused shading of tt.shade_mode, or with any_hit only "hit"; a dead ray
+    (t_max < t_min) misses."""
+    mode = 0 if any_hit else tt.shade_mode
+    packets = -(-o.shape[0] // block)
+    if (not isinstance(pid, torch.Tensor) or pid.dtype != torch.int32
+            or tuple(pid.shape) != (packets,)):
+        raise ValueError(f"pid must be ({packets},) int32: one treelet id "
+                         f"per packet of {block} rays")
     device = o.device
     o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
     n = o.shape[0]

@@ -55,6 +55,9 @@ class InstancedTables:
     # (18:46, tri_shade columns 28:56), uniform scale (46).
     inst_shade: torch.Tensor
     blas_shade: torch.Tensor   # (T, 28) f32 object-space geometric rows
+    # (R * 12, 12) f32: cuda_traverse.hopper_records of tris_packed, the
+    # 48-byte records K6 reads.
+    tri_records: torch.Tensor | None = None
     n_tlas: int = 1            # supernode rows below this are TLAS rows
     # Fused-shading records (pack_shade_records layout, object space,
     # concatenated per BLAS like tris_packed); None in mode 0.
@@ -230,10 +233,11 @@ class InstancedAccel:
         return key, blas
 
     def _pack_blas_tables(self, shade_mode: int):
-        """(BLAS supernode rows (host), triangle rows, shading rows, fused
-        records or None (device tensors), {blas key: (first row, first
-        record)}) of the cached BLAS set.  The device tensors are reused
-        across prepare calls until the set or the shade mode changes."""
+        """(BLAS supernode rows (host), triangle rows, their Hopper records,
+        shading rows, fused records or None (device tensors), {blas key:
+        (first row, first record)}) of the cached BLAS set.  The device
+        tensors are reused across prepare calls until the set or the shade
+        mode changes."""
         key = (tuple(sorted(self._blas)), shade_mode)
         if self._packed_key != key:
             offsets = {}
@@ -268,10 +272,12 @@ class InstancedAccel:
                         else np.zeros((0, width), np.float32))
                 return torch.from_numpy(host).to(self.device)
 
+            tris_packed = dev(tri_parts, 128)
             self._packed = (
                 np.concatenate(rows_parts) if rows_parts
                 else np.zeros((0, 128), np.float32),
-                dev(tri_parts, 128), dev(shade_parts, 28),
+                tris_packed, cuda_traverse.hopper_records(tris_packed),
+                dev(shade_parts, 28),
                 dev(fused_parts, 128) if fused_parts else None,
                 offsets)
             self._packed_key = key
@@ -304,8 +310,8 @@ class InstancedAccel:
             shade_mode = 2 if scene.textures else 1
 
         with record_function("instances.pack_blas_tables"):
-            blas_rows, tris_packed, blas_shade, fused_rows, offsets = \
-                self._pack_blas_tables(shade_mode)
+            blas_rows, tris_packed, tri_records, blas_shade, fused_rows, \
+                offsets = self._pack_blas_tables(shade_mode)
         n_blas_rows = len(blas_rows)
 
         count = len(entries)
@@ -369,7 +375,7 @@ class InstancedAccel:
             return InstancedTables(
                 snode_rows=dev(snode), tris_packed=tris_packed,
                 inst_trace=dev(inst_trace), inst_shade=dev(inst_shade),
-                blas_shade=blas_shade, n_tlas=n_tlas,
+                blas_shade=blas_shade, tri_records=tri_records, n_tlas=n_tlas,
                 shade_rows=fused_rows, shade_mode=shade_mode,
                 depth=tlas_depth + 1 + max_blas_depth,
                 max_leaf=self.leaf_size,

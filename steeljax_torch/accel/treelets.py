@@ -15,12 +15,17 @@ counterpart of kernel K7 and of `prepare_tables(treelets=True)`:
   packet picks the nearest treelet any of its rays still needs, and one
   launch of K7 (cuda_traverse.trace_treelet_round) per round traverses
   every packet against its chosen treelet.  Hits shrink each ray's t_max,
-  which prunes later rounds (entry-distance test) and lets the kernel's
-  root test reject finished rays.
+  which prunes later rounds.
 
-The loop ends when no packet wants a treelet, which the host reads from the
-device before every round (one synchronization each, and one more to leave
-the loop); K rounds is an exact upper bound.  SCHEDULER counts the traces
+The scheduler's state (cuda_traverse.TreeletState) stays on the device and
+every round updates it in place: the kernel merges its hits into the
+running record, marks the treelet visited and picks each packet's next
+treelet (csrc/treelet8.cu), so on the card a trace is one pick launch and
+exactly K round launches, with no host read; K rounds is the exact upper
+bound (every round retires a treelet of every live packet), and a round
+whose packets are all done costs one launch of blocks that return at once.
+On the CPU the same loop runs with the plain round and pick and leaves once
+no packet is left, which it reads for free.  SCHEDULER counts the traces
 and those host reads since the last reset; a trace's rounds are the
 launches cuda_traverse.LAUNCHES counts for K7.
 """
@@ -39,12 +44,16 @@ from steeljax_torch.core.constants import RAY_DEAD_T
 
 # Target treelet size of the reference.
 TREELET_TRIS = 131_072
-# Rays per scheduling packet (the reference's 128 lanes x 32 sublanes).
-PACKET_RAYS = 4096
+# Rays per scheduling packet: one CUDA block of K7.  The reference's packet
+# is 4,096 rays (128 lanes x 32 sublanes); on the H100 one trace of path
+# U's primaries takes 1.25 ms of K7 with 4,096-ray packets and 0.99 ms with
+# 128 (PERF.md, section 6): a smaller packet walks fewer rays through
+# treelets they do not need.  trace_treelets takes either.
+PACKET_RAYS = 128
 # Since the last reset (set the entries to 0): traces through the scheduler
-# and the host's reads of the device's "any packet left" flag, each a
-# synchronization.  Rounds are not counted here: each is one launch of K7,
-# which cuda_traverse.LAUNCHES counts.
+# and the host's reads of the "any packet left" flag (the plain loop's; on
+# the card the loop reads none).  Rounds are not counted here: each is one
+# launch of K7, which cuda_traverse.LAUNCHES counts.
 SCHEDULER = {"traces": 0, "host_reads": 0}
 
 
@@ -56,6 +65,9 @@ class TreeletTables:
     aabb_hi: torch.Tensor       # (K, 3)
     tri_offsets: torch.Tensor   # (K,) int32 global first-triangle index
     shade_stack: torch.Tensor | None = None  # (K, R * {1, 3}, 128) f32
+    # (K * R * 12, 12) f32: cuda_traverse.hopper_records of tri_stack, the
+    # 48-byte records K7 reads.
+    tri_records: torch.Tensor | None = None
     depth: int = 1
     max_leaf: int = 24
     shade_mode: int = 0
@@ -137,8 +149,10 @@ def build_treelet_tables(nodes: np.ndarray, tris_packed: np.ndarray,
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    tri_stack = dev(tri_stack)
     return TreeletTables(
-        node_stack=dev(node_stack), tri_stack=dev(tri_stack),
+        node_stack=dev(node_stack), tri_stack=tri_stack,
+        tri_records=cuda_traverse.hopper_records(tri_stack.reshape(-1, 128)),
         aabb_lo=dev(nodes[roots, 0:3].astype(np.float32)),
         aabb_hi=dev(nodes[roots, 3:6].astype(np.float32)),
         tri_offsets=dev(np.asarray(lo, np.int32)),
@@ -197,95 +211,96 @@ def _next_pid(entry, visited, t_far, block: int) -> torch.Tensor:
     return desired.reshape(-1, block).gather(1, ray_ix[:, None])[:, 0]
 
 
+def treelet_state(tt: TreeletTables, o, d, t_min, t_max,
+                  any_hit: bool = False, block: int = PACKET_RAYS
+                  ) -> cuda_traverse.TreeletState:
+    """The scheduler state of one trace before its first pick: the rays
+    padded to whole packets of `block` (a pad ray has the dead interval),
+    t_far = t_max, the (N, K) entry distances, no treelet visited, empty
+    keys and the initial record (t -1, tri -1, u = v = 0 and zero shading
+    fields; with any_hit a false "hit")."""
+    device = o.device
+    n = o.shape[0]
+    padded = -(-n // block) * block
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def padded_copy(x, fill, width=()):
+        # A Python scalar is filled in, not copied from the host: a copy
+        # from pageable memory waits for the stream.
+        out = torch.full((padded,) + width, fill, **f32)
+        if isinstance(x, torch.Tensor):
+            out[:n] = x.to(torch.float32).expand((n,) + width)
+        else:
+            out[:n].fill_(float(x))
+        return out
+
+    o = padded_copy(o, 0.0, (3,))
+    d = padded_copy(d, 1.0, (3,))
+    t_min = padded_copy(t_min, 0.0)
+    t_far = padded_copy(t_max, RAY_DEAD_T)
+    k = tt.count
+    if any_hit:
+        rec = {"hit": torch.zeros(padded, dtype=torch.bool, device=device)}
+    else:
+        rec = {"t": torch.full((padded,), -1.0, **f32),
+               "tri": torch.full((padded,), -1, dtype=torch.int32,
+                                 device=device),
+               "u": torch.zeros(padded, **f32),
+               "v": torch.zeros(padded, **f32)}
+        if tt.shade_mode:
+            rec["n"] = torch.zeros((padded, 3), **f32)
+            rec["mat"] = torch.zeros(padded, dtype=torch.int32,
+                                     device=device)
+        if tt.shade_mode == 2:
+            rec["tan"] = torch.zeros((padded, 3), **f32)
+            rec["uv"] = torch.zeros((padded, 2), **f32)
+            rec["uvd"] = torch.zeros(padded, **f32)
+    return cuda_traverse.TreeletState(
+        o=o, d=d, t_min=t_min, t_far=t_far,
+        entry=_entry_distances(tt, o, d, t_min, t_far).contiguous(),
+        visited=torch.zeros((padded, -(-k // 32)), dtype=torch.int32,
+                            device=device),
+        keys=torch.full((3, padded // block), cuda_traverse.EMPTY_KEY,
+                        dtype=torch.int64, device=device),
+        rec=rec, block=block)
+
+
 def trace_treelets(tt: TreeletTables, o, d, t_min, t_max,
                    cull_backface: bool = True, any_hit: bool = False,
                    block: int = PACKET_RAYS, trace_fn=None) -> dict:
     """Nearest-hit (or any-hit) trace through the treelet scheduler.
 
     The record of cuda_traverse.trace_nearest_bvh8 (global triangle ids;
-    the fused shade fields when tt.shade_mode > 0); with any_hit only
-    "hit", the occlusion flags.  `trace_fn(pid, o, d, t_min, t_max)`
-    overrides the round kernel K7 (tests use it to watch the schedule)."""
-    device = o.device
+    the fused shade fields when tt.shade_mode > 0; a miss keeps t -1, tri
+    -1 and zero fields); with any_hit only "hit", the occlusion flags.  On
+    CUDA tensors the trace is one launch of the pick kernel and K launches
+    of K7, with no host read.  On CPU tensors, or with `trace_fn`, the plain
+    round and pick run, leaving once no packet is left;
+    `trace_fn(pid, o, d, t_min, t_max)` then replaces the plain walks of
+    each round (cuda_traverse.treelet_walk_plain: a treelet-local record
+    per ray; tests use it to watch the schedule)."""
     n = o.shape[0]
-    padded = -(-n // block) * block
-    pad = padded - n
-
-    def prep(x, fill=0.0):
-        if pad == 0:
-            return x
-        tail = torch.full((pad,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
-                          device=device)
-        return torch.cat([x, tail])
-
-    def interval(x):
-        return torch.as_tensor(x, dtype=torch.float32,
-                               device=device).expand(n)
-
-    o = prep(o.to(torch.float32)).contiguous()
-    d = prep(d.to(torch.float32), 1.0).contiguous()
-    t_min = prep(interval(t_min))
-    t_far = prep(interval(t_max), RAY_DEAD_T)
-
     k = tt.count
-    shade_mode = 0 if any_hit else tt.shade_mode
-    entry = _entry_distances(tt, o, d, t_min, t_far)
-    visited = ~torch.isfinite(entry)
-
-    if trace_fn is None:
-        def trace_fn(pid, o, d, t_min, t_max):
-            return cuda_traverse.trace_treelet_round(
-                tt, pid, o, d, t_min, t_max, cull_backface=cull_backface,
-                any_hit=any_hit, block=block)
-
-    f32 = dict(dtype=torch.float32, device=device)
-    rec = {"hit": torch.zeros(padded, dtype=torch.bool, device=device)}
-    if not any_hit:
-        rec.update(t=torch.full((padded,), -1.0, **f32),
-                   tri=torch.full((padded,), -1, dtype=torch.int32,
-                                  device=device),
-                   u=torch.zeros(padded, **f32), v=torch.zeros(padded, **f32))
-    if shade_mode:
-        rec["n"] = torch.zeros((padded, 3), **f32)
-        rec["mat"] = torch.zeros(padded, dtype=torch.int32, device=device)
-    if shade_mode == 2:
-        rec["tan"] = torch.zeros((padded, 3), **f32)
-        rec["uv"] = torch.zeros((padded, 2), **f32)
-        rec["uvd"] = torch.zeros(padded, **f32)
-
-    treelet_ids = torch.arange(k, dtype=torch.int32, device=device)
-    pid = _next_pid(entry, visited, t_far, block)
-    rounds = 0
+    state = treelet_state(tt, o, d, t_min, t_max, any_hit, block)
     SCHEDULER["traces"] += 1
-    # Every round retires at least one treelet per live packet (visited
-    # masking), so K rounds is an exact upper bound.
-    while rounds < k:
-        SCHEDULER["host_reads"] += 1
-        if not bool((pid < k).any()):
-            break
-        pid_safe = pid.clamp(max=k - 1)
-        # Finished packets (pid == k) still launch, against treelet k - 1:
-        # an inverted interval makes the kernel reject their rays at the
-        # root.
-        done_ray = (pid >= k).repeat_interleave(block)
-        rk = trace_fn(pid_safe, o, d, t_min,
-                      torch.where(done_ray, RAY_DEAD_T, t_far))
-        if any_hit:
-            rec["hit"] = rec["hit"] | rk["hit"]
-            # Occluded rays stop scheduling (and are rejected at the root).
-            t_far = torch.where(rec["hit"], RAY_DEAD_T, t_far)
-        else:
-            # Treelet-local -> global triangle ids (per-packet offset).
-            off = tt.tri_offsets[pid_safe.long()].repeat_interleave(block)
-            rk = dict(rk)
-            rk["tri"] = torch.where(rk["hit"], rk["tri"] + off, -1)
-            better = rk["hit"] & (~rec["hit"] | (rk["t"] < rec["t"]))
-            rec = {key: torch.where(
-                better if rec[key].dim() == 1 else better[:, None],
-                rk[key], rec[key]) for key in rec}
-            t_far = torch.where(better, rk["t"], t_far)
-        pid_ray = pid_safe.repeat_interleave(block)
-        visited = visited | (pid_ray[:, None] == treelet_ids[None, :])
-        pid = _next_pid(entry, visited, t_far, block)
-        rounds += 1
+    if trace_fn is None and state.t_far.device.type == "cuda":
+        cuda_traverse.treelet_pick_launcher(tt, state)()
+        rounds = [cuda_traverse.treelet_launcher(
+            tt, state, r, cull_backface, any_hit)[0]
+            for r in range(min(3, k))]
+        for r in range(k):
+            rounds[r % 3]()
+    else:
+        state.keys[0] = cuda_traverse.pick_keys_plain(
+            state.entry, state.visited, state.t_far, block)
+        for r in range(k):
+            SCHEDULER["host_reads"] += 1
+            pid = cuda_traverse.key_treelets(state.keys[r % 3], block, k)
+            if not bool((pid < k).any()):
+                break
+            cuda_traverse.trace_treelet_round_plain(
+                tt, state, r, cull_backface, any_hit, walk=trace_fn)
+    rec = state.rec
+    if not any_hit:
+        rec = {"hit": rec["tri"] >= 0, **rec}
     return {key: val[:n] for key, val in rec.items()}

@@ -666,15 +666,17 @@ def treelet_soup_case(n_tris: int, device, textured: bool | None = None,
 
 def plain_round(tt, cull_backface: bool = True, any_hit: bool = False,
                 block: int | None = None):
-    """A `trace_fn` for treelets.trace_treelets that runs the plain version
-    of the treelet kernel K7 in every round."""
+    """A `trace_fn` for treelets.trace_treelets: the scheduler then runs the
+    plain version of the treelet kernel K7 and of its pick in every round
+    (cuda_traverse.trace_treelet_round_plain with the plain walks), on any
+    device."""
     from steeljax_torch.accel import cuda_traverse, treelets as treelets_lib
 
     block = block or treelets_lib.PACKET_RAYS
 
     def trace(pid, o, d, t_min, t_max):
-        return cuda_traverse.trace_treelet_round_plain(
-            tt, pid, o, d, t_min, t_max, cull_backface, any_hit, block)
+        return cuda_traverse.treelet_walk_plain(
+            tt, pid, o, d, t_min, t_max, block, cull_backface, any_hit)
 
     return trace
 

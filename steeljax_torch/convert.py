@@ -60,10 +60,12 @@ def _fine_rows(flat, chunk, scene) -> np.ndarray:
 def _instanced(tables, dev) -> InstancedTables:
     """The reference's InstancedTables on the port's device."""
     fused = tables.shade_rows is not None and int(tables.shade_mode) > 0
+    tris_packed = dev(tables.tris_packed)
     return InstancedTables(
-        snode_rows=dev(tables.snode_rows), tris_packed=dev(tables.tris_packed),
+        snode_rows=dev(tables.snode_rows), tris_packed=tris_packed,
         inst_trace=dev(tables.inst_trace), inst_shade=dev(tables.inst_shade),
-        blas_shade=dev(tables.blas_shade), n_tlas=int(tables.n_tlas),
+        blas_shade=dev(tables.blas_shade),
+        tri_records=hopper_records(tris_packed), n_tlas=int(tables.n_tlas),
         shade_rows=dev(tables.shade_rows) if fused else None,
         shade_mode=int(tables.shade_mode) if fused else 0,
         depth=int(tables.depth), max_leaf=int(tables.max_leaf),
@@ -76,8 +78,10 @@ def _instanced(tables, dev) -> InstancedTables:
 def _treelets(tt, dev) -> TreeletTables:
     """The reference's TreeletTables on the port's device."""
     shade = tt.shade_stack
+    tri_stack = dev(tt.tri_stack)
     return TreeletTables(
-        node_stack=dev(tt.node_stack), tri_stack=dev(tt.tri_stack),
+        node_stack=dev(tt.node_stack), tri_stack=tri_stack,
+        tri_records=hopper_records(tri_stack.reshape(-1, 128)),
         aabb_lo=dev(tt.aabb_lo), aabb_hi=dev(tt.aabb_hi),
         tri_offsets=dev(tt.tri_offsets),
         shade_stack=None if shade is None else dev(shade),

@@ -1,6 +1,6 @@
 // Table layouts and per-candidate helpers shared by the BVH8 trace kernels
-// (traverse8.cu: K1-K3, K7; alpha8.cu: K4, K5; instanced8.cu: K6).  See
-// traverse8.cu for the table formats.
+// (traverse8.cu: K1-K3; alpha8.cu: K4, K5; instanced8.cu: K6; treelet8.cu:
+// K7).  See traverse8.cu for the table formats.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,6 +1,6 @@
 // BVH8 ray traversal for Hopper (sm_90a), one thread per ray.
 //
-// One templated body, instanced as four TPU kernels of
+// One templated body, instanced as three TPU kernels of
 // steeljax/accel/pallas_traverse.py:_traverse_kernel8 (host wrapper
 // _trace_packed8, pallas_call at :719):
 //   K1  nearest hit, shade modes 0 and 1 (entry trace_nearest_packet8);
@@ -8,22 +8,11 @@
 //       :608-617);
 //   K2  any-hit occlusion (any_hit=True, :506-517, :574-594), over the
 //       12-record rows or the dense 14-record rows (trace_anyhit_dense,
-//       :781-794);
-//   K7  the same body over one treelet's node, triangle and shade blocks
-//       (_kernel8_treelet :1252, host wrapper _trace_packed8_treelet :1149,
-//       pallas_call at :1229): every packet of `block` consecutive rays
-//       walks the treelet its entry of `pid` names, whose tables start
-//       pid * stride floats into the stacked (K, S, 128), (K, R, 128) and
-//       (K, R * {1, 3}, 128) arrays; triangle ids are treelet-local.  Shade
-//       modes 0, 1 and 2, any-hit, and the coarse alpha masks (ALPHA, the
-//       treelet instances only).  A round launches every ray, the finished
-//       ones with the dead interval (they leave before the root), so on this
-//       card a late round is bound by the ray reads and writes of all its
-//       rays, not by its few walks.
+//       :781-794).
 // Each instance is specialized at compile time on (ANY_HIT, DENSE, SHADE2,
-// COUNT, ALPHA, TREELET), so K1's instance has no code of the others.  The
-// alpha-masked kernels K4 (nearest and any-hit) and K5 (K nearest) are
-// alpha8.cu, the two-level kernel K6 instanced8.cu.
+// COUNT), so K1's instance has no code of the others.  The alpha-masked
+// kernels K4 (nearest and any-hit) and K5 (K nearest) are alpha8.cu, the
+// two-level kernel K6 instanced8.cu, the treelet kernel K7 treelet8.cu.
 //
 // Tables, in the reference's formats unchanged:
 //   snodes (S, 128) f32: 8 children per supernode row, child c at floats
@@ -46,7 +35,7 @@
 //     fine (R, 128) int32 rows run parallel to the triangle rows: record k
 //     at row k / 12, words (k % 12) * 10 .. +9 = 5 PASS words, 5 OPAQUE
 //     words of the 153-cell fine grid (pack_fine_mask_rows; read by
-//     alpha8.cu).
+//     alpha8.cu).  This file reads no masks.
 //
 // What bounds it on this card.  K1: the scene tables of small scenes stay
 // resident in L1/L2, so HBM bandwidth is not the limit; each ray walks its
@@ -54,17 +43,14 @@
 // dependent table reads and by warp divergence when neighbouring rays take
 // different paths.  K3: the same as K1, plus one 104-byte shade record per
 // ray after the walk.  K2: the dependent-load latency of the walk, which
-// ends at the first occluder found.  K7: as K1, per treelet.
+// ends at the first occluder found.
 //
 // What the design does about it: one thread per ray with a private stack
 // in local memory, so no ray waits on a packet-wide union of nodes (the
 // TPU's packet traversal had no per-lane control flow; this card has).  The
 // nearest query pushes children far-to-near by their own entry distance, so
 // the nearest hit is found early and the far children are culled at pop
-// time against the shrinking best t.  A candidate the masks reject never
-// becomes the best hit, so transparent texels do not shorten the walk's
-// interval; only boundary cells reach the integrator's exact test, which
-// re-traces past them.  The any-hit query keeps no entry
+// time against the shrinking best t.  The any-hit query keeps no entry
 // distances (its interval never shrinks), tests no facing and no shade
 // record, and returns at the first accepted candidate.  Table reads go
 // through the read-only cache (__ldg).  The winner's shading attributes are
@@ -77,9 +63,8 @@
 //
 // Optional telemetry (COUNT instances, the reference's counters=True,
 // :618-628): per ray, [supernode pops, triangle-row bodies, leaf pops,
-// triangle tests, coarse mask tests, 0], where a mask test counts a
-// candidate that reached it (inside its triangle and its interval);
-// besides, a COUNT instance sets seen_snode[row] for every supernode row
+// triangle tests, 0, 0] (the alpha kernels count mask tests in the last
+// two); besides, a COUNT instance sets seen_snode[row] for every supernode row
 // popped and seen_rec[k] for every triangle record tested, so the caller
 // can count the distinct table bytes the walk read.  The render path never
 // launches a COUNT instance.
@@ -115,40 +100,18 @@ struct TraceArgs {
   int leaf_cap;
   int cull;
   int shade_mode;
-  // Treelet instances only: one treelet id per packet of `block` rays, the
-  // number of treelets, and the rows of one treelet's node, triangle and
-  // shade tables.
-  const int* pid;
-  int block;
-  int n_treelets;
-  int node_rows;
-  int tri_rows;
-  int shade_rows;
 };
 
-template <bool ANY_HIT, bool DENSE, bool SHADE2, bool COUNT, bool ALPHA,
-          bool TREELET>
+template <bool ANY_HIT, bool DENSE, bool SHADE2, bool COUNT>
 __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
   constexpr int kPerRow = DENSE ? DENSE_PER_ROW : TRI_PER_ROW;
   constexpr int kStride = DENSE ? DENSE_STRIDE : TRI_STRIDE;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
 
-  // The tables this ray walks: the scene's, or its packet's treelet's
-  // blocks of the stacks (the COUNT flags then index the whole stacks).
   const float* snodes = a.snodes;
   const float* tris = a.tris;
   const float* shade = a.shade;
-  size_t seen_snode_base = 0, seen_rec_base = 0;
-  if constexpr (TREELET) {
-    const int treelet =
-        min(max(__ldg(a.pid + i / a.block), 0), a.n_treelets - 1);
-    snodes += (size_t)treelet * a.node_rows * LANES;
-    tris += (size_t)treelet * a.tri_rows * LANES;
-    if (shade != nullptr) shade += (size_t)treelet * a.shade_rows * LANES;
-    seen_snode_base = (size_t)treelet * a.node_rows;
-    seen_rec_base = (size_t)treelet * a.tri_rows * TRI_PER_ROW;
-  }
 
   const float ox = a.o[3 * i + 0], oy = a.o[3 * i + 1], oz = a.o[3 * i + 2];
   const float dx = a.d[3 * i + 0], dy = a.d[3 * i + 1], dz = a.d[3 * i + 2];
@@ -160,7 +123,7 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
   float best_u = 0.0f, best_v = 0.0f, best_det = 1.0f;
   int best_i = -1;
   bool occluded = false;
-  int n_snode = 0, n_rows = 0, n_leaf = 0, n_tests = 0, n_mask = 0;
+  int n_snode = 0, n_rows = 0, n_leaf = 0, n_tests = 0;
 
   // Stack entry: >= 0 is a supernode row; < 0 is a leaf child, encoded as
   // -(1 + row * 8 + child) so its meta is re-read from the row at pop time.
@@ -187,7 +150,7 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
     if (entry >= 0) {
       if constexpr (COUNT) {
         ++n_snode;
-        a.seen_snode[seen_snode_base + entry] = 1;
+        a.seen_snode[entry] = 1;
       }
       const float* row = snodes + (size_t)entry * LANES;
       const int base = sp;
@@ -241,11 +204,9 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
         const float v0x = __ldg(r + 0), v0y = __ldg(r + 1), v0z = __ldg(r + 2);
         const float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
         const float e2x = __ldg(r + 6), e2y = __ldg(r + 7), e2z = __ldg(r + 8);
-        // AUX word: bit 0 double-sided, bits 1.. the coarse mask.
-        const int aux = ALPHA ? (int)__ldg(r + 9) : 0;
         if constexpr (COUNT) {
           ++tested;
-          a.seen_rec[seen_rec_base + rec] = 1;
+          a.seen_rec[rec] = 1;
         }
 
         const float px = dy * e2z - dz * e2y;
@@ -255,8 +216,7 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
         const bool det_ok = fabsf(det) > kDetEps;
         bool facing = det_ok;
         if constexpr (!ANY_HIT) {
-          const bool double_sided =
-              ALPHA ? (aux & 1) != 0 : __ldg(r + 9) > 0.5f;
+          const bool double_sided = __ldg(r + 9) > 0.5f;
           if (a.cull) facing = det > kDetEps || (double_sided && det_ok);
         }
         const float inv_det = 1.0f / (det_ok ? det : 1.0f);
@@ -269,15 +229,8 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
         const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
         // t <= best_t: a later candidate wins an exact tie, as in the
         // reference kernel.
-        bool accept = facing && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                      t >= tmn && t <= best_t;
-        // The mask test runs only for a candidate still accepted (&& short-
-        // circuits); the COUNT instances count those candidates.
-        if constexpr (ALPHA) {
-          if constexpr (COUNT) n_mask += accept ? 1 : 0;
-          accept = accept && coarse_keep(aux >> 1, u, v);
-        }
-        if (accept) {
+        if (facing && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= tmn &&
+            t <= best_t) {
           if constexpr (ANY_HIT) {
             occluded = true;
             break;
@@ -306,7 +259,7 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
     a.out_cnt[N_COUNTERS * i + 1] = n_rows;
     a.out_cnt[N_COUNTERS * i + 2] = n_leaf;
     a.out_cnt[N_COUNTERS * i + 3] = n_tests;
-    a.out_cnt[N_COUNTERS * i + 4] = n_mask;
+    a.out_cnt[N_COUNTERS * i + 4] = 0;
     a.out_cnt[N_COUNTERS * i + 5] = 0;
   }
   if constexpr (ANY_HIT) {
@@ -377,16 +330,15 @@ __global__ void __launch_bounds__(128) trace8_kernel(const TraceArgs a) {
   }
 }
 
-template <bool ANY_HIT, bool DENSE, bool SHADE2, bool ALPHA = false,
-          bool TREELET = false>
+template <bool ANY_HIT, bool DENSE, bool SHADE2>
 int launch(const TraceArgs& a, bool count, void* stream) {
   const int threads = 128;
   const int blocks = (a.n + threads - 1) / threads;
   if (count) {
-    trace8_kernel<ANY_HIT, DENSE, SHADE2, true, ALPHA, TREELET>
+    trace8_kernel<ANY_HIT, DENSE, SHADE2, true>
         <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
   } else {
-    trace8_kernel<ANY_HIT, DENSE, SHADE2, false, ALPHA, TREELET>
+    trace8_kernel<ANY_HIT, DENSE, SHADE2, false>
         <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
   }
   return (int)cudaGetLastError();
@@ -486,92 +438,6 @@ int steeljax_trace_any8(const void* snodes, const void* tris, const void* o,
   }
   a.leaf_cap = leaf_cap(max_leaf, TRI_PER_ROW);
   return launch<true, false, false>(a, count, stream);
-}
-
-// One round of the treelet scheduler (K7): rays [p * block, (p + 1) *
-// block) walk treelet pid[p] (in [0, n_treelets)) of the stacked tables
-// node_stack (n_treelets x node_rows x 128), tri_stack (n_treelets x
-// tri_rows x 128) and, in shade modes 1 and 2, shade_stack (n_treelets x
-// tri_rows * {1, 3} x 128).  Nearest hits as steeljax_trace_nearest8 with
-// treelet-local triangle ids, or with any_hit != 0 occlusion flags as
-// steeljax_trace_any8 (the nearest outputs may then be null, else out_hit);
-// alpha != 0 applies the records' coarse masks (shade mode 0 only, no fine
-// rows).  out_cnt with seen_snode (one byte per row of node_stack) and
-// seen_rec (one per record of tri_stack) as above.
-int steeljax_trace_treelet8(const void* node_stack, const void* tri_stack,
-                            const void* shade_stack, const void* pid,
-                            const void* o, const void* d, const void* t_min,
-                            const void* t_max, void* out_t, void* out_u,
-                            void* out_v, void* out_tri, void* out_n,
-                            void* out_mat, void* out_tan, void* out_uv,
-                            void* out_uvd, void* out_hit, void* out_cnt,
-                            void* seen_snode, void* seen_rec, int n,
-                            int block, int n_treelets, int node_rows,
-                            int tri_rows, int max_leaf, int depth, int cull,
-                            int shade_mode, int alpha, int any_hit,
-                            void* stream) {
-  if (n < 0 || block <= 0 || n_treelets <= 0 || node_rows <= 0 ||
-      tri_rows <= 0 || pid == nullptr || max_leaf <= 0 || depth <= 0 ||
-      8 * depth + 16 > MAX_STACK ||
-      (out_cnt != nullptr && (seen_snode == nullptr || seen_rec == nullptr)) ||
-      shade_mode < 0 || shade_mode > 2 ||
-      ((alpha || any_hit) && shade_mode != 0) ||
-      (any_hit && out_hit == nullptr) ||
-      (!any_hit && (out_t == nullptr || out_u == nullptr ||
-                    out_v == nullptr || out_tri == nullptr)) ||
-      (shade_mode != 0 && (shade_stack == nullptr || out_n == nullptr ||
-                           out_mat == nullptr)) ||
-      (shade_mode == 2 && (out_tan == nullptr || out_uv == nullptr ||
-                           out_uvd == nullptr))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n == 0) return (int)cudaSuccess;
-  TraceArgs a = {};
-  a.snodes = (const float*)node_stack;
-  a.tris = (const float*)tri_stack;
-  a.shade = (const float*)shade_stack;
-  a.o = (const float*)o;
-  a.d = (const float*)d;
-  a.t_min = (const float*)t_min;
-  a.t_max = (const float*)t_max;
-  a.out_t = (float*)out_t;
-  a.out_u = (float*)out_u;
-  a.out_v = (float*)out_v;
-  a.out_tri = (int*)out_tri;
-  a.out_n = (float*)out_n;
-  a.out_mat = (int*)out_mat;
-  a.out_tan = (float*)out_tan;
-  a.out_uv = (float*)out_uv;
-  a.out_uvd = (float*)out_uvd;
-  a.out_hit = (unsigned char*)out_hit;
-  a.out_cnt = (int*)out_cnt;
-  a.seen_snode = (unsigned char*)seen_snode;
-  a.seen_rec = (unsigned char*)seen_rec;
-  a.n = n;
-  a.leaf_cap = leaf_cap(max_leaf, TRI_PER_ROW);
-  a.cull = cull;
-  a.shade_mode = shade_mode;
-  a.pid = (const int*)pid;
-  a.block = block;
-  a.n_treelets = n_treelets;
-  a.node_rows = node_rows;
-  a.tri_rows = tri_rows;
-  a.shade_rows = tri_rows * (shade_mode == 2 ? TRI_PER_ROW / SHADE2_PER_ROW
-                                             : 1);
-  const bool count = out_cnt != nullptr;
-  if (any_hit) {
-    if (alpha) {
-      return launch<true, false, false, true, true>(a, count, stream);
-    }
-    return launch<true, false, false, false, true>(a, count, stream);
-  }
-  if (alpha) {
-    return launch<false, false, false, true, true>(a, count, stream);
-  }
-  if (shade_mode == 2) {
-    return launch<false, false, true, false, true>(a, count, stream);
-  }
-  return launch<false, false, false, false, true>(a, count, stream);
 }
 
 }  // extern "C"

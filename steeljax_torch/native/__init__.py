@@ -29,7 +29,8 @@ BUILD_DIR = _PKG / "_build"
 BVH_SOURCE = _PKG.parent / "steeljax" / "native" / "bvh_builder.cpp"
 CUDA_SOURCES = (_PKG / "csrc" / "traverse8.cu",
                 _PKG / "csrc" / "alpha8.cu",
-                _PKG / "csrc" / "instanced8.cu")
+                _PKG / "csrc" / "instanced8.cu",
+                _PKG / "csrc" / "treelet8.cu")
 # Headers the sources include: a change rebuilds the library too.
 CUDA_HEADERS = (_PKG / "csrc" / "trace8_common.cuh",)
 NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -136,9 +137,12 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
     lib.steeljax_trace_inst8.restype = ctypes.c_int
     lib.steeljax_trace_inst8.argtypes = (
         [ptr] * 23 + [ctypes.c_int] * 8 + [ptr])
-    lib.steeljax_trace_treelet8.restype = ctypes.c_int
-    lib.steeljax_trace_treelet8.argtypes = (
-        [ptr] * 21 + [ctypes.c_int] * 11 + [ptr])
+    lib.steeljax_treelet_round8.restype = ctypes.c_int
+    lib.steeljax_treelet_round8.argtypes = (
+        [ptr] * 26 + [ctypes.c_int] * 12 + [ptr])
+    lib.steeljax_treelet_pick8.restype = ctypes.c_int
+    lib.steeljax_treelet_pick8.argtypes = (
+        [ptr] * 4 + [ctypes.c_int] * 4 + [ptr])
 
 
 def bvh_library() -> ctypes.CDLL:

@@ -258,12 +258,15 @@ def _flat_plain(packed, o, d, t_max, cull=True):
         torch.from_numpy(d), 1e-3, t_max, cull)
 
 
-@pytest.mark.parametrize("n,block", [(700, BLOCK), (5000, 4096)])
+@pytest.mark.parametrize("n,block", [(700, BLOCK), (5000, 4096),
+                                     (1000, 128)])
 def test_scheduler_matches_reference(built, n, block):
     """n = 700 is not a packet multiple (pad lanes); 4,096 is the
-    scheduling unit the render path uses."""
+    reference's scheduling unit, 128 the port's (one CUDA block of K7,
+    measured faster on the H100: PERF.md)."""
     _, permuted, packed, tt, tt_r = built
-    assert treelets.PACKET_RAYS == ptv.LANES * ptv.SUBLANES == 4096
+    assert ptv.LANES * ptv.SUBLANES == 4096
+    assert treelets.PACKET_RAYS == ptv.LANES == 128
     o, d = _rays(n, 7)
     rec, rec_r, log, log_r = _run_both(permuted, tt, tt_r, o, d, 1e4, block)
     _assert_same_schedule(log, log_r)
@@ -318,8 +321,9 @@ def test_many_treelet_cut_loses_no_hits(built):
 
 
 def test_finished_packets_and_dead_rays_trace_nothing(built):
-    """A packet of dead rays is never scheduled, and the round kernel's
-    plain version rejects a dead ray whatever its treelet."""
+    """A packet of dead rays is never scheduled, and the round's plain
+    version leaves a dead ray's record and interval as they were whatever
+    its packet's treelet."""
     _, _, _, tt, _ = built
     o, d = _rays(2 * BLOCK, 23)
     t_max = np.full(2 * BLOCK, 1e4, np.float32)
@@ -338,11 +342,14 @@ def test_finished_packets_and_dead_rays_trace_nothing(built):
     assert not rec["hit"][BLOCK:].any() and rec["hit"][:BLOCK].any()
     # The finished packet rides along on treelet K - 1.
     assert all(pid[1] == tt.count - 1 for pid in log)
-    pid = torch.zeros(2, dtype=torch.int32)
-    rk = cuda_traverse.trace_treelet_round(
-        tt, pid, torch.from_numpy(o), torch.from_numpy(d), 1e-3,
-        torch.from_numpy(t_max), block=BLOCK)
-    assert not rk["hit"][BLOCK:].any()
+    # Both packets on treelet 0 (a key whose treelet field is 0).
+    state = treelets.treelet_state(tt, torch.from_numpy(o),
+                                   torch.from_numpy(d), 1e-3,
+                                   torch.from_numpy(t_max), block=BLOCK)
+    state.keys[0] = 0
+    cuda_traverse.trace_treelet_round(tt, state, 0)
+    assert (state.rec["tri"][BLOCK:] == -1).all()
+    assert (state.t_far[BLOCK:] == -3.0e38).all()
 
 
 @pytest.mark.parametrize("mode", [1, 2])
@@ -454,25 +461,40 @@ def test_wrapper_runs_plain_on_cpu_and_checks_arguments(built):
     _, _, _, tt, _ = built
     o, d = _rays(2 * BLOCK, 3)
     o_t, d_t = torch.from_numpy(o), torch.from_numpy(d)
-    pid = torch.tensor([0, tt.count - 1], dtype=torch.int32)
+
+    def picked():
+        state = treelets.treelet_state(tt, o_t, d_t, 1e-3, 1e4, block=BLOCK)
+        cuda_traverse.treelet_pick(tt, state)
+        return state
+
     before = dict(cuda_traverse.LAUNCHES)
-    rec = cuda_traverse.trace_treelet_round(tt, pid, o_t, d_t, 1e-3, 1e4,
-                                            block=BLOCK)
-    plain = cuda_traverse.trace_treelet_round_plain(tt, pid, o_t, d_t, 1e-3,
-                                                    1e4, block=BLOCK)
-    for key in plain:
-        assert torch.equal(rec[key], plain[key]), key
+    state, plain = picked(), picked()
+    assert torch.equal(state.keys, plain.keys)
+    cuda_traverse.trace_treelet_round(tt, state, 0)
+    cuda_traverse.trace_treelet_round_plain(tt, plain, 0)
+    for name in ("t_far", "visited", "keys"):
+        assert torch.equal(getattr(state, name), getattr(plain, name)), name
+    for key in plain.rec:
+        assert torch.equal(state.rec[key], plain.rec[key]), key
     assert cuda_traverse.LAUNCHES == before  # the CPU never launches
-    # Triangle ids are treelet-local.
+    # Triangle ids are global: within the treelet the packet picked.
+    pid = cuda_traverse.key_treelets(plain.keys[0], BLOCK, tt.count)
+    lo = tt.tri_offsets[pid.long()].repeat_interleave(BLOCK)
     rows = tt.tri_stack.shape[1]
-    assert rec["tri"].max() < rows * bvh.TRI_PER_ROW
+    hit = state.rec["tri"] >= 0
+    assert hit.any()
+    assert ((state.rec["tri"] >= lo) & (state.rec["tri"] < lo + rows
+                                        * bvh.TRI_PER_ROW))[hit].all()
     with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda_traverse.treelet_launcher(tt, pid, o_t, d_t, 1e-3, 1e4,
-                                       block=BLOCK)
-    with pytest.raises(ValueError, match="one treelet id per packet"):
-        cuda_traverse.trace_treelet_round(tt, pid[:1], o_t, d_t, 1e-3, 1e4,
-                                          block=BLOCK)
+        cuda_traverse.treelet_launcher(tt, state, 1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_traverse.treelet_pick_launcher(tt, state)
+    with pytest.raises(ValueError, match="whole packets"):
+        cuda_traverse._check_state(tt, dataclasses.replace(
+            state, block=3 * BLOCK), False)
+    with pytest.raises(ValueError, match="state.entry"):
+        cuda_traverse._check_state(tt, dataclasses.replace(
+            state, entry=state.entry[:, :1]), False)
     with pytest.raises(ValueError, match="needs a shade stack"):
         cuda_traverse.trace_treelet_round(
-            dataclasses.replace(tt, shade_mode=1), pid, o_t, d_t, 1e-3, 1e4,
-            block=BLOCK)
+            dataclasses.replace(tt, shade_mode=1), state, 1)
