@@ -35,16 +35,20 @@ script exits non-zero; it refuses to run without a card.
 
 Phases:
   1. device and toolchain (nvidia-smi, torch, CUDA, nvcc, g++);
-  2. build of the BVH builder and the CUDA kernel library from the sources,
-     with ptxas' registers and spills for every kernel instance;
+  2. build of the BVH builder and the CUDA kernel library from the sources
+     (the CUDA library even where a current one was built before), with
+     ptxas' registers and spills for every kernel instance, and a check
+     that K2's instances kept theirs (K2_PTXAS);
   3. preparation of paths L, T, F, S, F with multihit_k = 4, U and UL
      through prepare_scene and of paths I and J through the renderer, each
      of these two with a refresh_scene() after an edit (host seconds by
      step); kernel parity, kernel against plain version
-     (apps.kernel_parity); each kernel's time alone at its path's shapes,
-     its plain version's time, its work counts (mask tests and instance
-     enters included) and the least time the card could take for the same
-     work (a dead ray, t_max < t_min, is charged its interval alone), for
+     (apps.kernel_parity); each kernel's time alone at its path's shapes
+     (K1 and K3 on primaries and on first-bounce rays, each also held
+     against its plain version on those rays), its plain version's time,
+     its work counts (mask tests and instance enters included) and the
+     least time the card could take for the same work (a dead ray, t_max <
+     t_min, is charged its interval alone), for
      K7 the K rounds of one whole trace against the bound of that trace as
      one function (the trace's first pick is the pick kernel's entry);
   4. the Cornell main path: one warm and 4 timed frames, K1's launches, the
@@ -71,10 +75,10 @@ Phases:
 The second-to-last line is the kernels' JSON summary, the last line the
 device JSON.
 
-With --ab-old DIR, phase 3c times K6 and K7 against the earlier kernels
+With --ab-old DIR, phase 3c times K1 and K3 against the earlier kernels
 built from DIR (steeljax_torch/apps/kernel_ab.py says how to unpack them):
-its "A/B" lines give old and new ms in turns and how far the outputs
-agree.
+its "A/B" lines give old and new ms in turns, how far the outputs agree
+and both designs' per-ray work counts.
 
 Usage: python3 chip_smoke.py [--ab-old DIR]
 """
@@ -126,20 +130,59 @@ OPS_EPILOGUE = {"K1": 25, "K3": 60, "K2": 0, "K2_dense": 0, "K4": 0,
 # a visited bit and compares twice (4 operations).
 OPS_PER_PICK_ENTRY = 4
 OPS_PER_INSTANCE_ENTER = 45
-# The earlier design of K4 and K5 (one thread per ray, scalar loads, a
-# stack in local memory), per ray on the same rays as phase 3b: counted by
-# its COUNT instances on the H100 (apps/alpha_ab.py at commit 233eaca).
-# The bounds of K4, K4_anyhit and K5 take the smaller of these and the new
-# kernel's counts: a walk order that pops more nodes does not raise the
-# least time of the function.
+# Phase 3b's rows, (kernel, path, ray set): each kernel timed alone on one
+# path's rays.  A row's printed label joins its three names;
+# EARLIER_PER_RAY is keyed by rows and _timed_kernel refuses any other.
+PRIMARIES = "primaries"
+BOUNCE1 = "first-bounce rays"
+SHADOW = "first-bounce shadow rays"
+ROWS = (("K1", "Cornell", PRIMARIES), ("K1", "path L", PRIMARIES),
+        ("K1", "path L", BOUNCE1), ("K3", "path T", PRIMARIES),
+        ("K3", "path T", BOUNCE1), ("K2", "path L", SHADOW),
+        ("K2_dense", "path L", SHADOW), ("K4", "path F", PRIMARIES),
+        ("K5", "path F", PRIMARIES),
+        ("K4_anyhit", "path F", "first-bounce sun rays"),
+        ("K6", "path I", PRIMARIES), ("K6_anyhit", "path I", SHADOW),
+        ("K6_shade2", "path J", PRIMARIES))
+# The earlier designs of K1, K3, K4 and K5 (one thread per ray, scalar
+# loads, a stack in local memory, each leaf tested as it is popped), per
+# ray on the same rays as phase 3b: counted by their COUNT instances on the
+# H100 (K4, K5: apps/alpha_ab.py at commit 233eaca; K1, K3: phase 3c,
+# apps/kernel_ab.py, with commit 3f38e36's traverse8.cu), by phase 3b row.
+# The bounds take the smaller of these and the new kernel's counts: a walk
+# order that pops more nodes does not raise the least time of the
+# function.
 EARLIER_PER_RAY = {
-    "K4": {"supernode_pops": 28.61, "triangle_tests": 449.69,
-           "mask_tests": 8.45, "fine_tests": 5.56},
-    "K4_anyhit": {"supernode_pops": 5.43, "triangle_tests": 56.47,
-                  "mask_tests": 1.12, "fine_tests": 0.80},
-    "K5": {"supernode_pops": 34.52, "triangle_tests": 641.19,
-           "mask_tests": 52.88, "fine_tests": 39.20},
+    ("K4", "path F", PRIMARIES): {
+        "supernode_pops": 28.61, "triangle_tests": 449.69,
+        "mask_tests": 8.45, "fine_tests": 5.56},
+    ("K4_anyhit", "path F", "first-bounce sun rays"): {
+        "supernode_pops": 5.43, "triangle_tests": 56.47,
+        "mask_tests": 1.12, "fine_tests": 0.80},
+    ("K5", "path F", PRIMARIES): {
+        "supernode_pops": 34.52, "triangle_tests": 641.19,
+        "mask_tests": 52.88, "fine_tests": 39.20},
+    ("K1", "Cornell", PRIMARIES): {"supernode_pops": 1.041,
+                                   "triangle_tests": 13.804},
+    ("K1", "path L", PRIMARIES): {"supernode_pops": 4.342,
+                                  "triangle_tests": 13.279},
+    ("K1", "path L", BOUNCE1): {"supernode_pops": 4.525,
+                                "triangle_tests": 19.814},
+    ("K3", "path T", PRIMARIES): {"supernode_pops": 3.804,
+                                  "triangle_tests": 15.855},
+    ("K3", "path T", BOUNCE1): {"supernode_pops": 4.556,
+                                "triangle_tests": 23.461},
 }
+assert set(EARLIER_PER_RAY) <= set(ROWS)
+# ptxas' registers and stack frame (bytes) of the any-hit kernel K2's
+# instances, trace8_kernel<DENSE, COUNT>, as commit 3f38e36's library built
+# them (trace8_kernel<true, DENSE, false, COUNT>, phase 2 on the H100): K2
+# keeps its one-thread walk, and phase 2 checks that it kept its
+# registers.
+K2_PTXAS = {"trace8_kernel<false, false>": (40, 1024),
+            "trace8_kernel<false, true>": (48, 1024),
+            "trace8_kernel<true, false>": (40, 1024),
+            "trace8_kernel<true, true>": (48, 1024)}
 # Bytes each ray reads (o, d, t_min, t_max; a dead ray, t_max < t_min, only
 # its interval: the function needs no more to reject it) and writes, by
 # kernel (K5 writes K = 4 slots of t, u, v and tri).
@@ -216,19 +259,39 @@ def _print_ptxas(label: str, table: dict) -> None:
               f"{smem} B")
 
 
+def check_k2_ptxas(table: dict) -> dict:
+    """K2's instances' (registers, stack frame) in a ptxas table; raises
+    when the table is empty (no build's report) or they differ from
+    K2_PTXAS."""
+    if not table:
+        raise RuntimeError("no ptxas report: the CUDA library was not built "
+                           "from the sources in this run")
+    k2 = {name: table.get(name, (None, None))[:2] for name in K2_PTXAS}
+    if k2 != K2_PTXAS:
+        raise RuntimeError(f"K2's instances changed their registers: {k2}, "
+                           f"earlier {K2_PTXAS}")
+    return k2
+
+
 def phase_build() -> dict:
-    """Build both libraries; print ptxas' registers, stack frame, spills and
-    static shared memory of every kernel instance, and return that table."""
+    """Build both libraries, the CUDA library from the sources even where a
+    current one was built before (native.cuda_ptxas); print ptxas'
+    registers, stack frame, spills and static shared memory of every kernel
+    instance, check that K2's instances kept theirs (K2_PTXAS), and return
+    that table."""
     from steeljax_torch import native
 
     for name, build in (("BVH builder (g++)", native.bvh_library),
-                        ("CUDA kernels (nvcc)", native.cuda_library)):
+                        ("CUDA kernels (nvcc)", native.cuda_ptxas)):
         t0 = time.perf_counter()
         build()
         print(f"built {name} in {time.perf_counter() - t0:.3f} s")
-    table = native.ptxas_table(native.BUILD_LOGS.get(
-        "libsteeljax_torch_cuda.so", ""))
+    native.cuda_library()
+    table = native.cuda_ptxas()
     _print_ptxas("this tree", table)
+    k2 = check_k2_ptxas(table)
+    print(f"ptxas, K2's instances (registers, stack frame): {k2}, as "
+          "earlier")
     return table
 
 
@@ -317,28 +380,50 @@ def _bound(kernel: str, rec: dict, live_rays: int, tri_base=None,
                                 (x / n_rays for x in raw)))}
 
 
-def _timed_kernel(name, launcher, plain, rays, plain_rays):
-    """Time the kernel alone over 50 launches of `launcher(False)`
-    (kernel_launcher or anyhit_launcher with fixed arguments, the `rays`
-    (o, d, t_min, t_max) among them, and counters=False) and `plain` over 3
-    calls; take the work counts from one launch of `launcher(True)`, capped
-    by EARLIER_PER_RAY where it has the kernel.  Print and return the
-    kernel's entry."""
+def _timed_kernel(row, launcher, plain, rays, plain_rays, check=None):
+    """Time the kernel of `row` (one of ROWS) alone over 50 launches of
+    `launcher(False)` (kernel_launcher, anyhit_launcher, multihit_launcher
+    or inst_launcher with fixed arguments, the `rays` (o, d, t_min, t_max)
+    among them, and counters=False) and `plain` over 3 calls; take the work
+    counts from one launch of `launcher(True)`, capped by the row's
+    EARLIER_PER_RAY entry where it has one.  `check(plain_rec)`, where
+    given, runs the kernel on the plain version's rays and returns
+    kernel_parity's comparison with the last plain call's result; the row
+    raises unless it passes.  Print and return the row's entry."""
     from steeljax_torch.apps.timing import time_ms
 
+    if row not in ROWS:
+        raise ValueError(f"{row} is not a phase 3b row (ROWS)")
+    label = " ".join(row)
     n_rays = rays[0].shape[0]
     kernel_ms = time_ms(launcher(False)[0], 50)
-    plain_ms = time_ms(plain, 3)
+    kept = {}
+
+    def plain_kept():
+        kept["rec"] = plain()
+
+    plain_ms = time_ms(plain_kept, 3)
     launch, rec = launcher(True)
     launch()
-    bound = _bound(name, rec, _live_rays(n_rays, rays[2], rays[3]),
-                   cap=EARLIER_PER_RAY.get(name))
-    print(f"{name}: {n_rays} rays, kernel {kernel_ms:.4f} ms; plain "
+    bound = _bound(row[0], rec, _live_rays(n_rays, rays[2], rays[3]),
+                   cap=EARLIER_PER_RAY.get(row))
+    entry = {"ms": kernel_ms, "plain_ms": plain_ms, "plain_rays": plain_rays,
+             "rays": n_rays, **bound}
+    if check is not None:
+        parity = check(kept["rec"])
+        entry["parity"] = parity
+        entry["parity_max_abs_err"] = max(parity.get(f, 0.0) for f in (
+            "max_t_delta", "max_normal_delta", "max_tan_delta",
+            "max_uv_delta"))
+        if not parity["ok"]:
+            raise RuntimeError(f"{label}: the kernel disagrees with its "
+                               f"plain version: {parity}")
+    print(f"{label}: {n_rays} rays, kernel {kernel_ms:.4f} ms; plain "
           f"{plain_ms:.4f} ms on {plain_rays} rays"
-          f"{'' if plain_rays == n_rays else ' (a strided subset)'}; "
-          + _bound_text(bound))
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "plain_rays": plain_rays,
-            "rays": n_rays, **bound}
+          f"{'' if plain_rays == n_rays else ' (a strided subset)'}"
+          + (f", max |kernel - plain| {entry['parity_max_abs_err']:.3e}"
+             if check is not None else "") + "; " + _bound_text(bound))
+    return entry
 
 
 def _bound_text(bound: dict) -> str:
@@ -610,31 +695,53 @@ def phase_parity(device, scenes) -> dict:
         "tolerance": "|dt| < 2e-3, |du|, |dv| < 5e-3 on equal tri ids, "
                      "slot mismatches <= max(2, N K/5000)"}
 
-    # K1 on the Cornell primary rays (as the first slice measured it).
-    _, ctables, cases = kp.cornell_cases(device, WIDTH, HEIGHT)
-    chunk = ctables.chunks[0]
-    o, d, tmn, tmx = cases["primary"]
-    args = (chunk.bvh8, chunk.tris_packed, o, d, tmn, tmx, True,
-            chunk.shade_packed, 1)
-    kernels["K1"].update(_timed_kernel(
-        "K1", lambda counters: ct.kernel_launcher(*args, counters=counters),
-        lambda: ct.trace_nearest_bvh8_plain(*args), (o, d, tmn, tmx),
-        o.shape[0]))
+    # K1 on the Cornell primary rays (as the first slice measured it), K1 on
+    # path L's primaries and first-bounce rays, where its frames spend 2.4
+    # ms (the later bounces carry most of it), and K3 on path T's (below):
+    # each through the chunk's record tables, as the render path calls it,
+    # and each held against its plain version on the plain version's rays
+    # with kernel_parity's tolerances.
+    def nearest(row, chunk, flat, mode, rays, subset):
+        args = (chunk.bvh8, chunk.tris_packed)
+        shade = chunk.shade_packed if mode else None
+        fields = {"nrm": flat.tri_nrm, "mat": flat.tri_mat}
+        if mode == 2:
+            fields.update(tan=flat.tri_tan, uv=flat.tri_uv)
+
+        def check(plain_rec):
+            rec = ct.trace_nearest_bvh8(*args, *subset, True, shade, mode,
+                                        records=chunk.tri_records)
+            torch.cuda.synchronize()
+            results = {}
+            kp._compare(" ".join(row), rec, plain_rec,
+                        flat.tri_pos.cpu().numpy(), results,
+                        attrs={k: v.cpu().numpy() for k, v in fields.items()},
+                        d=subset[1].cpu().numpy())
+            return results[" ".join(row)]
+
+        return _timed_kernel(
+            row, lambda counters: ct.kernel_launcher(
+                *args, *rays, True, shade, mode, counters=counters,
+                records=chunk.tri_records),
+            lambda: ct.trace_nearest_bvh8_plain(*args, *subset, True, shade,
+                                                mode),
+            rays, subset[0].shape[0], check)
+
+    cflat, ctables, cases = kp.cornell_cases(device, WIDTH, HEIGHT)
+    kernels["K1"].update(nearest(("K1", "Cornell", PRIMARIES),
+                                 ctables.chunks[0], cflat, 1,
+                                 cases["primary"], cases["primary"]))
     kernels["K1"]["shapes"] = "Cornell primary rays, 1280x720"
-    # K1 on path L's primaries too, where its frames spend 2.5 ms: the
-    # bound of those launches for the ranking of PERF.md section 6.
     scene, flat, tables = scenes["sunlit"]
-    chunk = tables.chunks[0]
-    rays = kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]
-    subset = kp.strided_subset(rays, kp.SHADOW_SUBSET)
-    args = (chunk.bvh8, chunk.tris_packed)
-    mode = tables.shade_mode
-    kernels["K1"]["path_l"] = _timed_kernel(
-        "K1", lambda counters: ct.kernel_launcher(
-            *args, *rays, True, chunk.shade_packed, mode, counters=counters),
-        lambda: ct.trace_nearest_bvh8_plain(*args, *subset, True,
-                                            chunk.shade_packed, mode),
-        rays, subset[0].shape[0])
+    for key, ray_set, rays in (
+            ("path_l", PRIMARIES,
+             kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]),
+            ("path_l_bounce1", BOUNCE1,
+             kp.first_bounce_case(scene, flat, tables, WIDTH, HEIGHT))):
+        kernels["K1"][key] = nearest(
+            ("K1", "path L", ray_set), tables.chunks[0], flat,
+            tables.shade_mode, rays,
+            kp.strided_subset(rays, kp.SHADOW_SUBSET))
 
     # K2 and K2-dense on path L's first-bounce shadow rays.
     scene, flat, tables = scenes["sunlit"]
@@ -646,26 +753,39 @@ def phase_parity(device, scenes) -> dict:
         bvh8 = chunk.anyhit_bvh8 if dense else chunk.bvh8
         tris = chunk.anyhit_tris if dense else chunk.tris_packed
         kernels[name].update(_timed_kernel(
-            name, lambda counters: ct.anyhit_launcher(
+            (name, "path L", SHADOW), lambda counters: ct.anyhit_launcher(
                 bvh8, tris, *rays, dense=dense, counters=counters),
             lambda: ct.trace_any_bvh8_plain(bvh8, tris, *subset, dense),
             rays, subset[0].shape[0]))
         kernels[name]["shapes"] = ("path L first-bounce shadow rays, "
                                    "1280x720")
 
-    # K3 on path T's primary rays.
     scene, flat, tables = scenes["stress_tex"]
-    chunk = tables.chunks[0]
     rays = kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]
-    subset = kp.strided_subset(rays, kp.TEX_SUBSET)
-    args = (chunk.bvh8, chunk.tris_packed)
-    kernels["K3"].update(_timed_kernel(
-        "K3", lambda counters: ct.kernel_launcher(
-            *args, *rays, True, chunk.shade_packed, 2, counters=counters),
-        lambda: ct.trace_nearest_bvh8_plain(*args, *subset, True,
-                                            chunk.shade_packed, 2),
-        rays, subset[0].shape[0]))
+    kernels["K3"].update(nearest(("K3", "path T", PRIMARIES),
+                                 tables.chunks[0], flat, 2, rays,
+                                 kp.strided_subset(rays, kp.TEX_SUBSET)))
     kernels["K3"]["shapes"] = "path T primary rays, 1280x720"
+    rays = kp.first_bounce_case(scene, flat, tables, WIDTH, HEIGHT)
+    kernels["K3"]["bounce1"] = nearest(
+        ("K3", "path T", BOUNCE1), tables.chunks[0], flat, 2, rays,
+        kp.strided_subset(rays, kp.TEX_SUBSET))
+    nearest_rows = {("K1", "Cornell", PRIMARIES): kernels["K1"],
+                    ("K1", "path L", PRIMARIES): kernels["K1"]["path_l"],
+                    ("K1", "path L", BOUNCE1):
+                        kernels["K1"]["path_l_bounce1"],
+                    ("K3", "path T", PRIMARIES): kernels["K3"],
+                    ("K3", "path T", BOUNCE1): kernels["K3"]["bounce1"]}
+    for name in ("K1", "K3"):
+        kernels[name]["max_abs_err"] = max(
+            kernels[name]["max_abs_err"],
+            *(entry["parity_max_abs_err"]
+              for row, entry in nearest_rows.items() if row[0] == name))
+    print("per-ray counts of K1 and K3 (alpha8.cu NEAREST without masks): "
+          + "; ".join(f"{' '.join(row)}: " + ", ".join(
+              f"{c} {v:.3f}" for c, v in entry["per_ray"].items()
+              if c in ("supernode_pops", "leaf_pops", "triangle_tests"))
+              for row, entry in nearest_rows.items()))
 
     # K4, K4_anyhit and K5 on path F: its primaries, and for the any-hit
     # instance its first-bounce sun rays (the path traces those with K4's
@@ -678,7 +798,7 @@ def phase_parity(device, scenes) -> dict:
     cases = kp.foliage_cases(scene, flat, tables, WIDTH, HEIGHT)
     subset = cases["primary"]
     kernels["K4"].update(_timed_kernel(
-        "K4", lambda counters: ct.kernel_launcher(
+        ("K4", "path F", PRIMARIES), lambda counters: ct.kernel_launcher(
             *args, *rays, True, None, 0, counters=counters, **kw),
         lambda: ct.trace_nearest_bvh8_plain(*args, *subset, True, None, 0,
                                             **kw),
@@ -687,7 +807,7 @@ def phase_parity(device, scenes) -> dict:
                                "fine masks")
     k_hits = kp.FOLIAGE_MULTIHIT_K
     kernels["K5"].update(_timed_kernel(
-        "K5", lambda counters: ct.multihit_launcher(
+        ("K5", "path F", PRIMARIES), lambda counters: ct.multihit_launcher(
             *args, *rays, k_hits, True, counters=counters, **kw),
         lambda: ct.trace_multihit_bvh8_plain(*args, *subset, k_hits, True,
                                              **kw),
@@ -696,7 +816,7 @@ def phase_parity(device, scenes) -> dict:
                                f"{k_hits}, coarse and fine masks")
     shadow = kp.foliage_shadow_case(scene, flat, tables, WIDTH, HEIGHT)
     kernels["K4_anyhit"].update(_timed_kernel(
-        "K4_anyhit", lambda counters: ct.anyhit_launcher(
+        ("K4_anyhit", "path F", "first-bounce sun rays"), lambda counters: ct.anyhit_launcher(
             *args, *shadow, counters=counters, **kw),
         lambda: ct.trace_any_bvh8_plain(*args, *cases["shadow"], **kw),
         shadow, cases["shadow"][0].shape[0]))
@@ -759,7 +879,7 @@ def _k6_k7_kernels(device, scenes, var, max_err) -> dict:
     rays = kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]
     subset = kp.strided_subset(rays, kp.SHADOW_SUBSET)
     kernels["K6"].update(_timed_kernel(
-        "K6", lambda counters: ct.inst_launcher(
+        ("K6", "path I", PRIMARIES), lambda counters: ct.inst_launcher(
             tables, *rays, True, counters=counters),
         lambda: ct.trace_nearest_bvh8_inst_plain(tables, *subset, True),
         rays, subset[0].shape[0]))
@@ -768,7 +888,7 @@ def _k6_k7_kernels(device, scenes, var, max_err) -> dict:
     shadow = kp.sunlit_shadow_case(scene, flat, tables, WIDTH, HEIGHT)
     subset = kp.strided_subset(shadow, kp.SHADOW_SUBSET)
     kernels["K6_anyhit"].update(_timed_kernel(
-        "K6_anyhit", lambda counters: ct.inst_launcher(
+        ("K6_anyhit", "path I", SHADOW), lambda counters: ct.inst_launcher(
             tables, *shadow, False, True, counters=counters),
         lambda: ct.trace_nearest_bvh8_inst_plain(tables, *subset, False,
                                                  True),
@@ -780,7 +900,7 @@ def _k6_k7_kernels(device, scenes, var, max_err) -> dict:
     rays_j = kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]
     subset_j = kp.strided_subset(rays_j, kp.TEX_SUBSET)
     kernels["K6_shade2"].update(_timed_kernel(
-        "K6_shade2", lambda counters: ct.inst_launcher(
+        ("K6_shade2", "path J", PRIMARIES), lambda counters: ct.inst_launcher(
             tables_j, *rays_j, True, counters=counters),
         lambda: ct.trace_nearest_bvh8_inst_plain(tables_j, *subset_j, True),
         rays_j, subset_j[0].shape[0]))
@@ -841,19 +961,24 @@ def _png_pixels(path: Path) -> np.ndarray:
 def _kernel_of(key: str) -> str | None:
     """The trace kernel a profiler event belongs to, from the kernel's name
     and the template arguments of its instance (alpha8_kernel: MODE, K,
-    ALPHA, FINE, COUNT with MODE 0 K4, 1 K4 any-hit, 2 K5;
-    trace8_kernel: ANY_HIT, DENSE, SHADE2, COUNT; inst8_kernel: ANY_HIT,
-    SHADE, COUNT; treelet8_kernel: ANY_HIT, SHADE, ALPHA, COUNT;
-    treelet_pick_kernel).  "trace" is a trace kernel of an unknown
-    instance."""
+    ALPHA, FINE, COUNT, SHADE with MODE 0 K4 with ALPHA, else K1 or, with
+    SHADE 2, K3, MODE 1 K4 any-hit, 2 K5; trace8_kernel: DENSE, COUNT, K2;
+    inst8_kernel: ANY_HIT, SHADE, COUNT; treelet8_kernel: ANY_HIT, SHADE,
+    ALPHA, COUNT; treelet_pick_kernel).  "trace" is a trace kernel of an
+    unknown instance."""
     if "treelet_pick_kernel" in key:
         return "K7_pick"
     if "treelet8_kernel<" in key:
         any_hit = key.split("treelet8_kernel<", 1)[1].split(",", 1)[0]
         return "K7_anyhit" if any_hit.strip() in ("true", "1") else "K7"
     if "alpha8_kernel<" in key:
-        mode = key.split("alpha8_kernel<", 1)[1].split(",", 1)[0].strip()
-        return {"0": "K4", "1": "K4_anyhit", "2": "K5"}.get(mode, "trace")
+        args = [a.strip() for a in key.split("alpha8_kernel<", 1)[1].split(
+            ">", 1)[0].split(",")]
+        if len(args) < 6:
+            return "trace"
+        if args[0] == "0" and args[2] in ("false", "0"):
+            return "K3" if args[5] == "2" else "K1"
+        return {"0": "K4", "1": "K4_anyhit", "2": "K5"}.get(args[0], "trace")
     if "inst8_kernel<" in key:
         any_hit = key.split("inst8_kernel<", 1)[1].split(",", 1)[0]
         return "K6_anyhit" if any_hit.strip() in ("true", "1") else "K6"
@@ -861,12 +986,9 @@ def _kernel_of(key: str) -> str | None:
         return None
     args = key.split("trace8_kernel<", 1)[1].split(">", 1)[0]
     flags = [a.strip() in ("true", "1") for a in args.split(",")]
-    if len(flags) != 4:
+    if len(flags) != 2:
         return "trace"
-    any_hit, dense, shade2, _ = flags
-    if any_hit:
-        return "K2_dense" if dense else "K2"
-    return "K3" if shade2 else "K1"
+    return "K2_dense" if flags[0] else "K2"
 
 
 def _profile_frames(run_frame, frames: int = 2) -> dict:
@@ -1282,9 +1404,10 @@ def phase_instanced_edit(device, scenes, renderers, flat_prepare_s) -> None:
 
 
 def phase_kernel_ab(scenes, old_dir, ptxas: dict) -> None:
-    """K6 and K7 against the earlier kernels built from `old_dir`, in
-    turns, on paths I, J, U and UL (apps/kernel_ab.py); then the earlier
-    library's ptxas registers beside this tree's."""
+    """K1 and K3 against the earlier kernels built from `old_dir`, in
+    turns, on the Cornell box and paths L and T, primaries and first-bounce
+    rays (apps/kernel_ab.py); then the earlier library's ptxas registers
+    beside this tree's."""
     from steeljax_torch.apps import kernel_ab
 
     result = kernel_ab.run(scenes, old_dir, WIDTH, HEIGHT)
@@ -1296,7 +1419,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ab-old", default=None, metavar="DIR",
-                    help="also time K6 and K7 against the earlier "
+                    help="also time K1 and K3 against the earlier "
                          "kernels built from this csrc directory "
                          "(phase 3c)")
     args = ap.parse_args(argv)
@@ -1386,16 +1509,18 @@ def main(argv=None) -> int:
     sources = {k: "steeljax_torch/csrc/traverse8.cu" for k in launches}
     for k in ("K7", "K7_shade1", "K7_anyhit", "K7_pick"):
         sources[k] = "steeljax_torch/csrc/treelet8.cu"
-    for k in ("K4", "K4_anyhit", "K5"):
+    for k in ("K1", "K3", "K4", "K4_anyhit", "K5"):
         sources[k] = "steeljax_torch/csrc/alpha8.cu"
     for k in ("K6", "K6_shade2", "K6_anyhit"):
         sources[k] = "steeljax_torch/csrc/instanced8.cu"
     titles = {
-        "K1": "K1 trace_nearest8 (BVH8 nearest hit, cull, shade mode 1)",
+        "K1": "K1 trace_alpha8 NEAREST without masks (BVH8 nearest hit, "
+              "cull, shade mode 1)",
         "K2": "K2 trace_any8 (BVH8 any-hit occlusion, 12-record rows)",
         "K2_dense": "K2-dense trace_any8 (any-hit occlusion, dense "
                     "14-record rows)",
-        "K3": "K3 trace_nearest8 (nearest hit, textured shade mode 2)",
+        "K3": "K3 trace_alpha8 NEAREST without masks (nearest hit, "
+              "textured shade mode 2)",
         "K4": "K4 trace_alpha8 NEAREST (nearest hit with alpha masks, coarse "
               "and fine)",
         "K4_anyhit": "K4 trace_alpha8 ANY (any-hit occlusion with alpha "

@@ -3,12 +3,12 @@
 A second package beside `steeljax` (the JAX reference).  Module paths
 mirror the reference (`steeljax_torch/render/pt/integrator.py` <->
 `steeljax/render/pt/integrator.py`); plain tensor code is PyTorch and the
-reference's Pallas BVH8 traversal kernel is a hand-written CUDA kernel
-(`csrc/traverse8.cu`, bound by `accel/cuda_traverse.py`).
+reference's Pallas traversal kernels are hand-written CUDA kernels
+(`csrc/*.cu`, bound by `accel/cuda_traverse.py`).
 
-Today the port runs the path tracer on builtin scenes without lights,
-textures or alpha-tested materials; anything else raises
-NotImplementedError naming the ROADMAP item that brings it.
+Today the port runs the path tracer on builtin scenes in one chunk (lights,
+textures, alpha-tested materials, instancing, treelets); anything else
+raises NotImplementedError naming the ROADMAP item that brings it.
 
 This package never imports jax or steeljax: the machine with the card has
 neither.  Only the tests import both packages.

@@ -12,9 +12,9 @@ table), the K-nearest multi-hit query (K5), the two-level query over an
 instance TLAS and object-space BLAS (K6) and the rounds of the treelet
 scheduler, each a flat query over one treelet per ray packet that updates
 the scheduler's state in place and picks every packet's next treelet (K7).
-The kernels are `csrc/traverse8.cu` (K1-K3), `csrc/alpha8.cu` (K4 and K5:
-one walk with three candidate policies), `csrc/instanced8.cu` (K6) and
-`csrc/treelet8.cu` (K7 and the scheduler's first pick), the last three
+The kernels are `csrc/alpha8.cu` (K1, K3, K4 and K5: one walk with three
+candidate policies), `csrc/traverse8.cu` (K2), `csrc/instanced8.cu` (K6)
+and `csrc/treelet8.cu` (K7 and the scheduler's first pick), all but K2
 over the Hopper record table of `hopper_records`; native.cuda_library()
 builds them, and they are called through plain C functions.
 
@@ -184,11 +184,11 @@ def pack_shade_records(tri_nrm, tri_mat, textured: bool = False,
 
 def hopper_records(tris: torch.Tensor) -> torch.Tensor:
     """The Hopper record table of csrc/alpha8.cu, instanced8.cu and
-    treelet8.cu, derived from pack_tris
-    rows on their device: (R * TRI_PER_ROW, HOPPER_RECORD) float32, record k
-    as three 16-byte float4s [v0.xyz, f9], [e1.xyz, 0], [e2.xyz, 0], where f9
-    is the reference record's last float (the AUX word, or the double-sided
-    flag).  Record ids are the reference's, so leaf starts and counts hold."""
+    treelet8.cu, derived from pack_tris rows on their device: (R *
+    TRI_PER_ROW, HOPPER_RECORD) float32, record k as three 16-byte float4s
+    [v0.xyz, f9], [e1.xyz, 0], [e2.xyz, 0], where f9 is the reference
+    record's last float (the AUX word, or the double-sided flag).  Record
+    ids are the reference's, so leaf starts and counts hold."""
     rec = tris[:, :TRI_PER_ROW * TRI_STRIDE].reshape(-1, TRI_STRIDE)
     out = torch.zeros((rec.shape[0], HOPPER_RECORD), dtype=torch.float32,
                       device=tris.device)
@@ -276,8 +276,9 @@ def trace_nearest_bvh8(bvh8: BVH8, tris_packed: torch.Tensor,
     alpha_mask=True (K4) decodes the AUX words of tris packed with masks
     and drops candidates whose coverage cell is provably transparent;
     `fine_rows` (pack_fine_mask_rows) adds the fine PASS plane.  `records`
-    is hopper_records(tris_packed), which the alpha kernel reads (derived
-    anew for the call when None; the plain version reads tris_packed)."""
+    is hopper_records(tris_packed), the triangle table the kernels read
+    (derived anew for the call when None; the plain version reads
+    tris_packed)."""
     tensors = {"bvh8.rows": bvh8.rows, "tris_packed": tris_packed, "o": o,
                "d": d}
     if shade_mode not in (0, 1, 2):
@@ -286,6 +287,8 @@ def trace_nearest_bvh8(bvh8: BVH8, tris_packed: torch.Tensor,
         if shade_rows is None:
             raise ValueError(f"shade_mode {shade_mode} needs shade_rows")
         tensors["shade_rows"] = shade_rows
+    if records is not None:
+        tensors["records"] = records
     _alpha_tensors(tensors, alpha_mask, fine_rows, shade_mode)
     device = _one_device(tensors, t_min, t_max)
     if device.type == "cuda":
@@ -448,72 +451,49 @@ def kernel_launcher(bvh8, tris_packed, o, d, t_min, t_max,
                     cull_backface: bool = True, shade_rows=None,
                     shade_mode: int = 0, counters: bool = False,
                     alpha_mask: bool = False, fine_rows=None, records=None):
-    """Check the inputs of one nearest-hit kernel call (K1; K3 for shade
-    mode 2; K4 with alpha_mask, through alpha_launcher) on CUDA tensors and
-    allocate its outputs.  Returns (launch, rec): each `launch()` runs the
-    kernel on the current stream into rec's tensors and adds one to
-    LAUNCHES.  The wrapper calls it once; a benchmark can repeat it without
-    the wrapper's host work.  counters=True adds the telemetry of
-    _telemetry."""
+    """Check the inputs of one nearest-hit kernel call on CUDA tensors and
+    allocate its outputs: K1 (shade mode 0 or 1), K3 (shade mode 2) or,
+    with alpha_mask, K4, all of csrc/alpha8.cu.  Returns (launch, rec):
+    each `launch()` runs the kernel on the current stream into rec's
+    tensors (t, u, v, tri (N,) and the shading outputs of
+    trace_nearest_bvh8) and adds one to LAUNCHES.  The wrapper calls it
+    once; a benchmark can repeat it without the wrapper's host work.
+    `records` is hopper_records(tris_packed), derived here when None; K1
+    and K3 read the winner's shading from `shade_rows` (pack_shade_records
+    of `shade_mode`).  counters=True adds the telemetry of _telemetry."""
     _alpha_tensors({}, alpha_mask, fine_rows, shade_mode)
-    if alpha_mask:
-        return alpha_launcher("nearest", bvh8, tris_packed, o, d, t_min,
-                              t_max, cull_backface, counters=counters,
-                              fine_rows=fine_rows, records=records)
-    device = o.device
-    _check_launch(bvh8, tris_packed, device)
+    if shade_mode not in (0, 1, 2):
+        raise ValueError(f"shade_mode must be 0, 1 or 2, got {shade_mode}")
     if shade_mode:
-        _check_table("shade_rows", shade_rows, device)
+        if shade_rows is None:
+            raise ValueError(f"shade_mode {shade_mode} needs shade_rows")
         per_tri_row = 1 if shade_mode == 1 else TRI_PER_ROW // SHADE2_PER_ROW
         if shade_rows.shape[0] < per_tri_row * tris_packed.shape[0]:
             raise ValueError(f"shade_rows has {shade_rows.shape[0]} rows; "
                              f"mode {shade_mode} needs {per_tri_row} per "
                              "triangle row")
-    o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
-    n = o.shape[0]
-    f32 = dict(dtype=torch.float32, device=device)
-    rec = {"t": torch.empty(n, **f32), "u": torch.empty(n, **f32),
-           "v": torch.empty(n, **f32),
-           "tri": torch.empty(n, dtype=torch.int32, device=device)}
-    if shade_mode:
-        rec["n"] = torch.empty((n, 3), **f32)
-        rec["mat"] = torch.empty(n, dtype=torch.int32, device=device)
-    if shade_mode == 2:
-        rec["tan"] = torch.empty((n, 3), **f32)
-        rec["uv"] = torch.empty((n, 2), **f32)
-        rec["uvd"] = torch.empty(n, **f32)
-    if counters:
-        rec.update(_telemetry(n, bvh8, tris_packed, TRI_PER_ROW))
-
-    def ptr(name):
-        return rec[name].data_ptr() if name in rec else None
-
-    args = (bvh8.rows.data_ptr(), tris_packed.data_ptr(),
-            shade_rows.data_ptr() if shade_mode else None, o.data_ptr(),
-            d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(), ptr("t"), ptr("u"),
-            ptr("v"), ptr("tri"), ptr("n"), ptr("mat"), ptr("tan"),
-            ptr("uv"), ptr("uvd"), ptr("counters"), ptr("seen_nodes"),
-            ptr("seen_records"), n, bvh8.max_leaf, bvh8.depth,
-            int(bool(cull_backface)), shade_mode)
-    return _launch_fn("K3" if shade_mode == 2 else "K1",
-                      "steeljax_trace_nearest8", args,
-                      (bvh8.rows, tris_packed, shade_rows, o, d, tmn, tmx,
-                       *rec.values())), rec
+    kernel = "K4" if alpha_mask else "K3" if shade_mode == 2 else "K1"
+    return _alpha8_launcher(kernel, 0, bvh8, tris_packed, o, d, t_min, t_max,
+                            cull_backface, counters=counters,
+                            alpha_mask=alpha_mask, fine_rows=fine_rows,
+                            records=records,
+                            shade_rows=shade_rows if shade_mode else None,
+                            shade_mode=shade_mode)
 
 
 def anyhit_launcher(bvh8, tris, o, d, t_min, t_max, dense: bool = False,
                     counters: bool = False, alpha_mask: bool = False,
                     fine_rows=None, records=None):
-    """The any-hit kernel's launcher (K2; K4_anyhit with alpha_mask, through
-    alpha_launcher), as kernel_launcher: rec["hit"] is (N,) bool;
-    counters=True adds the telemetry of _telemetry."""
+    """The any-hit kernel's launcher (K2 of csrc/traverse8.cu; K4_anyhit of
+    csrc/alpha8.cu with alpha_mask), as kernel_launcher: rec["hit"] is
+    (N,) bool; counters=True adds the telemetry of _telemetry."""
     _alpha_tensors({}, alpha_mask, fine_rows)
     if dense and alpha_mask:
         raise ValueError("the dense any-hit rows carry no alpha masks")
     if alpha_mask:
-        return alpha_launcher("any", bvh8, tris, o, d, t_min, t_max,
-                              counters=counters, fine_rows=fine_rows,
-                              records=records)
+        return _alpha8_launcher("K4_anyhit", 1, bvh8, tris, o, d, t_min,
+                                t_max, False, counters=counters,
+                                fine_rows=fine_rows, records=records)
     device = o.device
     _check_launch(bvh8, tris, device)
     o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
@@ -540,45 +520,39 @@ def anyhit_launcher(bvh8, tris, o, d, t_min, t_max, dense: bool = False,
 def multihit_launcher(bvh8, tris, o, d, t_min, t_max, k_hits: int,
                       cull_backface: bool = True, counters: bool = False,
                       alpha_mask: bool = False, fine_rows=None, records=None):
-    """The multi-hit kernel K5's launcher (alpha_launcher), as
+    """The multi-hit kernel K5's launcher (csrc/alpha8.cu), as
     kernel_launcher: rec holds (K, N) "t", "u", "v" and "tri"; counters=True
     adds the telemetry of _telemetry."""
-    return alpha_launcher("multihit", bvh8, tris, o, d, t_min, t_max,
-                          cull_backface, k_hits=k_hits, counters=counters,
-                          alpha_mask=alpha_mask, fine_rows=fine_rows,
-                          records=records)
-
-
-# The queries of csrc/alpha8.cu, by its mode argument, and their LAUNCHES
-# keys.
-_ALPHA_MODES = {"nearest": (0, "K4"), "any": (1, "K4_anyhit"),
-                "multihit": (2, "K5")}
-
-
-def alpha_launcher(query: str, bvh8, tris, o, d, t_min, t_max,
-                   cull_backface: bool = True, k_hits: int = 1,
-                   counters: bool = False, alpha_mask: bool = True,
-                   fine_rows=None, records=None):
-    """The launcher of csrc/alpha8.cu, as kernel_launcher: `query` "nearest"
-    (K4: rec t, u, v, tri (N,)), "any" (K4_anyhit: rec["hit"] (N,) bool, no
-    culling) or "multihit" (K5: (k_hits, N) slots).  K4 always applies the
-    coarse masks; `fine_rows` adds the fine planes.  `records` is
-    hopper_records(tris), derived here when None.  counters=True adds the
-    telemetry of _telemetry, seen_fine included."""
-    mode, kernel = _ALPHA_MODES[query]
     _alpha_tensors({}, alpha_mask, fine_rows)
-    if mode != 2 and not alpha_mask:
-        raise ValueError("K4 applies alpha masks: alpha_mask=True")
-    if mode == 2:
-        _check_k(k_hits)
+    _check_k(k_hits)
+    return _alpha8_launcher("K5", 2, bvh8, tris, o, d, t_min, t_max,
+                            cull_backface, k_hits=k_hits, counters=counters,
+                            alpha_mask=alpha_mask, fine_rows=fine_rows,
+                            records=records)
+
+
+def _alpha8_launcher(kernel: str, mode: int, bvh8, tris, o, d, t_min, t_max,
+                     cull_backface: bool, k_hits: int = 1,
+                     counters: bool = False, alpha_mask: bool = True,
+                     fine_rows=None, records=None, shade_rows=None,
+                     shade_mode: int = 0):
+    """One call of csrc/alpha8.cu's entry, for the public launchers, which
+    choose the kernel: `mode` 0 nearest (rec t, u, v, tri (N,) and the
+    shading outputs of `shade_mode`), 1 any-hit (rec["hit"] (N,) bool, no
+    culling), 2 multi-hit ((k_hits, N) slots).  With alpha_mask the coarse
+    masks apply and `fine_rows` adds the fine planes.  counters=True adds
+    the telemetry of _telemetry, seen_fine included."""
     _check_depth(bvh8.depth)
+    n_records = tris.shape[0] * TRI_PER_ROW
     if records is not None:
-        _check_records(records, tris.shape[0] * TRI_PER_ROW)
+        _check_records(records, n_records)
     device = o.device
     _check_launch(bvh8, tris, device, fine_rows)
+    if shade_mode:
+        _check_table("shade_rows", shade_rows, device)
     if records is None:
         records = hopper_records(tris)
-    _check_records(records, tris.shape[0] * TRI_PER_ROW, device)
+    _check_records(records, n_records, device)
     o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
     n = o.shape[0]
     f32 = dict(dtype=torch.float32, device=device)
@@ -589,6 +563,13 @@ def alpha_launcher(query: str, bvh8, tris, o, d, t_min, t_max,
         rec = {"t": torch.empty(shape, **f32), "u": torch.empty(shape, **f32),
                "v": torch.empty(shape, **f32),
                "tri": torch.empty(shape, dtype=torch.int32, device=device)}
+    if shade_mode:
+        rec["n"] = torch.empty((n, 3), **f32)
+        rec["mat"] = torch.empty(n, dtype=torch.int32, device=device)
+    if shade_mode == 2:
+        rec["tan"] = torch.empty((n, 3), **f32)
+        rec["uv"] = torch.empty((n, 2), **f32)
+        rec["uvd"] = torch.empty(n, **f32)
     if counters:
         rec.update(_telemetry(n, bvh8, tris, TRI_PER_ROW, fine=True))
 
@@ -596,15 +577,16 @@ def alpha_launcher(query: str, bvh8, tris, o, d, t_min, t_max,
         return rec[name].data_ptr() if name in rec else None
 
     args = (bvh8.rows.data_ptr(), records.data_ptr(), _ptr(fine_rows),
-            o.data_ptr(), d.data_ptr(), tmn.data_ptr(),
+            _ptr(shade_rows), o.data_ptr(), d.data_ptr(), tmn.data_ptr(),
             tmx.data_ptr(), ptr("t"), ptr("u"), ptr("v"), ptr("tri"),
+            ptr("n"), ptr("mat"), ptr("tan"), ptr("uv"), ptr("uvd"),
             ptr("hit"), ptr("counters"), ptr("seen_nodes"),
             ptr("seen_records"), ptr("seen_fine"), n, bvh8.max_leaf,
             bvh8.depth, int(bool(cull_backface)), mode, k_hits,
-            int(bool(alpha_mask)))
+            int(bool(alpha_mask)), shade_mode)
     return _launch_fn(kernel, "steeljax_trace_alpha8", args,
-                      (bvh8.rows, records, tris, fine_rows, o, d, tmn, tmx,
-                       *rec.values())), rec
+                      (bvh8.rows, records, tris, fine_rows, shade_rows, o, d,
+                       tmn, tmx, *rec.values())), rec
 
 
 # ---------------------------------------------------------------------------

@@ -59,8 +59,9 @@ class ChunkTables:
     # pack_fine_mask_rows, parallel to tris_packed), or None.
     tri_mask: torch.Tensor | None = None
     fine_mask_rows: torch.Tensor | None = None
-    # Alpha-masked tables: the Hopper record table of the alpha kernels K4
-    # and K5 (cuda_traverse.hopper_records of tris_packed), or None.
+    # The Hopper record table the kernels K1 and K3-K5 read
+    # (cuda_traverse.hopper_records of tris_packed), derived on the device
+    # for every chunk that has triangle rows.
     tri_records: torch.Tensor | None = None
     row_offset: int = 0
     rows: int = 0
@@ -134,9 +135,9 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
     `tri_fine_mask` ((T, FINE_STRIDE) int32, alphamask.compute_fine_masks)
     adds the fine mask rows; both are dropped when every triangle's coarse
     mask is MASK_FULL (masking is then a no-op), and masked tables get no
-    dense any-hit tables (their rows carry no masks).  Masked tables also
-    get the Hopper record table the alpha kernels read, derived on the
-    device from the triangle rows (cuda_traverse.hopper_records).
+    dense any-hit tables (their rows carry no masks).  Every chunk also
+    gets the Hopper record table the kernels K1 and K3-K5 read, derived on
+    the device from the triangle rows (cuda_traverse.hopper_records).
     Each step is a `prepare_tables.<step>` range for torch.profiler.
 
     Returns (tables, order, total_padded): reorder every per-triangle array
@@ -201,10 +202,9 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
             tri_mask=(None if mask is None else torch.from_numpy(
                 permuted_mask.astype(np.int32)).to(device)),
             row_offset=0, rows=padded, aabb=(lo, hi))
-    if mask is not None:
-        with record_function("prepare_tables.hopper_records"):
-            chunk = chunk.replace(tri_records=cuda_traverse.hopper_records(
-                chunk.tris_packed))
+    with record_function("prepare_tables.hopper_records"):
+        chunk = chunk.replace(tri_records=cuda_traverse.hopper_records(
+            chunk.tris_packed))
     if fine is not None:
         with record_function("prepare_tables.pack_fine_mask_rows"):
             chunk = chunk.replace(fine_mask_rows=torch.from_numpy(
@@ -340,8 +340,7 @@ def trace_multihit(tables: TraceTables, o: torch.Tensor, d: torch.Tensor,
                    ) -> dict:
     """The k_hits nearest hits over the scene's one chunk (K5), with the
     tables' masks: cuda_traverse.trace_multihit_bvh8's (K, N) slots, tri
-    indexing the permuted triangle arrays (tables without masks have no
-    Hopper record table: the wrapper derives one for the call)."""
+    indexing the permuted triangle arrays."""
     chunk = _one_chunk(tables)
     return cuda_traverse.trace_multihit_bvh8(
         chunk.bvh8, chunk.tris_packed, o, d, t_min, t_max, k_hits,

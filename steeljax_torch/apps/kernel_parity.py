@@ -337,12 +337,7 @@ def cornell_cases(device, width: int, height: int, sphere_detail: int = 12):
     `device`."""
     from steeljax_torch.core import camera as camera_lib
     from steeljax_torch.core import rng
-    from steeljax_torch.core.constants import (EPSILON, RAY_DEAD_T,
-                                               RAY_MAX_T, RAY_MIN_T)
-    from steeljax_torch.render.pt import brdf as brdf_lib
-    from steeljax_torch.render.pt.integrator import (primary_rays,
-                                                     trace_material_ray,
-                                                     unpack_material_fused)
+    from steeljax_torch.render.pt.integrator import primary_rays
     from steeljax_torch.render.pt.renderer import prepare_scene
     from steeljax_torch.scene.builtin import make_cornell_scene
 
@@ -358,18 +353,52 @@ def cornell_cases(device, width: int, height: int, sphere_detail: int = 12):
                               width, height, px, py, seed)
     o = o.contiguous()
     near, far = frame.camera_near, frame.camera_far
-    rec = trace_material_ray(flat, tables, o, d, near, far,
-                             cull_backface=True)
-    surface, tbn = unpack_material_fused(flat, rec)
+    return flat, tables, {"primary": (o, d, near, far),
+                          "bounce1": _bounce_rays(flat, tables, o, d, near,
+                                                  far, seed)}
+
+
+def _bounce_rays(flat, tables, o, d, near, far, seed):
+    """The rays of the integrator's second bounce from the primaries (o, d)
+    and their rng `seed`: one trace, the BRDF sample at each hit (after the
+    light sample of next-event estimation, which comes first in the rng
+    stream of a lit scene), dead lanes with an inverted interval, and on
+    scenes above integrator.REPACK_MIN_TRIS the repack that trace_paths
+    applies before that bounce.  Returns (o, d, t_min, t_max)."""
+    from steeljax_torch.core.constants import (EPSILON, RAY_DEAD_T,
+                                               RAY_MAX_T, RAY_MIN_T)
+    from steeljax_torch.render.pt import brdf as brdf_lib
+    from steeljax_torch.render.pt import integrator
+
+    rec = integrator.trace_material_ray(flat, tables, o, d, near, far,
+                                        cull_backface=True)
+    surface, tbn = integrator.unpack_material_fused(flat, rec)
+    if flat.light_count > 0:
+        _, seed = integrator.sample_light(flat, tbn[2],
+                                          o + d * rec["t"][:, None], seed)
     wo = brdf_lib._normalize(brdf_lib.world_to_tangent(-d, tbn))
     f, wi, pdf, _ = brdf_lib.sample_brdf(surface, wo, seed)
     alive = rec["hit"] & (pdf >= EPSILON) & ((f * f).sum(-1) >= EPSILON)
     o1 = (o + d * rec["t"][:, None]).contiguous()
     d1 = torch.where(alive[:, None], brdf_lib.tangent_to_world(wi, tbn), d)
-    t_min1 = torch.full_like(rec["t"], RAY_MIN_T)
+    if integrator._total_triangles(tables) > integrator.REPACK_MIN_TRIS:
+        key = (((~alive).to(torch.int32) << 19)
+               | ((~rec["hit"]).to(torch.int32) << 18)
+               | integrator._ray_sort_key(o1, d1,
+                                          *integrator.scene_bounds(tables)))
+        key, (o1, d1) = integrator.repack_rays(key, [o1, d1])
+        alive = (key >> 19) == 0
+    t_min1 = torch.full_like(o1[:, 0], RAY_MIN_T)
     t_max1 = torch.where(alive, RAY_MAX_T, RAY_DEAD_T).to(torch.float32)
-    return flat, tables, {"primary": (o, d, near, far),
-                          "bounce1": (o1, d1.contiguous(), t_min1, t_max1)}
+    return o1.contiguous(), d1.contiguous(), t_min1, t_max1
+
+
+def first_bounce_case(scene, flat, tables, width: int, height: int):
+    """The second bounce's rays of a prepared path as the integrator traces
+    them (_bounce_rays of the tiled primaries of accumulation index 0):
+    (o, d, t_min, t_max)."""
+    o, d, near, far, seed = tiled_primary(scene, flat.device, width, height)
+    return _bounce_rays(flat, tables, o, d, near, far, seed)
 
 
 def prepare_path_scene(name: str, device):
@@ -854,7 +883,7 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
         chunk = tables.chunks[0]
         args = (chunk.bvh8, chunk.tris_packed, o, d, t_min, t_max, cull,
                 chunk.shade_packed if mode else None, mode)
-        rec_k = trace_nearest_bvh8(*args)
+        rec_k = trace_nearest_bvh8(*args, records=chunk.tri_records)
         rec_p = trace_nearest_bvh8_plain(*args)
         torch.cuda.synchronize(device)
         return rec_k, rec_p

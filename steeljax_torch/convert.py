@@ -162,8 +162,7 @@ def from_jax_prepared(flat, tables, device: torch.device | str,
                         if alpha and fine_masks else None),
         row_offset=int(chunk.row_offset), rows=int(chunk.rows),
         aabb=tuple(tuple(float(v) for v in corner) for corner in chunk.aabb))
-    if alpha:
-        port_chunk = port_chunk.replace(
-            tri_records=hopper_records(port_chunk.tris_packed))
+    port_chunk = port_chunk.replace(
+        tri_records=hopper_records(port_chunk.tris_packed))
     return port_flat, TraceTables(chunks=(port_chunk,), shade_mode=mode,
                                   alpha_masked=alpha)

@@ -1,7 +1,14 @@
-// Alpha-masked BVH8 ray traversal for Hopper (sm_90a): K4 and K5.
+// The flat BVH8 nearest-hit, alpha-masked and multi-hit ray traversal for
+// Hopper (sm_90a): K1, K3, K4 and K5.
 //
-// One templated walk with three candidate policies replaces two TPU kernels
-// of steeljax/accel/pallas_traverse.py:
+// One templated walk with three candidate policies replaces these TPU
+// kernels of steeljax/accel/pallas_traverse.py:
+//   K1  _traverse_kernel8 (:249, host wrapper _trace_packed8, pallas_call
+//       :719, entry trace_nearest_packet8 :752): NEAREST without masks, the
+//       nearest hit, culling on or off, with fused shading in shade mode 1
+//       (normal and material) or none (mode 0);
+//   K3  the same body with shade_mode=2 (:548-565, :608-617): NEAREST
+//       without masks with the textured record (tangent, uv, uv density);
 //   K4  _traverse_kernel8 with alpha_mask=True (:457-499) and fine=True
 //       (:500-505, _fine_test :227-246): NEAREST, the nearest hit (shade
 //       mode 0, culling on or off), and ANY, occlusion;
@@ -10,16 +17,19 @@
 //       K_NEAREST<K>, the K nearest surviving hits, K = 2, 4, 8, sorted by
 //       t, with the opaque bound of the fine rows.
 // Each policy has ALPHA (coarse AUX masks), FINE (the fine PASS plane, and
-// for K_NEAREST the OPAQUE plane) and COUNT (telemetry) instances.  K7's
-// coarse-alpha treelet instance stays in traverse8.cu.
+// for K_NEAREST the OPAQUE plane) and COUNT (telemetry) instances, and
+// NEAREST without masks SHADE 0, 1 and 2.  The any-hit kernel K2 is
+// traverse8.cu, K6 instanced8.cu, K7 treelet8.cu.
 //
-// Tables: snodes (S, 128) f32 and the fine (R, 128) int32 rows as in
+// Tables: snodes (S, 128) f32, the fine (R, 128) int32 rows and the shade
+// rows of modes 1 and 2 (read once per ray, by the winner) as in
 // traverse8.cu, and the Hopper record table that cuda_traverse.
 // hopper_records derives on the device from the reference's (R, 128)
-// triangle rows: record k is three float4s at k * 3, [v0.xyz, f9],
-// [e1.xyz, 0], [e2.xyz, 0], where f9 is the reference record's last float
-// (the AUX word ds | mask << 1 of the masked tables, else the double-sided
-// flag).  Record ids, leaf starts and counts are the reference's.
+// triangle rows for every flat chunk: record k is three float4s at k * 3,
+// [v0.xyz, f9], [e1.xyz, 0], [e2.xyz, 0], where f9 is the reference
+// record's last float (the AUX word ds | mask << 1 of the masked tables,
+// else the double-sided flag).  Record ids, leaf starts and counts are the
+// reference's.
 //
 // Contract, as in the kernels this replaced: Moller-Trumbore with |det| >
 // 1e-12 and the culling rule; a dead ray (t_max < t_min) leaves before the
@@ -29,8 +39,14 @@
 // ob) with ob the nearest OPAQUE-plane hit, and drops slots with t > ob at
 // the end, so its output does not depend on the walk's order.
 //
-// What bounds it on this card.  A masked candidate never shortens the
-// interval, so a primary ray of path F tests about 450 triangles in 27
+// What bounds it on this card.  K1 and K3: the walks are short (a primary
+// pops 1-5 supernode rows and tests 14-16 triangles on the Cornell box and
+// paths L and T, a first-bounce ray up to 5 and 23), and the least time is
+// 0.018-0.040 ms a 921,600-ray trace, set by the bytes of the rays and the
+// touched tables or by the walk's operations; the card spends 5-20 times
+// that on the walk's dependent loads and on lanes that wait while others
+// of their warp test a leaf.  K4 and K5: a masked candidate never shortens
+// the interval, so a primary ray of path F tests about 450 triangles in 27
 // leaves (K5 at K = 4: 641 in 38): the work is the walk itself, and the
 // least time for it is set by its operations (8 slab tests a supernode pop,
 // a 53-op triangle test, 16-op mask tests), about 0.41 ms for path F's
@@ -51,7 +67,8 @@
 //       that pops a leaf keeps it and walks inner nodes on (speculatively,
 //       until it pops a second leaf, which goes back on the stack) while
 //       some lane of its warp still looks for one; then the warp tests its
-//       leaves together.  The walks' work counts are unchanged.
+//       leaves together.  The triangle tests are unchanged; a lane walking
+//       on with the bound it had pops more rows (K1, K3: 4-11% more).
 //   D2  the stack in shared memory (dropped): 7 * depth + 1 entries of 8
 //       bytes per thread, 51,200 bytes a 128-thread block at path F's depth
 //       7, allow 4 blocks an SM where the registers allow 10, and the walk
@@ -61,6 +78,10 @@
 //       from a global counter were 6% slower over a frame's K4 calls; the
 //       alpha re-trace already compacts the rays it re-traces to the front,
 //       so a late pass's blocks of dead rays end at once anyway.
+// K1 and K3 took D1 (1.16-1.31x over their earlier one-thread walk) and D3
+// (a further 1.05-1.21x); an aligned 48- or 112-byte shade record read
+// with float4s paid 0-1% once per ray and was dropped, and a walk of their
+// own in place of this one measured 1-4% slower.
 // The walk has no matrix product, so wgmma has nothing to do; TMA copies
 // tiles of known address, and a ray's next row depends on its last test.
 //
@@ -85,6 +106,7 @@ struct AlphaArgs {
   const float* snodes;
   const float4* records;  // the Hopper record table
   const int* fine;
+  const float* shade;  // the reference's shade rows (K1, K3)
   const float* o;
   const float* d;
   const float* t_min;
@@ -93,6 +115,11 @@ struct AlphaArgs {
   float* out_u;
   float* out_v;
   int* out_tri;
+  float* out_n;  // the winner's shading (K1 mode 1, K3 mode 2)
+  int* out_mat;
+  float* out_tan;
+  float* out_uv;
+  float* out_uvd;
   unsigned char* out_hit;
   int* out_cnt;
   unsigned char* seen_snode;
@@ -120,7 +147,64 @@ __device__ __forceinline__ void load_record(const float4* records, int rec,
   e2 = __ldg(r + 2);
 }
 
-template <int MODE, int K, bool ALPHA, bool FINE, bool COUNT>
+// The winner's fused shading (K1 shade mode 1, K3 mode 2; the reference's
+// :597-617), from its record in the reference's shade rows: its normal
+// interpolated at (u, v), normalized and flipped when det < 0
+// (ClosestHit.rchit:67-70: det < 0 is the winding-based hit kind), and its
+// material; mode 2 adds the tangent (normalized, never flipped), the uv and
+// the uv density.  A miss gets the reference's initial values: n = +z, mat
+// 0, tangent +x, uv 0, uv density 0.
+template <int SHADE>
+__device__ __forceinline__ void shade_winner(const AlphaArgs& a, int i,
+                                             int best_i, float bu, float bv,
+                                             float best_det) {
+  float nx = 0.0f, ny = 0.0f, nz = 1.0f, mat = 0.0f;
+  float tnx = 1.0f, tny = 0.0f, tnz = 0.0f, ux = 0.0f, uy = 0.0f, uvd = 0.0f;
+  if (best_i >= 0) {
+    const float wb = 1.0f - bu - bv;
+    const float* s;
+    if constexpr (SHADE == 2) {
+      s = a.shade +
+          (size_t)((best_i / TRI_PER_ROW) * (TRI_PER_ROW / SHADE2_PER_ROW) +
+                   (best_i % TRI_PER_ROW) / SHADE2_PER_ROW) * LANES +
+          SHADE2_STRIDE * (best_i % SHADE2_PER_ROW);
+    } else {
+      s = a.shade + (size_t)(best_i / TRI_PER_ROW) * LANES +
+          SHADE1_STRIDE * (best_i % TRI_PER_ROW);
+    }
+    nx = __ldg(s + 0) * wb + __ldg(s + 3) * bu + __ldg(s + 6) * bv;
+    ny = __ldg(s + 1) * wb + __ldg(s + 4) * bu + __ldg(s + 7) * bv;
+    nz = __ldg(s + 2) * wb + __ldg(s + 5) * bu + __ldg(s + 8) * bv;
+    mat = __ldg(s + 9);
+    if constexpr (SHADE == 2) {
+      tnx = __ldg(s + 10) * wb + __ldg(s + 13) * bu + __ldg(s + 16) * bv;
+      tny = __ldg(s + 11) * wb + __ldg(s + 14) * bu + __ldg(s + 17) * bv;
+      tnz = __ldg(s + 12) * wb + __ldg(s + 15) * bu + __ldg(s + 18) * bv;
+      ux = __ldg(s + 19) * wb + __ldg(s + 21) * bu + __ldg(s + 23) * bv;
+      uy = __ldg(s + 20) * wb + __ldg(s + 22) * bu + __ldg(s + 24) * bv;
+      uvd = __ldg(s + 25);
+    }
+  }
+  const float n2 = nx * nx + ny * ny + nz * nz;
+  const float inv_n =
+      (best_det < 0.0f ? -1.0f : 1.0f) * rsqrtf(fmaxf(n2, 1e-20f));
+  a.out_n[3 * i + 0] = nx * inv_n;
+  a.out_n[3 * i + 1] = ny * inv_n;
+  a.out_n[3 * i + 2] = nz * inv_n;
+  a.out_mat[i] = (int)mat;
+  if constexpr (SHADE == 2) {
+    const float t2 = tnx * tnx + tny * tny + tnz * tnz;
+    const float inv_t = rsqrtf(fmaxf(t2, 1e-20f));
+    a.out_tan[3 * i + 0] = tnx * inv_t;
+    a.out_tan[3 * i + 1] = tny * inv_t;
+    a.out_tan[3 * i + 2] = tnz * inv_t;
+    a.out_uv[2 * i + 0] = ux;
+    a.out_uv[2 * i + 1] = uy;
+    a.out_uvd[i] = uvd;
+  }
+}
+
+template <int MODE, int K, bool ALPHA, bool FINE, bool COUNT, int SHADE>
 __global__ void __launch_bounds__(kThreads) alpha8_kernel(const AlphaArgs a) {
   // The nearest policies keep each entry's distance for the pop-time cull.
   constexpr bool NEAR = MODE != ANY;
@@ -145,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) alpha8_kernel(const AlphaArgs a) {
               inv_dz = safe_inv(dz);
 
   // NEAREST: the best hit so far (ANY accepts against t_max throughout).
-  float best_t = tmx, best_u = 0.0f, best_v = 0.0f;
+  float best_t = tmx, best_u = 0.0f, best_v = 0.0f, best_det = 1.0f;
   int best_i = -1;
   bool occluded = false;
   // K_NEAREST: slots sorted ascending by t; an empty slot holds t_max and
@@ -296,6 +380,7 @@ __global__ void __launch_bounds__(kThreads) alpha8_kernel(const AlphaArgs a) {
             best_u = u;
             best_v = v;
             best_i = rec;
+            best_det = det;
           }
         }
       } else {
@@ -390,6 +475,9 @@ __global__ void __launch_bounds__(kThreads) alpha8_kernel(const AlphaArgs a) {
     a.out_u[i] = best_u;
     a.out_v[i] = best_v;
     a.out_tri[i] = best_i;
+    if constexpr (SHADE != 0) {
+      shade_winner<SHADE>(a, i, best_i, best_u, best_v, best_det);
+    }
   } else {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -405,14 +493,14 @@ __global__ void __launch_bounds__(kThreads) alpha8_kernel(const AlphaArgs a) {
   }
 }
 
-template <int MODE, int K, bool ALPHA, bool FINE>
+template <int MODE, int K, bool ALPHA, bool FINE, int SHADE = 0>
 int launch(const AlphaArgs& a, bool count, void* stream) {
   const int blocks = (a.n + kThreads - 1) / kThreads;
   if (count) {
-    alpha8_kernel<MODE, K, ALPHA, FINE, true>
+    alpha8_kernel<MODE, K, ALPHA, FINE, true, SHADE>
         <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
   } else {
-    alpha8_kernel<MODE, K, ALPHA, FINE, false>
+    alpha8_kernel<MODE, K, ALPHA, FINE, false, SHADE>
         <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
   }
   return (int)cudaGetLastError();
@@ -431,31 +519,42 @@ int launch_k(const AlphaArgs& a, bool alpha, bool count, void* stream) {
 
 extern "C" {
 
-// K4 and K5 over a BVH8 for n rays.  mode 0: the nearest hit (out_t, out_u,
-// out_v, out_tri (n,); culling by `cull`); mode 1: occlusion (out_hit (n,),
-// one byte 0 or 1; no culling); mode 2: the k nearest hits, k in {2, 4,
-// 8}, (k, n) slot-major, an empty slot t -1, u = v = 0, tri -1.  Modes 0 and
-// 1 need alpha != 0 (the AUX words' coarse masks); fine, when not null, adds
-// the fine rows' PASS plane (mode 2: and the opaque bound).  records is the
-// Hopper record table (cuda_traverse.hopper_records).  out_cnt (n x
-// N_COUNTERS int32), seen_snode, seen_rec and seen_fine: all four or none;
-// the seen bytes are set, never cleared.  Launches on `stream` and returns
+// The nearest hit (K1, K3, K4), K4's occlusion and K5 over a BVH8 for n
+// rays.  mode 0: the nearest hit (out_t, out_u, out_v, out_tri (n,);
+// culling by `cull`); without masks (alpha == 0: K1, K3) shade_mode 1 adds
+// out_n (n x 3) and out_mat (n,) from `shade`, the reference's rows
+// (pack_shade_records), and shade_mode 2 also out_tan (n x 3), out_uv (n x
+// 2) and out_uvd (n,); mode 1: occlusion (out_hit (n,), one byte 0 or 1;
+// no culling); mode 2: the k nearest hits, k in {2, 4, 8}, (k, n)
+// slot-major, an empty slot t -1, u = v = 0, tri -1.  Mode 1 needs alpha
+// != 0 (the AUX words' coarse masks); fine, when not null, adds the fine
+// rows' PASS plane (mode 2: and the opaque bound).  records is the Hopper
+// record table (cuda_traverse.hopper_records).  out_cnt (n x N_COUNTERS
+// int32), seen_snode, seen_rec and seen_fine: all four or none; the seen
+// bytes are set, never cleared.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 int steeljax_trace_alpha8(const void* snodes, const void* records,
-                          const void* fine, const void* o, const void* d,
-                          const void* t_min, const void* t_max, void* out_t,
-                          void* out_u, void* out_v, void* out_tri,
+                          const void* fine, const void* shade, const void* o,
+                          const void* d, const void* t_min, const void* t_max,
+                          void* out_t, void* out_u, void* out_v,
+                          void* out_tri, void* out_n, void* out_mat,
+                          void* out_tan, void* out_uv, void* out_uvd,
                           void* out_hit, void* out_cnt, void* seen_snode,
                           void* seen_rec, void* seen_fine, int n,
                           int max_leaf, int depth, int cull, int mode, int k,
-                          int alpha, void* stream) {
+                          int alpha, int shade_mode, void* stream) {
   if (n < 0 || max_leaf <= 0 || depth <= 0 || 8 * depth + 16 > MAX_STACK ||
       mode < 0 || mode > 2 || records == nullptr ||
-      (fine != nullptr && !alpha) || (mode != K_NEAREST && !alpha) ||
+      (fine != nullptr && !alpha) || (mode == ANY && !alpha) ||
       (mode == K_NEAREST && k != 2 && k != 4 && k != 8) ||
       (mode == ANY ? out_hit == nullptr
                    : (out_t == nullptr || out_u == nullptr ||
                       out_v == nullptr || out_tri == nullptr)) ||
+      shade_mode < 0 || shade_mode > 2 ||
+      (shade_mode != 0 && (mode != NEAREST || alpha || shade == nullptr ||
+                           out_n == nullptr || out_mat == nullptr)) ||
+      (shade_mode == 2 &&
+       (out_tan == nullptr || out_uv == nullptr || out_uvd == nullptr)) ||
       (out_cnt != nullptr && (seen_snode == nullptr || seen_rec == nullptr ||
                               seen_fine == nullptr))) {
     return (int)cudaErrorInvalidValue;
@@ -465,6 +564,7 @@ int steeljax_trace_alpha8(const void* snodes, const void* records,
   a.snodes = (const float*)snodes;
   a.records = (const float4*)records;
   a.fine = (const int*)fine;
+  a.shade = (const float*)shade;
   a.o = (const float*)o;
   a.d = (const float*)d;
   a.t_min = (const float*)t_min;
@@ -473,6 +573,11 @@ int steeljax_trace_alpha8(const void* snodes, const void* records,
   a.out_u = (float*)out_u;
   a.out_v = (float*)out_v;
   a.out_tri = (int*)out_tri;
+  a.out_n = (float*)out_n;
+  a.out_mat = (int*)out_mat;
+  a.out_tan = (float*)out_tan;
+  a.out_uv = (float*)out_uv;
+  a.out_uvd = (float*)out_uvd;
   a.out_hit = (unsigned char*)out_hit;
   a.out_cnt = (int*)out_cnt;
   a.seen_snode = (unsigned char*)seen_snode;
@@ -483,6 +588,15 @@ int steeljax_trace_alpha8(const void* snodes, const void* records,
   a.cull = cull;
   const bool count = out_cnt != nullptr;
   const bool fine_rows = a.fine != nullptr;
+  if (mode == NEAREST && !alpha) {
+    if (shade_mode == 2) {
+      return launch<NEAREST, 1, false, false, 2>(a, count, stream);
+    }
+    if (shade_mode == 1) {
+      return launch<NEAREST, 1, false, false, 1>(a, count, stream);
+    }
+    return launch<NEAREST, 1, false, false, 0>(a, count, stream);
+  }
   if (mode == NEAREST) {
     return fine_rows ? launch<NEAREST, 1, true, true>(a, count, stream)
                      : launch<NEAREST, 1, true, false>(a, count, stream);

@@ -9,7 +9,9 @@ numpy Morton builder, a different tree), a failed build or load raises.
 `cuda_library()` builds `csrc/*.cu` with nvcc for sm_90a into a shared
 library with a plain C interface, loaded with ctypes: one nvcc process per
 source, all started together, then one link.  Both libraries are built at
-first use and rebuilt when a source is newer than the library.
+first use and rebuilt when a source is newer than the library;
+`cuda_ptxas()` always has a build's register report, building anew when
+the process has loaded a library built earlier.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ CUDA_HEADERS = (_PKG / "csrc" / "trace8_common.cuh",)
 NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+CUDA_LIBRARY = "libsteeljax_torch_cuda.so"
 
 _libs: dict[str, ctypes.CDLL] = {}
 # Compiler output of the last build in this process, by library name
@@ -125,15 +129,12 @@ def _declare_bvh(lib: ctypes.CDLL) -> None:
 
 def _declare_cuda(lib: ctypes.CDLL) -> None:
     ptr = ctypes.c_void_p
-    lib.steeljax_trace_nearest8.restype = ctypes.c_int
-    lib.steeljax_trace_nearest8.argtypes = (
-        [ptr] * 19 + [ctypes.c_int] * 5 + [ptr])
     lib.steeljax_trace_any8.restype = ctypes.c_int
     lib.steeljax_trace_any8.argtypes = (
         [ptr] * 10 + [ctypes.c_int] * 4 + [ptr])
     lib.steeljax_trace_alpha8.restype = ctypes.c_int
     lib.steeljax_trace_alpha8.argtypes = (
-        [ptr] * 16 + [ctypes.c_int] * 7 + [ptr])
+        [ptr] * 22 + [ctypes.c_int] * 8 + [ptr])
     lib.steeljax_trace_inst8.restype = ctypes.c_int
     lib.steeljax_trace_inst8.argtypes = (
         [ptr] * 23 + [ctypes.c_int] * 8 + [ptr])
@@ -202,8 +203,18 @@ def ptxas_table(log: str) -> dict:
 
 
 def cuda_library() -> ctypes.CDLL:
-    return _load("libsteeljax_torch_cuda.so", CUDA_SOURCES + CUDA_HEADERS,
-                 build_cuda, _declare_cuda)
+    return _load(CUDA_LIBRARY, CUDA_SOURCES + CUDA_HEADERS, build_cuda,
+                 _declare_cuda)
+
+
+def cuda_ptxas() -> dict:
+    """ptxas_table of the CUDA library's build from this tree's sources:
+    the report of this process's build, or, when it has built none (a
+    current library from an earlier run is only loaded), of a build run
+    now, after which cuda_library() loads that build without another."""
+    if CUDA_LIBRARY not in BUILD_LOGS:
+        build_cuda(BUILD_DIR / CUDA_LIBRARY)
+    return ptxas_table(BUILD_LOGS[CUDA_LIBRARY])
 
 
 def build_bvh_sah(tri_pos: np.ndarray, max_leaf: int

@@ -66,11 +66,8 @@ def test_hopper_records_match_reference_rows(masks):
     chunk = ours.chunks[0]
     rows = np.asarray(ref.chunks[0].tris_packed)
     np.testing.assert_array_equal(chunk.tris_packed.numpy(), rows)
-    if masks == "none":
-        assert chunk.tri_records is None  # only masked tables carry one
-        records = cuda_traverse.hopper_records(chunk.tris_packed)
-    else:
-        records = chunk.tri_records
+    records = chunk.tri_records  # every flat chunk carries one
+    if masks != "none":
         # The AUX word of every real record decodes to ds | mask << 1.
         real = order >= 0
         aux = records[:len(order)][torch.from_numpy(real), 3]
@@ -111,11 +108,18 @@ def masked():
     return tables.chunks[0], torch.from_numpy(o), torch.from_numpy(d)
 
 
-def _launch(chunk, o, d, query="nearest", **kw):
+def _launch(chunk, o, d, query="nearest", bvh8=None, k_hits=4, **kw):
+    """The launcher of `query` ("nearest" K4, "any" K4_anyhit, "multihit"
+    K5) over the masked chunk."""
+    kw.setdefault("alpha_mask", True)
     kw.setdefault("fine_rows", chunk.fine_mask_rows)
     kw.setdefault("records", chunk.tri_records)
-    return cuda_traverse.alpha_launcher(query, chunk.bvh8, chunk.tris_packed,
-                                        o, d, 0.001, 1000.0, **kw)
+    args = (bvh8 or chunk.bvh8, chunk.tris_packed, o, d, 0.001, 1000.0)
+    if query == "nearest":
+        return cuda_traverse.kernel_launcher(*args, **kw)
+    if query == "any":
+        return cuda_traverse.anyhit_launcher(*args, **kw)
+    return cuda_traverse.multihit_launcher(*args, k_hits, **kw)
 
 
 @pytest.mark.parametrize("query", ["nearest", "any", "multihit"])
@@ -129,10 +133,7 @@ def test_launcher_refuses_a_tree_too_deep(masked, query, depth):
     deep = BVH8(rows=chunk.bvh8.rows, depth=depth,
                 max_leaf=chunk.bvh8.max_leaf)
     with pytest.raises(ValueError, match="stack"):
-        cuda_traverse.alpha_launcher(query, deep, chunk.tris_packed, o, d,
-                                     0.001, 1000.0, k_hits=4,
-                                     fine_rows=chunk.fine_mask_rows,
-                                     records=chunk.tri_records)
+        _launch(chunk, o, d, query, bvh8=deep)
 
 
 @pytest.mark.parametrize("k", [0, 1, 3, 16])
@@ -156,9 +157,13 @@ def test_launcher_refuses_records_of_another_shape(masked, shape):
 
 
 def test_k4_launcher_needs_masks(masked):
+    """K4's queries apply masks: without alpha_mask the nearest launcher is
+    K1 and the any-hit launcher K2 in traverse8.cu, and neither takes fine
+    mask planes."""
     chunk, o, d = masked
-    with pytest.raises(ValueError, match="alpha_mask"):
-        _launch(chunk, o, d, alpha_mask=False, fine_rows=None)
+    for query in ("nearest", "any"):
+        with pytest.raises(ValueError, match="alpha_mask"):
+            _launch(chunk, o, d, query, alpha_mask=False)
 
 
 @pytest.mark.parametrize("query", ["nearest", "any", "multihit"])
