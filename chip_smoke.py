@@ -37,8 +37,9 @@ Phases:
   1. device and toolchain (nvidia-smi, torch, CUDA, nvcc, g++);
   2. build of the BVH builder and the CUDA kernel library from the sources
      (the CUDA library even where a current one was built before), with
-     ptxas' registers and spills for every kernel instance, and a check
-     that K2's instances kept theirs (K2_PTXAS);
+     ptxas' registers and spills for every kernel instance, a check that
+     every instance of csrc/alpha8.cu's walk (K1-K5) spills no byte, and
+     K2's registers;
   3. preparation of paths L, T, F, S, F with multihit_k = 4, U and UL
      through prepare_scene and of paths I and J through the renderer, each
      of these two with a refresh_scene() after an edit (host seconds by
@@ -75,10 +76,11 @@ Phases:
 The second-to-last line is the kernels' JSON summary, the last line the
 device JSON.
 
-With --ab-old DIR, phase 3c times K1 and K3 against the earlier kernels
-built from DIR (steeljax_torch/apps/kernel_ab.py says how to unpack them):
-its "A/B" lines give old and new ms in turns, how far the outputs agree
-and both designs' per-ray work counts.
+With --ab-old DIR, phase 3c times K2 and K2-dense against the earlier
+kernels built from DIR (steeljax_torch/apps/kernel_ab.py says how to
+unpack them): its "A/B" lines give old and new ms in turns, the flag
+mismatches, both designs' per-ray work counts and a frame of path L and of
+path L dense with each design.
 
 Usage: python3 chip_smoke.py [--ab-old DIR]
 """
@@ -104,7 +106,7 @@ PIXEL_ATOL = 1e-4
 # operations/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
-# fp32 operations of the kernels' work units (csrc/traverse8.cu): a
+# fp32 operations of the kernels' work units (csrc/alpha8.cu): a
 # supernode pop slab-tests 8 children (6 subtractions, 6 products, 6
 # min/max, 4 min/max reductions, 3 comparisons each); a triangle test is
 # Moller-Trumbore (two cross products, three dot products, a reciprocal,
@@ -144,11 +146,12 @@ ROWS = (("K1", "Cornell", PRIMARIES), ("K1", "path L", PRIMARIES),
         ("K4_anyhit", "path F", "first-bounce sun rays"),
         ("K6", "path I", PRIMARIES), ("K6_anyhit", "path I", SHADOW),
         ("K6_shade2", "path J", PRIMARIES))
-# The earlier designs of K1, K3, K4 and K5 (one thread per ray, scalar
-# loads, a stack in local memory, each leaf tested as it is popped), per
-# ray on the same rays as phase 3b: counted by their COUNT instances on the
-# H100 (K4, K5: apps/alpha_ab.py at commit 233eaca; K1, K3: phase 3c,
-# apps/kernel_ab.py, with commit 3f38e36's traverse8.cu), by phase 3b row.
+# The earlier designs of K1-K5 (one thread per ray, scalar loads, a stack
+# in local memory, each leaf tested as it is popped), per ray on the same
+# rays as phase 3b: counted by their COUNT instances on the H100 (K4, K5:
+# apps/alpha_ab.py at commit 233eaca; K1, K3: phase 3c, apps/kernel_ab.py
+# at commit dabca91, with commit 3f38e36's traverse8.cu; K2, K2-dense:
+# phase 3c with commit dabca91's traverse8.cu), by phase 3b row.
 # The bounds take the smaller of these and the new kernel's counts: a walk
 # order that pops more nodes does not raise the least time of the
 # function.
@@ -172,17 +175,16 @@ EARLIER_PER_RAY = {
                                   "triangle_tests": 15.855},
     ("K3", "path T", BOUNCE1): {"supernode_pops": 4.556,
                                 "triangle_tests": 23.461},
+    ("K2", "path L", SHADOW): {"supernode_pops": 0.4516,
+                               "triangle_tests": 0.4384},
+    ("K2_dense", "path L", SHADOW): {"supernode_pops": 0.4516,
+                                     "triangle_tests": 0.4384},
 }
 assert set(EARLIER_PER_RAY) <= set(ROWS)
-# ptxas' registers and stack frame (bytes) of the any-hit kernel K2's
-# instances, trace8_kernel<DENSE, COUNT>, as commit 3f38e36's library built
-# them (trace8_kernel<true, DENSE, false, COUNT>, phase 2 on the H100): K2
-# keeps its one-thread walk, and phase 2 checks that it kept its
-# registers.
-K2_PTXAS = {"trace8_kernel<false, false>": (40, 1024),
-            "trace8_kernel<false, true>": (48, 1024),
-            "trace8_kernel<true, false>": (40, 1024),
-            "trace8_kernel<true, true>": (48, 1024)}
+# The walk of csrc/alpha8.cu (K1-K5) in ptxas' report: every instance's
+# name starts so, and K2's (ANY, K = 1, no masks; COUNT either way) so.
+WALK_INSTANCE = "alpha8_kernel<"
+K2_INSTANCE = "alpha8_kernel<1, 1, false, false, "
 # Bytes each ray reads (o, d, t_min, t_max; a dead ray, t_max < t_min, only
 # its interval: the function needs no more to reject it) and writes, by
 # kernel (K5 writes K = 4 slots of t, u, v and tri).
@@ -259,17 +261,26 @@ def _print_ptxas(label: str, table: dict) -> None:
               f"{smem} B")
 
 
-def check_k2_ptxas(table: dict) -> dict:
-    """K2's instances' (registers, stack frame) in a ptxas table; raises
-    when the table is empty (no build's report) or they differ from
-    K2_PTXAS."""
+def check_spills(table: dict) -> dict:
+    """Raise unless a ptxas table holds instances of csrc/alpha8.cu's walk,
+    K2's among them, and none of them spills a byte (a spill puts the walk's
+    registers in local memory); raises on an empty table (no build's
+    report).  Returns K2's instances' (registers, stack frame bytes)."""
     if not table:
         raise RuntimeError("no ptxas report: the CUDA library was not built "
                            "from the sources in this run")
-    k2 = {name: table.get(name, (None, None))[:2] for name in K2_PTXAS}
-    if k2 != K2_PTXAS:
-        raise RuntimeError(f"K2's instances changed their registers: {k2}, "
-                           f"earlier {K2_PTXAS}")
+    walk = {name: entry for name, entry in table.items()
+            if name.startswith(WALK_INSTANCE)}
+    k2 = {name: entry[:2] for name, entry in walk.items()
+          if name.startswith(K2_INSTANCE)}
+    if not k2:
+        raise RuntimeError("the ptxas report has no instance of K2 "
+                           f"({K2_INSTANCE}...)")
+    spills = {name: entry[2:4] for name, entry in walk.items()
+              if entry[2] or entry[3]}
+    if spills:
+        raise RuntimeError("instances of alpha8.cu's walk spill (store, "
+                           f"load bytes): {spills}")
     return k2
 
 
@@ -277,8 +288,8 @@ def phase_build() -> dict:
     """Build both libraries, the CUDA library from the sources even where a
     current one was built before (native.cuda_ptxas); print ptxas'
     registers, stack frame, spills and static shared memory of every kernel
-    instance, check that K2's instances kept theirs (K2_PTXAS), and return
-    that table."""
+    instance, check that no instance of alpha8.cu's walk spills
+    (check_spills), print K2's registers, and return that table."""
     from steeljax_torch import native
 
     for name, build in (("BVH builder (g++)", native.bvh_library),
@@ -289,9 +300,9 @@ def phase_build() -> dict:
     native.cuda_library()
     table = native.cuda_ptxas()
     _print_ptxas("this tree", table)
-    k2 = check_k2_ptxas(table)
-    print(f"ptxas, K2's instances (registers, stack frame): {k2}, as "
-          "earlier")
+    k2 = check_spills(table)
+    print(f"ptxas: no instance of alpha8.cu's walk spills; K2's instances "
+          f"(registers, stack frame bytes): {k2}")
     return table
 
 
@@ -418,11 +429,17 @@ def _timed_kernel(row, launcher, plain, rays, plain_rays, check=None):
         if not parity["ok"]:
             raise RuntimeError(f"{label}: the kernel disagrees with its "
                                f"plain version: {parity}")
+    if check is None:
+        held = ""
+    elif "max_t_delta" in entry["parity"]:
+        held = f", max |kernel - plain| {entry['parity_max_abs_err']:.3e}"
+    else:
+        held = (f", {entry['parity']['hit_mismatches']} flag mismatches "
+                "against plain")
     print(f"{label}: {n_rays} rays, kernel {kernel_ms:.4f} ms; plain "
           f"{plain_ms:.4f} ms on {plain_rays} rays"
           f"{'' if plain_rays == n_rays else ' (a strided subset)'}"
-          + (f", max |kernel - plain| {entry['parity_max_abs_err']:.3e}"
-             if check is not None else "") + "; " + _bound_text(bound))
+          + held + "; " + _bound_text(bound))
     return entry
 
 
@@ -642,6 +659,7 @@ def phase_prepare(device) -> tuple[dict, dict, dict]:
 
 def phase_parity(device, scenes) -> dict:
     from steeljax_torch.accel import cuda_traverse as ct
+    from steeljax_torch.accel.dispatch import anyhit_tables
     from steeljax_torch.apps import kernel_parity as kp
 
     results = kp.run(device, width=WIDTH, height=HEIGHT, scenes=scenes)
@@ -747,16 +765,27 @@ def phase_parity(device, scenes) -> dict:
     scene, flat, tables = scenes["sunlit"]
     rays = kp.sunlit_shadow_case(scene, flat, tables, WIDTH, HEIGHT)
     subset = kp.strided_subset(rays, kp.SHADOW_SUBSET)
-    for name, chunk, dense in (
-            ("K2", tables.chunks[0], False),
-            ("K2_dense", scenes["sunlit_dense"][2].chunks[0], True)):
-        bvh8 = chunk.anyhit_bvh8 if dense else chunk.bvh8
-        tris = chunk.anyhit_tris if dense else chunk.tris_packed
+    for name, chunk in (("K2", tables.chunks[0]),
+                        ("K2_dense", scenes["sunlit_dense"][2].chunks[0])):
+        bvh8, tris, records, dense = anyhit_tables(chunk)
+
+        def check(plain_hit):
+            hit = ct.trace_any_bvh8(bvh8, tris, *subset, dense,
+                                    records=records)
+            results = {}
+            kp._compare_hits(name, hit, plain_hit, results)
+            return results[name]
+
         kernels[name].update(_timed_kernel(
             (name, "path L", SHADOW), lambda counters: ct.anyhit_launcher(
-                bvh8, tris, *rays, dense=dense, counters=counters),
+                bvh8, tris, *rays, dense=dense, counters=counters,
+                records=records),
             lambda: ct.trace_any_bvh8_plain(bvh8, tris, *subset, dense),
-            rays, subset[0].shape[0]))
+            rays, subset[0].shape[0], check))
+        kernels[name]["mismatches"][f"path L {SHADOW}"] = (
+            kernels[name]["parity"]["hit_mismatches"])
+        kernels[name]["max_abs_err"] = float(
+            max(kernels[name]["mismatches"].values()) > 0)
         kernels[name]["shapes"] = ("path L first-bounce shadow rays, "
                                    "1280x720")
 
@@ -958,47 +987,17 @@ def _png_pixels(path: Path) -> np.ndarray:
     return rows[:, 1:].reshape(size[0], size[1], 3)
 
 
-def _kernel_of(key: str) -> str | None:
-    """The trace kernel a profiler event belongs to, from the kernel's name
-    and the template arguments of its instance (alpha8_kernel: MODE, K,
-    ALPHA, FINE, COUNT, SHADE with MODE 0 K4 with ALPHA, else K1 or, with
-    SHADE 2, K3, MODE 1 K4 any-hit, 2 K5; trace8_kernel: DENSE, COUNT, K2;
-    inst8_kernel: ANY_HIT, SHADE, COUNT; treelet8_kernel: ANY_HIT, SHADE,
-    ALPHA, COUNT; treelet_pick_kernel).  "trace" is a trace kernel of an
-    unknown instance."""
-    if "treelet_pick_kernel" in key:
-        return "K7_pick"
-    if "treelet8_kernel<" in key:
-        any_hit = key.split("treelet8_kernel<", 1)[1].split(",", 1)[0]
-        return "K7_anyhit" if any_hit.strip() in ("true", "1") else "K7"
-    if "alpha8_kernel<" in key:
-        args = [a.strip() for a in key.split("alpha8_kernel<", 1)[1].split(
-            ">", 1)[0].split(",")]
-        if len(args) < 6:
-            return "trace"
-        if args[0] == "0" and args[2] in ("false", "0"):
-            return "K3" if args[5] == "2" else "K1"
-        return {"0": "K4", "1": "K4_anyhit", "2": "K5"}.get(args[0], "trace")
-    if "inst8_kernel<" in key:
-        any_hit = key.split("inst8_kernel<", 1)[1].split(",", 1)[0]
-        return "K6_anyhit" if any_hit.strip() in ("true", "1") else "K6"
-    if "trace8_kernel<" not in key:
-        return None
-    args = key.split("trace8_kernel<", 1)[1].split(">", 1)[0]
-    flags = [a.strip() in ("true", "1") for a in args.split(",")]
-    if len(flags) != 2:
-        return "trace"
-    return "K2_dense" if flags[0] else "K2"
-
-
 def _profile_frames(run_frame, frames: int = 2) -> dict:
     """Device time of `frames` frames under torch.profiler: per frame, the
-    summed device time of all kernels, of each trace kernel and of the
-    largest device kernels, the number of device kernels, the calls of
+    summed device time of all kernels, of each trace kernel (the kernels in
+    its launches' profiler ranges, cuda_traverse.PROFILER_RANGE and the
+    LAUNCHES key) and of the largest device kernels, the number of device kernels, the calls of
     SYNC_CALLS (the window's closing synchronize adds one cudaDeviceSynchronize
     per `frames`), and the host wall time under the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from steeljax_torch.accel.cuda_traverse import PROFILER_RANGE
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1013,17 +1012,17 @@ def _profile_frames(run_frame, frames: int = 2) -> dict:
     trace: dict = {}
     top = []
     for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and \
+        if evt.key.startswith(PROFILER_RANGE):
+            # The range's device side spans the one kernel it launched.
+            if evt.device_type == DeviceType.CUDA:
+                trace[evt.key[len(PROFILER_RANGE):]] = (
+                    evt.self_device_time_total / 1000.0 / frames)
+        elif evt.device_type == DeviceType.CUDA and \
                 not evt.is_user_annotation:
             busy += evt.self_device_time_total
             kernels += evt.count
             top.append((evt.self_device_time_total / 1000.0 / frames,
                         evt.count / frames, evt.key))
-            kernel = _kernel_of(evt.key)
-            if kernel:
-                trace[kernel] = (trace.get(kernel, 0.0)
-                                 + evt.self_device_time_total / 1000.0
-                                 / frames)
         elif evt.key in syncs:
             syncs[evt.key] += evt.count / frames
     return {"wall_ms": wall_ms, "busy_ms": busy / 1000.0 / frames,
@@ -1404,10 +1403,10 @@ def phase_instanced_edit(device, scenes, renderers, flat_prepare_s) -> None:
 
 
 def phase_kernel_ab(scenes, old_dir, ptxas: dict) -> None:
-    """K1 and K3 against the earlier kernels built from `old_dir`, in
-    turns, on the Cornell box and paths L and T, primaries and first-bounce
-    rays (apps/kernel_ab.py); then the earlier library's ptxas registers
-    beside this tree's."""
+    """K2 and K2-dense against the earlier kernels built from `old_dir`, in
+    turns, on path L's first-bounce shadow rays and their live subset, and
+    one frame of path L and path L dense with each (apps/kernel_ab.py);
+    then the earlier library's ptxas registers beside this tree's."""
     from steeljax_torch.apps import kernel_ab
 
     result = kernel_ab.run(scenes, old_dir, WIDTH, HEIGHT)
@@ -1419,7 +1418,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ab-old", default=None, metavar="DIR",
-                    help="also time K1 and K3 against the earlier "
+                    help="also time K2 and K2-dense against the earlier "
                          "kernels built from this csrc directory "
                          "(phase 3c)")
     args = ap.parse_args(argv)
@@ -1506,19 +1505,18 @@ def main(argv=None) -> int:
                 "K7_shade1": path_ul["launches"]["K7"],
                 "K7_anyhit": path_ul["launches"]["K7_anyhit"],
                 "K7_pick": path_u["launches"]["K7_pick"]}
-    sources = {k: "steeljax_torch/csrc/traverse8.cu" for k in launches}
+    sources = {k: "steeljax_torch/csrc/alpha8.cu" for k in launches}
     for k in ("K7", "K7_shade1", "K7_anyhit", "K7_pick"):
         sources[k] = "steeljax_torch/csrc/treelet8.cu"
-    for k in ("K1", "K3", "K4", "K4_anyhit", "K5"):
-        sources[k] = "steeljax_torch/csrc/alpha8.cu"
     for k in ("K6", "K6_shade2", "K6_anyhit"):
         sources[k] = "steeljax_torch/csrc/instanced8.cu"
     titles = {
         "K1": "K1 trace_alpha8 NEAREST without masks (BVH8 nearest hit, "
               "cull, shade mode 1)",
-        "K2": "K2 trace_any8 (BVH8 any-hit occlusion, 12-record rows)",
-        "K2_dense": "K2-dense trace_any8 (any-hit occlusion, dense "
-                    "14-record rows)",
+        "K2": "K2 trace_alpha8 ANY without masks (BVH8 any-hit occlusion, "
+              "the 12-record rows' 48-byte records)",
+        "K2_dense": "K2-dense trace_alpha8 ANY without masks (any-hit "
+                    "occlusion, the dense 14-record rows' 48-byte records)",
         "K3": "K3 trace_alpha8 NEAREST without masks (nearest hit, "
               "textured shade mode 2)",
         "K4": "K4 trace_alpha8 NEAREST (nearest hit with alpha masks, coarse "

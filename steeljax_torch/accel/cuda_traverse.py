@@ -12,11 +12,11 @@ table), the K-nearest multi-hit query (K5), the two-level query over an
 instance TLAS and object-space BLAS (K6) and the rounds of the treelet
 scheduler, each a flat query over one treelet per ray packet that updates
 the scheduler's state in place and picks every packet's next treelet (K7).
-The kernels are `csrc/alpha8.cu` (K1, K3, K4 and K5: one walk with three
-candidate policies), `csrc/traverse8.cu` (K2), `csrc/instanced8.cu` (K6)
-and `csrc/treelet8.cu` (K7 and the scheduler's first pick), all but K2
-over the Hopper record table of `hopper_records`; native.cuda_library()
-builds them, and they are called through plain C functions.
+The kernels are `csrc/alpha8.cu` (K1-K5: one walk with three candidate
+policies), `csrc/instanced8.cu` (K6) and `csrc/treelet8.cu` (K7 and the
+scheduler's first pick), all over the Hopper record table of
+`hopper_records`; native.cuda_library() builds them, and they are called
+through plain C functions.
 
 `trace_nearest_bvh8`, `trace_any_bvh8`, `trace_multihit_bvh8`,
 `trace_nearest_bvh8_inst`, `trace_treelet_round` and `treelet_pick` launch
@@ -33,9 +33,11 @@ TPU's scheduling, not the result, and have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from steeljax_torch.accel import alphamask
 from steeljax_torch.accel.bvh import (BVH8, DENSE_PER_ROW, DENSE_STRIDE,
@@ -71,6 +73,8 @@ EMPTY_KEY = (1 << 63) - 1
 LAUNCHES = {"K1": 0, "K2": 0, "K2_dense": 0, "K3": 0, "K4": 0,
             "K4_anyhit": 0, "K5": 0, "K6": 0, "K6_anyhit": 0, "K7": 0,
             "K7_anyhit": 0, "K7_pick": 0}
+# The profiler range of a launch: this prefix and its LAUNCHES key.
+PROFILER_RANGE = "trace_kernel."
 # The slot counts the multi-hit kernel is compiled for.
 MULTIHIT_K = (2, 4, 8)
 # The telemetry a kernel writes per ray when asked (the reference's
@@ -182,18 +186,23 @@ def pack_shade_records(tri_nrm, tri_mat, textured: bool = False,
     return _pack_rows(packed, SHADE2_PER_ROW if textured else TRI_PER_ROW)
 
 
-def hopper_records(tris: torch.Tensor) -> torch.Tensor:
+def hopper_records(tris: torch.Tensor, dense: bool = False) -> torch.Tensor:
     """The Hopper record table of csrc/alpha8.cu, instanced8.cu and
     treelet8.cu, derived from pack_tris rows on their device: (R *
     TRI_PER_ROW, HOPPER_RECORD) float32, record k as three 16-byte float4s
     [v0.xyz, f9], [e1.xyz, 0], [e2.xyz, 0], where f9 is the reference
-    record's last float (the AUX word, or the double-sided flag).  Record
-    ids are the reference's, so leaf starts and counts hold."""
-    rec = tris[:, :TRI_PER_ROW * TRI_STRIDE].reshape(-1, TRI_STRIDE)
+    record's last float (the AUX word, or the double-sided flag).  With
+    `dense`, from pack_tris_dense rows: (R * DENSE_PER_ROW, HOPPER_RECORD),
+    f9 = 0 (the dense records have no tenth float).  Record ids are the
+    rows', so leaf starts and counts hold."""
+    per_row, stride = ((DENSE_PER_ROW, DENSE_STRIDE) if dense
+                       else (TRI_PER_ROW, TRI_STRIDE))
+    rec = tris[:, :per_row * stride].reshape(-1, stride)
     out = torch.zeros((rec.shape[0], HOPPER_RECORD), dtype=torch.float32,
                       device=tris.device)
     out[:, 0:3] = rec[:, 0:3]
-    out[:, 3] = rec[:, 9]
+    if not dense:
+        out[:, 3] = rec[:, 9]
     out[:, 4:7] = rec[:, 3:6]
     out[:, 8:11] = rec[:, 6:9]
     return out
@@ -314,9 +323,12 @@ def trace_any_bvh8(bvh8: BVH8, tris: torch.Tensor, o: torch.Tensor,
     t_min) is never occluded.  `tris` is pack_tris rows, or with dense=True
     pack_tris_dense rows over their own supernode rows (the contracts of
     trace_nearest_packet8(any_hit=True) and trace_anyhit_dense,
-    pallas_traverse.py:574-594, :781-794).  alpha_mask, fine_rows and
-    records as in trace_nearest_bvh8 (K4_anyhit; not with dense rows)."""
+    pallas_traverse.py:574-594, :781-794).  alpha_mask and fine_rows as in
+    trace_nearest_bvh8 (K4_anyhit; not with dense rows); `records` is
+    hopper_records(tris, dense), derived anew for the call when None."""
     tensors = {"bvh8.rows": bvh8.rows, "tris": tris, "o": o, "d": d}
+    if records is not None:
+        tensors["records"] = records
     _alpha_tensors(tensors, alpha_mask, fine_rows)
     if dense and alpha_mask:
         raise ValueError("the dense any-hit rows carry no alpha masks")
@@ -394,17 +406,23 @@ def _check_depth(depth: int) -> None:
 
 def _launch_fn(kernel: str, entry: str, args, tensors):
     """A launch closure: runs `entry` of the kernel library with `args` on
-    the current stream and adds one to LAUNCHES[kernel]."""
+    the current stream and adds one to LAUNCHES[kernel].  Under a profiler
+    the launch lies in a range named PROFILER_RANGE + kernel, which the
+    kernel's device time is attributed to (a range costs host time on
+    every launch, so it is entered only then)."""
     from steeljax_torch.native import cuda_library
 
     lib = cuda_library()
     fn = getattr(lib, entry)
     device = tensors[0].device
+    range_name = PROFILER_RANGE + kernel
 
     def launch():
         # The kernel library's runtime launches into the context current
         # on this thread, which torch.cuda.device makes the tensors' own.
-        with torch.cuda.device(device):
+        profiled = torch.autograd._profiler_enabled()
+        with (record_function(range_name) if profiled else nullcontext()), \
+                torch.cuda.device(device):
             status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if status != 0:
             raise RuntimeError(f"{entry} launch failed: CUDA error {status}")
@@ -484,37 +502,21 @@ def kernel_launcher(bvh8, tris_packed, o, d, t_min, t_max,
 def anyhit_launcher(bvh8, tris, o, d, t_min, t_max, dense: bool = False,
                     counters: bool = False, alpha_mask: bool = False,
                     fine_rows=None, records=None):
-    """The any-hit kernel's launcher (K2 of csrc/traverse8.cu; K4_anyhit of
-    csrc/alpha8.cu with alpha_mask), as kernel_launcher: rec["hit"] is
-    (N,) bool; counters=True adds the telemetry of _telemetry."""
+    """The any-hit kernel's launcher, csrc/alpha8.cu's ANY policy: K2
+    (without masks; with `dense`, K2_dense over pack_tris_dense rows and
+    their own supernode rows) or K4_anyhit (alpha_mask), as
+    kernel_launcher: rec["hit"] is (N,) bool; `records` is
+    hopper_records(tris, dense), derived here when None; counters=True adds
+    the telemetry of _telemetry."""
     _alpha_tensors({}, alpha_mask, fine_rows)
     if dense and alpha_mask:
         raise ValueError("the dense any-hit rows carry no alpha masks")
-    if alpha_mask:
-        return _alpha8_launcher("K4_anyhit", 1, bvh8, tris, o, d, t_min,
-                                t_max, False, counters=counters,
-                                fine_rows=fine_rows, records=records)
-    device = o.device
-    _check_launch(bvh8, tris, device)
-    o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
-    n = o.shape[0]
-    # The kernel writes one byte, 0 or 1, per ray: a bool tensor's storage.
-    rec = {"hit": torch.empty(n, dtype=torch.bool, device=device)}
-    if counters:
-        rec.update(_telemetry(n, bvh8, tris,
-                              DENSE_PER_ROW if dense else TRI_PER_ROW))
-
-    def ptr(name):
-        return rec[name].data_ptr() if name in rec else None
-
-    args = (bvh8.rows.data_ptr(), tris.data_ptr(), o.data_ptr(),
-            d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
-            rec["hit"].data_ptr(), ptr("counters"), ptr("seen_nodes"),
-            ptr("seen_records"), n, bvh8.max_leaf, bvh8.depth,
-            int(bool(dense)))
-    return _launch_fn("K2_dense" if dense else "K2", "steeljax_trace_any8",
-                      args, (bvh8.rows, tris, o, d, tmn, tmx,
-                             *rec.values())), rec
+    kernel = ("K4_anyhit" if alpha_mask else "K2_dense" if dense
+              else "K2")
+    return _alpha8_launcher(kernel, 1, bvh8, tris, o, d, t_min, t_max,
+                            False, counters=counters, alpha_mask=alpha_mask,
+                            fine_rows=fine_rows, records=records,
+                            dense=dense)
 
 
 def multihit_launcher(bvh8, tris, o, d, t_min, t_max, k_hits: int,
@@ -535,15 +537,18 @@ def _alpha8_launcher(kernel: str, mode: int, bvh8, tris, o, d, t_min, t_max,
                      cull_backface: bool, k_hits: int = 1,
                      counters: bool = False, alpha_mask: bool = True,
                      fine_rows=None, records=None, shade_rows=None,
-                     shade_mode: int = 0):
+                     shade_mode: int = 0, dense: bool = False):
     """One call of csrc/alpha8.cu's entry, for the public launchers, which
     choose the kernel: `mode` 0 nearest (rec t, u, v, tri (N,) and the
     shading outputs of `shade_mode`), 1 any-hit (rec["hit"] (N,) bool, no
     culling), 2 multi-hit ((k_hits, N) slots).  With alpha_mask the coarse
-    masks apply and `fine_rows` adds the fine planes.  counters=True adds
-    the telemetry of _telemetry, seen_fine included."""
+    masks apply and `fine_rows` adds the fine planes.  `tris` holds
+    TRI_PER_ROW records a row, or with `dense` (any-hit without masks)
+    DENSE_PER_ROW, and `records` one Hopper record for each of them.
+    counters=True adds the telemetry of _telemetry, seen_fine included."""
     _check_depth(bvh8.depth)
-    n_records = tris.shape[0] * TRI_PER_ROW
+    per_row = DENSE_PER_ROW if dense else TRI_PER_ROW
+    n_records = tris.shape[0] * per_row
     if records is not None:
         _check_records(records, n_records)
     device = o.device
@@ -551,7 +556,7 @@ def _alpha8_launcher(kernel: str, mode: int, bvh8, tris, o, d, t_min, t_max,
     if shade_mode:
         _check_table("shade_rows", shade_rows, device)
     if records is None:
-        records = hopper_records(tris)
+        records = hopper_records(tris, dense)
     _check_records(records, n_records, device)
     o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
     n = o.shape[0]
@@ -571,7 +576,7 @@ def _alpha8_launcher(kernel: str, mode: int, bvh8, tris, o, d, t_min, t_max,
         rec["uv"] = torch.empty((n, 2), **f32)
         rec["uvd"] = torch.empty(n, **f32)
     if counters:
-        rec.update(_telemetry(n, bvh8, tris, TRI_PER_ROW, fine=True))
+        rec.update(_telemetry(n, bvh8, tris, per_row, fine=True))
 
     def ptr(name):
         return rec[name].data_ptr() if name in rec else None
@@ -583,7 +588,7 @@ def _alpha8_launcher(kernel: str, mode: int, bvh8, tris, o, d, t_min, t_max,
             ptr("hit"), ptr("counters"), ptr("seen_nodes"),
             ptr("seen_records"), ptr("seen_fine"), n, bvh8.max_leaf,
             bvh8.depth, int(bool(cull_backface)), mode, k_hits,
-            int(bool(alpha_mask)), shade_mode)
+            int(bool(alpha_mask)), shade_mode, per_row)
     return _launch_fn(kernel, "steeljax_trace_alpha8", args,
                       (bvh8.rows, records, tris, fine_rows, shade_rows, o, d,
                        tmn, tmx, *rec.values())), rec
@@ -941,13 +946,14 @@ def trace_nearest_bvh8_inst(tables, o: torch.Tensor, d: torch.Tensor,
 
 
 def _check_records(records, n_records: int, device=None) -> None:
-    """A Hopper record table (hopper_records) of at least `n_records`
-    records and, unless `device` is None, contiguous on `device` and 16-byte
-    aligned (the kernels read it as float4s)."""
+    """A Hopper record table (hopper_records) of `n_records` records, one
+    for each record of the rows it was derived from, and, unless `device`
+    is None, contiguous on `device` and 16-byte aligned (the kernels read
+    it as float4s)."""
     if (records is None or records.dtype != torch.float32
             or records.dim() != 2 or records.shape[1] != HOPPER_RECORD
-            or records.shape[0] < n_records):
-        raise ValueError(f"records must be (>= {n_records}, "
+            or records.shape[0] != n_records):
+        raise ValueError(f"records must be ({n_records}, "
                          f"{HOPPER_RECORD}) float32 (hopper_records), got "
                          + ("None" if records is None else
                             f"{tuple(records.shape)} {records.dtype}"))

@@ -50,16 +50,19 @@ class ChunkTables:
     # None until attach_shade_tables.
     shade_packed: torch.Tensor | None = None
     # Dense any-hit tables (pack_tris_dense rows over supernode rows of the
-    # same tree with leaves re-aligned to DENSE_PER_ROW), built only when
-    # prepare_tables is asked to; occlusion queries then read them.
+    # same tree with leaves re-aligned to DENSE_PER_ROW, and their Hopper
+    # record table, cuda_traverse.hopper_records(anyhit_tris, dense=True),
+    # which the kernel K2_dense reads), built only when prepare_tables is
+    # asked to; occlusion queries then read them.
     anyhit_bvh8: BVH8 | None = None
     anyhit_tris: torch.Tensor | None = None
+    anyhit_records: torch.Tensor | None = None
     # Alpha-masked tables: the permuted coarse masks ((rows,) int32, also in
     # the records' AUX words) and the fine mask rows ((R, 128) int32
     # pack_fine_mask_rows, parallel to tris_packed), or None.
     tri_mask: torch.Tensor | None = None
     fine_mask_rows: torch.Tensor | None = None
-    # The Hopper record table the kernels K1 and K3-K5 read
+    # The Hopper record table the kernels K1-K5 read
     # (cuda_traverse.hopper_records of tris_packed), derived on the device
     # for every chunk that has triangle rows.
     tri_records: torch.Tensor | None = None
@@ -136,8 +139,9 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
     adds the fine mask rows; both are dropped when every triangle's coarse
     mask is MASK_FULL (masking is then a no-op), and masked tables get no
     dense any-hit tables (their rows carry no masks).  Every chunk also
-    gets the Hopper record table the kernels K1 and K3-K5 read, derived on
-    the device from the triangle rows (cuda_traverse.hopper_records).
+    gets the Hopper record table the kernels K1-K5 read, derived on the
+    device from the triangle rows (cuda_traverse.hopper_records), and the
+    dense any-hit tables their own, from the dense rows.
     Each step is a `prepare_tables.<step>` range for torch.profiler.
 
     Returns (tables, order, total_padded): reorder every per-triangle array
@@ -168,7 +172,7 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
         bvh, order, padded = build_bvh(tri_pos, leaf_size)
     with record_function("prepare_tables.collapse_bvh8"):
         rows8, depth8 = collapse_bvh8(bvh.nodes, leaf_size)
-    anyhit_bvh8 = anyhit_tris = None
+    anyhit_bvh8 = anyhit_tris = anyhit_records = None
     if dense_anyhit:
         with record_function("prepare_tables.dense_anyhit_tables"):
             # The same binary tree, leaves re-aligned to DENSE_PER_ROW, and
@@ -181,6 +185,8 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
                                depth=ddepth8, max_leaf=leaf_size)
             anyhit_tris = torch.from_numpy(
                 cuda_traverse.pack_tris_dense(dense_pos)).to(device)
+            anyhit_records = cuda_traverse.hopper_records(anyhit_tris,
+                                                          dense=True)
     if count:
         real_pos = tri_pos.reshape(-1, 3)
         lo = tuple(float(v) for v in real_pos.min(axis=0))
@@ -199,6 +205,7 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
                 permuted_pos, permuted_ds,
                 tri_alpha_mask=permuted_mask)).to(device),
             anyhit_bvh8=anyhit_bvh8, anyhit_tris=anyhit_tris,
+            anyhit_records=anyhit_records,
             tri_mask=(None if mask is None else torch.from_numpy(
                 permuted_mask.astype(np.int32)).to(device)),
             row_offset=0, rows=padded, aabb=(lo, hi))
@@ -313,9 +320,10 @@ def trace_nearest(tables: TraceTables | InstancedTables, o: torch.Tensor,
 def trace_any(tables: TraceTables | InstancedTables, o: torch.Tensor,
               d: torch.Tensor, t_min, t_max) -> torch.Tensor:
     """Occlusion over the scene's one chunk, (N,) bool: the dense any-hit
-    tables when they are attached, else the nearest tables' rows with
-    culling off (and their masks, K4_anyhit, when alpha-masked); instanced
-    and treelet tables through their own any-hit queries."""
+    tables when they are attached (K2_dense), else the nearest tables' rows
+    with culling off (K2, or with their masks K4_anyhit when
+    alpha-masked), each with its chunk's Hopper record table; instanced and
+    treelet tables through their own any-hit queries."""
     if isinstance(tables, InstancedTables):
         return trace_nearest_instanced(tables, o, d, t_min, t_max,
                                        cull_backface=False,
@@ -325,14 +333,21 @@ def trace_any(tables: TraceTables | InstancedTables, o: torch.Tensor,
             tables.treelets, o, d, t_min, t_max, cull_backface=False,
             any_hit=True)["hit"]
     chunk = _one_chunk(tables)
-    if chunk.anyhit_tris is not None:
-        return cuda_traverse.trace_any_bvh8(
-            chunk.anyhit_bvh8, chunk.anyhit_tris, o, d, t_min, t_max,
-            dense=True)
+    bvh8, tris, records, dense = anyhit_tables(chunk)
     return cuda_traverse.trace_any_bvh8(
-        chunk.bvh8, chunk.tris_packed, o, d, t_min, t_max,
+        bvh8, tris, o, d, t_min, t_max, dense=dense,
         alpha_mask=tables.alpha_masked, fine_rows=chunk.fine_mask_rows,
-        records=chunk.tri_records)
+        records=records)
+
+
+def anyhit_tables(chunk: ChunkTables) -> tuple:
+    """(bvh8, rows, records, dense): the tables a chunk's occlusion query
+    reads, the dense any-hit tables when they are attached (masked tables
+    never have them), else the nearest tables'."""
+    if chunk.anyhit_tris is not None:
+        return (chunk.anyhit_bvh8, chunk.anyhit_tris, chunk.anyhit_records,
+                True)
+    return chunk.bvh8, chunk.tris_packed, chunk.tri_records, False
 
 
 def trace_multihit(tables: TraceTables, o: torch.Tensor, d: torch.Tensor,

@@ -1,35 +1,36 @@
-"""Old against new for the nearest-hit kernels K1 and K3, on one card.
+"""Old against new for the any-hit kernels K2 and K2-dense, on one card.
 
 The earlier kernels are built from a `csrc` directory of an earlier commit
 into a library of their own, with the same nvcc flags, and called through
 their own C entry on the same tables and rays as this tree's, each call
-timed in turns (old, new, new, old) by CUDA events over timing.REPS
-launches.  The earlier K1 and K3 (commit 3f38e36's `traverse8.cu`,
-`steeljax_trace_nearest8`) are the port's first one-thread walk: scalar
-loads of child boxes and of the reference's 40-byte triangle records, and
-each leaf tested as it is popped.  This tree's (csrc/alpha8.cu, NEAREST
-without masks) reads child boxes and the 48-byte Hopper records with
-16-byte loads and postpones leaves.  Cases: K1 on the Cornell primaries
-and first-bounce rays, K1 in shade mode 1 on path L's primaries and
-first-bounce rays, K3 on path T's.  Per case it prints both times, how far
-the outputs agree (hit mismatches, tri ids equal where both hit and of
-those that differ the ones at exactly equal t, |delta t|, normal and uv
-deltas where the ids agree, material mismatches) and both designs' per-ray
-work counts.  Then one 1280x720 frame of each of those paths, rendered
-with the earlier kernels in the wrapper's place and with this tree's,
-whose rays_traced must agree, and its host wall time in turns (old, new,
-new, old); then the ptxas registers of the earlier library's K1-K3
-instances beside this tree's, and whether the any-hit kernel K2 kept its
-registers.
+timed in turns (old, new, new, old): CUDA events around KERNEL_REPS
+launches queued behind a device sleep (timing.queued_ms), so no host gap
+between launches counts.  The earlier K2 and K2-dense (commit dabca91's
+`traverse8.cu`, `steeljax_trace_any8`) are the port's first one-thread
+walk: scalar loads of child boxes and of the reference's 36-byte records
+(in 12-record rows at a 40-byte stride, or in the dense 14-record rows),
+each leaf tested as it is popped.  This tree's are csrc/alpha8.cu's ANY
+policy without masks over the 48-byte Hopper record tables every chunk
+carries (`tri_records`, `anyhit_records`).  Cases: K2 and K2-dense on path
+L's first-bounce shadow rays (the shadow rays at the primaries' hits, of
+which about 23% are live; the others carry the dead interval t_max <
+t_min), and on their live subset, compacted by the caller for the timing
+alone (every lane live).  Per case it prints both times, the flag
+mismatches and both designs' per-ray work counts.  Then one 1280x720 frame
+of path L and of path L with the dense any-hit tables, rendered with the
+earlier kernels in the wrapper's place and with this tree's, whose
+rays_traced must agree, and the frame's host wall time in turns (old, new,
+new, old); then the ptxas registers of the earlier library's K2 instances
+beside this tree's.
 
 Usage, on the card, from the repository root (`_archive/` is not tracked):
     mkdir -p _archive/parent
-    git archive 3f38e36 steeljax_torch/csrc | tar -x -C _archive/parent
+    git archive dabca91 steeljax_torch/csrc | tar -x -C _archive/parent
     python -m steeljax_torch.apps.kernel_ab \\
         --old _archive/parent/steeljax_torch/csrc
-It first holds this tree's K1 and K3 against their plain versions (the
-parity variants of kernel_parity).  chip_smoke.py --ab-old DIR runs the
-same comparison on its prepared paths, without that step.
+It first holds this tree's K2 and K2-dense against their plain versions
+(the any-hit variants of kernel_parity).  chip_smoke.py --ab-old DIR runs
+the same comparison on its prepared paths, without that step.
 """
 
 from __future__ import annotations
@@ -44,16 +45,21 @@ from unittest import mock
 
 import torch
 
-from steeljax_torch.apps.timing import time_ms, wall_ms
+from steeljax_torch.apps.timing import queued_ms, wall_ms
 
 OLD_LIBRARY = "libsteeljax_torch_cuda_old.so"
+# Launches a timed turn of a kernel queues behind the device sleep.
+KERNEL_REPS = 32
 # Frames a turn of the frame walls times, after one warm frame.
 FRAME_REPS = 5
+# The parity variants of K2 and K2-dense (kernel_parity).
+ANYHIT_VARIANTS = ("flat_anyhit", "flat_anyhit_dense", "sunlit_shadow",
+                   "sunlit_shadow_dense")
 
 
 def build_old(src_dir) -> ctypes.CDLL:
-    """The earlier traverse8.cu (K1-K3) of `src_dir` (commit 3f38e36's
-    layout), built into a library of its own."""
+    """The earlier traverse8.cu (K2, K2-dense) of `src_dir` (commit
+    dabca91's layout), built into a library of its own."""
     from steeljax_torch import native
 
     src = Path(src_dir) / "traverse8.cu"
@@ -63,109 +69,85 @@ def build_old(src_dir) -> ctypes.CDLL:
     target = native.BUILD_DIR / OLD_LIBRARY
     native.build_cuda(target, [src])
     lib = ctypes.CDLL(str(target))
-    lib.steeljax_trace_nearest8.restype = ctypes.c_int
-    lib.steeljax_trace_nearest8.argtypes = (
-        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.steeljax_trace_any8.restype = ctypes.c_int
+    lib.steeljax_trace_any8.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return lib
 
 
-def old_nearest_launcher(lib, bvh8, tris, shade, mode: int, rays,
-                         cull: bool = True, counters: bool = False):
-    """(launch, rec) of the earlier K1/K3, as cuda_traverse.kernel_launcher,
-    over the reference's triangle rows `tris` and shade rows `shade` (None
-    in shade mode 0)."""
+def old_anyhit_launcher(lib, bvh8, tris, rays, dense: bool,
+                        counters: bool = False):
+    """(launch, rec) of the earlier K2 (K2-dense with `dense`), as
+    cuda_traverse.anyhit_launcher, over the reference's rows `tris`."""
     from steeljax_torch.accel import cuda_traverse as ct
 
     device = tris.device
     o, d, tmn, tmx = ct._rays_and_interval(*rays, device)
     n = o.shape[0]
-    f32 = dict(dtype=torch.float32, device=device)
-    rec = {"t": torch.empty(n, **f32), "u": torch.empty(n, **f32),
-           "v": torch.empty(n, **f32),
-           "tri": torch.empty(n, dtype=torch.int32, device=device)}
-    if mode:
-        rec["n"] = torch.empty((n, 3), **f32)
-        rec["mat"] = torch.empty(n, dtype=torch.int32, device=device)
-    if mode == 2:
-        rec["tan"] = torch.empty((n, 3), **f32)
-        rec["uv"] = torch.empty((n, 2), **f32)
-        rec["uvd"] = torch.empty(n, **f32)
+    rec = {"hit": torch.empty(n, dtype=torch.bool, device=device)}
     if counters:
-        rec.update(ct._telemetry(n, bvh8, tris, ct.TRI_PER_ROW))
+        rec.update(ct._telemetry(n, bvh8, tris, ct.DENSE_PER_ROW if dense
+                                 else ct.TRI_PER_ROW))
 
     def ptr(name):
         return rec[name].data_ptr() if name in rec else None
 
-    shade = shade if mode else None
-    args = (bvh8.rows.data_ptr(), tris.data_ptr(), ct._ptr(shade),
-            o.data_ptr(), d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
-            ptr("t"), ptr("u"), ptr("v"), ptr("tri"), ptr("n"), ptr("mat"),
-            ptr("tan"), ptr("uv"), ptr("uvd"), ptr("counters"),
-            ptr("seen_nodes"), ptr("seen_records"), n, bvh8.max_leaf,
-            bvh8.depth, int(cull), mode)
-    keep = (bvh8.rows, tris, shade, o, d, tmn, tmx, *rec.values())
+    args = (bvh8.rows.data_ptr(), tris.data_ptr(), o.data_ptr(),
+            d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(), ptr("hit"),
+            ptr("counters"), ptr("seen_nodes"), ptr("seen_records"), n,
+            bvh8.max_leaf, bvh8.depth, int(dense))
 
     def launch():
-        status = lib.steeljax_trace_nearest8(
+        status = lib.steeljax_trace_any8(
             *args, torch.cuda.current_stream(device).cuda_stream)
         if status != 0:
-            raise RuntimeError(f"earlier K1/K3: CUDA error {status}")
+            raise RuntimeError(f"earlier K2: CUDA error {status}")
 
-    launch.tensors = keep
+    launch.tensors = (bvh8.rows, tris, o, d, tmn, tmx, *rec.values())
     return launch, rec
 
 
-def new_nearest_launcher(chunk, mode: int, rays, counters: bool = False):
-    """(launch, rec) of this tree's K1/K3 over the chunk's own record
-    table, as the render path calls it."""
+def new_anyhit_launcher(chunk, rays, counters: bool = False):
+    """(launch, rec) of this tree's K2 (K2-dense on a chunk with dense
+    tables) over the chunk's own record table, as the render path calls
+    it."""
     from steeljax_torch.accel import cuda_traverse as ct
+    from steeljax_torch.accel.dispatch import anyhit_tables
 
-    return ct.kernel_launcher(
-        chunk.bvh8, chunk.tris_packed, *rays, True,
-        chunk.shade_packed if mode else None, mode, counters=counters,
-        records=chunk.tri_records)
-
-
-def agreement(old: dict, new: dict) -> dict:
-    """How far two nearest records agree: hit mismatches, tri ids equal
-    where both hit (and of the rays whose ids differ, those at exactly the
-    same t: a tie settled otherwise), the largest |delta t| where both hit,
-    the largest normal and uv deltas where the ids agree, and material
-    mismatches over all rays."""
-    hit_o, hit_n = old["tri"] >= 0, new["tri"] >= 0
-    both = hit_o & hit_n
-    same = both & (old["tri"] == new["tri"])
-    differ = both & ~same
-
-    def max_delta(key, where):
-        if key not in old or not bool(where.any()):
-            return 0.0
-        delta = (old[key] - new[key]).abs()
-        if delta.dim() > 1:
-            delta = delta.max(dim=-1).values
-        return float(delta[where].max())
-
-    return {"hit_mismatches": int((hit_o != hit_n).sum()),
-            "hits": int(hit_o.sum()),
-            "tri_equal_pct": 100.0 * int(same.sum()) / max(int(both.sum()),
-                                                           1),
-            "tri_differ": int(differ.sum()),
-            "tri_differ_equal_t": int((differ
-                                       & (old["t"] == new["t"])).sum()),
-            "max_t_delta": max_delta("t", both),
-            "max_normal_delta": max_delta("n", same),
-            "max_uv_delta": max_delta("uv", same),
-            "mat_mismatches": (int((old["mat"] != new["mat"]).sum())
-                               if "mat" in old else 0)}
+    bvh8, tris, records, dense = anyhit_tables(chunk)
+    return ct.anyhit_launcher(bvh8, tris, *rays, dense=dense,
+                              counters=counters, records=records)
 
 
-def _agreement_text(a: dict) -> str:
-    return (f"{a['hit_mismatches']} hit mismatches of {a['hits']} hits, tri "
-            f"equal on {a['tri_equal_pct']:.3f}% ({a['tri_differ']} differ, "
-            f"{a['tri_differ_equal_t']} of them at equal t), max |delta t| "
-            f"{a['max_t_delta']:.3e}, normal {a['max_normal_delta']:.3e}, "
-            f"uv {a['max_uv_delta']:.3e}, {a['mat_mismatches']} material "
-            "mismatches")
+def live_subset(rays):
+    """The rays of (o, d, t_min, t_max) with t_max >= t_min, in order."""
+    o, d, t_min, t_max = rays
+    n = o.shape[0]
+    tmn = torch.as_tensor(t_min, device=o.device).expand(n)
+    tmx = torch.as_tensor(t_max, device=o.device).expand(n)
+    live = tmx >= tmn
+    return (o[live].contiguous(), d[live].contiguous(),
+            tmn[live].contiguous(), tmx[live].contiguous())
+
+
+def cases(scenes: dict, width: int, height: int) -> list:
+    """[(label, chunk, rays)]: K2 and K2-dense (path L's chunk with dense
+    tables) on path L's first-bounce shadow rays, then on their live
+    subset."""
+    from steeljax_torch.apps import kernel_parity as kp
+
+    scene, flat, tables = scenes["sunlit"]
+    rays = kp.sunlit_shadow_case(scene, flat, tables, width, height)
+    live = live_subset(rays)
+    chunks = {"K2": tables.chunks[0],
+              "K2-dense": scenes["sunlit_dense"][2].chunks[0]}
+    out = []
+    for ray_set, case_rays in (("first-bounce shadow rays", rays),
+                               ("first-bounce shadow rays, live subset",
+                                live)):
+        for name, chunk in chunks.items():
+            out.append((f"{name} path L {ray_set}", chunk, case_rays))
+    return out
 
 
 def _per_ray(rec: dict) -> dict:
@@ -175,101 +157,85 @@ def _per_ray(rec: dict) -> dict:
     return dict(zip(COUNTERS[:4], mean[:4]))
 
 
-def cases(scenes: dict, width: int, height: int) -> list:
-    """[(label, chunk, shade mode, rays)]: K1 on the Cornell primaries and
-    first-bounce rays (shade mode 1), K1 on path L's primaries and
-    first-bounce rays (mode 1), K3 on path T's (mode 2)."""
-    from steeljax_torch.apps import kernel_parity as kp
-
-    out = []
-    device = scenes["sunlit"][1].device
-    _, ctables, cornell = kp.cornell_cases(device, width, height)
-    for name, label in (("primary", "primaries"),
-                        ("bounce1", "first-bounce rays")):
-        out.append((f"K1 Cornell {label}", ctables.chunks[0], 1,
-                    cornell[name]))
-    for key, kernel, path in (("sunlit", "K1", "path L"),
-                              ("stress_tex", "K3", "path T")):
-        scene, flat, tables = scenes[key]
-        chunk, mode = tables.chunks[0], tables.shade_mode
-        out.append((f"{kernel} {path} primaries", chunk, mode,
-                    kp.tiled_primary(scene, device, width, height)[:4]))
-        out.append((f"{kernel} {path} first-bounce rays", chunk, mode,
-                    kp.first_bounce_case(scene, flat, tables, width,
-                                         height)))
-    return out
-
-
 def run(scenes: dict, old_dir, width: int = 1280, height: int = 720) -> dict:
     """Build the earlier kernels from `old_dir` and time them against this
-    tree's on `cases` (scenes["sunlit"] and scenes["stress_tex"] are
+    tree's on `cases` (scenes["sunlit"] and scenes["sunlit_dense"] are
     prepare_path_scene results), in turns old, new, new, old.  Print every
-    number and return {"cases": {label: ...}, "old_ptxas": ...}."""
+    number and return {"cases": {label: ...}, "frames": ..., "old_ptxas":
+    ...}; raises on a flag mismatch."""
     from steeljax_torch import native
+    from steeljax_torch.accel.dispatch import anyhit_tables
 
     lib = build_old(old_dir)
     out = {}
-    for label, chunk, mode, rays in cases(scenes, width, height):
-        old = (lib, chunk.bvh8, chunk.tris_packed, chunk.shade_packed, mode,
-               rays)
-        launchers = {"old": old_nearest_launcher(*old),
-                     "new": new_nearest_launcher(chunk, mode, rays)}
+    for label, chunk, rays in cases(scenes, width, height):
+        bvh8, tris, _, dense = anyhit_tables(chunk)
+        launchers = {
+            "old": old_anyhit_launcher(lib, bvh8, tris, rays, dense),
+            "new": new_anyhit_launcher(chunk, rays)}
         for launch, _ in launchers.values():
             launch()
         torch.cuda.synchronize()
-        agree = agreement(launchers["old"][1], launchers["new"][1])
+        mismatches = int((launchers["old"][1]["hit"]
+                          != launchers["new"][1]["hit"]).sum())
         turns = {"old": [], "new": []}
         for who in ("old", "new", "new", "old"):
-            turns[who].append(time_ms(launchers[who][0]))
+            turns[who].append(queued_ms(launchers[who][0], KERNEL_REPS))
         counts = {}
         for who, make in (
-                ("old", lambda: old_nearest_launcher(*old, counters=True)),
-                ("new", lambda: new_nearest_launcher(chunk, mode, rays,
-                                                     counters=True))):
+                ("old", lambda: old_anyhit_launcher(lib, bvh8, tris, rays,
+                                                    dense, counters=True)),
+                ("new", lambda: new_anyhit_launcher(chunk, rays,
+                                                    counters=True))):
             launch, rec = make()
             launch()
             counts[who] = _per_ray(rec)
-        out[label] = {"ms": turns, "per_ray": counts, "agree": agree}
-        print(f"A/B {label}: {rays[0].shape[0]} rays; old "
+        n_rays = rays[0].shape[0]
+        occluded = int(launchers["new"][1]["hit"].sum())
+        out[label] = {"ms": turns, "per_ray": counts,
+                      "flag_mismatches": mismatches, "rays": n_rays,
+                      "occluded": occluded}
+        print(f"A/B {label}: {n_rays} rays, {occluded} occluded; old "
               + " / ".join(f"{x:.4f}" for x in turns["old"]) + " ms, new "
               + " / ".join(f"{x:.4f}" for x in turns["new"])
               + f" ms (old, new, new, old); old/new "
               f"{sum(turns['old']) / sum(turns['new']):.2f}x; "
-              + _agreement_text(agree))
+              f"{mismatches} flag mismatches")
         for who, per in counts.items():
             print(f"  per ray, {who}: " + ", ".join(
-                f"{k} {v:.3f}" for k, v in per.items()))
+                f"{k} {v:.4f}" for k, v in per.items()))
+        if mismatches:
+            raise RuntimeError(f"{label}: the earlier and this tree's "
+                               f"kernel disagree on {mismatches} flags")
     return {"cases": out, "frames": frames(lib, scenes, width, height),
             "old_ptxas": native.ptxas_table(
                 native.BUILD_LOGS.get(OLD_LIBRARY, ""))}
 
 
 def frames(lib, scenes: dict, width: int, height: int) -> dict:
-    """One frame (accumulation index 1) of the Cornell box and of paths L
-    and T through render_pixels, with the earlier K1/K3 patched into
-    cuda_traverse.kernel_launcher's place and with this tree's: rays_traced
-    of both, which must be equal, the largest pixel difference, and the
-    frame's host wall ms (timing.wall_ms over FRAME_REPS frames) in turns
-    old, new, new, old."""
+    """One frame (accumulation index 1) of path L and of path L with the
+    dense any-hit tables through render_pixels, with the earlier K2 patched
+    into cuda_traverse.anyhit_launcher's place and with this tree's:
+    rays_traced of both, which must be equal, the largest pixel
+    difference, and the frame's host wall ms (timing.wall_ms over
+    FRAME_REPS frames) in turns old, new, new, old."""
     from steeljax_torch.accel import cuda_traverse as ct
     from steeljax_torch.core import camera as camera_lib
     from steeljax_torch.core.config import RenderConfig
     from steeljax_torch.render.pt import integrator
-    from steeljax_torch.render.pt.renderer import prepare_scene
-    from steeljax_torch.scene.builtin import make_cornell_scene
 
     device = scenes["sunlit"][1].device
-    cornell = make_cornell_scene(sphere_detail=12)
-    paths = {"Cornell": (cornell, *prepare_scene(cornell, device,
-                                                 env_resolution=64)),
-             "path L": scenes["sunlit"], "path T": scenes["stress_tex"]}
+    paths = {"path L": scenes["sunlit"],
+             "path L dense": scenes["sunlit_dense"]}
     px, py, _ = integrator.tiled_order(width, height)
     px, py = (torch.as_tensor(a, device=device) for a in (px, py))
 
-    def old_launcher(bvh8, tris, o, d, t_min, t_max, cull=True,
-                     shade_rows=None, shade_mode=0, **kw):
-        return old_nearest_launcher(lib, bvh8, tris, shade_rows, shade_mode,
-                                    (o, d, t_min, t_max), cull)
+    def old_launcher(bvh8, tris, o, d, t_min, t_max, dense=False,
+                     alpha_mask=False, **kw):
+        if alpha_mask:
+            raise ValueError("the earlier K2 has no alpha masks")
+        return old_anyhit_launcher(lib, bvh8, tris, (o, d, t_min, t_max),
+                                   dense)
 
     out = {}
     for label, (scene, flat, tables) in paths.items():
@@ -282,7 +248,7 @@ def frames(lib, scenes: dict, width: int, height: int) -> dict:
             with contextlib.ExitStack() as stack:
                 if who == "old":
                     stack.enter_context(mock.patch.object(
-                        ct, "kernel_launcher", old_launcher))
+                        ct, "anyhit_launcher", old_launcher))
                 image, stats = integrator.render_pixels(
                     flat, tables, view, proj, frame.camera_near,
                     frame.camera_far, width, height, px, py, 1, 0,
@@ -305,35 +271,19 @@ def frames(lib, scenes: dict, width: int, height: int) -> dict:
               + f" (old, new, new, old; {FRAME_REPS} frames each); old/new "
               f"{sum(walls['old']) / sum(walls['new']):.3f}x")
         if got["old"][1] != got["new"][1]:
-            raise RuntimeError(f"{label}: the earlier K1/K3 trace "
+            raise RuntimeError(f"{label}: the earlier K2 traces "
                                f"{got['old'][1]:.0f} rays a frame, this "
                                f"tree's {got['new'][1]:.0f}")
     return out
 
 
 def compare_ptxas(old: dict, new: dict) -> None:
-    """Print the earlier library's K1-K3 instances beside this tree's K1
-    and K3 instances, and whether the any-hit instances of K2 kept their
-    registers (earlier trace8_kernel<true, DENSE, false, COUNT>, now
-    trace8_kernel<DENSE, COUNT>)."""
-    same, changed = 0, []
-    for name, entry in sorted(old.items()):
-        if not name.startswith("trace8_kernel<true, "):
-            continue
-        flags = name[len("trace8_kernel<"):-1].split(", ")
-        key = f"trace8_kernel<{flags[1]}, {flags[3]}>"
-        if key not in new:
-            changed.append(f"{key} missing")
-        elif new[key][:2] == entry[:2]:
-            same += 1
-        else:
-            changed.append(f"{name} {entry[0]} -> {key} {new[key][0]}")
-    print(f"ptxas, K2 instances against the earlier library: {same} with "
-          "the same registers and stack frame"
-          + ("; " + "; ".join(changed) if changed else ""))
+    """Print the earlier library's K2 instances (trace8_kernel<DENSE,
+    COUNT>) beside this tree's (alpha8_kernel<1, 1, false, false, COUNT,
+    0>, one instance for both row layouts)."""
     for label, table, prefix in (
-            ("earlier", old, "trace8_kernel<false, "),
-            ("this tree", new, "alpha8_kernel<0, 1, false, ")):
+            ("earlier", old, "trace8_kernel<"),
+            ("this tree", new, "alpha8_kernel<1, 1, false, false, ")):
         for name, (regs, frame, st, ld, smem) in sorted(table.items()):
             if name.startswith(prefix):
                 print(f"ptxas {label}: {name}: {regs} registers, {frame} B "
@@ -358,15 +308,13 @@ def main(argv=None) -> int:
     new_ptxas = native.cuda_ptxas()
     native.cuda_library()
     scenes = {name: kp.prepare_path_scene(name, device)
-              for name in ("sunlit", "stress_tex")}
+              for name in ("sunlit", "sunlit_dense")}
     results = kp.run(device, scenes=scenes)
-    nearest = [k for k in results["variants"]
-               if k.startswith(("flat_shade", "flat_deterministic",
-                                "cornell_", "stress_tex_primary"))]
-    ok = all(results["variants"][k]["ok"] for k in nearest)
-    print("K1 and K3 against the plain versions: "
+    ok = all(results["variants"][k]["ok"] for k in ANYHIT_VARIANTS)
+    print("K2 and K2-dense against the plain versions: "
           + ("PASS" if ok else "FAIL: " + ", ".join(
-              k for k in nearest if not results["variants"][k]["ok"])))
+              k for k in ANYHIT_VARIANTS
+              if not results["variants"][k]["ok"])))
     result = run(scenes, args.old)
     compare_ptxas(result["old_ptxas"], new_ptxas)
     return 0 if ok else 1

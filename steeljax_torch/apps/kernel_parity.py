@@ -871,6 +871,7 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
                                                     trace_any_bvh8_plain,
                                                     trace_nearest_bvh8,
                                                     trace_nearest_bvh8_plain)
+    from steeljax_torch.accel.dispatch import anyhit_tables
 
     device = torch.device(device)
     if device.type != "cuda":
@@ -888,8 +889,11 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
         torch.cuda.synchronize(device)
         return rec_k, rec_p
 
-    def both_any(bvh8, tris, o, d, t_min, t_max, dense):
-        hit_k = trace_any_bvh8(bvh8, tris, o, d, t_min, t_max, dense)
+    def both_any(chunk, o, d, t_min, t_max):
+        # The chunk's own tables, as dispatch.trace_any reads them.
+        bvh8, tris, records, dense = anyhit_tables(chunk)
+        hit_k = trace_any_bvh8(bvh8, tris, o, d, t_min, t_max, dense,
+                               records=records)
         hit_p = trace_any_bvh8_plain(bvh8, tris, o, d, t_min, t_max, dense)
         torch.cuda.synchronize(device)
         return hit_k, hit_p
@@ -907,7 +911,7 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
                        attrs=attrs, d=d_np)
     chunk = tables.chunks[0]
     all_ok &= _compare_hits("flat_anyhit", *both_any(
-        chunk.bvh8, chunk.tris_packed, o, d, 0.001, 40.0, False), variants)
+        chunk, o, d, 0.001, 40.0), variants)
 
     tables2, perm2, _, _ = soup_case(n_tris, n_rays, device, textured=True,
                                      dense_anyhit=True)
@@ -917,8 +921,7 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
                                                     "mat")}, d=d_np)
     chunk2 = tables2.chunks[0]
     all_ok &= _compare_hits("flat_anyhit_dense", *both_any(
-        chunk2.anyhit_bvh8, chunk2.anyhit_tris, o, d, 0.001, 40.0, True),
-        variants)
+        chunk2, o, d, 0.001, 40.0), variants)
 
     dtables, dpos, od, dd = deterministic_case(device)
     rec_k, rec_p = both(dtables, torch.as_tensor(od, device=device),
@@ -948,10 +951,10 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
                                              height), SHADOW_SUBSET)
     lchunk = ltables.chunks[0]
     all_ok &= _compare_hits("sunlit_shadow", *both_any(
-        lchunk.bvh8, lchunk.tris_packed, *rays, False), variants)
+        lchunk, *rays), variants)
     dchunk = scenes["sunlit_dense"][2].chunks[0]
     all_ok &= _compare_hits("sunlit_shadow_dense", *both_any(
-        dchunk.anyhit_bvh8, dchunk.anyhit_tris, *rays, True), variants)
+        dchunk, *rays), variants)
 
     scene, tflat, ttables = scenes["stress_tex"]
     o_t, d_t, tmn, tmx = strided_subset(

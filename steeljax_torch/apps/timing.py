@@ -3,9 +3,9 @@
 time_ms brackets repeated calls with two CUDA events; device_ms queues a
 whole sequence of launch closures behind a device sleep and brackets it
 with two CUDA events, so that no host gap between the launches counts;
-trace_device_ms applies it to one treelet trace (the scheduler's first
-pick and its K rounds of the treelet kernel K7).  chip_smoke.py and
-apps/kernel_ab.py time with these.
+queued_ms applies it to repeated launches of one kernel, trace_device_ms
+to one treelet trace (the scheduler's first pick and its K rounds of the
+treelet kernel K7).  chip_smoke.py and apps/kernel_ab.py time with these.
 """
 
 from __future__ import annotations
@@ -66,6 +66,13 @@ def device_ms(reset, launches, reps: int = REPS) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs[1:]) / reps
+
+
+def queued_ms(launch, count: int, reps: int = 3) -> float:
+    """Mean device ms of one `launch()`, from device_ms of `count` launches
+    queued behind the device sleep, so that the host's time between two
+    launches does not count even for a kernel that runs for microseconds."""
+    return device_ms(lambda: None, [launch] * count, reps) / count
 
 
 def trace_device_ms(tt, rays, cull: bool, any_hit: bool,

@@ -163,6 +163,8 @@ def from_jax_prepared(flat, tables, device: torch.device | str,
         row_offset=int(chunk.row_offset), rows=int(chunk.rows),
         aabb=tuple(tuple(float(v) for v in corner) for corner in chunk.aabb))
     port_chunk = port_chunk.replace(
-        tri_records=hopper_records(port_chunk.tris_packed))
+        tri_records=hopper_records(port_chunk.tris_packed),
+        anyhit_records=(hopper_records(port_chunk.anyhit_tris, dense=True)
+                        if dense else None))
     return port_flat, TraceTables(chunks=(port_chunk,), shade_mode=mode,
                                   alpha_masked=alpha)

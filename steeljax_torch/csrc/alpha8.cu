@@ -1,5 +1,5 @@
-// The flat BVH8 nearest-hit, alpha-masked and multi-hit ray traversal for
-// Hopper (sm_90a): K1, K3, K4 and K5.
+// The flat BVH8 nearest-hit, any-hit, alpha-masked and multi-hit ray
+// traversal for Hopper (sm_90a): K1-K5.
 //
 // One templated walk with three candidate policies replaces these TPU
 // kernels of steeljax/accel/pallas_traverse.py:
@@ -7,6 +7,10 @@
 //       :719, entry trace_nearest_packet8 :752): NEAREST without masks, the
 //       nearest hit, culling on or off, with fused shading in shade mode 1
 //       (normal and material) or none (mode 0);
+//   K2  the same body with any_hit=True (:506-517, :574-594): ANY without
+//       masks, occlusion with no culling, over the 12-record rows' records
+//       or (K2-dense, trace_anyhit_dense :781-794) the dense 14-record
+//       rows' records and their own supernode rows;
 //   K3  the same body with shade_mode=2 (:548-565, :608-617): NEAREST
 //       without masks with the textured record (tangent, uv, uv density);
 //   K4  _traverse_kernel8 with alpha_mask=True (:457-499) and fine=True
@@ -18,24 +22,26 @@
 //       t, with the opaque bound of the fine rows.
 // Each policy has ALPHA (coarse AUX masks), FINE (the fine PASS plane, and
 // for K_NEAREST the OPAQUE plane) and COUNT (telemetry) instances, and
-// NEAREST without masks SHADE 0, 1 and 2.  The any-hit kernel K2 is
-// traverse8.cu, K6 instanced8.cu, K7 treelet8.cu.
+// NEAREST without masks SHADE 0, 1 and 2.  K2 and K2-dense are one
+// instance: the rows' width (per_row, 12 or 14) is an argument.  K6 is
+// instanced8.cu, K7 treelet8.cu.
 //
-// Tables: snodes (S, 128) f32, the fine (R, 128) int32 rows and the shade
-// rows of modes 1 and 2 (read once per ray, by the winner) as in
-// traverse8.cu, and the Hopper record table that cuda_traverse.
-// hopper_records derives on the device from the reference's (R, 128)
-// triangle rows for every flat chunk: record k is three float4s at k * 3,
-// [v0.xyz, f9], [e1.xyz, 0], [e2.xyz, 0], where f9 is the reference
-// record's last float (the AUX word ds | mask << 1 of the masked tables,
-// else the double-sided flag).  Record ids, leaf starts and counts are the
-// reference's.
+// Tables (trace8_common.cuh): snodes (S, 128) f32, the fine (R, 128) int32
+// rows and the shade rows of modes 1 and 2 (read once per ray, by the
+// winner), and the Hopper record table that cuda_traverse.hopper_records
+// derives on the device from the reference's (R, 128) triangle rows for
+// every flat chunk (and from the dense rows for a chunk that has them):
+// record k is three float4s at k * 3, [v0.xyz, f9], [e1.xyz, 0], [e2.xyz,
+// 0], where f9 is the reference record's last float (the AUX word ds | mask
+// << 1 of the masked tables, else the double-sided flag; 0 in the dense
+// table, and ANY without masks never reads it).  Record ids, leaf starts
+// and counts are the rows'.
 //
 // Contract, as in the kernels this replaced: Moller-Trumbore with |det| >
 // 1e-12 and the culling rule; a dead ray (t_max < t_min) leaves before the
-// root; NEAREST keeps t <= best t (the walk order may settle an exact-t tie
-// otherwise than the reference); ANY returns at the first accepted
-// candidate; K_NEAREST keeps t < slot K-1, bounds the walk by min(slot K-1,
+// root (K2 writes its flag 0); NEAREST keeps t <= best t (the walk order
+// may settle an exact-t tie otherwise than the reference); ANY returns at
+// the first accepted candidate, with t in [t_min, t_max]; K_NEAREST keeps t < slot K-1, bounds the walk by min(slot K-1,
 // ob) with ob the nearest OPAQUE-plane hit, and drops slots with t > ob at
 // the end, so its output does not depend on the walk's order.
 //
@@ -54,7 +60,13 @@
 // walk: neighbouring lanes of a warp sit in different leaves, so every
 // table load of a warp touches up to 32 cache lines, one L1 wavefront each,
 // and lanes that pop an inner node wait while others of their warp test a
-// 24-record leaf.
+// 24-record leaf.  K2 and K2-dense: path L's shadow rays at the primaries'
+// hits walk about 2 supernode rows and test 1.9 triangles a live ray, and
+// 77% of the 921,600 rays are dead (a primary that hit the sky, a light
+// behind the surface); the least time, 0.0040 ms, is the bytes of the rays
+// (a dead ray's 8-byte interval) and of the few rows touched.  The walk's
+// dependent loads and, in the one-thread walk, lanes of dead rays holding
+// their warp while a live neighbour walks take the rest.
 //
 // What the design does about it; each step was timed on the H100 against
 // the one before (PERF.md, section 6), and only those that paid are here:
@@ -78,16 +90,28 @@
 //       from a global counter were 6% slower over a frame's K4 calls; the
 //       alpha re-trace already compacts the rays it re-traces to the front,
 //       so a late pass's blocks of dead rays end at once anyway.
+//   D5  live-lane compaction (kept, K2 and K2-dense only): a block ballots
+//       which of its 128 rays are live, their ids go to shared memory in
+//       order, live rays take the block's first lanes and a warp of dead
+//       rays writes its flags and leaves; lanes past the live rays of a
+//       walking warp hold no ray and vote with an empty stack.
 // K1 and K3 took D1 (1.16-1.31x over their earlier one-thread walk) and D3
 // (a further 1.05-1.21x); an aligned 48- or 112-byte shade record read
 // with float4s paid 0-1% once per ray and was dropped, and a walk of their
-// own in place of this one measured 1-4% slower.
+// own in place of this one measured 1-4% slower.  K2 and K2-dense took D1
+// (1.07-1.10x over their earlier one-thread walk on path L's shadow rays),
+// D3 (a further 1.08-1.09x; with ANY the interval never shrinks, so a lane
+// walking on pops extra rows only on a ray that its held leaf occludes:
+// +1% pops, equal triangle tests) and D5 (a further 1.06-1.08x on that
+// 23%-live launch, 1.01-1.02x on its live rays alone): 0.0441 -> 0.0350 ms
+// on the H100 (PERF.md, section 6).
 // The walk has no matrix product, so wgmma has nothing to do; TMA copies
 // tiles of known address, and a ray's next row depends on its last test.
 //
-// Optional telemetry (COUNT instances), as traverse8.cu's: per ray
-// [supernode pops, triangle-row bodies, leaf pops, triangle tests, coarse
-// mask tests, fine mask tests], and the seen flags of the supernode rows,
+// Optional telemetry (COUNT instances, the reference's counters=True,
+// :618-628): per ray [supernode pops, triangle-row bodies, leaf pops,
+// triangle tests, coarse mask tests, fine mask tests], kept in shared
+// memory while the walk runs, and the seen flags of the supernode rows,
 // triangle records and fine words read.  The render path never launches a
 // COUNT instance.
 
@@ -127,6 +151,7 @@ struct AlphaArgs {
   unsigned char* seen_fine;
   int n;
   int leaf_cap;
+  int per_row;  // records a triangle row of the reference's layout
   int cull;
 };
 
@@ -208,13 +233,68 @@ template <int MODE, int K, bool ALPHA, bool FINE, bool COUNT, int SHADE>
 __global__ void __launch_bounds__(kThreads) alpha8_kernel(const AlphaArgs a) {
   // The nearest policies keep each entry's distance for the pop-time cull.
   constexpr bool NEAR = MODE != ANY;
+  // K2 and K2-dense (D5) compact their block's live rays.
+  constexpr bool COMPACT = MODE == ANY && !ALPHA;
+  // COUNT: the per-ray counters (N_COUNTERS, as out_cnt) live in shared
+  // memory, counter c of this lane at cnt[c * kThreads], so that counting
+  // takes no registers from the walk.
+  int* cnt = nullptr;
+  if constexpr (COUNT) {
+    __shared__ int cnt_lanes[N_COUNTERS * kThreads];
+    cnt = cnt_lanes + threadIdx.x;
+  }
+  auto count_up = [&](int c, int by) {
+    if constexpr (COUNT) cnt[c * kThreads] += by;
+  };
 
-  // Every lane of a warp stays to the end (the postponed-leaf loop votes
-  // across the warp); a lane past the last ray walks nothing.
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = i < a.n;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 1.0f, dy = 1.0f, dz = 1.0f;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool valid = i < a.n;
   float tmn = 0.0f, tmx = -1.0f;
+  if (valid) {
+    tmn = a.t_min[i];
+    tmx = a.t_max[i];
+  }
+  if constexpr (COMPACT) {
+    // Live-lane compaction (D5): the block's live rays (t_max >= t_min)
+    // take its first lanes, in order; a dead ray's own lane writes its
+    // output, and whole warps of dead rays leave here.
+    __shared__ int live_ray[kThreads];
+    __shared__ float2 live_t[kThreads];
+    __shared__ int warp_live[kThreads / 32];
+    const bool live = valid && tmx >= tmn;
+    if (valid && !live) {
+      a.out_hit[i] = 0;
+      if constexpr (COUNT) {
+#pragma unroll
+        for (int c = 0; c < N_COUNTERS; ++c) a.out_cnt[N_COUNTERS * i + c] = 0;
+      }
+    }
+    const unsigned ballot = __ballot_sync(kFull, live);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) warp_live[warp] = __popc(ballot);
+    __syncthreads();
+    int at = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      at += w < warp ? warp_live[w] : 0;
+      total += warp_live[w];
+    }
+    if (live) {
+      at += __popc(ballot & ((1u << lane) - 1u));
+      live_ray[at] = i;
+      live_t[at] = make_float2(tmn, tmx);
+    }
+    __syncthreads();
+    if ((int)threadIdx.x >= ((total + 31) & ~31)) return;
+    // Lanes past the live rays of a warp that walks hold no ray.
+    valid = (int)threadIdx.x < total;
+    i = valid ? live_ray[threadIdx.x] : 0;
+    tmn = valid ? live_t[threadIdx.x].x : 0.0f;
+    tmx = valid ? live_t[threadIdx.x].y : -1.0f;
+  }
+  // Every lane of a warp stays to the end (the postponed-leaf loop votes
+  // across the warp); a lane without a ray walks nothing.
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 1.0f, dy = 1.0f, dz = 1.0f;
   if (valid) {
     ox = a.o[3 * i + 0];
     oy = a.o[3 * i + 1];
@@ -222,8 +302,6 @@ __global__ void __launch_bounds__(kThreads) alpha8_kernel(const AlphaArgs a) {
     dx = a.d[3 * i + 0];
     dy = a.d[3 * i + 1];
     dz = a.d[3 * i + 2];
-    tmn = a.t_min[i];
-    tmx = a.t_max[i];
   }
   const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy),
               inv_dz = safe_inv(dz);
@@ -244,8 +322,10 @@ __global__ void __launch_bounds__(kThreads) alpha8_kernel(const AlphaArgs a) {
     si[k] = -1;
   }
   float ob = tmx;  // opaque bound (K_NEAREST with FINE)
-  int n_snode = 0, n_rows = 0, n_leaf = 0, n_tests = 0, n_mask = 0,
-      n_fine = 0;
+  if constexpr (COUNT) {
+#pragma unroll
+    for (int c = 0; c < N_COUNTERS; ++c) cnt[c * kThreads] = 0;
+  }
 
   auto bound = [&]() -> float {
     if constexpr (MODE == K_NEAREST) {
@@ -272,7 +352,7 @@ __global__ void __launch_bounds__(kThreads) alpha8_kernel(const AlphaArgs a) {
   // for the nearest policies sorted so the nearest is popped first.
   auto expand = [&](int entry) {
     if constexpr (COUNT) {
-      ++n_snode;
+      count_up(0, 1);
       a.seen_snode[entry] = 1;
     }
     const float4* row =
@@ -359,13 +439,13 @@ __global__ void __launch_bounds__(kThreads) alpha8_kernel(const AlphaArgs a) {
         // Each mask test runs only for a candidate still accepted; the
         // COUNT instances count those candidates.
         if constexpr (ALPHA) {
-          if constexpr (COUNT) n_mask += accept ? 1 : 0;
+          count_up(4, accept ? 1 : 0);
           accept = accept && coarse_keep(aux >> 1, u, v);
         }
         if constexpr (FINE) {
           if constexpr (COUNT) {
             if (accept) {
-              ++n_fine;
+              count_up(5, 1);
               a.seen_fine[rec] = 1;
             }
           }
@@ -389,12 +469,12 @@ __global__ void __launch_bounds__(kThreads) alpha8_kernel(const AlphaArgs a) {
           continue;
         }
         if constexpr (ALPHA) {
-          if constexpr (COUNT) ++n_mask;
+          count_up(4, 1);
           if (!coarse_keep(aux >> 1, u, v)) continue;
         }
         if constexpr (FINE) {
           if constexpr (COUNT) {
-            ++n_fine;
+            count_up(5, 1);
             a.seen_fine[rec] = 1;
           }
           bool opaque;
@@ -420,9 +500,11 @@ __global__ void __launch_bounds__(kThreads) alpha8_kernel(const AlphaArgs a) {
       }
     }
     if constexpr (COUNT) {
-      ++n_leaf;
-      n_rows += (tested + TRI_PER_ROW - 1) / TRI_PER_ROW;
-      n_tests += tested;
+      // Only the any-hit policy reads rows of another width (K2_dense).
+      const int per_row = MODE == ANY ? a.per_row : TRI_PER_ROW;
+      count_up(1, (tested + per_row - 1) / per_row);
+      count_up(2, 1);
+      count_up(3, tested);
     }
   };
 
@@ -461,12 +543,10 @@ __global__ void __launch_bounds__(kThreads) alpha8_kernel(const AlphaArgs a) {
 
   if (!valid) return;
   if constexpr (COUNT) {
-    a.out_cnt[N_COUNTERS * i + 0] = n_snode;
-    a.out_cnt[N_COUNTERS * i + 1] = n_rows;
-    a.out_cnt[N_COUNTERS * i + 2] = n_leaf;
-    a.out_cnt[N_COUNTERS * i + 3] = n_tests;
-    a.out_cnt[N_COUNTERS * i + 4] = n_mask;
-    a.out_cnt[N_COUNTERS * i + 5] = n_fine;
+#pragma unroll
+    for (int c = 0; c < N_COUNTERS; ++c) {
+      a.out_cnt[N_COUNTERS * i + c] = cnt[c * kThreads];
+    }
   }
   if constexpr (MODE == ANY) {
     a.out_hit[i] = occluded ? 1 : 0;
@@ -519,19 +599,22 @@ int launch_k(const AlphaArgs& a, bool alpha, bool count, void* stream) {
 
 extern "C" {
 
-// The nearest hit (K1, K3, K4), K4's occlusion and K5 over a BVH8 for n
-// rays.  mode 0: the nearest hit (out_t, out_u, out_v, out_tri (n,);
-// culling by `cull`); without masks (alpha == 0: K1, K3) shade_mode 1 adds
-// out_n (n x 3) and out_mat (n,) from `shade`, the reference's rows
+// The nearest hit (K1, K3, K4), occlusion (K2, K2-dense, K4) and K5 over a
+// BVH8 for n rays.  mode 0: the nearest hit (out_t, out_u, out_v, out_tri
+// (n,); culling by `cull`); without masks (alpha == 0: K1, K3) shade_mode
+// 1 adds out_n (n x 3) and out_mat (n,) from `shade`, the reference's rows
 // (pack_shade_records), and shade_mode 2 also out_tan (n x 3), out_uv (n x
-// 2) and out_uvd (n,); mode 1: occlusion (out_hit (n,), one byte 0 or 1;
-// no culling); mode 2: the k nearest hits, k in {2, 4, 8}, (k, n)
-// slot-major, an empty slot t -1, u = v = 0, tri -1.  Mode 1 needs alpha
-// != 0 (the AUX words' coarse masks); fine, when not null, adds the fine
-// rows' PASS plane (mode 2: and the opaque bound).  records is the Hopper
-// record table (cuda_traverse.hopper_records).  out_cnt (n x N_COUNTERS
-// int32), seen_snode, seen_rec and seen_fine: all four or none; the seen
-// bytes are set, never cleared.  Launches on `stream` and returns
+// 2) and out_uvd (n,); mode 1: occlusion (out_hit (n,), one byte 0 or 1,
+// for every ray; no culling), without masks (alpha == 0: K2) or with the
+// AUX words' coarse masks (K4); mode 2: the k nearest hits, k in {2, 4,
+// 8}, (k, n) slot-major, an empty slot t -1, u = v = 0, tri -1.  fine,
+// when not null, adds the fine rows' PASS plane (mode 2: and the opaque
+// bound).  records is the Hopper record table (cuda_traverse.
+// hopper_records) of rows of per_row records: TRI_PER_ROW, or
+// DENSE_PER_ROW for mode 1 without masks (K2-dense: a leaf then reads at
+// most leaf_cap(max_leaf, DENSE_PER_ROW) records).  out_cnt (n x
+// N_COUNTERS int32), seen_snode, seen_rec and seen_fine: all four or none;
+// the seen bytes are set, never cleared.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 int steeljax_trace_alpha8(const void* snodes, const void* records,
                           const void* fine, const void* shade, const void* o,
@@ -542,10 +625,13 @@ int steeljax_trace_alpha8(const void* snodes, const void* records,
                           void* out_hit, void* out_cnt, void* seen_snode,
                           void* seen_rec, void* seen_fine, int n,
                           int max_leaf, int depth, int cull, int mode, int k,
-                          int alpha, int shade_mode, void* stream) {
+                          int alpha, int shade_mode, int per_row,
+                          void* stream) {
   if (n < 0 || max_leaf <= 0 || depth <= 0 || 8 * depth + 16 > MAX_STACK ||
       mode < 0 || mode > 2 || records == nullptr ||
-      (fine != nullptr && !alpha) || (mode == ANY && !alpha) ||
+      (fine != nullptr && !alpha) ||
+      (per_row != TRI_PER_ROW &&
+       (per_row != DENSE_PER_ROW || mode != ANY || alpha)) ||
       (mode == K_NEAREST && k != 2 && k != 4 && k != 8) ||
       (mode == ANY ? out_hit == nullptr
                    : (out_t == nullptr || out_u == nullptr ||
@@ -584,7 +670,8 @@ int steeljax_trace_alpha8(const void* snodes, const void* records,
   a.seen_rec = (unsigned char*)seen_rec;
   a.seen_fine = (unsigned char*)seen_fine;
   a.n = n;
-  a.leaf_cap = leaf_cap(max_leaf, TRI_PER_ROW);
+  a.leaf_cap = leaf_cap(max_leaf, per_row);
+  a.per_row = per_row;
   a.cull = cull;
   const bool count = out_cnt != nullptr;
   const bool fine_rows = a.fine != nullptr;
@@ -602,6 +689,7 @@ int steeljax_trace_alpha8(const void* snodes, const void* records,
                      : launch<NEAREST, 1, true, false>(a, count, stream);
   }
   if (mode == ANY) {
+    if (!alpha) return launch<ANY, 1, false, false>(a, count, stream);
     return fine_rows ? launch<ANY, 1, true, true>(a, count, stream)
                      : launch<ANY, 1, true, false>(a, count, stream);
   }

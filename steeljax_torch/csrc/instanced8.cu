@@ -9,9 +9,9 @@
 //
 // Tables (accel/instances.py):
 //   snodes (S, 128) f32: TLAS rows [0, n_tlas), then every BLAS's rows; the
-//     child layout of traverse8.cu, with a third child kind: meta1 < 0 is an
-//     instance (meta0 = instance id).  Leaf children's meta0 index the
-//     record pool, internal children's the unified table.
+//     child layout of trace8_common.cuh, with a third child kind: meta1 < 0
+//     is an instance (meta0 = instance id).  Leaf children's meta0 index
+//     the record pool, internal children's the unified table.
 //   records: the Hopper record table of the pooled BLAS records
 //     (cuda_traverse.hopper_records of the reference's (R, 128) rows,
 //     InstancedTables.tri_records): record k is three float4s at k * 3,
@@ -23,8 +23,8 @@
 //     is 192 bytes and the wrapper checks that the table starts on 16
 //     bytes, so every row is read as float4s: the inverse 3x4 as three,
 //     (root, double-sided, material, 1 / scale) as the fourth.
-//   shade: the object-space fused records of traverse8.cu's modes 1 and 2,
-//     addressed by the pool index.
+//   shade: the object-space fused records of modes 1 and 2
+//     (trace8_common.cuh), addressed by the pool index.
 //
 // One stack serves both levels.  An entry >= 0 is a supernode row: a TLAS
 // row (entry < n_tlas) is slab-tested with the world ray, a BLAS row with

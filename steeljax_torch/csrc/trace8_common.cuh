@@ -1,6 +1,33 @@
 // Table layouts and per-candidate helpers shared by the BVH8 trace kernels
-// (traverse8.cu: K1-K3; alpha8.cu: K4, K5; instanced8.cu: K6; treelet8.cu:
-// K7).  See traverse8.cu for the table formats.
+// (alpha8.cu: K1-K5; instanced8.cu: K6; treelet8.cu: K7).
+//
+// The reference's table formats, which the kernels read or derive theirs
+// from (the 48-byte Hopper record table: alpha8.cu):
+//   snodes (S, 128) f32: 8 children per supernode row, child c at floats
+//     [16c, 16c + 8) = [min.xyz, max.xyz, meta0, meta1]; meta1 > 0 is a leaf
+//     (meta0 = row-aligned first record, meta1 = count), meta1 == 0 and
+//     meta0 >= 0 an internal child (meta0 = supernode row), meta0 < 0 empty
+//     (accel/bvh.py collapse_bvh8).
+//   tris (R, 128) f32: record k at row k / 12, floats (k % 12) * 10 .. +9 =
+//     [v0.xyz, e1.xyz, e2.xyz, double_sided] (cuda_traverse.pack_tris); the
+//     dense any-hit layout puts record k at row k / 14, floats (k % 14) * 9
+//     .. +8 = [v0.xyz, e1.xyz, e2.xyz] (pack_tris_dense), over supernode
+//     rows whose leaves start at multiples of 14.
+//   shade (R, 128) f32, mode 1: the tris addressing, records [n0.xyz,
+//     n1.xyz, n2.xyz, mat]; mode 2: record k at row (k / 12) * 3 + (k % 12)
+//     / 4, floats (k % 4) * 26 .. +25 = [n0.xyz, n1.xyz, n2.xyz, mat,
+//     t0.xyz, t1.xyz, t2.xyz, uv0.xy, uv1.xy, uv2.xy, uv_density]
+//     (pallas_traverse.py:437-441, cuda_traverse.pack_shade_records).
+//   With alpha masks float 9 of a triangle record is the AUX word ds |
+//     mask << 1, an exact integer below 2^22 (cuda_traverse.pack_tris), and
+//     fine (R, 128) int32 rows run parallel to the triangle rows: record k
+//     at row k / 12, words (k % 12) * 10 .. +9 = 5 PASS words, 5 OPAQUE
+//     words of the 153-cell fine grid (pack_fine_mask_rows).
+//
+// Arithmetic follows the reference kernel (pallas_traverse.py:303-305 slab
+// reciprocal, :369-383 slab test, :468-490 Moller-Trumbore).  nvcc
+// contracts a*b+c into FMA, so results may differ from the CPU version in
+// the last bit.
 #pragma once
 
 #include <cuda_runtime.h>

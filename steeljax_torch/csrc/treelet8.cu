@@ -10,13 +10,13 @@
 // consecutive rays, and every round walks each live packet against the one
 // treelet the packet picked.
 //
-// Tables: node_stack (K * node_rows, 128) f32 rows as traverse8.cu's snodes,
-// leaf starts local to their treelet; the Hopper record table that
+// Tables: node_stack (K * node_rows, 128) f32 rows as the snodes of
+// trace8_common.cuh, leaf starts local to their treelet; the Hopper record table that
 // cuda_traverse.hopper_records derives from tri_stack (K * tri_rows * 12
 // records of three float4s [v0.xyz, f9], [e1.xyz, 0], [e2.xyz, 0], f9 the
 // double-sided flag or, with alpha masks, the AUX word ds | mask << 1);
-// shade_stack (K * tri_rows * {1, 3}, 128) f32 in traverse8.cu's mode-1 and
-// mode-2 layouts, addressed by the treelet-local record id.
+// shade_stack (K * tri_rows * {1, 3}, 128) f32 in the mode-1 and mode-2
+// layouts of trace8_common.cuh, addressed by the treelet-local record id.
 //
 // The scheduler's state lives on the device and every round updates it in
 // place (cuda_traverse.TreeletState): per ray the running record (t, u, v,
@@ -80,7 +80,7 @@
 //       trace, and a graph captured anew costs 1.8x the plain launches.
 //
 // Arithmetic is the reference kernel's (pallas_traverse.py:303-305,
-// :369-383, :468-490, :597-617), as in traverse8.cu.
+// :369-383, :468-490, :597-617), as in alpha8.cu.
 //
 // Optional telemetry (COUNT instances), summed over the rounds of a trace:
 // per ray [supernode pops, triangle-row bodies, leaf pops, triangle tests,

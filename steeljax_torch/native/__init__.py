@@ -29,8 +29,7 @@ import numpy as np
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG / "_build"
 BVH_SOURCE = _PKG.parent / "steeljax" / "native" / "bvh_builder.cpp"
-CUDA_SOURCES = (_PKG / "csrc" / "traverse8.cu",
-                _PKG / "csrc" / "alpha8.cu",
+CUDA_SOURCES = (_PKG / "csrc" / "alpha8.cu",
                 _PKG / "csrc" / "instanced8.cu",
                 _PKG / "csrc" / "treelet8.cu")
 # Headers the sources include: a change rebuilds the library too.
@@ -129,12 +128,9 @@ def _declare_bvh(lib: ctypes.CDLL) -> None:
 
 def _declare_cuda(lib: ctypes.CDLL) -> None:
     ptr = ctypes.c_void_p
-    lib.steeljax_trace_any8.restype = ctypes.c_int
-    lib.steeljax_trace_any8.argtypes = (
-        [ptr] * 10 + [ctypes.c_int] * 4 + [ptr])
     lib.steeljax_trace_alpha8.restype = ctypes.c_int
     lib.steeljax_trace_alpha8.argtypes = (
-        [ptr] * 22 + [ctypes.c_int] * 8 + [ptr])
+        [ptr] * 22 + [ctypes.c_int] * 9 + [ptr])
     lib.steeljax_trace_inst8.restype = ctypes.c_int
     lib.steeljax_trace_inst8.argtypes = (
         [ptr] * 23 + [ctypes.c_int] * 8 + [ptr])

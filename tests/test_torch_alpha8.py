@@ -158,8 +158,7 @@ def test_launcher_refuses_records_of_another_shape(masked, shape):
 
 def test_k4_launcher_needs_masks(masked):
     """K4's queries apply masks: without alpha_mask the nearest launcher is
-    K1 and the any-hit launcher K2 in traverse8.cu, and neither takes fine
-    mask planes."""
+    K1 and the any-hit launcher K2, and neither takes fine mask planes."""
     chunk, o, d = masked
     for query in ("nearest", "any"):
         with pytest.raises(ValueError, match="alpha_mask"):
