@@ -1,9 +1,10 @@
 """Smoke test of the PyTorch port on one CUDA card (an H100).
 
 Drives the port's paths through their user entry points (prepare_scene,
-render_pixels) at 1280x720, 1 spp per frame, at most 4 bounces, roulette
-after bounce 2, irradiance clamp 8, and holds every hand-written trace
-kernel against its plain PyTorch version:
+render_pixels, HybridRenderer) at 1280x720, 1 spp per frame, at most 4
+bounces, roulette after bounce 2, irradiance clamp 8 (the hybrid frame at
+1920x1080), and holds every hand-written trace kernel against its plain
+PyTorch version:
   * the Cornell box (kernel K1: nearest hit with fused mode-1 shading);
   * path L, the sunlit stress scene (208,084 triangles and a directional
     sun): K1 and, for the shadow rays of next-event estimation, the
@@ -22,6 +23,10 @@ kernel against its plain PyTorch version:
     shading and its any-hit query for the shadow rays on I, fused mode 2 on
     J; after path I's frames one entity moves and refresh_scene() rebuilds
     the instance tables alone;
+  * path H, the hybrid frame (G-buffer, deferred lighting with the sun's
+    shadow rays, forward composite) of path L's scene at the JAX bench's
+    1920x1080: K1 for the G-buffer and K2 for the sun rays, one launch
+    each a frame;
   * paths U and UL, path T's and path L's scenes prepared with
     treelets=True: K7, the treelet kernel, one launch per round of the
     treelet scheduler and K rounds per trace with no host read, after one
@@ -45,8 +50,9 @@ Phases:
      of these two with a refresh_scene() after an edit (host seconds by
      step); kernel parity, kernel against plain version
      (apps.kernel_parity); each kernel's time alone at its path's shapes
-     (K1 and K3 on primaries and on first-bounce rays, each also held
-     against its plain version on those rays), its plain version's time,
+     (K1 and K3 on primaries and on first-bounce rays, K1 on path H's
+     G-buffer rays and K2 on its sun rays, each also held against its plain
+     version on those rays), its plain version's time,
      its work counts (mask tests and instance enters included) and the
      least time the card could take for the same work (a dead ray, t_max <
      t_min, is charged its interval alone), for
@@ -63,7 +69,10 @@ Phases:
   8. 32x18 tiles on the card against the CPU: Cornell, the lit parity
      scene (next-event estimation), a small foliage scene (alpha
      re-trace), and the lit parity scene through the two-level structure
-     and through treelets;
+     and through treelets; the IBL bake at the tiles' budgets on the card
+     against the CPU's (tables, SH order); 48x27 hybrid frames of Cornell,
+     the lit parity scene (K2 sun rays) and the small foliage scene (the
+     G-buffer's alpha re-trace through K4);
   9. paths I and J: the same frames and checks, K6 and K6 any-hit launches,
      the image against path L's and path T's; then path I's edit and
      refresh_scene() (no BLAS rebuilt, the same triangle tensor), its
@@ -72,9 +81,18 @@ Phases:
   10. paths U and UL: the same frames and checks, K launches of K7 and one
      of the pick kernel per trace and no host read of the scheduler, the
      rounds and launches per frame, the image against path T's and path
-     L's.
-The second-to-last line is the kernels' JSON summary, the last line the
-device JSON.
+     L's;
+  11. path H, the JAX bench's hybrid frame (bench.py:213-260): path L's
+     scene, its environment baked at the bench's budgets on the card and
+     held to the same bake on the CPU, one warm and 3
+     timed 1920x1080 frames of HybridRenderer.render_frame_device() with
+     exactly one K1 and one K2 launch a frame, busy and idle share, the
+     stage split of tools/probe_hybrid_stages.py, the reflection lookup in
+     its two bit-exact forms, the environment bake's seconds at the bench
+     budgets and at the defaults, and render_cli --mode hybrid's PNG.
+The second-to-last line is the kernels' JSON summary (K1's and K2's
+entries carry their path H row and launches a frame under "path_h"), the
+last line the device JSON.
 
 With --ab-old DIR, phase 3c times K2 and K2-dense against the earlier
 kernels built from DIR (steeljax_torch/apps/kernel_ab.py says how to
@@ -138,8 +156,11 @@ OPS_PER_INSTANCE_ENTER = 45
 PRIMARIES = "primaries"
 BOUNCE1 = "first-bounce rays"
 SHADOW = "first-bounce shadow rays"
+GBUFFER = "G-buffer rays"
+SUN = "sun rays"
 ROWS = (("K1", "Cornell", PRIMARIES), ("K1", "path L", PRIMARIES),
-        ("K1", "path L", BOUNCE1), ("K3", "path T", PRIMARIES),
+        ("K1", "path L", BOUNCE1), ("K1", "path H", GBUFFER),
+        ("K2", "path H", SUN), ("K3", "path T", PRIMARIES),
         ("K3", "path T", BOUNCE1), ("K2", "path L", SHADOW),
         ("K2_dense", "path L", SHADOW), ("K4", "path F", PRIMARIES),
         ("K5", "path F", PRIMARIES),
@@ -228,6 +249,18 @@ IMAGE_MEAN_RTOL = 1e-3
 IMAGE_PIXEL_ATOL = 1e-2
 IMAGE_PIXEL_FRACTION = 1e-3
 RAYS_RTOL = 1e-4
+# Path H, the JAX bench's hybrid frame: its timed frames (bench.py uses 3)
+# and its environment bake budgets (bench.py:239-245).
+HYBRID_TIMED_FRAMES = 3
+BENCH_ENV = dict(irradiance_resolution=16, reflection_resolution=32,
+                 lut_resolution=64, lut_samples=256, reflection_samples=128,
+                 irradiance_delta=0.1)
+# The hybrid tiles of phase 8, and their environment's budgets (the
+# reference's test fixture, tests/test_hybrid.py:21-27).
+HYBRID_TILE_W, HYBRID_TILE_H = 48, 27
+TILE_ENV = dict(cube_resolution=16, irradiance_resolution=4,
+                reflection_resolution=8, lut_resolution=16, lut_samples=32,
+                reflection_samples=16, irradiance_delta=0.4)
 # Runtime calls counted per profiled frame: the host waits for the device
 # in the first two, and in a copy from or to pageable host memory.
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -676,7 +709,8 @@ def phase_parity(device, scenes) -> dict:
         "K1": {"max_abs_err": max_err(
             ["flat_shade0_cull1", "flat_shade0_cull0", "flat_shade1",
              "flat_deterministic_exact", f"cornell_primary_{WIDTH}x{HEIGHT}",
-             "cornell_bounce1"]),
+             "cornell_bounce1", "flat_shade0_shared_origin",
+             f"hybrid_gbuffer_{kp.HYBRID_WIDTH}x{kp.HYBRID_HEIGHT}"]),
             "tolerance": "|dt| < 2e-3, |dn| < 5e-3, hit mismatches <= "
                          "max(2, N/5000)"},
         "K3": {"max_abs_err": max_err(["flat_shade2", "stress_tex_primary"]),
@@ -685,7 +719,8 @@ def phase_parity(device, scenes) -> dict:
     }
     # An occlusion flag is 0 or 1: its error is the mismatch count, held to
     # max(2, N/5000).
-    for name, names in (("K2", ("flat_anyhit", "sunlit_shadow")),
+    for name, names in (("K2", ("flat_anyhit", "sunlit_shadow",
+                                "hybrid_sun_shadow")),
                         ("K2_dense", ("flat_anyhit_dense",
                                       "sunlit_shadow_dense"))):
         kernels[name] = {
@@ -761,33 +796,58 @@ def phase_parity(device, scenes) -> dict:
             tables.shade_mode, rays,
             kp.strided_subset(rays, kp.SHADOW_SUBSET))
 
-    # K2 and K2-dense on path L's first-bounce shadow rays.
-    scene, flat, tables = scenes["sunlit"]
-    rays = kp.sunlit_shadow_case(scene, flat, tables, WIDTH, HEIGHT)
-    subset = kp.strided_subset(rays, kp.SHADOW_SUBSET)
-    for name, chunk in (("K2", tables.chunks[0]),
-                        ("K2_dense", scenes["sunlit_dense"][2].chunks[0])):
+    def anyhit(row, chunk, rays):
+        """K2 (or K2-dense, by the chunk's tables) alone on `rays`, held
+        against its plain version on a strided subset."""
         bvh8, tris, records, dense = anyhit_tables(chunk)
+        subset = kp.strided_subset(rays, kp.SHADOW_SUBSET)
 
         def check(plain_hit):
             hit = ct.trace_any_bvh8(bvh8, tris, *subset, dense,
                                     records=records)
             results = {}
-            kp._compare_hits(name, hit, plain_hit, results)
-            return results[name]
+            kp._compare_hits(row[0], hit, plain_hit, results)
+            return results[row[0]]
 
-        kernels[name].update(_timed_kernel(
-            (name, "path L", SHADOW), lambda counters: ct.anyhit_launcher(
+        return _timed_kernel(
+            row, lambda counters: ct.anyhit_launcher(
                 bvh8, tris, *rays, dense=dense, counters=counters,
                 records=records),
             lambda: ct.trace_any_bvh8_plain(bvh8, tris, *subset, dense),
-            rays, subset[0].shape[0], check))
+            rays, subset[0].shape[0], check)
+
+    # K2 and K2-dense on path L's first-bounce shadow rays.
+    scene, flat, tables = scenes["sunlit"]
+    rays = kp.sunlit_shadow_case(scene, flat, tables, WIDTH, HEIGHT)
+    for name, chunk in (("K2", tables.chunks[0]),
+                        ("K2_dense", scenes["sunlit_dense"][2].chunks[0])):
+        kernels[name].update(anyhit((name, "path L", SHADOW), chunk, rays))
         kernels[name]["mismatches"][f"path L {SHADOW}"] = (
             kernels[name]["parity"]["hit_mismatches"])
         kernels[name]["max_abs_err"] = float(
             max(kernels[name]["mismatches"].values()) > 0)
         kernels[name]["shapes"] = ("path L first-bounce shadow rays, "
                                    "1280x720")
+
+    # K1 and K2 at the hybrid frame's shapes (path H: path L's scene at the
+    # JAX bench's 1920x1080): the G-buffer's pixel-centre rays in shade
+    # mode 1, and the lighting stage's sun rays, sky and unlit pixels dead.
+    hw, hh = kp.HYBRID_WIDTH, kp.HYBRID_HEIGHT
+    rays = kp.hybrid_rays(scene, device, hw, hh)[:4]
+    kernels["K1"]["path_h"] = nearest(
+        ("K1", "path H", GBUFFER), tables.chunks[0], flat,
+        tables.shade_mode, rays, kp.strided_subset(rays, kp.SHADOW_SUBSET))
+    kernels["K1"]["path_h"]["shapes"] = (f"path H G-buffer rays, {hw}x{hh}, "
+                                         "shade mode 1")
+    kernels["K2"]["path_h"] = anyhit(
+        ("K2", "path H", SUN), tables.chunks[0],
+        kp.hybrid_shadow_case(scene, flat, tables, hw, hh))
+    kernels["K2"]["path_h"]["shapes"] = (f"path H sun rays, {hw}x{hh}, sky "
+                                         "and unlit pixels dead")
+    kernels["K2"]["mismatches"][f"path H {SUN}"] = (
+        kernels["K2"]["path_h"]["parity"]["hit_mismatches"])
+    kernels["K2"]["max_abs_err"] = float(
+        max(kernels["K2"]["mismatches"].values()) > 0)
 
     scene, flat, tables = scenes["stress_tex"]
     rays = kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]
@@ -803,6 +863,7 @@ def phase_parity(device, scenes) -> dict:
                     ("K1", "path L", PRIMARIES): kernels["K1"]["path_l"],
                     ("K1", "path L", BOUNCE1):
                         kernels["K1"]["path_l_bounce1"],
+                    ("K1", "path H", GBUFFER): kernels["K1"]["path_h"],
                     ("K3", "path T", PRIMARIES): kernels["K3"],
                     ("K3", "path T", BOUNCE1): kernels["K3"]["bounce1"]}
     for name in ("K1", "K3"):
@@ -987,13 +1048,17 @@ def _png_pixels(path: Path) -> np.ndarray:
     return rows[:, 1:].reshape(size[0], size[1], 3)
 
 
-def _profile_frames(run_frame, frames: int = 2) -> dict:
+def _profile_frames(run_frame, frames: int = 2, spans=(),
+                    top: int = 6) -> dict:
     """Device time of `frames` frames under torch.profiler: per frame, the
     summed device time of all kernels, of each trace kernel (the kernels in
     its launches' profiler ranges, cuda_traverse.PROFILER_RANGE and the
     LAUNCHES key) and of the largest device kernels, the number of device kernels, the calls of
     SYNC_CALLS (the window's closing synchronize adds one cudaDeviceSynchronize
-    per `frames`), and the host wall time under the profiler."""
+    per `frames`), and the host wall time under the profiler.  For each
+    record_function range named in `spans`, its device span per frame
+    (first kernel's start to last kernel's end, gaps included) under
+    "span_ms"; the `top` largest device kernels under "top"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1010,9 +1075,13 @@ def _profile_frames(run_frame, frames: int = 2) -> dict:
     kernels = 0
     syncs = dict.fromkeys(SYNC_CALLS, 0.0)
     trace: dict = {}
-    top = []
+    span: dict = {}
+    largest = []
     for evt in prof.key_averages():
-        if evt.key.startswith(PROFILER_RANGE):
+        if evt.key in spans:
+            if evt.device_type == DeviceType.CUDA:
+                span[evt.key] = evt.device_time_total / 1000.0 / frames
+        elif evt.key.startswith(PROFILER_RANGE):
             # The range's device side spans the one kernel it launched.
             if evt.device_type == DeviceType.CUDA:
                 trace[evt.key[len(PROFILER_RANGE):]] = (
@@ -1021,13 +1090,14 @@ def _profile_frames(run_frame, frames: int = 2) -> dict:
                 not evt.is_user_annotation:
             busy += evt.self_device_time_total
             kernels += evt.count
-            top.append((evt.self_device_time_total / 1000.0 / frames,
+            largest.append((evt.self_device_time_total / 1000.0 / frames,
                         evt.count / frames, evt.key))
         elif evt.key in syncs:
             syncs[evt.key] += evt.count / frames
     return {"wall_ms": wall_ms, "busy_ms": busy / 1000.0 / frames,
             "kernels": kernels / frames, "syncs": syncs,
-            "trace_ms": trace, "top": sorted(top, reverse=True)[:6]}
+            "trace_ms": trace, "span_ms": span,
+            "top": sorted(largest, reverse=True)[:top]}
 
 
 def _reset_launches() -> None:
@@ -1252,7 +1322,8 @@ def phase_cross_device(device) -> None:
     masks) seen from inside the canopy, as tests/test_torch_foliage_slice.py
     renders it, and the lit parity scene through the two-level structure
     and through treelets (cut at 16 triangles, leaf size 8, so that the
-    tile's rays cross several treelets)."""
+    tile's rays cross several treelets); then 48x27 hybrid frames of
+    Cornell, the lit parity scene and the small foliage scene."""
     from steeljax_torch.accel.instances import InstancedAccel
     from steeljax_torch.core import camera as camera_lib
     from steeljax_torch.core.config import RenderConfig
@@ -1340,6 +1411,142 @@ def phase_cross_device(device) -> None:
             raise RuntimeError(f"the card's {label} tile diverges from the "
                                "CPU's")
 
+    # Hybrid tiles (48x27 frames of HybridRenderer) on the card against the
+    # CPU, both lit from one environment baked on the CPU: Cornell (K1),
+    # the lit parity scene (K1 and K2 for the sun rays) and the small
+    # foliage scene (the G-buffer's alpha re-trace and the sun rays through
+    # K4).  The same bake on the card is held to the CPU's first.
+    from steeljax_torch.accel import cuda_traverse
+    from steeljax_torch.env.environment import load_environment
+    from steeljax_torch.render.hybrid.renderer import HybridRenderer
+
+    env = load_environment(device="cpu", **TILE_ENV)
+    _same_bake("tile budgets", load_environment(device=device, **TILE_ENV),
+               env, TILE_ENV)
+    hw, hh = HYBRID_TILE_W, HYBRID_TILE_H
+    for label, make, kernels in (
+            ("Cornell (hybrid)", lambda: make_cornell_scene(6), ("K1",)),
+            ("parity (lit, hybrid)", lambda: make_parity_scene(4),
+             ("K1", "K2")),
+            ("foliage (alpha, hybrid)", foliage, ("K4",))):
+        scene = make()
+        frames = {}
+        for dev in (device, "cpu"):
+            flat, tables = prepare_scene(scene, dev, env_resolution=16)
+            _reset_launches()
+            frames[str(dev)] = HybridRenderer(
+                scene, hw, hh, RenderConfig(width=hw, height=hh),
+                environment=env.to(dev), prepared=(flat, tables),
+                device=dev).render_frame()
+            if dev == device:
+                launched = {k: v for k, v in cuda_traverse.LAUNCHES.items()
+                            if v}
+        gpu, cpu = frames[str(device)], frames["cpu"]
+        delta = np.abs(gpu - cpu).max(axis=-1)
+        diverging = int((delta > PIXEL_ATOL).sum())
+        n = hw * hh
+        print(f"{label} tile {hw}x{hh}: card vs CPU max |delta| "
+              f"{float(delta.max()):.3e}, {diverging} of {n} pixels beyond "
+              f"{PIXEL_ATOL}; the card's launches {launched}")
+        if diverging > max(2, n // 200) or float(gpu.std()) <= 0.0 or \
+                any(not launched.get(k) for k in kernels):
+            raise RuntimeError(f"the card's {label} tile diverges from the "
+                               f"CPU's or skipped one of {kernels}")
+
+
+# The card's IBL bake against the CPU's, with tests/test_torch_ibl.py's
+# tolerances against the reference (another float32 evaluation of the same
+# sums): 1e-5 of the table's largest value, the split-sum LUT's rows at
+# roughness^4 < 1e-3 and reflection mip 0 (ill-conditioned GGX samples) to
+# 1e-3 and 1e-4, the SH coefficients to 1e-4 and of the same order.  A
+# reflection mip may also be held to SEAM_FACTOR times its seam
+# sensitivity (_seam_sensitivity), where that is larger.
+BAKE_RTOL, ILL_LUT_RTOL, MIP0_RTOL, SH_RTOL, ILL_A2 = (1e-5, 1e-3, 1e-4,
+                                                       1e-4, 1e-3)
+SEAM_PATTERNS, SEAM_FACTOR = 4, 2.0
+
+
+def _seam_sensitivity(cpu, samples: int) -> list:
+    """Per reflection mip of the CPU's bake `cpu` (`samples` samples a
+    texel), the largest relative
+    change when every sample direction moves by one float32 ulp (a seeded
+    +-2^-23 pattern, SEAM_PATTERNS of them).  A 1-texel face's direction
+    is a face's centre and the Hammersley azimuths hit multiples of pi/4,
+    so some samples lie exactly on a face seam, where the face a sample
+    reads is decided by the last bit of its direction; a 16-texel source
+    changes by a few percent across a seam near the horizon.  At the tile
+    budgets the last mip moves by 1e-3-3e-3 this way, at the bench budgets
+    no mip by more than 4e-6 (a 64-texel source, 128 samples): the card's
+    own last bits may flip other seam samples than the CPU's."""
+    from unittest import mock
+
+    from steeljax_torch.env import ibl
+
+    sample = ibl.sample_flat_mips
+    resolution = cpu.reflection_mips[0].shape[1]
+    worst = [0.0] * len(cpu.reflection_mips)
+    for seed in range(SEAM_PATTERNS):
+        g = torch.Generator().manual_seed(seed)
+
+        def nudged(data, offsets, sizes, direction, lod):
+            sign = torch.randint(0, 2, direction.shape, generator=g) * 2 - 1
+            return sample(data, offsets, sizes,
+                          direction * (1.0 + 2.0 ** -23 * sign), lod)
+
+        with mock.patch.object(ibl, "sample_flat_mips", nudged):
+            mips = ibl.generate_reflection_mips(
+                cpu.cube, resolution, samples)
+        for m, (a, b) in enumerate(zip(mips, cpu.reflection_mips)):
+            worst[m] = max(worst[m], float((a - b).abs().max())
+                           / max(float(b.abs().max()), 1e-30))
+    return worst
+
+
+def _same_bake(label, card, cpu, budgets: dict) -> None:
+    """Raise unless the environment `card` baked on the card holds to the
+    one `cpu` baked on the CPU at the same `budgets` (the tolerances
+    above)."""
+    def rel(a, b):
+        a, b = a.cpu().double(), b.double()
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    res = cpu.specular_lut.shape[0]
+    good = ((torch.arange(res) + 0.5) / res) ** 4 >= ILL_A2
+    errors = {
+        "cube": (rel(card.cube, cpu.cube), 0.0),
+        "irradiance": (rel(card.irradiance, cpu.irradiance), BAKE_RTOL),
+        "specular_lut": (rel(card.specular_lut, cpu.specular_lut),
+                         ILL_LUT_RTOL),
+        "specular_lut (a2 >= 1e-3)": (rel(card.specular_lut[good],
+                                          cpu.specular_lut[good]),
+                                      BAKE_RTOL)}
+    if len(card.reflection_mips) != len(cpu.reflection_mips):
+        raise RuntimeError("the card's bake has another reflection chain")
+    seams = _seam_sensitivity(cpu, budgets["reflection_samples"])
+    for m, (a, b) in enumerate(zip(card.reflection_mips,
+                                   cpu.reflection_mips)):
+        errors[f"reflection mip {m}"] = (rel(a, b), max(
+            MIP0_RTOL if m == 0 else BAKE_RTOL, SEAM_FACTOR * seams[m]))
+    if (card.irradiance_sh is None) != (cpu.irradiance_sh is None) or (
+            cpu.irradiance_sh is not None
+            and card.irradiance_sh.shape != cpu.irradiance_sh.shape):
+        raise RuntimeError("the card's SH fit picked another order than the "
+                           "CPU's")
+    if cpu.irradiance_sh is not None:
+        errors["irradiance_sh"] = (rel(card.irradiance_sh,
+                                       cpu.irradiance_sh), SH_RTOL)
+    order = (0 if cpu.irradiance_sh is None
+             else round(cpu.irradiance_sh.shape[0] ** 0.5))
+    print(f"IBL bake at the {label}: card vs CPU, SH order {order} on both; "
+          "largest difference / largest value: " + ", ".join(
+              f"{k} {e:.2e} (<= {t:.2e})" for k, (e, t) in errors.items())
+          + "; seam sensitivity of the reflection mips "
+          + ", ".join(f"{v:.2e}" for v in seams))
+    bad = [k for k, (e, t) in errors.items() if e > t]
+    if bad:
+        raise RuntimeError(f"the card's IBL bake differs from the CPU's: "
+                           f"{bad}")
+
 
 def phase_instanced_edit(device, scenes, renderers, flat_prepare_s) -> None:
     """Path I's edit: after its frames, one entity moves, the scene's
@@ -1400,6 +1607,213 @@ def phase_instanced_edit(device, scenes, renderers, flat_prepare_s) -> None:
             IMAGE_MEAN_RTOL * float(flat_frame.mean()) or \
             beyond > IMAGE_PIXEL_FRACTION:
         raise RuntimeError("the refreshed frame is not the flat renderer's")
+
+
+def _timed_bake(**kwargs):
+    """load_environment(**kwargs) on the card and its host seconds, ending
+    in a synchronize."""
+    from steeljax_torch.env.environment import load_environment
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env = load_environment(**kwargs)
+    torch.cuda.synchronize()
+    return env, time.perf_counter() - t0
+
+
+def _hybrid_frames(renderer, frames: int) -> tuple:
+    """One warm and `frames` timed frames of render_frame_device: (ms per
+    timed frame, the last frame)."""
+    renderer.render_frame_device()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        image = renderer.render_frame_device()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000.0 / frames, image
+
+
+def phase_hybrid(device, scenes) -> dict:
+    """Path H, the JAX bench's hybrid frame (bench.py:213-260): path L's
+    scene (prepared in phase 3a by prepare_scene(scene, device,
+    env_resolution=64)), its environment baked by load_environment at the
+    bench's budgets, HybridRenderer(...).render_frame_device() at
+    1920x1080: one warm and HYBRID_TIMED_FRAMES timed frames with the launch
+    counts set to 0 just before and read just after (one K1 and one K2
+    launch a frame, no other kernel), the frame's checks (finite, not
+    constant), 2 frames under torch.profiler (device busy, K1 and K2, the
+    stages' device spans), the stage split of tools/probe_hybrid_stages.py
+    (full, ray_tracing_enabled=False, debug_view="normals"), the
+    reflection lookup's two forms, the bake's host seconds at the bench
+    budgets and at load_environment's defaults (the bench bake held to the
+    CPU's), and render_cli --mode hybrid's PNG."""
+    import dataclasses
+
+    from steeljax_torch.accel import cuda_traverse
+    from steeljax_torch.apps import kernel_parity as kp
+    from steeljax_torch.apps import render_cli
+    from steeljax_torch.core.config import RenderConfig
+    from steeljax_torch.env.environment import load_environment
+    from steeljax_torch.render.hybrid.renderer import HybridRenderer
+
+    scene, flat, tables = scenes["sunlit"]
+    width, height = kp.HYBRID_WIDTH, kp.HYBRID_HEIGHT
+    env, bench_s = _timed_bake(cube=flat.env_cube,
+                               analytic=flat.env_analytic, device=device,
+                               **BENCH_ENV)
+    default_env, default_s = _timed_bake(device=device)
+    sh_order = (0 if env.irradiance_sh is None
+                else round(env.irradiance_sh.shape[0] ** 0.5))
+    print(f"load_environment: bench budgets {bench_s:.3f} s (reflection "
+          f"mips {len(env.reflection_mips)}, SH irradiance "
+          f"{env.irradiance_sh is not None}, of order {sh_order}); "
+          f"defaults (256-texel "
+          f"sky, 2,048-sample reflection, 256x256 LUT at 4,096 samples) "
+          f"{default_s:.3f} s (mips {len(default_env.reflection_mips)}, SH "
+          f"irradiance {default_env.irradiance_sh is not None})")
+    del default_env
+    _same_bake("bench budgets", env, load_environment(
+        cube=flat.env_cube.cpu(), analytic=flat.env_analytic, device="cpu",
+        **BENCH_ENV), BENCH_ENV)
+    config = RenderConfig(width=width, height=height)
+
+    def renderer_for(**changes):
+        return HybridRenderer(scene, width, height,
+                              dataclasses.replace(config, **changes),
+                              environment=env, prepared=(flat, tables),
+                              device=device)
+
+    renderer = renderer_for()
+    _reset_launches()
+    ms_frame, image = _hybrid_frames(renderer, HYBRID_TIMED_FRAMES)
+    launches = dict(cuda_traverse.LAUNCHES)
+    total = 1 + HYBRID_TIMED_FRAMES
+    want = {name: total if name in ("K1", "K2") else 0 for name in launches}
+    if launches != want:
+        raise RuntimeError(f"path H launched {launches} over {total} "
+                           f"frames, expected {want}")
+    image = image.cpu().numpy()
+    if image.shape != (width * height, 3) or not np.isfinite(image).all():
+        raise RuntimeError(f"path H: bad frame {image.shape}")
+    if float(image.std()) <= 0.0:
+        raise RuntimeError("path H: constant frame")
+    print(f"path H {width}x{height}: {ms_frame:.3f} ms/frame over "
+          f"{HYBRID_TIMED_FRAMES} timed frames; launches over {total} "
+          "frames " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                if v) + f" (K1 {launches['K1'] / total:.0f}"
+          f", K2 {launches['K2'] / total:.0f} a frame, no other kernel); "
+          f"image mean {float(image.mean()):.4f}")
+
+    stages = ("gbuffer_stage", "lighting_stage", "forward_stage")
+    prof = _profile_frames(renderer.render_frame_device, spans=stages,
+                           top=12)
+    trace_ms = {}
+    if prof["busy_ms"] > 0.0:
+        trace_ms = prof["trace_ms"]
+        share = sum(trace_ms.values())
+        print(f"path H torch.profiler, per frame: device busy "
+              f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms wall "
+              f"under the profiler (idle share "
+              f"{1.0 - prof['busy_ms'] / prof['wall_ms']:.3f}); "
+              f"{prof['kernels']:.0f} device kernels, "
+              + ", ".join(f"{k} {v:.1f}" for k, v in prof["syncs"].items())
+              + f"; trace kernels {share:.3f} ms = "
+              f"{100.0 * share / prof['busy_ms']:.1f}% of device time ("
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                          sorted(trace_ms.items())) + "); stage device "
+              "spans " + ", ".join(f"{k} {prof['span_ms'].get(k, 0.0):.3f} "
+                                   "ms" for k in stages))
+        for ms, count, key in prof["top"]:
+            print(f"  {ms:8.3f} ms/frame in {count:6.0f} launches: "
+                  f"{key[:90]}")
+    else:
+        print("path H: torch.profiler recorded no device time: busy and "
+              "idle share not measured")
+
+    # The operators behind the device time, by input shapes (one frame).
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as shapes_prof:
+        renderer.render_frame_device()
+        torch.cuda.synchronize()
+    ops = sorted((e for e in shapes_prof.key_averages(
+        group_by_input_shape=True) if e.self_device_time_total > 0),
+        key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    for e in ops:
+        print(f"  path H operator {e.key} {str(e.input_shapes)[:110]}: "
+              f"{e.self_device_time_total / 1000.0:.3f} ms device in "
+              f"{e.count} calls")
+
+    split = {}
+    for name, changes in (("full", {}),
+                          ("no_shadows", {"ray_tracing_enabled": False}),
+                          ("gbuffer_only", {"debug_view": "normals"})):
+        split[name], _ = _hybrid_frames(renderer_for(**changes),
+                                        HYBRID_TIMED_FRAMES)
+    print(f"path H stage split (tools/probe_hybrid_stages.py's variants, "
+          f"{HYBRID_TIMED_FRAMES} timed frames each): "
+          + ", ".join(f"{k} {v:.3f} ms/frame" for k, v in split.items())
+          + f"; shadow trace and its lighting "
+          f"{split['full'] - split['no_shadows']:.3f} ms, primary trace and "
+          f"G-buffer {split['gbuffer_only']:.3f} ms, lighting, IBL and "
+          f"forward {split['no_shadows'] - split['gbuffer_only']:.3f} ms")
+
+    reflection = _reflection_forms(renderer, env)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png_path = Path(tmp) / "hybrid.png"
+        render_cli.main(["builtin:cornell", "--mode", "hybrid", "-o",
+                         str(png_path), "--size", "64x36", "--device",
+                         "cuda"])
+        png = _png_pixels(png_path)
+        if png.shape != (36, 64, 3) or png.std() == 0:
+            raise RuntimeError(f"render_cli --mode hybrid PNG bad: "
+                               f"{png.shape}, std {png.std()}")
+        print(f"render_cli --mode hybrid: 64x36 PNG, mean {png.mean():.2f}, "
+              f"std {png.std():.2f}")
+    return {"launches": launches, "ms_frame": ms_frame, "trace_ms": trace_ms,
+            "split": split, "bake_s": {"bench": bench_s,
+                                       "default": default_s},
+            "reflection_ms": reflection}
+
+
+def _reflection_forms(renderer, env) -> dict:
+    """The lighting stage's reflection lookup of one path H frame, on the
+    frame's own directions and levels, in the two bit-exact forms of the
+    reflection chain: the mip-pair rows it reads (sample_flat_mips_tri,
+    one 48-float gather a pixel) and the quad rows (sample_flat_mips, two
+    16-float gathers).  Raises unless they agree bit for bit; returns the
+    device ms of each (timing.time_ms)."""
+    from unittest import mock
+
+    from steeljax_torch.apps.timing import time_ms
+    from steeljax_torch.env import cubemap
+    from steeljax_torch.render.hybrid import lighting
+
+    seen = []
+
+    def record(*args):
+        seen.append(args)
+        return cubemap.sample_flat_mips_tri(*args)
+
+    with mock.patch.object(lighting, "sample_flat_mips_tri", record):
+        renderer.render_frame_device()
+    (*tri, direction, lod), = seen
+    quads = cubemap.pack_mips(env.reflection_mips, direction.device)
+    if not torch.equal(cubemap.sample_flat_mips(*quads, direction, lod),
+                       cubemap.sample_flat_mips_tri(*tri, direction, lod)):
+        raise RuntimeError("path H: the mip-pair rows differ from the quad "
+                           "rows")
+    ms = {"mip_pair_rows": time_ms(lambda: cubemap.sample_flat_mips_tri(
+        *tri, direction, lod)),
+        "quad_rows": time_ms(lambda: cubemap.sample_flat_mips(
+            *quads, direction, lod))}
+    print(f"path H reflection lookup ({direction.shape[0]} pixels, "
+          f"{len(env.reflection_mips)} mips), equal bit for bit: mip-pair "
+          f"rows ({tri[0].shape[0]}, 48) {ms['mip_pair_rows']:.4f} ms, quad "
+          f"rows ({quads[0].shape[0]}, 16) {ms['quad_rows']:.4f} ms")
+    return ms
 
 
 def phase_kernel_ab(scenes, old_dir, ptxas: dict) -> None:
@@ -1487,6 +1901,8 @@ def main(argv=None) -> int:
     path_ul = against("10b. path UL (sunlit stress, treelets)", "path UL",
                       "sunlit_treelets", {"K7": None, "K7_anyhit": None,
                                           "K7_pick": None}, "path L", path_l)
+    path_h = phase("11. path H (hybrid, sunlit stress, 1920x1080)",
+                   phase_hybrid, device, scenes)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
 
@@ -1505,6 +1921,17 @@ def main(argv=None) -> int:
                 "K7_shade1": path_ul["launches"]["K7"],
                 "K7_anyhit": path_ul["launches"]["K7_anyhit"],
                 "K7_pick": path_u["launches"]["K7_pick"]}
+    frames_h = 1 + HYBRID_TIMED_FRAMES
+
+    def path_h_row(k):
+        """K1's and K2's row at path H's shapes (phase 3b), with the
+        kernel's launches a frame on path H (phase 11)."""
+        row = kernels[k]["path_h"]
+        return {"launches_per_frame": path_h["launches"][k] / frames_h,
+                **{f: row[f] for f in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "shapes", "rays",
+                                       "plain_rays")}}
+
     sources = {k: "steeljax_torch/csrc/alpha8.cu" for k in launches}
     for k in ("K7", "K7_shade1", "K7_anyhit", "K7_pick"):
         sources[k] = "steeljax_torch/csrc/treelet8.cu"
@@ -1566,7 +1993,8 @@ def main(argv=None) -> int:
         "trace_ms": kernels[k].get("trace_ms"),
         "tolerance": kernels[k]["tolerance"],
         "shapes": kernels[k]["shapes"], "rays": kernels[k]["rays"],
-        "plain_rays": kernels[k]["plain_rays"]}
+        "plain_rays": kernels[k]["plain_rays"],
+        **({"path_h": path_h_row(k)} if "path_h" in kernels[k] else {})}
         for k in launches]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,11 @@ mirror the reference (`steeljax_torch/render/pt/integrator.py` <->
 reference's Pallas traversal kernels are hand-written CUDA kernels
 (`csrc/*.cu`, bound by `accel/cuda_traverse.py`).
 
-Today the port runs the path tracer on builtin scenes in one chunk (lights,
-textures, alpha-tested materials, instancing, treelets); anything else
-raises NotImplementedError naming the ROADMAP item that brings it.
+Today the port runs the path tracer and the hybrid renderer on builtin
+scenes in one chunk (lights, textures, alpha-tested materials, instancing,
+treelets; cube, panorama and procedural environments with their IBL
+bakes); anything else raises NotImplementedError naming the ROADMAP item
+that brings it.
 
 This package never imports jax or steeljax: the machine with the card has
 neither.  Only the tests import both packages.

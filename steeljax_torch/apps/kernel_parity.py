@@ -24,6 +24,10 @@ the paths' own rays: Cornell primary rays at 1280x720 and their
 first-bounce rays (K1), the first-bounce shadow rays of the sunlit stress
 scene (K2 on both row layouts, `sunlit_shadow` and `sunlit_shadow_dense`),
 the primary rays of the textured stress scene (K3, `stress_tex_primary`),
+the hybrid frame's rays on the sunlit stress scene at the JAX bench's
+1920x1080 (K1 in shade mode 1 on the G-buffer's pixel-centre rays,
+`hybrid_gbuffer_1920x1080`, and K2 on the lighting stage's sun rays, sky
+and unlit pixels dead, `hybrid_sun_shadow`),
 and path F's, the serrated foliage scene's, primary rays (K4 with fine
 masks, `foliage_primary`; K5 with K = 4, `foliage_multihit`) and
 first-bounce sun rays (K4 without culling, `foliage_shadow`), each on a
@@ -45,6 +49,13 @@ directly between kernel and plain version where both name the same triangle
 and instance; `inst` is judged like `tri`: it may differ only on exact-t
 ties.
 
+`flat_shade0_shared_origin` is the reference's variant of K1 on rays that
+share one origin (:279-286, the hybrid G-buffer's kind of ray); the port's
+kernel has no special path for them, so the variant holds its general one
+there.  The reference's `flat_shade0_cull{0,1}_subl{16,32}` variants are
+its TPU packet sizes; the port's kernel has none, and
+`flat_shade0_cull{0,1}` stand for them.
+
 Usage (needs a CUDA card):
     python -m steeljax_torch.apps.kernel_parity [-o parity.json]
 """
@@ -65,9 +76,12 @@ def _soup(n, seed, spread=10.0):
     return (base + r.normal(0, 0.6, (n, 3, 3))).astype(np.float32)
 
 
-def _rays(n, seed, spread=14.0):
+def _rays(n, seed, spread=14.0, shared_origin=False):
     r = np.random.default_rng(seed)
-    o = r.uniform(-spread, spread, (n, 3))
+    if shared_origin:
+        o = np.tile(r.uniform(-spread, spread, (1, 3)), (n, 1))
+    else:
+        o = r.uniform(-spread, spread, (n, 3))
     d = r.normal(size=(n, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return o.astype(np.float32), d.astype(np.float32)
@@ -532,6 +546,52 @@ def strided_subset(rays, limit: int):
     return tuple(take(x) for x in (o, d, t_min, t_max))
 
 
+# The JAX bench's hybrid frame size (bench.py:213-260).
+HYBRID_WIDTH, HYBRID_HEIGHT = 1920, 1080
+
+
+def hybrid_rays(scene, device, width: int, height: int):
+    """The hybrid frame's pixel-centre rays in the renderer's tile order
+    and what the G-buffer needs beside them: (o, d, near, far, uv,
+    view_proj, camera_position, inverse_proj_view, pixel_spread), tensors
+    on `device`."""
+    from steeljax_torch.core import camera as camera_lib
+    from steeljax_torch.render.hybrid.renderer import pixel_center_rays
+    from steeljax_torch.render.pt.integrator import tiled_order
+
+    frame = camera_lib.make_frame(scene.camera_location,
+                                  scene.camera_projection)
+    px, py, _ = tiled_order(width, height)
+    iv, ip, vp = (torch.as_tensor(m, device=device) for m in (
+        frame.inverse_view, frame.inverse_proj, frame.view_proj))
+    o, d, uv = pixel_center_rays(iv, ip, width, height,
+                                 torch.as_tensor(px, device=device),
+                                 torch.as_tensor(py, device=device))
+    return (o.contiguous(), d, frame.camera_near, frame.camera_far, uv, vp,
+            iv[:3, 3], iv @ ip, 2.0 * ip[1, 1].abs() / height)
+
+
+def hybrid_shadow_case(scene, flat, tables, width: int, height: int):
+    """The sun rays the hybrid lighting stage traces (lighting.shadow_rays
+    of the scene's first light at the G-buffer's positions and normals,
+    sky and unlit pixels dead): (o, d, t_min, t_max)."""
+    from steeljax_torch.render.hybrid.gbuffer import generate_gbuffer
+    from steeljax_torch.render.hybrid.lighting import (light_terms,
+                                                       restore_position,
+                                                       shadow_rays)
+
+    o, d, near, far, uv, vp, cam, ipv, spread = hybrid_rays(
+        scene, flat.device, width, height)
+    gb = generate_gbuffer(flat, tables, o, d, near, far, vp, cam,
+                          pixel_spread=spread)
+    position = restore_position(gb["depth"], uv, ipv)
+    n = gb["normal"] * 2.0 - 1.0
+    l, distance, _, _, irradiance, _ = light_terms(flat, 0, position, n)
+    so, sd, t_min, t_max = shadow_rays(position, n, l, distance, irradiance,
+                                       gb["hit"])
+    return so.contiguous(), sd.contiguous(), t_min, t_max
+
+
 # The parity subsets of the big paths' rays (the plain versions are
 # brute force).
 SHADOW_SUBSET = 32768
@@ -906,6 +966,14 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
         rec_k, rec_p = both(tables, o, d, 0.001, 1000.0, cull, 0)
         all_ok &= _compare(f"flat_shade0_cull{int(cull)}", rec_k, rec_p,
                            perm["pos"], variants)
+    # K1 on rays with one shared origin (the reference's shared-origin
+    # specialization, :279-286).
+    os_np, ds_np = _rays(n_rays, 7, shared_origin=True)
+    rec_k, rec_p = both(tables, torch.as_tensor(os_np, device=device),
+                        torch.as_tensor(ds_np, device=device), 0.001, 1000.0,
+                        True, 0)
+    all_ok &= _compare("flat_shade0_shared_origin", rec_k, rec_p,
+                       perm["pos"], variants)
     rec_k, rec_p = both(tables, o, d, 0.001, 1000.0, True, 1)
     all_ok &= _compare("flat_shade1", rec_k, rec_p, perm["pos"], variants,
                        attrs=attrs, d=d_np)
@@ -955,6 +1023,23 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
     dchunk = scenes["sunlit_dense"][2].chunks[0]
     all_ok &= _compare_hits("sunlit_shadow_dense", *both_any(
         dchunk, *rays), variants)
+
+    # The hybrid frame on path L's scene at 1920x1080: K1 in shade mode 1
+    # on the G-buffer's rays and K2 on the lighting stage's sun rays.
+    hw, hh = HYBRID_WIDTH, HYBRID_HEIGHT
+    lattrs = {"nrm": lflat.tri_nrm.cpu().numpy(),
+              "mat": lflat.tri_mat.cpu().numpy()}
+    o_h, d_h, tmn, tmx = strided_subset(
+        hybrid_rays(scene, device, hw, hh)[:4], SHADOW_SUBSET)
+    rec_k, rec_p = both(ltables, o_h, d_h, tmn, tmx, True,
+                        ltables.shade_mode)
+    all_ok &= _compare(f"hybrid_gbuffer_{hw}x{hh}", rec_k, rec_p,
+                       lflat.tri_pos.cpu().numpy(), variants, attrs=lattrs,
+                       d=d_h.cpu().numpy())
+    all_ok &= _compare_hits("hybrid_sun_shadow", *both_any(
+        lchunk, *strided_subset(hybrid_shadow_case(scene, lflat, ltables, hw,
+                                                   hh), SHADOW_SUBSET)),
+        variants)
 
     scene, tflat, ttables = scenes["stress_tex"]
     o_t, d_t, tmn, tmx = strided_subset(

@@ -1,10 +1,14 @@
-"""Headless path-tracing render CLI (port of steeljax/apps/render_cli.py,
-PT mode only).
+"""Headless render CLI (port of steeljax/apps/render_cli.py: the path
+tracer and the hybrid renderer on builtin scenes).
 
-Renders N accumulated frames of a builtin scene and writes a PNG:
+`--mode pt` (the default) renders N accumulated frames, `--mode hybrid` one
+hybrid frame, whose environment bakes at load_environment's full budgets
+first; either writes a PNG:
 
     python -m steeljax_torch.apps.render_cli builtin:cornell -o out.png \
         --size 320x180 --spp 8 --device cuda [--instancing]
+    python -m steeljax_torch.apps.render_cli builtin:cornell --mode hybrid \
+        -o hybrid.png --size 320x180 --device cuda
 """
 
 from __future__ import annotations
@@ -18,14 +22,16 @@ import torch
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        description="Path-trace a builtin scene on a CUDA card (or the CPU "
+        description="Render a builtin scene on a CUDA card (or the CPU "
                     "when asked) and write a PNG.")
     parser.add_argument("scene", help="builtin:cornell")
+    parser.add_argument("--mode", choices=["pt", "hybrid"], default="pt",
+                        help="path tracer (default) or hybrid renderer")
     parser.add_argument("-o", "--output", default="render.png")
     parser.add_argument("--size", default="1280x720",
                         help="WIDTHxHEIGHT (default 1280x720)")
     parser.add_argument("--spp", type=int, default=16,
-                        help="accumulated samples per pixel")
+                        help="accumulated samples per pixel (pt mode)")
     parser.add_argument("--device", default="cuda",
                         help="render device: cuda (default), cuda:N or cpu")
     parser.add_argument("--instancing", action="store_true",
@@ -47,15 +53,36 @@ def main(argv=None) -> int:
                            "available (pass --device cpu to render on the "
                            "CPU)")
 
+    from steeljax_torch.accel.instances import InstancedAccel
     from steeljax_torch.core.config import RenderConfig
     from steeljax_torch.io.image import write_png
-    from steeljax_torch.render.pt.renderer import PathTracingRenderer
+    from steeljax_torch.render.pt.renderer import (PathTracingRenderer,
+                                                   prepare_scene)
     from steeljax_torch.scene.builtin import make_cornell_scene
 
-    renderer = PathTracingRenderer(
-        make_cornell_scene(), width, height,
-        RenderConfig(width=width, height=height),
-        instancing=args.instancing, device=device)
+    scene = make_cornell_scene()
+    config = RenderConfig(width=width, height=height)
+    if args.mode == "hybrid":
+        from steeljax_torch.render.hybrid.renderer import HybridRenderer
+
+        t0 = time.perf_counter()
+        prepared = None
+        if args.instancing:
+            prepared = prepare_scene(scene, device,
+                                     accel=InstancedAccel(device=device))
+        renderer = HybridRenderer(scene, width, height, config,
+                                  prepared=prepared, device=device)
+        t1 = time.perf_counter()
+        image = renderer.render_frame()  # host numpy: synchronized
+        print(f"hybrid: preparation and environment bake {t1 - t0:.2f} s, "
+              f"frame {(time.perf_counter() - t1) * 1000.0:.2f} ms on "
+              f"{device}")
+        write_png(args.output, image)
+        print(f"wrote {args.output} ({width}x{height}, hybrid)")
+        return 0
+
+    renderer = PathTracingRenderer(scene, width, height, config,
+                                   instancing=args.instancing, device=device)
     image = None
     for i in range(args.spp):
         t0 = time.perf_counter()

@@ -19,6 +19,10 @@ Instanced tables (the reference's InstancedTables, as
 fused rows included) and TraceTables with treelet stacks come across too.
 The reference's CPU tables (`use_pallas=False`) carry no fused rows: the
 port then traces in shade mode 0 and shades from the composed rows.
+
+`from_jax_environment(env, device)` carries a steeljax `Environment` (the
+cube and every baked table) across the same way, so that two renderers can
+light a frame from the same bakes.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from steeljax_torch.accel.cuda_traverse import (hopper_records,
 from steeljax_torch.accel.dispatch import ChunkTables, TraceTables
 from steeljax_torch.accel.instances import InstancedTables
 from steeljax_torch.accel.treelets import TreeletTables
+from steeljax_torch.env.cubemap import pack_mips_tri
+from steeljax_torch.env.environment import Environment
 from steeljax_torch.scene.flatten import FlatScene
 
 _STATIC_FIELDS = ("light_count", "env_enabled", "env_analytic",
@@ -168,3 +174,23 @@ def from_jax_prepared(flat, tables, device: torch.device | str,
                         if dense else None))
     return port_flat, TraceTables(chunks=(port_chunk,), shade_mode=mode,
                                   alpha_masked=alpha)
+
+
+def from_jax_environment(env, device: torch.device | str) -> Environment:
+    """The reference's Environment on `device`: every table as it was
+    baked, read through np.asarray (None where the reference has none).
+    The mip-pair reflection rows, which the reference packs only for small
+    chains, are packed here from its reflection mips (env.environment)."""
+    def dev(x):
+        return (None if x is None
+                else torch.from_numpy(np.array(np.asarray(x))).to(device))
+
+    tables = {f.name: dev(getattr(env, f.name))
+              for f in dataclasses.fields(Environment)
+              if f.name not in ("reflection_mips", "analytic",
+                                "reflection_tri_data")}
+    mips = tuple(dev(m) for m in env.reflection_mips)
+    return Environment(
+        reflection_mips=mips,
+        reflection_tri_data=pack_mips_tri(mips, device)[0],
+        analytic=bool(env.analytic), **tables)

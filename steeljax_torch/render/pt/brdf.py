@@ -79,6 +79,13 @@ def f_schlick(f0, voh):
     return f0 + (1.0 - f0) * fc[..., None]
 
 
+def f_schlick_roughness(f0, voh, roughness):
+    """Fresnel with the roughness-limited grazing term (the split-sum
+    ambient's kS, PBR.glsl)."""
+    fc = ((1.0 - voh) ** 5)[..., None]
+    return f0 + (torch.maximum(1.0 - roughness[..., None], f0) - f0) * fc
+
+
 def vis_schlick(a, nov, nol):
     k = a * 0.5
     vis_v = nov * (1.0 - k) + k

@@ -46,6 +46,7 @@ from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.core.constants import (BIAS, DIRECT_LIGHT_DISK_RADIUS,
                                            EPSILON, PI, POINT_LIGHT_RADIUS,
                                            RAY_DEAD_T, RAY_MAX_T, RAY_MIN_T)
+from steeljax_torch.env.cubemap import sample_cube_quads
 from steeljax_torch.render.pt import brdf as brdf_lib
 from steeljax_torch.render.texture import sample_bilinear
 from steeljax_torch.scene.flatten import FlatScene
@@ -602,12 +603,12 @@ def direct_lighting(scene: FlatScene, tables: TraceTables, surface, tbn,
 
 def _environment(scene: FlatScene, d: torch.Tensor) -> torch.Tensor:
     """Radiance of the environment seen along d: the procedural sky in
-    closed form, else the constant colour prepare_scene baked (zero when
-    there is no environment)."""
+    closed form, else a bilinear read of the cube prepare_scene baked
+    (integrator.py:959-967; zero when there is no environment)."""
     if scene.env_analytic:
         from steeljax_torch.env.sky import sky_radiance
         return sky_radiance(d)
-    return scene.env_cube.reshape(-1, 3)[0].expand(d.shape)
+    return sample_cube_quads(scene.env_quads, d)
 
 
 def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,

@@ -30,6 +30,8 @@ from steeljax_torch.accel.treelets import TREELET_TRIS
 from steeljax_torch.core import camera as camera_lib
 from steeljax_torch.core.colors import tone_map
 from steeljax_torch.core.config import RenderConfig
+from steeljax_torch.env.panorama import panorama_to_cube
+from steeljax_torch.io.image import load_hdr
 from steeljax_torch.render.pt.integrator import render_sample
 from steeljax_torch.scene.flatten import (FlatScene, flatten_scene,
                                           refresh_lights)
@@ -105,7 +107,8 @@ def prepare_scene(scene: Scene, device: torch.device | str,
     coarse masks in alpha-tested scenes, without fine mask rows, dense
     any-hit tables or the multi-hit path.
 
-    The environment is the scene's constant colour when it has one, else
+    The environment is, in this order, the scene's `environment_cube`, its
+    constant colour, the Radiance panorama at its `environment_path`, else
     the procedural sky when `use_default_environment`, else none.  Leaf
     size follows the reference: 48 at up to 50k triangles, else 24.
     `dense_anyhit` builds the dense any-hit tables, which shadow rays then
@@ -128,16 +131,17 @@ def prepare_scene(scene: Scene, device: torch.device | str,
                          f"got {multihit_k}")
     env_cube = None
     env_analytic = False
-    if scene.environment_cube is not None or (
-            scene.environment_color is None and scene.environment_path
-            and Path(scene.environment_path).exists()):
-        raise NotImplementedError(
-            "cubemap and panorama environments are not ported yet "
-            "(ROADMAP item 14)")
-    if scene.environment_color is not None:
+    if scene.environment_cube is not None:
+        # A cube handed in directly (e.g. docs/golden/surrogate_env.npz).
+        env_cube = np.asarray(scene.environment_cube, np.float32)
+    elif scene.environment_color is not None:
         env_cube = np.broadcast_to(
             np.asarray(scene.environment_color, np.float32),
             (6, env_resolution, env_resolution, 3)).copy()
+    elif scene.environment_path and Path(scene.environment_path).exists():
+        with record_function("prepare_scene.environment"):
+            panorama = load_hdr(scene.environment_path)
+            env_cube = panorama_to_cube(panorama, env_resolution).numpy()
     elif use_default_environment:
         from steeljax_torch.env.sky import procedural_sky_cube
         with record_function("prepare_scene.environment"):

@@ -309,13 +309,24 @@ def test_renderer_two_frame_accumulation_matches_reference():
     assert ours_renderer.state.index == 2
 
 
+def _two_chunks():
+    """The parity scene's prepared tables with its chunk twice: a
+    multi-chunk scene, as one above MAX_CHUNK_TRIS would prepare."""
+    scene = builtin.make_parity_scene(4)
+    flat, tables = renderer.prepare_scene(scene, "cpu", env_resolution=4)
+    return scene, (flat, tables.replace(chunks=tables.chunks * 2))
+
+
 @pytest.mark.parametrize("make,item", [
-    (lambda: _with_environment_cube(builtin.make_parity_scene(4)),
-     "ROADMAP item 14"),
+    (_two_chunks, "ROADMAP item 13"),
 ])
 def test_out_of_slice_scenes_raise(make, item):
+    """What the port still refuses raises, naming its ROADMAP item (an
+    environment cube, item 14, renders since the hybrid slice)."""
+    scene, prepared = make()
     with pytest.raises(NotImplementedError, match=item):
-        renderer.PathTracingRenderer(make(), 8, 8, device="cpu")
+        renderer.PathTracingRenderer(scene, 8, 8, prepared=prepared,
+                                     device="cpu")
 
 
 @pytest.mark.parametrize("make", [
@@ -339,17 +350,20 @@ def _with_environment_cube(scene):
 
 def test_instancing_raises():
     """instancing=True renders (it raised until the two-level structure was
-    ported); what is still out of scope raises through it as before, and an
-    alpha-tested instanced scene takes the unfused rows."""
+    ported), with an environment cube too, and an alpha-tested instanced
+    scene takes the unfused rows."""
     image = renderer.PathTracingRenderer(
         builtin.make_cornell_scene(4), 8, 8, instancing=True,
         device="cpu").render_frame()
     assert image.shape == (8, 8, 3) and np.isfinite(image).all()
     assert image.std() > 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        renderer.PathTracingRenderer(
-            _with_environment_cube(builtin.make_cornell_scene(4)), 8, 8,
-            instancing=True, device="cpu")
+    # An environment cube (it raised until the environments were ported)
+    # renders through the two-level structure as through the flat tables.
+    cubed = [renderer.PathTracingRenderer(
+        _with_environment_cube(builtin.make_cornell_scene(4)), 8, 8,
+        instancing=instancing, device="cpu").render_frame()
+        for instancing in (True, False)]
+    np.testing.assert_allclose(cubed[0], cubed[1], rtol=0, atol=1e-4)
     alpha = renderer.PathTracingRenderer(
         _with_alpha_test(_with_texture(builtin.make_cornell_scene(4))), 8, 8,
         instancing=True, device="cpu")

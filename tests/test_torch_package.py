@@ -29,7 +29,11 @@ def test_slice_modules_are_present():
                 "accel.cuda_traverse", "accel.dispatch", "accel.instances",
                 "accel.treelets", "accel.alphamask", "native",
                 "render.pt.integrator", "render.pt.renderer", "convert",
-                "apps.kernel_parity", "apps.render_cli", "io.image"):
+                "apps.kernel_parity", "apps.render_cli", "io.image",
+                "core.colors", "env.cubemap", "env.panorama", "env.ibl",
+                "env.environment", "render.texture", "render.hybrid.gbuffer",
+                "render.hybrid.lighting", "render.hybrid.forward",
+                "render.hybrid.renderer"):
         assert f"steeljax_torch.{mod}" in names, mod
 
 
