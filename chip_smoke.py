@@ -44,7 +44,11 @@ PyTorch version:
     TestSystem's prefab (that GLTF Cornell box) through the TestSystem's
     timeline, hybrid then path traced (K6 and its any-hit query only), the
     default engine (K1, K2), a checkpoint, and the apps (render_cli's
-    flags, testsystem_demo, the viewer) in subprocesses.
+    flags, testsystem_demo, the viewer) in subprocesses;
+  * path G, the light-volume GI on path L's scene at the reference's
+    defaults (925 probes, 5,683,200 probe rays a sample, 8 spp): K1 and K2
+    once a bounce of every sample of the probe capture, then path H's
+    frame lit by the volume (the tet walk in the deferred lighting).
 Paths L, T, F, S, J, U, UL, C and L16 are above the repack threshold
 (path I's 310 instances of 544 records on average are not), so their rays
 are repacked before every secondary bounce, and the alpha paths' re-traces
@@ -136,14 +140,32 @@ Phases:
      names trace_kernel.K1 and K1's kernel), --mode hybrid --debug-view
      normals --overlay, --override-material --force-forward --sample-count,
      testsystem_demo on write_testsystem_gltf's files (5 PNGs) and the
-     viewer's scripted session (mode=PATH_TRACING after t).
+     viewer's scripted session (mode=PATH_TRACING after t);
+  16. path G: path L's scene baked at the GI defaults (gi.light_volume),
+     once cold and then by step with host seconds (placement and tets,
+     the capture with exactly 32 K1 and 32 K2 launches and its peak
+     memory, the SH projection) and whole, the capture under
+     torch.profiler (device busy, K1 and K2); the tiny capture (two
+     probes, resolution 4, spp 2) of Cornell and the lit parity scene on
+     the card against the CPU; path H's 1920x1080 frame lit by the
+     volume (one warm and 3 timed frames, one K1 and one K2 launch a
+     frame, 2 profiled frames with the walk's device span) and the walk
+     alone at the frame's 2,073,600 points under the profiler; a
+     checkpoint round trip of the volume (bit-equal, the same frame);
+     render_cli --mode hybrid --gi --show-probes --lv-checkpoint F at
+     320x180 twice in subprocesses (985 probes baked, then loaded; equal
+     PNGs); one- and two-shard meshes over the card (path-traced frame,
+     hybrid GI frame, capture within 1e-5 of the unsharded run),
+     entry.dryrun_multichip(2) over the card twice and entry()'s tile
+     against the CPU's.
 The second-to-last line is the kernels' JSON summary (K1's and K2's
 entries carry their rows of paths H, C and L16 and their launches a frame
 there under "path_h", "path_c" and "path_l16"; a kernel that phase 15's
 engines launched carries those launches under "engine_launches": the
 TestSystem engine's hybrid ticks as "testsystem", its path-traced ticks
-as "pt", the default engine's ticks as "default"), the last line the
-device JSON.
+as "pt", the default engine's ticks as "default"; K1 and K2 carry path
+G's launches under "path_g": the capture's and a GI frame's), the last
+line the device JSON.
 
 With --ab-old DIR, phase 3c times K2 and K2-dense against the earlier
 kernels built from DIR (steeljax_torch/apps/kernel_ab.py says how to
@@ -2029,7 +2051,7 @@ def phase_hybrid(device, scenes) -> dict:
     return {"launches": launches, "ms_frame": ms_frame, "trace_ms": trace_ms,
             "split": split, "bake_s": {"bench": bench_s,
                                        "default": default_s},
-            "reflection_ms": reflection}
+            "reflection_ms": reflection, "env": env}
 
 
 def _reflection_forms(renderer, env) -> dict:
@@ -2644,6 +2666,362 @@ def phase_engine(device) -> dict:
             "default": default}
 
 
+# Phase 16, path G: the light-volume GI bake at the reference's defaults
+# (gi.light_volume: spp 8, 32x32 faces, min edge 0.5, at most 1,024 probes)
+# on path L's scene, and its use in path H's frame.
+GI_BAKE = dict(spp=8, resolution=32, min_edge=0.5, max_probes=1024)
+PATH_G_PROBES = 925          # the reference's placement on path L's scene
+CORNELL_GI_PROBES = 985      # and on make_cornell_scene(12)
+GI_TILE_PROBES = np.array([[0.0, 1.0, 0.0], [0.4, 1.4, 0.4]], np.float32)
+GI_TILE = dict(resolution=4, spp=2)
+SHARD_ATOL = 1e-5
+SHARD_SIZE = (320, 180)
+
+
+def _synced(fn):
+    """(fn(), host seconds) with the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _within_budget(label, card, cpu) -> None:
+    """Phase 8's rule: at most max(2, n / 200) values of the n pixels or
+    texels beyond PIXEL_ATOL."""
+    card, cpu = (np.asarray(x).reshape(-1, 3) for x in (card, cpu))
+    delta = np.abs(card - cpu).max(axis=-1)
+    over = int((delta > PIXEL_ATOL).sum())
+    print(f"{label}: card vs CPU max |delta| {float(delta.max()):.3e}, "
+          f"{over} of {len(delta)} beyond {PIXEL_ATOL}")
+    if over > max(2, len(delta) // 200) or not np.isfinite(card).all():
+        raise RuntimeError(f"{label}: the card diverges from the CPU")
+
+
+def _bake_path_g(flat, tables) -> dict:
+    """Path G's bake once cold (the first calls of its torch operators),
+    then step by step, then whole, then its capture under torch.profiler;
+    the launches of the step-by-step capture."""
+    from steeljax_torch.accel import cuda_traverse
+    from steeljax_torch.gi import light_volume as lv_lib
+    from steeljax_torch.gi import probes, sh, tets
+
+    def bake():
+        return lv_lib.generate_light_volume(flat, tables, **GI_BAKE)
+
+    cold, cold_s = _synced(bake)
+    boxes = []  # the boxes of each octree level the oracle tests
+    overlaps = probes.GeometryOracle.overlaps
+
+    def place():
+        def counted(oracle, lo, hi):
+            boxes.append(len(lo))
+            return overlaps(oracle, lo, hi)
+
+        probes.GeometryOracle.overlaps = counted
+        try:
+            positions = probes.generate_probe_positions(
+                flat.tri_pos, min_edge=GI_BAKE["min_edge"],
+                max_probes=GI_BAKE["max_probes"])
+        finally:
+            probes.GeometryOracle.overlaps = overlaps
+        return positions, tets.tetrahedralize(positions)
+
+    (positions, mesh), place_s = _synced(place)
+    positions = mesh[3]
+    if len(positions) != PATH_G_PROBES:
+        raise RuntimeError(f"path G: {len(positions)} probes, the "
+                           f"reference places {PATH_G_PROBES}")
+    rays = len(positions) * 6 * GI_BAKE["resolution"] ** 2
+
+    def capture():
+        return lv_lib.capture_probes(flat, tables, positions,
+                                     GI_BAKE["resolution"], GI_BAKE["spp"])
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    cubes, capture_s = _synced(capture)
+    launches = dict(cuda_traverse.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: 4 * GI_BAKE["spp"] if k in ("K1", "K2") else 0
+            for k in launches}
+    if launches != want:
+        raise RuntimeError(f"path G capture launched {launches}, expected "
+                           f"{want}")
+    coefficients, sh_s = _synced(lambda: sh.project_sh9(cubes))
+    cubes_host = cubes.cpu().numpy()
+    if not np.isfinite(cubes_host).all() or cubes_host.min() < 0.0 or \
+            cubes_host.std() <= 0.0:
+        raise RuntimeError("path G: the probe cubes are not finite, "
+                           "non-negative and varied")
+    volume, bake_s = _synced(bake)
+    if not all(torch.equal(v.coefficients, coefficients)
+               and torch.equal(v.positions.cpu(), torch.as_tensor(positions))
+               for v in (volume, cold)):
+        raise RuntimeError("path G: the whole bake differs from its steps")
+    prof = _profile_frames(capture, frames=1)
+    print(f"path G bake ({len(positions)} probes, {len(mesh[0])} tets, "
+          f"{rays:,} probe rays a sample, {GI_BAKE['spp']} spp): placement "
+          f"({sum(boxes):,} boxes tested in {len(boxes)} octree levels: "
+          f"{boxes}) and tets {place_s:.3f} s, capture {capture_s:.3f} s (peak "
+          f"{peak_gib:.2f} GiB allocated), SH projection {sh_s:.4f} s, "
+          f"whole bake {bake_s:.3f} s (the first, cold, {cold_s:.3f} s); "
+          f"launches of the capture "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f" ({4 * GI_BAKE['spp']} = 4 bounces x {GI_BAKE['spp']} spp)")
+    print(f"path G capture under torch.profiler: device busy "
+          f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms wall (idle "
+          f"share {1.0 - prof['busy_ms'] / prof['wall_ms']:.3f}), "
+          f"{prof['kernels']:.0f} device kernels, "
+          + ", ".join(f"{k} {v:.1f}" for k, v in prof["syncs"].items())
+          + "; trace kernels " + ", ".join(
+              f"{k} {v:.3f} ms ({v / (4 * GI_BAKE['spp']):.3f} a launch)"
+              for k, v in sorted(prof["trace_ms"].items())))
+    for ms, count, key in prof["top"]:
+        print(f"  {ms:8.3f} ms in {count:6.0f} launches: {key[:90]}")
+    return {"volume": volume, "launches": launches}
+
+
+def _gi_tiles(device) -> None:
+    """The tiny capture (two probes, resolution 4, spp 2) of Cornell and
+    the lit parity scene on the card against the port on the CPU (the
+    plain versions), with the card's K1 (and K2) launches."""
+    from steeljax_torch.accel import cuda_traverse
+    from steeljax_torch.gi.light_volume import capture_probes
+    from steeljax_torch.render.pt.renderer import prepare_scene
+    from steeljax_torch.scene.builtin import (make_cornell_scene,
+                                              make_parity_scene)
+
+    for label, make, kernels in (
+            ("Cornell", lambda: make_cornell_scene(6), ("K1",)),
+            ("parity (lit)", lambda: make_parity_scene(4), ("K1", "K2"))):
+        scene = make()
+        cubes = {}
+        for dev in (device, "cpu"):
+            flat, tables = prepare_scene(scene, dev, env_resolution=16)
+            _reset_launches()
+            cubes[str(dev)] = capture_probes(
+                flat, tables, GI_TILE_PROBES, **GI_TILE).cpu().numpy()
+            if dev == device:
+                launched = {k: v for k, v in cuda_traverse.LAUNCHES.items()
+                            if v}
+        _within_budget(f"GI capture tile {label} ({launched})",
+                       cubes[str(device)], cubes["cpu"])
+        if any(not launched.get(k) for k in kernels):
+            raise RuntimeError(f"GI capture tile {label} skipped one of "
+                               f"{kernels}")
+
+
+def _gi_frames(device, scene, flat, tables, env, volume, path_h) -> dict:
+    """Path H's frame at 1920x1080 lit by path G's volume: one warm and
+    HYBRID_TIMED_FRAMES timed frames (one K1 and one K2 launch a frame),
+    2 profiled frames, the walk alone at the frame's inputs under the
+    profiler, and a checkpoint round trip of the volume."""
+    from steeljax_torch.accel import cuda_traverse
+    from steeljax_torch.apps import kernel_parity as kp
+    from steeljax_torch.core.config import RenderConfig
+    from steeljax_torch.gi import sample
+    from steeljax_torch.io import checkpoint
+    from steeljax_torch.render.hybrid import lighting
+    from steeljax_torch.render.hybrid.renderer import HybridRenderer
+
+    width, height = kp.HYBRID_WIDTH, kp.HYBRID_HEIGHT
+    renderer = HybridRenderer(scene, width, height,
+                              RenderConfig(width=width, height=height),
+                              environment=env, prepared=(flat, tables),
+                              device=device)
+    renderer.light_volume = volume
+    _reset_launches()
+    ms_frame, image = _hybrid_frames(renderer, HYBRID_TIMED_FRAMES)
+    launches = dict(cuda_traverse.LAUNCHES)
+    total = 1 + HYBRID_TIMED_FRAMES
+    want = {k: total if k in ("K1", "K2") else 0 for k in launches}
+    if launches != want:
+        raise RuntimeError(f"path G frame launched {launches} over {total} "
+                           f"frames, expected {want}")
+    host = image.cpu().numpy()
+    if host.shape != (width * height, 3) or not np.isfinite(host).all() \
+            or host.min() < 0.0 or host.std() <= 0.0:
+        raise RuntimeError(f"path G frame: bad frame {host.shape}")
+    stages = ("gbuffer_stage", "lighting_stage", "forward_stage",
+              "light_volume_sample")
+    prof = _profile_frames(renderer.render_frame_device, spans=stages)
+    print(f"path G frame {width}x{height} (path H lit by the light volume):"
+          f" {ms_frame:.3f} ms/frame over {HYBRID_TIMED_FRAMES} timed "
+          f"frames (path H {path_h['ms_frame']:.3f} in phase 11); launches "
+          f"over {total} frames " + ", ".join(
+              f"{k} {v}" for k, v in launches.items() if v)
+          + f"; image mean {float(host.mean()):.4f}")
+    print(f"path G frame torch.profiler, per frame: device busy "
+          f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms wall (idle "
+          f"share {1.0 - prof['busy_ms'] / prof['wall_ms']:.3f}), "
+          f"{prof['kernels']:.0f} device kernels; trace kernels "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                      sorted(prof["trace_ms"].items()))
+          + "; device spans " + ", ".join(
+              f"{k} {prof['span_ms'].get(k, 0.0):.3f} ms" for k in stages))
+    for ms, count, key in prof["top"]:
+        print(f"  {ms:8.3f} ms/frame in {count:6.0f} launches: {key[:90]}")
+
+    # The walk alone, at the inputs the frame hands it.
+    inputs = []
+    original = lighting.sample_light_volume
+
+    def keep(lv, position, n):
+        inputs.append((position, n))
+        return original(lv, position, n)
+
+    lighting.sample_light_volume = keep
+    try:
+        renderer.render_frame_device()
+    finally:
+        lighting.sample_light_volume = original
+    position, normal = inputs[0]
+    walk = _profile_frames(
+        lambda: sample.sample_light_volume(volume, position, normal))
+    print(f"light-volume walk at {position.shape[0]:,} points "
+          f"({sample.MAX_WALK_STEPS} masked steps): device busy "
+          f"{walk['busy_ms']:.3f} ms in {walk['kernels']:.0f} device kernels "
+          f"a call, {walk['wall_ms']:.3f} ms wall under the profiler")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "path_g_lv.npz"
+        checkpoint.save_light_volume(path, volume)
+        loaded = checkpoint.load_light_volume(path, device)
+    for key in ("positions", "tet_vertices", "tet_neighbors",
+                "tet_matrices", "coefficients"):
+        a, b = getattr(volume, key), getattr(loaded, key)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise RuntimeError(f"light-volume checkpoint: {key} differs")
+    renderer.light_volume = loaded
+    again = renderer.render_frame_device()
+    if not torch.equal(again, image):
+        raise RuntimeError("the frame from the loaded volume differs")
+    print("light-volume checkpoint: the five arrays bit-equal after the "
+          "round trip, the frame from the loaded volume equal to the baked "
+          "one's")
+    return {"launches": launches}
+
+
+def _gi_cli() -> None:
+    """render_cli --mode hybrid --gi --show-probes --lv-checkpoint F at
+    320x180 at the default bake, twice in subprocesses: the first bakes
+    and saves F, the second loads it; the PNGs are equal."""
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        lines = []
+        for run in range(2):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "steeljax_torch.apps.render_cli",
+                 "builtin:cornell", "--mode", "hybrid", "--gi",
+                 "--show-probes", "--lv-checkpoint", str(tmp / "lv.npz"),
+                 "--size", "320x180", "--device", "cuda", "-o",
+                 str(tmp / f"gi{run}.png")], cwd=root, capture_output=True,
+                text=True, timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"render_cli --gi run {run} exited "
+                                   f"{proc.returncode}:\n"
+                                   f"{proc.stderr[-4000:]}")
+            volume = [l for l in proc.stdout.split("\n")
+                      if l.startswith(("light volume:", "loaded"))]
+            lines.append(f"run {run} {time.perf_counter() - t0:.1f} s: "
+                         + "; ".join(volume))
+        first, second = (_png_pixels(tmp / f"gi{run}.png") for run in (0, 1))
+        print("render_cli --gi --show-probes --lv-checkpoint: "
+              + " | ".join(lines))
+        if f"{CORNELL_GI_PROBES} probes" not in lines[0] or \
+                "loaded" not in lines[1]:
+            raise RuntimeError("render_cli --gi: the first run did not bake "
+                               f"{CORNELL_GI_PROBES} probes or the second "
+                               "did not load the checkpoint")
+        if first.shape != (180, 320, 3) or first.std() == 0 or \
+                not np.array_equal(first, second):
+            raise RuntimeError("render_cli --gi: the two PNGs differ or are "
+                               "bad")
+
+
+def _gi_parallel(device, scene, flat, tables, env, volume) -> None:
+    """A one-device mesh and a two-shard mesh over the same card, each
+    held to the unsharded run within SHARD_ATOL: the path-traced frame and
+    the hybrid GI frame of path L's scene at SHARD_SIZE, a two-probe
+    capture; dryrun_multichip(2) over the card twice; entry()'s tile on
+    the card against the CPU's."""
+    from steeljax_torch import entry
+    from steeljax_torch.core import camera as camera_lib
+    from steeljax_torch.gi.light_volume import capture_probes
+    from steeljax_torch.parallel import (make_mesh, render_frame_sharded,
+                                         render_hybrid_frame_sharded)
+    from steeljax_torch.render.hybrid.renderer import render_hybrid_pixels
+    from steeljax_torch.render.pt.integrator import render_pixels
+
+    width, height = SHARD_SIZE
+    frame = camera_lib.make_frame(scene.camera_location,
+                                  scene.camera_projection)
+    ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    px, py = (torch.as_tensor(a.reshape(-1), device=device) for a in (xs, ys))
+    mats = [torch.as_tensor(m, device=device) for m in (
+        frame.inverse_view, frame.inverse_proj, frame.view_proj)]
+    single = {
+        "pt": render_pixels(flat, tables, *mats[:2], frame.camera_near,
+                            frame.camera_far, width, height, px, py, 0, 0),
+        "hybrid GI": render_hybrid_pixels(
+            flat, tables, env, *mats, frame.camera_near, frame.camera_far,
+            width, height, px, py, light_volume=volume),
+        "capture": capture_probes(flat, tables, GI_TILE_PROBES, 8, 1)}
+    single = {k: v.cpu().numpy().reshape(
+        (height, width, 3) if k != "capture" else v.shape)
+        for k, v in single.items()}
+    for shards in (1, 2):
+        mesh = make_mesh([device] * shards)
+        split = {
+            "pt": render_frame_sharded(
+                flat, tables, frame.inverse_view, frame.inverse_proj,
+                frame.camera_near, frame.camera_far, width, height, mesh),
+            "hybrid GI": render_hybrid_frame_sharded(
+                flat, tables, env, frame.inverse_view, frame.inverse_proj,
+                frame.view_proj, frame.camera_near, frame.camera_far, width,
+                height, mesh, light_volume=volume),
+            "capture": capture_probes(flat, tables, GI_TILE_PROBES, 8, 1,
+                                      devices=mesh).cpu().numpy()}
+        deltas = {k: float(np.abs(split[k] - single[k]).max())
+                  for k in single}
+        print(f"parallel, {shards}-shard mesh on {device}: max |delta| "
+              "against the unsharded run " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in deltas.items()))
+        if max(deltas.values()) > SHARD_ATOL:
+            raise RuntimeError(f"the {shards}-shard mesh diverges")
+    print(f"dryrun_multichip(2) over {device} twice: max |delta| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in entry.dryrun_multichip(
+              2, devices=[device, device]).items()))
+    tiles = {}
+    for dev in (device, "cpu"):
+        fn, args = entry.entry(dev)
+        tiles[str(dev)] = fn(*args).cpu().numpy()
+    _within_budget("entry() tile", tiles[str(device)], tiles["cpu"])
+
+
+def phase_gi(device, scenes, path_h) -> dict:
+    """Phase 16, path G: path L's scene baked at the reference's GI
+    defaults (placement and tets, the capture with its launches, device
+    busy and peak memory, the SH projection, the whole bake); the tiny
+    capture on the card against the CPU; path H's frame lit by the volume
+    with the walk alone; the checkpoint round trip; render_cli --gi twice;
+    the pixel split over the card."""
+    scene, flat, tables = scenes["sunlit"]
+    bake = _bake_path_g(flat, tables)
+    _gi_tiles(device)
+    frames = _gi_frames(device, scene, flat, tables, path_h["env"],
+                        bake["volume"], path_h)
+    _gi_cli()
+    _gi_parallel(device, scene, flat, tables, path_h["env"], bake["volume"])
+    return {"capture_launches": bake["launches"],
+            "frame_launches": frames["launches"],
+            "frames": 1 + HYBRID_TIMED_FRAMES}
+
+
 def phase_kernel_ab(scenes, old_dir, ptxas: dict) -> None:
     """K2 and K2-dense against the earlier kernels built from `old_dir`, in
     turns, on path L's first-bounce shadow rays and their live subset, and
@@ -2738,6 +3116,8 @@ def main(argv=None) -> int:
                      phase_wide, scenes, path_l)
     phase("14. a GLTF file through render_cli", phase_gltf)
     engine = phase("15. the engine", phase_engine, device)
+    path_g = phase("16. path G (light-volume GI on path L's scene)",
+                   phase_gi, device, scenes, path_h)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
 
@@ -2836,6 +3216,10 @@ def main(argv=None) -> int:
         "shapes": kernels[k]["shapes"], "rays": kernels[k]["rays"],
         "plain_rays": kernels[k]["plain_rays"],
         **{key: sub_row(k, key) for key in sub_paths if key in kernels[k]},
+        **({"path_g": {
+            "capture_launches": path_g["capture_launches"][k],
+            "frame_launches_per_frame": path_g["frame_launches"][k]
+            / path_g["frames"]}} if k in ("K1", "K2") else {}),
         "engine_launches": {name: counts[k] for name, counts in
                             engine.items() if counts.get(k)}}
         for k in launches]}))

@@ -10,9 +10,11 @@ Today the port runs the path tracer and the hybrid renderer on builtin
 scenes and GLTF files (scene.loader) of any triangle count, cut into
 chunks above dispatch.MAX_CHUNK_TRIS (lights, textures, alpha-tested
 materials, instancing, treelets, 8- or 16-wide supernodes; cube, panorama
-and procedural environments with their IBL bakes), and validates the
-prepared tables when asked (core.validate); anything else raises
-NotImplementedError naming the ROADMAP item that brings it.
+and procedural environments with their IBL bakes; the light-volume GI,
+gi), splits the pixels of a frame or the rays of a probe capture across
+devices (parallel), and validates the prepared tables when asked
+(core.validate); anything else raises NotImplementedError naming the
+ROADMAP item that brings it.
 
 This package never imports jax or steeljax: the machine with the card has
 neither.  Only the tests import both packages.

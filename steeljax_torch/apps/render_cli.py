@@ -12,12 +12,18 @@ first; either writes a PNG:
         [--checkpoint accum.npz] [--profile trace_dir] [--overlay]
     python -m steeljax_torch.apps.render_cli builtin:cornell --mode hybrid \
         -o hybrid.png --size 320x180 --device cuda [--debug-view normals]
+    python -m steeljax_torch.apps.render_cli builtin:cornell --mode hybrid \
+        -o gi.png --size 320x180 --device cuda --gi [--show-probes] \
+        [--lv-checkpoint lv.npz]
 
 `--checkpoint FILE.npz` resumes the accumulation from FILE when it exists
 (a checkpoint of another size starts afresh) and saves it at the end;
 `--profile DIR` writes a torch.profiler Chrome trace of the frames into
-DIR.  The light-volume GI flags of the reference (`--gi*`, `--show-probes`,
-`--lv-checkpoint`) are not ported yet (ROADMAP Queue 1 entry 6).
+DIR.  `--gi` (hybrid mode) bakes the light volume on the render device
+(`--gi-spp`, `--gi-min-edge`, `--gi-resolution`) and lights the frame with
+it; `--lv-checkpoint FILE.npz` loads the bake from FILE when it exists,
+else bakes and saves it there; `--show-probes` (which implies `--gi`)
+splats the probes over the frame.
 """
 
 from __future__ import annotations
@@ -41,6 +47,20 @@ def main(argv=None) -> int:
                         help="WIDTHxHEIGHT (default 1280x720)")
     parser.add_argument("--spp", type=int, default=16,
                         help="accumulated samples per pixel (pt mode)")
+    parser.add_argument("--gi", action="store_true",
+                        help="bake + use the light-volume GI (hybrid mode)")
+    parser.add_argument("--show-probes", action="store_true",
+                        help="overlay light-volume probe splats on the "
+                             "frame (the reference's orphaned LightVolume"
+                             "Positions viz, working; implies --gi)")
+    parser.add_argument("--gi-spp", type=int, default=8,
+                        help="probe-capture samples per pixel")
+    parser.add_argument("--gi-min-edge", type=float, default=None,
+                        help="octree min cell edge for probe placement "
+                             "(GlobalIllumination.cpp:34 default 0.5)")
+    parser.add_argument("--gi-resolution", type=int, default=None,
+                        help="probe cubemap face resolution (default 32, "
+                             "ProbeRenderer.cpp:8-10)")
     parser.add_argument("--device", default="cuda",
                         help="render device: cuda (default), cuda:N or cpu")
     parser.add_argument("--instancing", action="store_true",
@@ -65,6 +85,9 @@ def main(argv=None) -> int:
                         help="pt mode: resume accumulation from FILE if it "
                              "exists and save it at the end, so that long "
                              "converging renders survive restarts")
+    parser.add_argument("--lv-checkpoint", metavar="FILE.npz", default=None,
+                        help="gi mode: load the light-volume bake from "
+                             "FILE if it exists, else bake and save it")
     parser.add_argument("--overlay", action="store_true",
                         help="burn the frame-time/FPS text into the output "
                              "(the UIRenderer imgui overlay, "
@@ -163,17 +186,43 @@ def main(argv=None) -> int:
 
         renderer = HybridRenderer(scene, width, height, config,
                                   prepared=prepared, device=device)
+        if args.gi or args.show_probes:
+            t1 = time.perf_counter()
+            if args.lv_checkpoint and Path(args.lv_checkpoint).exists():
+                renderer.light_volume = checkpoint.load_light_volume(
+                    args.lv_checkpoint, device)
+                print(f"loaded the light volume from {args.lv_checkpoint}")
+            else:
+                bake_kwargs = {"spp": args.gi_spp}
+                if args.gi_min_edge is not None:
+                    bake_kwargs["min_edge"] = args.gi_min_edge
+                if args.gi_resolution is not None:
+                    bake_kwargs["resolution"] = args.gi_resolution
+                renderer.bake_light_volume(**bake_kwargs)
+                if args.lv_checkpoint:
+                    checkpoint.save_light_volume(args.lv_checkpoint,
+                                                 renderer.light_volume)
+            print(f"light volume: {renderer.light_volume.positions.shape[0]}"
+                  f" probes, {renderer.light_volume.tet_vertices.shape[0]} "
+                  f"tets in {time.perf_counter() - t1:.2f} s")
         t1 = time.perf_counter()
         with profile:
             image = renderer.render_frame()  # host numpy: synchronized
         print(f"hybrid: preparation and environment bake {t1 - t0:.2f} s, "
               f"frame {(time.perf_counter() - t1) * 1000.0:.2f} ms on "
               f"{device}")
+        warm_s = None
         if args.overlay:
             # A warm second frame's time (the first pays the warm-up).
             t1 = time.perf_counter()
             renderer.render_frame()
-            image = overlay(image, time.perf_counter() - t1)
+            warm_s = time.perf_counter() - t1
+        if args.show_probes:
+            from steeljax_torch.gi.debug import overlay_probes
+            image = overlay_probes(image, renderer.light_volume,
+                                   renderer.frame.view_proj)
+        if warm_s is not None:
+            image = overlay(image, warm_s)
         write_png(args.output, image)
         print(f"wrote {args.output} ({width}x{height}, hybrid)")
         return 0

@@ -26,7 +26,8 @@ port then traces in shade mode 0 and shades from the composed rows.
 
 `from_jax_environment(env, device)` carries a steeljax `Environment` (the
 cube and every baked table) across the same way, so that two renderers can
-light a frame from the same bakes.
+light a frame from the same bakes, and `from_jax_light_volume(lv, device)`
+a steeljax `LightVolume` (a GI bake).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from steeljax_torch.accel.instances import InstancedTables
 from steeljax_torch.accel.treelets import TreeletTables
 from steeljax_torch.env.cubemap import pack_mips_tri
 from steeljax_torch.env.environment import Environment
+from steeljax_torch.gi.light_volume import LightVolume
 from steeljax_torch.scene.flatten import FlatScene
 
 _STATIC_FIELDS = ("light_count", "env_enabled", "env_analytic",
@@ -209,3 +211,11 @@ def from_jax_environment(env, device: torch.device | str) -> Environment:
         reflection_mips=mips,
         reflection_tri_data=pack_mips_tri(mips, device)[0],
         analytic=bool(env.analytic), **tables)
+
+
+def from_jax_light_volume(lv, device: torch.device | str) -> LightVolume:
+    """The port's LightVolume holding the arrays of a steeljax one."""
+    return LightVolume(**{
+        f.name: torch.from_numpy(np.array(np.asarray(
+            getattr(lv, f.name)))).to(device)
+        for f in dataclasses.fields(LightVolume)})

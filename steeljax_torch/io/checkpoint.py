@@ -1,9 +1,11 @@
-"""Checkpoint and resume of a path-traced accumulation.
+"""Checkpoint and resume of a path-traced accumulation and of a
+light-volume bake.
 
-Port of the accumulation half of steeljax/io/checkpoint.py: the state goes
-to an npz file under the reference's keys, `accumulated` ((H, W, 3)
-float32) and `index` (a 0-d integer), so that a checkpoint written by
-either package loads in the other.
+Port of steeljax/io/checkpoint.py: each goes to an npz file under the
+reference's keys, so that a checkpoint written by either package loads in
+the other.  An accumulation is `accumulated` ((H, W, 3) float32) and
+`index` (a 0-d integer); a light volume is its five arrays `positions`,
+`tet_vertices`, `tet_neighbors`, `tet_matrices` and `coefficients`.
 """
 
 from __future__ import annotations
@@ -13,7 +15,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from steeljax_torch.gi.light_volume import LightVolume
 from steeljax_torch.render.pt.renderer import AccumulationState
+
+_VOLUME_KEYS = ("positions", "tet_vertices", "tet_neighbors", "tet_matrices",
+                "coefficients")
 
 
 def save_accumulation(path: str | Path, state: AccumulationState) -> None:
@@ -29,3 +35,16 @@ def load_accumulation(path: str | Path,
             accumulated=torch.as_tensor(
                 np.asarray(data["accumulated"], np.float32), device=device),
             index=int(data["index"]))
+
+
+def save_light_volume(path: str | Path, volume: LightVolume) -> None:
+    np.savez_compressed(path, **{
+        key: getattr(volume, key).detach().cpu().numpy()
+        for key in _VOLUME_KEYS})
+
+
+def load_light_volume(path: str | Path,
+                      device: torch.device | str) -> LightVolume:
+    with np.load(path) as data:
+        return LightVolume(**{key: torch.as_tensor(data[key], device=device)
+                              for key in _VOLUME_KEYS})

@@ -9,13 +9,16 @@ re-trace in alpha-tested scenes) finds no occluder; indirect lighting is
 the split-sum IBL, the irradiance cube's diffuse and the prefiltered
 reflection times (F0 * scale + offset), scaled by occlusion.  The split-sum
 scale and offset are Karis's analytic fit, as the reference takes them;
-the baked LUT (env.ibl.specular_brdf_lut) is not read here.  The light
-volume's diffuse GI (ROADMAP Queue 1 entry 6) is not ported.
+the baked LUT (env.ibl.specular_brdf_lut) is not read here.  With a light
+volume (gi.light_volume) the diffuse irradiance is the volume's, sampled by
+the tet walk (gi.sample), and the specular term is scaled by its ratio to
+the environment's irradiance, clipped to [0, 8].
 """
 
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from steeljax_torch.accel.dispatch import TraceTables
 from steeljax_torch.core.colors import to_linear
@@ -25,13 +28,10 @@ from steeljax_torch.env.cubemap import (sample_cube_quads,
                                         sample_flat_mips_tri)
 from steeljax_torch.env.environment import Environment
 from steeljax_torch.env.ibl import eval_cube_sh
+from steeljax_torch.gi.sample import sample_light_volume
 from steeljax_torch.render.pt import brdf as brdf_lib
 from steeljax_torch.render.pt.integrator import _normalize, trace_visibility
 from steeljax_torch.scene.flatten import FlatScene
-
-LIGHT_VOLUME_MESSAGE = ("light-volume GI is not ported yet (ROADMAP Queue 1 "
-                        "entry 6)")
-
 
 def restore_position(depth, uv, inverse_proj_view):
     """RestorePosition (Lighting.comp:18-26): world positions (N, 3) from
@@ -142,8 +142,17 @@ def compute_indirect_lighting(env: Environment, position, n, v, nov,
                               compose: str = "both"):
     """ComputeIndirectLighting (Lighting.glsl:245-272)."""
     if light_volume is not None:
-        raise NotImplementedError(LIGHT_VOLUME_MESSAGE)
-    irradiance = _env_irradiance(env, n)
+        with record_function("light_volume_sample"):
+            irradiance = sample_light_volume(light_volume, position, n)
+        # The reference divides raw (Lighting.glsl:252); the ratio is
+        # bounded so that a near-zero environment irradiance cannot blow up
+        # the specular term.
+        specular_norm = torch.clamp(
+            irradiance / torch.clamp(_env_irradiance(env, n), min=1e-4),
+            0.0, 8.0)
+    else:
+        irradiance = _env_irradiance(env, n)
+        specular_norm = None
     ks = brdf_lib.f_schlick_roughness(f0, nov, roughness)
     kd = (1.0 - ks) * (1.0 - metallic)[..., None]
 
@@ -157,6 +166,8 @@ def compute_indirect_lighting(env: Environment, position, n, v, nov,
     diffuse = kd * irradiance * base_color
     specular = (f0 * scale_offset[..., 0:1]
                 + scale_offset[..., 1:2]) * reflection
+    if specular_norm is not None:
+        specular = specular * specular_norm
     return brdf_lib.compose_brdf(diffuse, specular,
                                  compose) * occlusion[..., None]
 

@@ -5,9 +5,10 @@ GBufferStage -> LightingStage -> ForwardStage).  There is no
 accumulation: a hybrid frame is deterministic (the engine's real-time
 mode).  Each stage runs inside a torch.profiler range named as the
 reference's scopes: `gbuffer_stage`, `lighting_stage`, `forward_stage`.
-The raster G-buffer (the reference's opt-in STEELJAX_RASTER=1) and the
-light-volume GI (ROADMAP Queue 1 entries 7 and 6) are not ported; a config
-that asks for GI raises.
+A config with `global_illumination_enabled` bakes the light volume
+(gi.generate_light_volume) when the renderer is built, and the deferred
+lighting samples it.  The raster G-buffer (the reference's opt-in
+STEELJAX_RASTER=1, ROADMAP Queue 1 entry 7) is not ported.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.env.environment import Environment, load_environment
 from steeljax_torch.render.hybrid.forward import forward_stage
 from steeljax_torch.render.hybrid.gbuffer import generate_gbuffer
-from steeljax_torch.render.hybrid.lighting import (LIGHT_VOLUME_MESSAGE,
-                                                   deferred_lighting,
+from steeljax_torch.gi.light_volume import generate_light_volume
+from steeljax_torch.render.hybrid.lighting import (deferred_lighting,
                                                    restore_position)
 from steeljax_torch.render.pt.integrator import detile, tiled_order
 from steeljax_torch.render.pt.renderer import prepare_scene
@@ -80,9 +81,9 @@ def render_hybrid_pixels(scene, tables, env: Environment,
                          ) -> torch.Tensor:
     """One hybrid frame for the pixels (px, py) (int tensors on the scene's
     device); the matrices are (4, 4) float32 tensors there.  Returns (N, 3)
-    display colour in [0, 1] (tone-mapped)."""
-    if light_volume is not None:
-        raise NotImplementedError(LIGHT_VOLUME_MESSAGE)
+    display colour in [0, 1] (tone-mapped).  `light_volume` (a
+    gi.LightVolume on the scene's device) replaces the environment's
+    diffuse irradiance."""
     origin, direction, uv = pixel_center_rays(inverse_view, inverse_proj,
                                               width, height, px, py)
     camera_position = inverse_view[:3, 3]
@@ -112,6 +113,7 @@ def render_hybrid_pixels(scene, tables, env: Environment,
         with record_function("lighting_stage"):
             lit = deferred_lighting(scene, tables, env, gbuffer, uv,
                                     inverse_proj_view, camera_position,
+                                    light_volume=light_volume,
                                     ray_tracing_enabled=ray_tracing_enabled,
                                     debug_view=debug_view,
                                     override_material=override_material)
@@ -136,14 +138,14 @@ class HybridRenderer:
 
     Without `environment` the renderer bakes the scene's own at the full
     budgets of load_environment (its constant colour as a 64-texel cube,
-    else its panorama, else the procedural sky)."""
+    else its panorama, else the procedural sky).  With
+    `config.global_illumination_enabled` it then bakes the light volume at
+    the reference's defaults (bake_light_volume)."""
 
     def __init__(self, scene: Scene, width: int, height: int,
                  config: RenderConfig = RenderConfig(),
                  environment: Environment | None = None, prepared=None, *,
                  device: torch.device | str):
-        if config.global_illumination_enabled:
-            raise NotImplementedError(LIGHT_VOLUME_MESSAGE)
         self.scene = scene
         self.width = width
         self.height = height
@@ -163,6 +165,8 @@ class HybridRenderer:
         self.env = environment
         self.light_volume = None
         self._set_camera_arrays()
+        if config.global_illumination_enabled:
+            self.bake_light_volume()
 
     def _set_camera_arrays(self) -> None:
         frame = camera_lib.make_frame(
@@ -186,10 +190,18 @@ class HybridRenderer:
 
     def refresh_scene(self, prepared=None) -> None:
         """New device tables after a scene edit, and the camera's matrices
-        anew."""
+        anew; the light volume stays as baked, as in the reference."""
         self.flat, self.tables = prepared or prepare_scene(self.scene,
                                                            self.device)
         self._set_camera_arrays()
+
+    def bake_light_volume(self, spp: int = 8, **kwargs) -> None:
+        """Run the light-volume GI bake (GlobalIllumination::
+        GenerateLightVolume) on the render device and light the frames with
+        it (LIGHT_VOLUME_ENABLED sampling); `kwargs` go to
+        gi.generate_light_volume."""
+        self.light_volume = generate_light_volume(
+            self.flat, self.tables, spp=spp, **kwargs)
 
     def render_frame_device(self) -> torch.Tensor:
         """One hybrid frame left on the device as (H*W, 3), row-major: the

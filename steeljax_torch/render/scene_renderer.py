@@ -7,7 +7,9 @@ toggle (SceneRenderer.cpp:375-397): entering path tracing resets the
 accumulation.  As in the reference, the environment the hybrid renderer
 lights with is `load_environment(panorama_path=scene.environment_path)`
 unless one is passed; the scene's constant `environment_color` reaches the
-path tracer (through prepare_scene) but not this environment.
+path tracer (through prepare_scene) but not this environment.  A config
+with `global_illumination_enabled` bakes the light volume through the
+hybrid renderer it builds.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ from steeljax_torch import native
 from steeljax_torch.accel.instances import InstancedAccel
 from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.env.environment import Environment, load_environment
-from steeljax_torch.render.hybrid.lighting import LIGHT_VOLUME_MESSAGE
 from steeljax_torch.render.hybrid.renderer import HybridRenderer
 from steeljax_torch.render.pt.renderer import (PathTracingRenderer,
                                                prepare_scene)
@@ -55,8 +56,6 @@ class SceneRenderer:
                  mode: RenderMode | None = None,
                  instancing: bool = False, *,
                  device: torch.device | str = "cuda"):
-        if config.global_illumination_enabled:
-            raise NotImplementedError(LIGHT_VOLUME_MESSAGE)
         self.device = render_device(device)
         self.scene = scene
         self.width = width

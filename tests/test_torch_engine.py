@@ -11,6 +11,7 @@ package's PathTracingRenderer module, a render_sample that renders the
 same pixels through render_pixels(return_stats=True) and logs the count.
 """
 
+import functools
 import types
 
 import numpy as np
@@ -33,12 +34,14 @@ from steeljax.render.pt import integrator as integrator_ref
 from steeljax.scene import builtin as builtin_ref
 from steeljax.scene import material as material_ref
 from steeljax.scene import scene as scene_ref
+import steeljax_torch.render.hybrid.renderer as hybrid_mod
 import steeljax_torch.render.pt.renderer as pt_renderer
 from steeljax_torch import native
 from steeljax_torch.convert import from_jax_environment
 from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.engine import CameraSystem, Engine, EventBus, TestSystem
 from steeljax_torch.engine.events import EventType, KeyInput, MouseInput
+from steeljax_torch.gi.light_volume import generate_light_volume
 from steeljax_torch.io import checkpoint
 from steeljax_torch.render.pt import integrator
 from steeljax_torch.render.scene_renderer import RenderMode, SceneRenderer
@@ -453,12 +456,30 @@ def test_reload_rebinds_a_stale_kernel_library(monkeypatch, tmp_path):
     assert [p.name for p in tmp_path.iterdir()] == [native.CUDA_LIBRARY]
 
 
-def test_scene_renderer_gi_config_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 6"):
-        SceneRenderer(builtin.make_cornell_scene(sphere_detail=4), W, H,
-                      RenderConfig(width=W, height=H,
-                                   global_illumination_enabled=True),
-                      device="cpu")
+def test_scene_renderer_gi_config_raises(envs, monkeypatch):
+    """A GI config raises nothing: the SceneRenderer's hybrid renderer
+    bakes the light volume (here at tests/test_torch_gi_frame.py's small
+    budgets, min edge 4 at resolution 4, for the CPU) and its frame takes
+    the volume's irradiance."""
+    monkeypatch.setattr(hybrid_mod, "generate_light_volume",
+                        functools.partial(generate_light_volume,
+                                          resolution=4, min_edge=4.0))
+    config = dict(width=W, height=H)
+    frames = []
+    for gi in (True, False):
+        renderer = SceneRenderer(
+            builtin.make_cornell_scene(sphere_detail=4), W, H,
+            RenderConfig(global_illumination_enabled=gi, **config),
+            environment=envs[0], mode=RenderMode.HYBRID, device="cpu")
+        frames.append(renderer.render_frame())
+        if gi:
+            volume = renderer.hybrid.light_volume
+            assert volume.positions.shape[0] == 27
+            assert volume.tet_vertices.shape[0] > 0
+        else:
+            assert renderer.hybrid.light_volume is None
+    assert np.isfinite(frames[0]).all()
+    assert np.abs(frames[0] - frames[1]).max() > 1e-2
 
 
 @pytest.mark.parametrize("entry", ["scene_renderer", "engine"])

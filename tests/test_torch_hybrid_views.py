@@ -22,6 +22,8 @@ reference.  Last, tests/test_crosscheck.py's PT-vs-hybrid checks on the port
 alone: the same silhouette, correlated brightness, the wall tints, an RMSE
 in (0, 0.35)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,8 @@ from steeljax_torch.core.colors import tone_map
 from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.env.cubemap import sample_cube_quads
 from steeljax_torch.env.environment import load_environment
+from steeljax_torch.gi.light_volume import generate_light_volume
+import steeljax_torch.render.hybrid.renderer as hybrid_mod
 from steeljax_torch.render.hybrid.forward import (forward_stage,
                                                   shade_forward, trace_blend)
 from steeljax_torch.render.hybrid.renderer import (GBUFFER_VIEWS,
@@ -219,12 +223,23 @@ def test_crosscheck_wall_tints_and_rmse(both_images):
     assert 0.0 < value < 0.35, value
 
 
-def test_light_volume_gi_raises(envs):
+def test_light_volume_gi_raises(envs, monkeypatch):
+    """A GI config raises nothing: the renderer bakes the light volume
+    when it is built (here at tests/test_torch_gi_frame.py's small
+    budgets, min edge 4 at resolution 4, for the CPU) and its
+    frame takes the volume's irradiance."""
+    monkeypatch.setattr(hybrid_mod, "generate_light_volume",
+                        functools.partial(generate_light_volume,
+                                          resolution=4, min_edge=4.0))
     scene = make_cornell_scene(sphere_detail=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 6"):
-        HybridRenderer(scene, 8, 8, RenderConfig(
-            global_illumination_enabled=True), environment=envs[0],
-            device="cpu")
+    renderer = HybridRenderer(scene, 8, 8, RenderConfig(
+        global_illumination_enabled=True), environment=envs[0],
+        device="cpu")
+    assert renderer.light_volume.tet_vertices.shape[0] > 0
+    lit = renderer.render_frame()
+    renderer.light_volume = None
+    assert np.isfinite(lit).all()
+    assert np.abs(lit - renderer.render_frame()).max() > 1e-2
 
 
 def test_render_cli_hybrid_writes_a_png_on_the_cpu(tmp_path, monkeypatch):

@@ -39,7 +39,9 @@ def test_slice_modules_are_present():
                 "io.checkpoint", "render.scene_renderer", "engine",
                 "engine.input", "engine.events", "engine.overlay",
                 "engine.systems", "engine.engine", "apps.compare",
-                "apps.testsystem_demo", "apps.viewer"):
+                "apps.testsystem_demo", "apps.viewer", "gi", "gi.probes",
+                "gi.sh", "gi.tets", "gi.light_volume", "gi.sample",
+                "gi.debug", "parallel", "parallel.mesh", "entry"):
         assert f"steeljax_torch.{mod}" in names, mod
 
 
