@@ -232,6 +232,8 @@ BOUNCE1 = "first-bounce rays"
 SHADOW = "first-bounce shadow rays"
 GBUFFER = "G-buffer rays"
 SUN = "sun rays"
+PROBE = "probe rays"
+PROBE_SHADOW = "probe rays' shadow rays"
 ROWS = (("K1", "Cornell", PRIMARIES), ("K1", "path L", PRIMARIES),
         ("K1", "path L", BOUNCE1), ("K1", "path H", GBUFFER),
         ("K2", "path H", SUN), ("K3", "path T", PRIMARIES),
@@ -243,7 +245,8 @@ ROWS = (("K1", "Cornell", PRIMARIES), ("K1", "path L", PRIMARIES),
         ("K6_shade2", "path J", PRIMARIES),
         ("K1", "path C", PRIMARIES), ("K2", "path C", SHADOW),
         ("K1", "path L16", PRIMARIES), ("K1", "path L16", BOUNCE1),
-        ("K2", "path L16", SHADOW))
+        ("K2", "path L16", SHADOW), ("K1", "path G", PROBE),
+        ("K2", "path G", PROBE_SHADOW))
 # The earlier designs of K1-K5 (one thread per ray, scalar loads, a stack
 # in local memory, each leaf tested as it is popped), per ray on the same
 # rays as phase 3b: counted by their COUNT instances on the H100 (K4, K5:
@@ -911,9 +914,65 @@ def _chunked_row(row, flat, tables, one_chunk, rays, any_hit: bool) -> dict:
     return entry
 
 
-def phase_parity(device, scenes) -> dict:
+def _nearest_row(row, chunk, flat, mode, rays, subset):
+    """Phase 3b's row of K1 or K3 (by shade `mode`) through the chunk's
+    record tables, as the render path calls it, on `rays`, held against
+    its plain version on `subset` with kernel_parity's tolerances."""
+    from steeljax_torch.accel import cuda_traverse as ct
+    from steeljax_torch.apps import kernel_parity as kp
+
+    args = (chunk.bvh8, chunk.tris_packed)
+    shade = chunk.shade_packed if mode else None
+    fields = {"nrm": flat.tri_nrm, "mat": flat.tri_mat}
+    if mode == 2:
+        fields.update(tan=flat.tri_tan, uv=flat.tri_uv)
+
+    def check(plain_rec):
+        rec = ct.trace_nearest_bvh8(*args, *subset, True, shade, mode,
+                                    records=chunk.tri_records)
+        torch.cuda.synchronize()
+        results = {}
+        kp._compare(" ".join(row), rec, plain_rec,
+                    flat.tri_pos.cpu().numpy(), results,
+                    attrs={k: v.cpu().numpy() for k, v in fields.items()},
+                    d=subset[1].cpu().numpy())
+        return results[" ".join(row)]
+
+    return _timed_kernel(
+        row, lambda counters: ct.kernel_launcher(
+            *args, *rays, True, shade, mode, counters=counters,
+            records=chunk.tri_records),
+        lambda: ct.trace_nearest_bvh8_plain(*args, *subset, True, shade,
+                                            mode),
+        rays, subset[0].shape[0], check, width=chunk.bvh8.width)
+
+
+def _anyhit_row(row, chunk, rays):
+    """Phase 3b's row of K2 (or K2-dense, by the chunk's tables) alone on
+    `rays`, held against its plain version on a strided subset."""
     from steeljax_torch.accel import cuda_traverse as ct
     from steeljax_torch.accel.dispatch import anyhit_tables
+    from steeljax_torch.apps import kernel_parity as kp
+
+    bvh8, tris, records, dense = anyhit_tables(chunk)
+    subset = kp.strided_subset(rays, kp.SHADOW_SUBSET)
+
+    def check(plain_hit):
+        hit = ct.trace_any_bvh8(bvh8, tris, *subset, dense, records=records)
+        results = {}
+        kp._compare_hits(row[0], hit, plain_hit, results)
+        return results[row[0]]
+
+    return _timed_kernel(
+        row, lambda counters: ct.anyhit_launcher(
+            bvh8, tris, *rays, dense=dense, counters=counters,
+            records=records),
+        lambda: ct.trace_any_bvh8_plain(bvh8, tris, *subset, dense),
+        rays, subset[0].shape[0], check, width=bvh8.width)
+
+
+def phase_parity(device, scenes) -> dict:
+    from steeljax_torch.accel import cuda_traverse as ct
     from steeljax_torch.apps import kernel_parity as kp
 
     results = kp.run(device, width=WIDTH, height=HEIGHT, scenes=scenes)
@@ -983,36 +1042,10 @@ def phase_parity(device, scenes) -> dict:
     # each through the chunk's record tables, as the render path calls it,
     # and each held against its plain version on the plain version's rays
     # with kernel_parity's tolerances.
-    def nearest(row, chunk, flat, mode, rays, subset):
-        args = (chunk.bvh8, chunk.tris_packed)
-        shade = chunk.shade_packed if mode else None
-        fields = {"nrm": flat.tri_nrm, "mat": flat.tri_mat}
-        if mode == 2:
-            fields.update(tan=flat.tri_tan, uv=flat.tri_uv)
-
-        def check(plain_rec):
-            rec = ct.trace_nearest_bvh8(*args, *subset, True, shade, mode,
-                                        records=chunk.tri_records)
-            torch.cuda.synchronize()
-            results = {}
-            kp._compare(" ".join(row), rec, plain_rec,
-                        flat.tri_pos.cpu().numpy(), results,
-                        attrs={k: v.cpu().numpy() for k, v in fields.items()},
-                        d=subset[1].cpu().numpy())
-            return results[" ".join(row)]
-
-        return _timed_kernel(
-            row, lambda counters: ct.kernel_launcher(
-                *args, *rays, True, shade, mode, counters=counters,
-                records=chunk.tri_records),
-            lambda: ct.trace_nearest_bvh8_plain(*args, *subset, True, shade,
-                                                mode),
-            rays, subset[0].shape[0], check, width=chunk.bvh8.width)
-
     cflat, ctables, cases = kp.cornell_cases(device, WIDTH, HEIGHT)
-    kernels["K1"].update(nearest(("K1", "Cornell", PRIMARIES),
-                                 ctables.chunks[0], cflat, 1,
-                                 cases["primary"], cases["primary"]))
+    kernels["K1"].update(_nearest_row(("K1", "Cornell", PRIMARIES),
+                                      ctables.chunks[0], cflat, 1,
+                                      cases["primary"], cases["primary"]))
     kernels["K1"]["shapes"] = "Cornell primary rays, 1280x720"
     scene, flat, tables = scenes["sunlit"]
     path_l_rays = {
@@ -1021,36 +1054,17 @@ def phase_parity(device, scenes) -> dict:
         SHADOW: kp.sunlit_shadow_case(scene, flat, tables, WIDTH, HEIGHT)}
     for key, ray_set in (("path_l", PRIMARIES), ("path_l_bounce1", BOUNCE1)):
         rays = path_l_rays[ray_set]
-        kernels["K1"][key] = nearest(
+        kernels["K1"][key] = _nearest_row(
             ("K1", "path L", ray_set), tables.chunks[0], flat,
             tables.shade_mode, rays,
             kp.strided_subset(rays, kp.SHADOW_SUBSET))
-
-    def anyhit(row, chunk, rays):
-        """K2 (or K2-dense, by the chunk's tables) alone on `rays`, held
-        against its plain version on a strided subset."""
-        bvh8, tris, records, dense = anyhit_tables(chunk)
-        subset = kp.strided_subset(rays, kp.SHADOW_SUBSET)
-
-        def check(plain_hit):
-            hit = ct.trace_any_bvh8(bvh8, tris, *subset, dense,
-                                    records=records)
-            results = {}
-            kp._compare_hits(row[0], hit, plain_hit, results)
-            return results[row[0]]
-
-        return _timed_kernel(
-            row, lambda counters: ct.anyhit_launcher(
-                bvh8, tris, *rays, dense=dense, counters=counters,
-                records=records),
-            lambda: ct.trace_any_bvh8_plain(bvh8, tris, *subset, dense),
-            rays, subset[0].shape[0], check, width=bvh8.width)
 
     # K2 and K2-dense on path L's first-bounce shadow rays.
     rays = path_l_rays[SHADOW]
     for name, chunk in (("K2", tables.chunks[0]),
                         ("K2_dense", scenes["sunlit_dense"][2].chunks[0])):
-        kernels[name].update(anyhit((name, "path L", SHADOW), chunk, rays))
+        kernels[name].update(_anyhit_row((name, "path L", SHADOW), chunk,
+                                         rays))
         kernels[name]["mismatches"][f"path L {SHADOW}"] = (
             kernels[name]["parity"]["hit_mismatches"])
         kernels[name]["max_abs_err"] = float(
@@ -1063,12 +1077,12 @@ def phase_parity(device, scenes) -> dict:
     # mode 1, and the lighting stage's sun rays, sky and unlit pixels dead.
     hw, hh = kp.HYBRID_WIDTH, kp.HYBRID_HEIGHT
     rays = kp.hybrid_rays(scene, device, hw, hh)[:4]
-    kernels["K1"]["path_h"] = nearest(
+    kernels["K1"]["path_h"] = _nearest_row(
         ("K1", "path H", GBUFFER), tables.chunks[0], flat,
         tables.shade_mode, rays, kp.strided_subset(rays, kp.SHADOW_SUBSET))
     kernels["K1"]["path_h"]["shapes"] = (f"path H G-buffer rays, {hw}x{hh}, "
                                          "shade mode 1")
-    kernels["K2"]["path_h"] = anyhit(
+    kernels["K2"]["path_h"] = _anyhit_row(
         ("K2", "path H", SUN), tables.chunks[0],
         kp.hybrid_shadow_case(scene, flat, tables, hw, hh))
     kernels["K2"]["path_h"]["shapes"] = (f"path H sun rays, {hw}x{hh}, sky "
@@ -1089,7 +1103,7 @@ def phase_parity(device, scenes) -> dict:
                                  "path_l_bounce1")):
         rays = path_l_rays[ray_set]
         row = ("K1", "path L16", ray_set)
-        kernels["K1"][key] = nearest(
+        kernels["K1"][key] = _nearest_row(
             row, chunk, flat, tables.shade_mode, rays,
             kp.strided_subset(rays, kp.SHADOW_SUBSET))
         _least_bound(row, kernels["K1"][key], kernels["K1"][l_key],
@@ -1097,7 +1111,7 @@ def phase_parity(device, scenes) -> dict:
         kernels["K1"][key]["shapes"] = (f"path L16 {ray_set} (path L's), "
                                         "1280x720, 16-wide supernode rows")
     row = ("K2", "path L16", SHADOW)
-    kernels["K2"]["path_l16"] = anyhit(row, chunk, path_l_rays[SHADOW])
+    kernels["K2"]["path_l16"] = _anyhit_row(row, chunk, path_l_rays[SHADOW])
     _least_bound(row, kernels["K2"]["path_l16"], kernels["K2"], same_rays)
     kernels["K2"]["path_l16"]["shapes"] = ("path L16 first-bounce shadow "
                                            "rays (path L's), 1280x720, "
@@ -1122,12 +1136,13 @@ def phase_parity(device, scenes) -> dict:
 
     scene, flat, tables = scenes["stress_tex"]
     rays = kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]
-    kernels["K3"].update(nearest(("K3", "path T", PRIMARIES),
-                                 tables.chunks[0], flat, 2, rays,
-                                 kp.strided_subset(rays, kp.TEX_SUBSET)))
+    kernels["K3"].update(_nearest_row(("K3", "path T", PRIMARIES),
+                                      tables.chunks[0], flat, 2, rays,
+                                      kp.strided_subset(rays,
+                                                        kp.TEX_SUBSET)))
     kernels["K3"]["shapes"] = "path T primary rays, 1280x720"
     rays = kp.first_bounce_case(scene, flat, tables, WIDTH, HEIGHT)
-    kernels["K3"]["bounce1"] = nearest(
+    kernels["K3"]["bounce1"] = _nearest_row(
         ("K3", "path T", BOUNCE1), tables.chunks[0], flat, 2, rays,
         kp.strided_subset(rays, kp.TEX_SUBSET))
     nearest_rows = {("K1", "Cornell", PRIMARIES): kernels["K1"],
@@ -2764,7 +2779,8 @@ def _bake_path_g(flat, tables) -> dict:
     print(f"path G bake ({len(positions)} probes, {len(mesh[0])} tets, "
           f"{rays:,} probe rays a sample, {GI_BAKE['spp']} spp): placement "
           f"({sum(boxes):,} boxes tested in {len(boxes)} octree levels: "
-          f"{boxes}) and tets {place_s:.3f} s, capture {capture_s:.3f} s (peak "
+          f"{boxes}) and tets {place_s:.3f} s, capture {capture_s:.3f} s "
+          f"(peak "
           f"{peak_gib:.2f} GiB allocated), SH projection {sh_s:.4f} s, "
           f"whole bake {bake_s:.3f} s (the first, cold, {cold_s:.3f} s); "
           f"launches of the capture "
@@ -2780,7 +2796,49 @@ def _bake_path_g(flat, tables) -> dict:
               for k, v in sorted(prof["trace_ms"].items())))
     for ms, count, key in prof["top"]:
         print(f"  {ms:8.3f} ms in {count:6.0f} launches: {key[:90]}")
-    return {"volume": volume, "launches": launches}
+    return {"volume": volume, "launches": launches, "positions": positions}
+
+
+def _path_g_rows(flat, tables, positions) -> dict:
+    """K1 and K2 at the capture's shapes, as phase 3b's rows: K1 on the
+    first bounce of sample 0 of every probe-face-pixel ray of path G (the
+    rays, seeds and interval of light_volume.capture_probes), K2 on that
+    bounce's next-event shadow rays, every lane as trace_paths traces it;
+    each timed alone and held against its plain version on a strided
+    subset.  Run after the bake's timings, so that its first call stays
+    the cold one."""
+    from steeljax_torch.apps import kernel_parity as kp
+    from steeljax_torch.gi import light_volume as lv_lib
+    from steeljax_torch.render.pt.integrator import (sample_light,
+                                                     shadow_rays,
+                                                     trace_material_ray,
+                                                     unpack_material_fused)
+
+    res = GI_BAKE["resolution"]
+    o, base_d, t_ax, b_ax, ids = lv_lib.probe_rays(positions, res,
+                                                   flat.device)
+    d, seed = lv_lib.sample_directions(base_d, t_ax, b_ax, ids, 0, 2.0 / res)
+    rays = (o.contiguous(), d.contiguous(),
+            torch.full_like(o[:, 0], lv_lib.CAPTURE_T_MIN),
+            torch.full_like(o[:, 0], lv_lib.CAPTURE_T_MAX))
+    chunk = tables.chunks[0]
+    rows = {"K1": _nearest_row(("K1", "path G", PROBE), chunk, flat,
+                               tables.shade_mode, rays,
+                               kp.strided_subset(rays, kp.SHADOW_SUBSET))}
+    rows["K1"]["shapes"] = (f"path G probe rays, {len(positions)} probes x "
+                            f"6 faces x {res}x{res}, the first bounce of "
+                            "sample 0, shade mode 1")
+    rec = trace_material_ray(flat, tables, *rays, cull_backface=True)
+    _, tbn = unpack_material_fused(flat, rec)
+    p = o + d * rec["t"][:, None]
+    light, _ = sample_light(flat, tbn[2], p, seed)
+    so, sd, t_min, t_max = shadow_rays(p, tbn[2], light)
+    rows["K2"] = _anyhit_row(("K2", "path G", PROBE_SHADOW), chunk,
+                             (so.contiguous(), sd.contiguous(), t_min,
+                              t_max))
+    rows["K2"]["shapes"] = ("path G probe rays' next-event shadow rays at "
+                            "the first bounce of sample 0")
+    return rows
 
 
 def _gi_tiles(device) -> None:
@@ -2814,10 +2872,12 @@ def _gi_tiles(device) -> None:
 
 
 def _gi_frames(device, scene, flat, tables, env, volume, path_h) -> dict:
-    """Path H's frame at 1920x1080 lit by path G's volume: one warm and
-    HYBRID_TIMED_FRAMES timed frames (one K1 and one K2 launch a frame),
-    2 profiled frames, the walk alone at the frame's inputs under the
-    profiler, and a checkpoint round trip of the volume."""
+    """Path H's frame at 1920x1080 lit by path G's volume, as the bake of a
+    renderer built with a GI config gives it (held bit-equal to `volume`):
+    one warm and HYBRID_TIMED_FRAMES timed frames (one K1 and one K2
+    launch a frame), 2 profiled frames, the walk alone at the frame's
+    inputs under the profiler, and a checkpoint round trip of the
+    volume."""
     from steeljax_torch.accel import cuda_traverse
     from steeljax_torch.apps import kernel_parity as kp
     from steeljax_torch.core.config import RenderConfig
@@ -2827,11 +2887,22 @@ def _gi_frames(device, scene, flat, tables, env, volume, path_h) -> dict:
     from steeljax_torch.render.hybrid.renderer import HybridRenderer
 
     width, height = kp.HYBRID_WIDTH, kp.HYBRID_HEIGHT
-    renderer = HybridRenderer(scene, width, height,
-                              RenderConfig(width=width, height=height),
-                              environment=env, prepared=(flat, tables),
-                              device=device)
-    renderer.light_volume = volume
+    # The renderer's own bake (RenderConfig.global_illumination_enabled, as
+    # SceneRenderer and the Engine build it) at the GI defaults, held to
+    # the step-by-step bake.
+    renderer, init_s = _synced(lambda: HybridRenderer(
+        scene, width, height, RenderConfig(
+            width=width, height=height, global_illumination_enabled=True),
+        environment=env, prepared=(flat, tables), device=device))
+    for key in ("positions", "tet_vertices", "tet_neighbors",
+                "tet_matrices", "coefficients"):
+        if not torch.equal(getattr(renderer.light_volume, key),
+                           getattr(volume, key)):
+            raise RuntimeError(f"the GI config's bake differs from path G's "
+                               f"in {key}")
+    print(f"HybridRenderer(RenderConfig(global_illumination_enabled=True)) "
+          f"built in {init_s:.3f} s with its bake; its volume bit-equal to "
+          "the step-by-step bake's")
     _reset_launches()
     ms_frame, image = _hybrid_frames(renderer, HYBRID_TIMED_FRAMES)
     launches = dict(cuda_traverse.LAUNCHES)
@@ -3006,12 +3077,15 @@ def _gi_parallel(device, scene, flat, tables, env, volume) -> None:
 def phase_gi(device, scenes, path_h) -> dict:
     """Phase 16, path G: path L's scene baked at the reference's GI
     defaults (placement and tets, the capture with its launches, device
-    busy and peak memory, the SH projection, the whole bake); the tiny
+    busy and peak memory, the SH projection, the whole bake); K1 and K2
+    alone at the capture's shapes against their plain versions; the tiny
     capture on the card against the CPU; path H's frame lit by the volume
-    with the walk alone; the checkpoint round trip; render_cli --gi twice;
-    the pixel split over the card."""
+    of a renderer built with a GI config, with the walk alone; the
+    checkpoint round trip; render_cli --gi twice; the pixel split over the
+    card."""
     scene, flat, tables = scenes["sunlit"]
     bake = _bake_path_g(flat, tables)
+    rows = _path_g_rows(flat, tables, bake["positions"])
     _gi_tiles(device)
     frames = _gi_frames(device, scene, flat, tables, path_h["env"],
                         bake["volume"], path_h)
@@ -3019,7 +3093,7 @@ def phase_gi(device, scenes, path_h) -> dict:
     _gi_parallel(device, scene, flat, tables, path_h["env"], bake["volume"])
     return {"capture_launches": bake["launches"],
             "frame_launches": frames["launches"],
-            "frames": 1 + HYBRID_TIMED_FRAMES}
+            "frames": 1 + HYBRID_TIMED_FRAMES, "rows": rows}
 
 
 def phase_kernel_ab(scenes, old_dir, ptxas: dict) -> None:
@@ -3120,6 +3194,16 @@ def main(argv=None) -> int:
                    phase_gi, device, scenes, path_h)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
+    # Phase 16's rows of K1 and K2 at the capture's shapes.
+    for k, row in path_g["rows"].items():
+        kernels[k]["path_g"] = row
+    kernels["K1"]["max_abs_err"] = max(
+        kernels["K1"]["max_abs_err"],
+        path_g["rows"]["K1"]["parity_max_abs_err"])
+    kernels["K2"]["mismatches"][f"path G {PROBE_SHADOW}"] = (
+        path_g["rows"]["K2"]["parity"]["hit_mismatches"])
+    kernels["K2"]["max_abs_err"] = float(
+        max(kernels["K2"]["mismatches"].values()) > 0)
 
     launches = {"K1": cornell["launches"]["K1"],
                 "K2": path_l["launches"]["K2"],
@@ -3142,11 +3226,19 @@ def main(argv=None) -> int:
                  "path_l16": (path_l16, frames)}
 
     def sub_row(k, key):
-        """A sub-row of K1 or K2 at another path's shapes (phase 3b), with
-        the kernel's launches a frame on that path (phases 11-13)."""
+        """A sub-row of K1 or K2 at another path's shapes (phase 3b; path
+        G's phase 16), with the kernel's launches a frame on that path
+        (phases 11-13; path G: a GI frame's, and the capture's)."""
         row = kernels[k][key]
-        out, n = sub_paths[key]
-        return {"launches_per_frame": out["launches"][k] / n,
+        if key == "path_g":
+            launches = {
+                "launches_per_frame": path_g["frame_launches"][k]
+                / path_g["frames"],
+                "capture_launches": path_g["capture_launches"][k]}
+        else:
+            out, n = sub_paths[key]
+            launches = {"launches_per_frame": out["launches"][k] / n}
+        return {**launches,
                 **{f: row[f] for f in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "shapes", "rays",
                                        "plain_rays", "own_bound_ms",
@@ -3215,11 +3307,8 @@ def main(argv=None) -> int:
         "tolerance": kernels[k]["tolerance"],
         "shapes": kernels[k]["shapes"], "rays": kernels[k]["rays"],
         "plain_rays": kernels[k]["plain_rays"],
-        **{key: sub_row(k, key) for key in sub_paths if key in kernels[k]},
-        **({"path_g": {
-            "capture_launches": path_g["capture_launches"][k],
-            "frame_launches_per_frame": path_g["frame_launches"][k]
-            / path_g["frames"]}} if k in ("K1", "K2") else {}),
+        **{key: sub_row(k, key) for key in (*sub_paths, "path_g")
+           if key in kernels[k]},
         "engine_launches": {name: counts[k] for name, counts in
                             engine.items() if counts.get(k)}}
         for k in launches]}))

@@ -216,6 +216,5 @@ def from_jax_environment(env, device: torch.device | str) -> Environment:
 def from_jax_light_volume(lv, device: torch.device | str) -> LightVolume:
     """The port's LightVolume holding the arrays of a steeljax one."""
     return LightVolume(**{
-        f.name: torch.from_numpy(np.array(np.asarray(
-            getattr(lv, f.name)))).to(device)
-        for f in dataclasses.fields(LightVolume)})
+        f.name: torch.from_numpy(np.array(np.asarray(getattr(lv, f.name))))
+        for f in dataclasses.fields(LightVolume)}).to(device)

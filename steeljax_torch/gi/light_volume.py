@@ -10,8 +10,9 @@ Every probe-face-pixel ray of a sample goes through one call of the port's
 trace_paths, so on the card each bounce is one launch of the nearest-hit
 kernel (K1 on opaque flat tables) and, in a lit scene, one of the any-hit
 kernel (K2) for the shadow rays; the loop over samples reads nothing back
-to the host.  With `devices` the rays split into one contiguous block per
-device (parallel.mesh), as under the reference's shard_map.
+to the host.  The rays split into one contiguous block per device
+(parallel.mesh; one block on the scene's device unless `devices` names
+more), as under the reference's shard_map.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from steeljax_torch.parallel.mesh import (device_context, replicate,
 from steeljax_torch.render.pt.integrator import trace_paths
 
 PROBE_RESOLUTION = 32  # ProbeRenderer.cpp:8-10 (32x32 RGBA16F faces)
+CAPTURE_T_MIN, CAPTURE_T_MAX = 0.001, 1000.0  # the probe rays' interval
 
 
 @dataclasses.dataclass
@@ -62,7 +64,7 @@ def empty_light_volume(device: torch.device | str) -> LightVolume:
         coefficients=torch.zeros((0, 9, 3), **f32))
 
 
-def _probe_rays(positions: np.ndarray, res: int, device):
+def probe_rays(positions: np.ndarray, res: int, device):
     """Per probe-face-pixel ray (origin, base direction, face T and B axes,
     ray id), (P * 6 * R * R, ...) on `device` (light_volume.py:61-76)."""
     p = len(positions)
@@ -81,18 +83,24 @@ def _probe_rays(positions: np.ndarray, res: int, device):
     return origins, base_dirs, t_axis, b_axis, ids
 
 
-def _sample_once(flat, tables, o, base_d, t_ax, b_ax, ids, s: int,
-                 texel: float, config: RenderConfig) -> torch.Tensor:
-    """One sample of every ray: the seed of the global ray id, the
-    sub-texel jitter, the bounce loop."""
+def sample_directions(base_d, t_ax, b_ax, ids, s: int, texel: float):
+    """The directions and rng seeds of sample `s` of the probe rays: the
+    seed of the global ray id, the sub-texel jitter along the face's T and
+    B axes (light_volume.py:78-86)."""
     seed = rng.make_seed(ids & 0xFFFF, ids >> 16, s, 0)
     jitter, seed = rng.next_vec2(seed)
     # Displace directions by up to one texel along the face tangents.
     d = (base_d + (jitter[:, 0:1] - 0.5) * texel * t_ax
          + (jitter[:, 1:2] - 0.5) * texel * b_ax)
-    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-    sample, _, _ = trace_paths(flat, tables, o, d, seed, 0.001, 1000.0,
-                               config)
+    return d / torch.linalg.vector_norm(d, dim=-1, keepdim=True), seed
+
+
+def _sample_once(flat, tables, o, base_d, t_ax, b_ax, ids, s: int,
+                 texel: float, config: RenderConfig) -> torch.Tensor:
+    """One sample of every ray through the bounce loop."""
+    d, seed = sample_directions(base_d, t_ax, b_ax, ids, s, texel)
+    sample, _, _ = trace_paths(flat, tables, o, d, seed, CAPTURE_T_MIN,
+                               CAPTURE_T_MAX, config)
     return sample
 
 
@@ -106,10 +114,10 @@ def capture_probes(flat, tables, positions: np.ndarray,
     sub-texel jitter; output is linear HDR (RENDER_TO_HDR=1, no tone map,
     no accumulation image — the mean over spp is computed here).
 
-    With `devices` (a list of torch devices, or a parallel.mesh.Mesh) the
-    probe-face-pixel rays split into one contiguous block per device,
-    padded to a multiple of the device count with +Z rays; the scene and
-    tables are copied to each device.  Per-ray seeds depend only on the
+    The probe-face-pixel rays split into one contiguous block per device
+    of `devices` (a list of torch devices, or a parallel.mesh.Mesh; by
+    default the scene's device alone), padded to a multiple of the device
+    count with +Z rays; the scene and tables are copied to each device.  Per-ray seeds depend only on the
     global ray id, so the split capture equals the one-device capture."""
     config = config or RenderConfig()
     probe_config = dataclasses.replace(config, sample_count=1)
@@ -117,39 +125,32 @@ def capture_probes(flat, tables, positions: np.ndarray,
     res = resolution
     texel = 2.0 / res
     device = flat.device
-    rays = _probe_rays(positions, res, device)
-    n_rays = rays[0].shape[0]
-
-    if devices is None:
-        total = torch.zeros((n_rays, 3), dtype=torch.float32, device=device)
-        for s in range(spp):
-            total = total + _sample_once(flat, tables, *rays, s, texel,
-                                         probe_config)
-    else:
-        devices = [torch.device(d)
-                   for d in getattr(devices, "devices", devices)]
-        o, base_d, t_ax, b_ax, ids = rays
-        # Pad rays get the +Z direction (a zero direction would NaN the
-        # normalize); their results are cut off below.
-        pad = -n_rays % len(devices)
-        base_d = torch.cat([base_d, base_d.new_tensor(
-            [0.0, 0.0, 1.0]).expand(pad, 3)])
-        shards = list(zip(*(split_rows(x, len(devices))
-                            for x in (o, base_d, t_ax, b_ax, ids))))
-        shards = [[x.to(dev) for x in shard]
-                  for dev, shard in zip(devices, shards)]
-        replicas = [(replicate(flat, dev), replicate(tables, dev))
-                    for dev in devices]
-        totals = [torch.zeros((shard[0].shape[0], 3), dtype=torch.float32,
-                              device=dev)
-                  for dev, shard in zip(devices, shards)]
-        for s in range(spp):
-            for i, (dev, shard, (flat_d, tables_d)) in enumerate(
-                    zip(devices, shards, replicas)):
-                with device_context(dev):
-                    totals[i] = totals[i] + _sample_once(
-                        flat_d, tables_d, *shard, s, texel, probe_config)
-        total = torch.cat([t.to(device) for t in totals])[:n_rays]
+    o, base_d, t_ax, b_ax, ids = probe_rays(positions, res, device)
+    n_rays = o.shape[0]
+    devices = ([device] if devices is None else
+               [torch.device(d) for d in getattr(devices, "devices",
+                                                 devices)])
+    # Pad rays get the +Z direction (a zero direction would NaN the
+    # normalize); their results are cut off below.
+    pad = -n_rays % len(devices)
+    base_d = torch.cat([base_d, base_d.new_tensor(
+        [0.0, 0.0, 1.0]).expand(pad, 3)])
+    shards = list(zip(*(split_rows(x, len(devices))
+                        for x in (o, base_d, t_ax, b_ax, ids))))
+    shards = [[x.to(dev) for x in shard]
+              for dev, shard in zip(devices, shards)]
+    replicas = [(replicate(flat, dev), replicate(tables, dev))
+                for dev in devices]
+    totals = [torch.zeros((shard[0].shape[0], 3), dtype=torch.float32,
+                          device=dev)
+              for dev, shard in zip(devices, shards)]
+    for s in range(spp):
+        for i, (dev, shard, (flat_d, tables_d)) in enumerate(
+                zip(devices, shards, replicas)):
+            with device_context(dev):
+                totals[i] = totals[i] + _sample_once(
+                    flat_d, tables_d, *shard, s, texel, probe_config)
+    total = torch.cat([t.to(device) for t in totals])[:n_rays]
     return (total / spp).reshape(p, 6, res, res, 3)
 
 

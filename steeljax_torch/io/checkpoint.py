@@ -46,5 +46,6 @@ def save_light_volume(path: str | Path, volume: LightVolume) -> None:
 def load_light_volume(path: str | Path,
                       device: torch.device | str) -> LightVolume:
     with np.load(path) as data:
-        return LightVolume(**{key: torch.as_tensor(data[key], device=device)
-                              for key in _VOLUME_KEYS})
+        volume = LightVolume(**{key: torch.from_numpy(data[key])
+                                for key in _VOLUME_KEYS})
+    return volume.to(device)

@@ -457,10 +457,10 @@ def test_reload_rebinds_a_stale_kernel_library(monkeypatch, tmp_path):
 
 
 def test_scene_renderer_gi_config_raises(envs, monkeypatch):
-    """A GI config raises nothing: the SceneRenderer's hybrid renderer
-    bakes the light volume (here at tests/test_torch_gi_frame.py's small
-    budgets, min edge 4 at resolution 4, for the CPU) and its frame takes
-    the volume's irradiance."""
+    """(Named when a GI config raised.)  Now it raises nothing: the
+    SceneRenderer's hybrid renderer bakes the light volume (here at
+    tests/test_torch_gi_frame.py's small budgets, min edge 4 at resolution
+    4, for the CPU) and its frame takes the volume's irradiance."""
     monkeypatch.setattr(hybrid_mod, "generate_light_volume",
                         functools.partial(generate_light_volume,
                                           resolution=4, min_edge=4.0))

@@ -168,6 +168,36 @@ def test_tets_equal_reference(case, prepared):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("case", ["unit cube", "cornell min edge 4.0"])
+def test_tet_barycentric_equals_reference(case, prepared):
+    """tets.barycentric at every tet's centroid and at seeded points: equal
+    to the reference's; at a centroid inside (positive, summing to 1), and
+    on the unit cube 1/4 each (tests/test_gi.py; the Cornell box's grid
+    corners make near-flat tets, whose inverse matrices amplify the float32
+    rounding of the positions and matrices, both packages alike)."""
+    if case == "unit cube":
+        positions = np.array([[x, y, z] for x in (0, 1) for y in (0, 1)
+                              for z in (0, 1)], np.float32)
+    else:
+        source, kwargs = PLACEMENTS[case]
+        positions = probes_ref.generate_probe_positions(
+            _tri_pos(source, prepared), **kwargs)
+    vertices, _, matrices, used = tets.tetrahedralize(positions)
+    points = np.random.default_rng(7).uniform(
+        used.min(0), used.max(0), (len(vertices), 3))
+    for t in range(len(vertices)):
+        centroid = used[vertices[t]].mean(axis=0)
+        for p in (centroid, points[t]):
+            ours = tets.barycentric(used, vertices, matrices, t, p)
+            np.testing.assert_array_equal(
+                ours, tets_ref.barycentric(used, vertices, matrices, t, p))
+        bary = tets.barycentric(used, vertices, matrices, t, centroid)
+        assert (bary > 0).all()
+        np.testing.assert_allclose(bary.sum(), 1.0, atol=1e-3)
+        if case == "unit cube":
+            np.testing.assert_allclose(bary, 0.25, atol=2e-3)
+
+
 def _unit(r, n):
     v = r.normal(size=(n, 3))
     return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)

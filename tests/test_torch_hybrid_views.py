@@ -224,10 +224,10 @@ def test_crosscheck_wall_tints_and_rmse(both_images):
 
 
 def test_light_volume_gi_raises(envs, monkeypatch):
-    """A GI config raises nothing: the renderer bakes the light volume
-    when it is built (here at tests/test_torch_gi_frame.py's small
-    budgets, min edge 4 at resolution 4, for the CPU) and its
-    frame takes the volume's irradiance."""
+    """(Named when a GI config raised.)  Now it raises nothing: the
+    renderer bakes the light volume when it is built (here at
+    tests/test_torch_gi_frame.py's small budgets, min edge 4 at resolution
+    4, for the CPU) and its frame takes the volume's irradiance."""
     monkeypatch.setattr(hybrid_mod, "generate_light_volume",
                         functools.partial(generate_light_volume,
                                           resolution=4, min_edge=4.0))
