@@ -48,7 +48,11 @@ PyTorch version:
   * path G, the light-volume GI on path L's scene at the reference's
     defaults (925 probes, 5,683,200 probe rays a sample, 8 spp): K1 and K2
     once a bounce of every sample of the probe capture, then path H's
-    frame lit by the volume (the tet walk in the deferred lighting).
+    frame lit by the volume (the tet walk in the deferred lighting);
+  * path R, path H's frame with STEELJAX_RASTER=1: the G-buffer's primary
+    visibility rasterized, R (csrc/raster.cu, the tile stage of
+    render/hybrid/raster.py: one thread block a 32x24 subtile) once a
+    frame in K1's place, K2 for the sun rays.
 Paths L, T, F, S, J, U, UL, C and L16 are above the repack threshold
 (path I's 310 instances of 544 records on average are not), so their rays
 are repacked before every secondary bounce, and the alpha paths' re-traces
@@ -157,15 +161,26 @@ Phases:
      PNGs); one- and two-shard meshes over the card (path-traced frame,
      hybrid GI frame, capture within 1e-5 of the unsharded run),
      entry.dryrun_multichip(2) over the card twice and entry()'s tile
-     against the CPU's.
+     against the CPU's;
+  17. path R: path H's frame with STEELJAX_RASTER=1 (one warm and 3 timed
+     frames, one R and one K2 launch a frame, no K1), the frame against
+     the traced one (RMSE < 0.02), ms/frame of both in turns, 2 profiled
+     frames of each (the raster adds no synchronizing call), the G-buffer
+     stage alone both ways, the raster record against K1's traced
+     G-buffer record on all 2,073,600 pixels (tests/test_raster.py's 3%
+     budget), R alone over the frame's 2,700 subtiles with its bound and
+     against its plain version on every 5th subtile and the densest; the
+     Cornell box at 1280x720 with the raster; and fit_env_surrogate's
+     sample gathering on a synthetic image on the card against the CPU.
 The second-to-last line is the kernels' JSON summary (K1's and K2's
 entries carry their rows of paths H, C and L16 and their launches a frame
 there under "path_h", "path_c" and "path_l16"; a kernel that phase 15's
 engines launched carries those launches under "engine_launches": the
 TestSystem engine's hybrid ticks as "testsystem", its path-traced ticks
 as "pt", the default engine's ticks as "default"; K1 and K2 carry path
-G's launches under "path_g": the capture's and a GI frame's), the last
-line the device JSON.
+G's launches under "path_g": the capture's and a GI frame's; R's entry
+carries its time on the subset beside its plain version's as "subset_ms"),
+the last line the device JSON.
 
 With --ab-old DIR, phase 3c times K2 and K2-dense against the earlier
 kernels built from DIR (steeljax_torch/apps/kernel_ab.py says how to
@@ -350,6 +365,21 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaMemcpyAsync")
 # Phase 15: the path-traced ticks after the TestSystem's timeline.
 ENGINE_PT_TICKS = 4
+# Phase 17, the raster tile kernel R (csrc/raster.cu): fp32 operations per
+# pair of a pixel and a candidate piece that covers the pixel's subtile
+# (four linear forms, E0, E1, E2 and Z, at two products and two sums each;
+# five comparisons of the inside test and one against the slice's best z:
+# 22), and per hit pixel the winner's Fu, Fv and Fw once (12).  Bytes: each
+# candidate record a subtile reads (24 floats), each subtile's id and six
+# segment ints, and five floats written a pixel.
+OPS_PER_RASTER_TEST = 22
+OPS_PER_RASTER_WINNER = 12
+RASTER_RECORD_BYTES = 96
+RASTER_TILE_IN_BYTES = 7 * 4
+RASTER_PIXEL_OUT_BYTES = 5 * 4
+# The subtiles phase 17 holds the kernel to its plain version on: every
+# RASTER_STRIDE-th, and the densest.
+RASTER_STRIDE = 5
 
 
 def _run(cmd) -> str:
@@ -1348,7 +1378,11 @@ def _profile_frames(run_frame, frames: int = 2, spans=(),
     per `frames`), and the host wall time under the profiler.  For each
     record_function range named in `spans`, its device span per frame
     (first kernel's start to last kernel's end, gaps included) under
-    "span_ms"; the `top` largest device kernels under "top"."""
+    "span_ms"; the `top` largest device kernels under "top"; the device's
+    copies per frame by kind (the profiler's "Memcpy DtoD (Device ->
+    Device)", "Memcpy HtoD (Pageable -> Device)", ...) under "copies": a
+    copy from or to pageable host memory waits for the host, a copy
+    between device buffers does not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1366,8 +1400,12 @@ def _profile_frames(run_frame, frames: int = 2, spans=(),
     syncs = dict.fromkeys(SYNC_CALLS, 0.0)
     trace: dict = {}
     span: dict = {}
+    copies: dict = {}
     largest = []
     for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.key.startswith(
+                "Memcpy"):
+            copies[evt.key] = copies.get(evt.key, 0.0) + evt.count / frames
         if evt.key in spans:
             if evt.device_type == DeviceType.CUDA:
                 span[evt.key] = evt.device_time_total / 1000.0 / frames
@@ -1386,7 +1424,7 @@ def _profile_frames(run_frame, frames: int = 2, spans=(),
             syncs[evt.key] += evt.count / frames
     return {"wall_ms": wall_ms, "busy_ms": busy / 1000.0 / frames,
             "kernels": kernels / frames, "syncs": syncs,
-            "trace_ms": trace, "span_ms": span,
+            "trace_ms": trace, "span_ms": span, "copies": copies,
             "top": sorted(largest, reverse=True)[:top]}
 
 
@@ -3096,6 +3134,399 @@ def phase_gi(device, scenes, path_h) -> dict:
             "frames": 1 + HYBRID_TIMED_FRAMES, "rows": rows}
 
 
+def _raster_work(recs_sorted, tile_ids, segments, ntx) -> dict:
+    """The work of one raster kernel launch on these inputs: the candidate
+    records its subtiles read (each subtile its three segments) and, of
+    them, those whose bbox covers the subtile (whose forms every pixel of
+    the subtile evaluates)."""
+    from steeljax_torch.render.hybrid import raster
+
+    sa, la, sb, lb, gs, gl = (x.to(torch.int64) for x in segments)
+    tiles = tile_ids.to(torch.int64).repeat(3)
+    starts = torch.cat([sa, sb, gs])
+    lengths = torch.cat([la, lb, gl])
+    seg = torch.repeat_interleave(torch.arange(lengths.shape[0],
+                                               device=lengths.device),
+                                  lengths)
+    first = torch.cumsum(lengths, 0) - lengths
+    rows = starts[seg] + torch.arange(seg.shape[0],
+                                      device=seg.device) - first[seg]
+    bmin = recs_sorted[rows, raster._BMIN].to(torch.int64)
+    bmax = recs_sorted[rows, raster._BMAX].to(torch.int64)
+    ty, tx = tiles[seg] // ntx, tiles[seg] % ntx
+    covers = ((tx >= bmin % 4096) & (tx <= bmax % 4096)
+              & (ty >= bmin // 4096) & (ty <= bmax // 4096))
+    return {"candidates": int(seg.shape[0]), "covering": int(covers.sum())}
+
+
+def _raster_bound(work: dict, tiles: int, hits: int) -> dict:
+    """The least time of the raster kernel's work: its bytes over the
+    card's memory rate against its operations over its fp32 rate."""
+    from steeljax_torch.render.hybrid import raster
+
+    n_bytes = (RASTER_RECORD_BYTES * work["candidates"]
+               + RASTER_TILE_IN_BYTES * tiles
+               + RASTER_PIXEL_OUT_BYTES * raster.PX * tiles)
+    ops = (OPS_PER_RASTER_TEST * raster.PX * work["covering"]
+           + OPS_PER_RASTER_WINNER * hits)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_FP32_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": n_bytes, "ops": ops, **work}
+
+
+def _tile_parity(out, plain) -> dict:
+    """The raster kernel's outputs (bz, fu, fv, fw, ft) against its plain
+    version's, per pixel as kernel_parity._compare judges records: the hit
+    flags (bz > 0), and where both hit w_eye = 1 / Fw against its
+    |dt| < 2e-3 and, where the triangle is the same, u = Fu / Fw and v =
+    Fv / Fw against 5e-3; max_abs_err over the five outputs (0 when the
+    two agree bit for bit, as the kernel is written to)."""
+    (bz, fu, fv, fw, ft), (pz, pu, pv, pw, pt) = out, plain
+    hit, phit = bz > 0.0, pz > 0.0
+    both = hit & phit
+    same = both & (ft == pt)
+    n = bz.numel()
+    entry = {"pixels": n, "hit_mismatches": int((hit != phit).sum()),
+             "hits": int(hit.sum()),
+             "max_abs_err": max(float((a - b).abs().max()) for a, b in
+                                zip(out, plain)),
+             "bit_equal": all(torch.equal(a, b) for a, b in zip(out, plain))}
+    if both.any():
+        entry["max_t_delta"] = float((1.0 / fw - 1.0 / pw)[both].abs().max())
+    if same.any():
+        entry["max_uv_delta"] = float(max(
+            (fu / fw - pu / pw)[same].abs().max(),
+            (fv / fw - pv / pw)[same].abs().max()))
+    entry["ok"] = bool(entry["hit_mismatches"] <= max(2, n // 5000)
+                       and entry.get("max_t_delta", 0.0) < 2e-3
+                       and entry.get("max_uv_delta", 0.0) < 5e-3)
+    return entry
+
+
+def _raster_vs_trace(label, rec_r, rec_t, budget: float) -> dict:
+    """tests/test_raster.py's comparison of a raster record with the traced
+    one, as a budget: a pixel disagrees where one side alone hits, where
+    both hit another triangle at another depth (|dt| > 5e-3 max(t, 1)), or
+    where the same triangle wins with t beyond atol 5e-4 and rtol 5e-3 or u
+    or v beyond 5e-3; at most `budget` of the pixels may.  (The last kind
+    is counted, not refused: the screen-space forms of a triangle about a
+    pixel wide cancel in float32, so its t, u and v move by up to a few
+    percent, in the reference's raster as in the port's.)"""
+    hit_r, hit_t = rec_r["hit"], rec_t["hit"]
+    both = hit_r & hit_t
+    dt = (rec_r["t"] - rec_t["t"]).abs()
+    same = both & (rec_r["tri"] == rec_t["tri"])
+    same_depth = dt <= 5e-3 * torch.clamp(rec_t["t"], min=1.0)
+    duv = torch.maximum((rec_r["u"] - rec_t["u"]).abs(),
+                        (rec_r["v"] - rec_t["v"]).abs())
+    off = same & ((dt > 5e-4 + 5e-3 * rec_t["t"].abs()) | (duv >= 5e-3))
+    counts = {"one side hits": int((hit_r != hit_t).sum()),
+              "other triangle, other depth": int(
+                  (both & ~same & ~same_depth).sum()),
+              "same triangle, t/u/v off": int(off.sum())}
+    frac = sum(counts.values()) / hit_r.numel()
+    print(f"{label}: {frac:.5f} of {hit_r.numel():,} pixels disagree "
+          f"(budget {budget}: " + ", ".join(
+              f"{k} {v:,}" for k, v in counts.items())
+          + f"); hits {int(hit_r.sum()):,} raster / {int(hit_t.sum()):,} "
+          f"traced, the same triangle on {int(same.sum()):,}, max |du|, "
+          f"|dv| there {float(duv[same].max()):.3e}, within 5e-3 on "
+          f"{float((duv[same] < 5e-3).float().mean()):.5f} of them")
+    if frac > budget or not bool(same.any()):
+        raise RuntimeError(f"{label}: the raster record disagrees with the "
+                           "traced one")
+    return {"disagree": frac, **counts}
+
+
+def _raster_frames(renderer, rscene, frames: int) -> tuple:
+    """_hybrid_frames of `renderer` with the raster scene `rscene` (None:
+    the traced G-buffer)."""
+    renderer.raster_scene = rscene
+    return _hybrid_frames(renderer, frames)
+
+
+def _raster_renderer(scene, width, height, env, device, prepared=None):
+    """HybridRenderer(...) built with STEELJAX_RASTER=1 (the variable as it
+    was afterwards); raises unless it engaged the raster."""
+    import os
+
+    from steeljax_torch.core.config import RenderConfig
+    from steeljax_torch.render.hybrid.renderer import HybridRenderer
+
+    previous = os.environ.get("STEELJAX_RASTER")
+    os.environ["STEELJAX_RASTER"] = "1"
+    try:
+        renderer = HybridRenderer(scene, width, height,
+                                  RenderConfig(width=width, height=height),
+                                  environment=env, prepared=prepared,
+                                  device=device)
+    finally:
+        if previous is None:
+            del os.environ["STEELJAX_RASTER"]
+        else:
+            os.environ["STEELJAX_RASTER"] = previous
+    if renderer.raster_scene is None or renderer.tile is None:
+        raise RuntimeError(f"STEELJAX_RASTER=1 did not engage the raster at "
+                           f"{width}x{height}")
+    return renderer
+
+
+def _raster_cornell(device, env) -> None:
+    """The Cornell box at 1280x720 with the raster: one R and no K1 launch
+    a frame, the frame beside the traced one."""
+    from steeljax_torch.accel import cuda_traverse
+    from steeljax_torch.scene.builtin import make_cornell_scene
+
+    renderer = _raster_renderer(make_cornell_scene(), WIDTH, HEIGHT, env,
+                                device)
+    rscene = renderer.raster_scene
+    _reset_launches()
+    ms, image = _raster_frames(renderer, rscene, HYBRID_TIMED_FRAMES)
+    launches = dict(cuda_traverse.LAUNCHES)
+    total = 1 + HYBRID_TIMED_FRAMES
+    if launches["R"] != total or launches["K1"] != 0:
+        raise RuntimeError(f"Cornell raster frames launched {launches}")
+    traced_ms, traced = _raster_frames(renderer, None, HYBRID_TIMED_FRAMES)
+    image, traced = image.cpu().numpy(), traced.cpu().numpy()
+    if not np.isfinite(image).all() or image.std() <= 0.0:
+        raise RuntimeError("Cornell raster frame: bad frame")
+    rmse = float(np.sqrt(np.mean((image - traced) ** 2)))
+    print(f"Cornell {WIDTH}x{HEIGHT} with the raster: {ms:.3f} ms/frame "
+          f"(traced G-buffer {traced_ms:.3f}); launches over {total} frames "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f"; RMSE against the traced frame {rmse:.3e}")
+    if rmse >= 0.02:
+        raise RuntimeError(f"Cornell raster frame: RMSE {rmse} against the "
+                           "traced frame")
+
+
+def _surrogate_on_card(device) -> None:
+    """fit_env_surrogate's sample gathering (samples_from_image, the part
+    after the PNG decode) on a synthetic 96x54 image and the GLTF Cornell
+    box, on the card against the CPU."""
+    from steeljax_torch.apps import fit_env_surrogate
+    from steeljax_torch.scene import load_scene
+
+    rng = np.random.default_rng(5)
+    img = np.clip(np.linspace(0.1, 0.9, 54)[:, None, None]
+                  + rng.normal(0.0, 0.1, (54, 96, 3)), 0.0, 1.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "cornell.gltf"
+        write_cornell_gltf(path)
+        card = fit_env_surrogate.samples_from_image(img, load_scene(path),
+                                                    device)
+        cpu = fit_env_surrogate.samples_from_image(img, load_scene(path),
+                                                   "cpu")
+    counts = [[int((s[2] == k).sum()) for k in (0, 1)] for s in (card, cpu)]
+    off = sum(abs(a - b) for a, b in zip(*counts))
+    budget = max(2, img.shape[0] * img.shape[1] // 5000)
+    err = None
+    if counts[0] == counts[1]:
+        err = max(float(np.abs(a - b).max()) for a, b in zip(card[:2],
+                                                             cpu[:2]))
+    print(f"fit_env_surrogate.samples_from_image 96x54 on the card: "
+          f"background, mirror samples {counts[0]} (CPU {counts[1]}); max "
+          f"|card - CPU| of directions and radiance "
+          + ("not compared (other counts)" if err is None else f"{err:.3e}"))
+    if off > budget or (err is not None and err > 1e-4):
+        raise RuntimeError("fit_env_surrogate samples on the card differ "
+                           "from the CPU's")
+
+
+def phase_raster(device, scenes, path_h) -> dict:
+    """Path R: path H's frame (path L's scene, the bench's 1920x1080 hybrid
+    config, path H's environment) with STEELJAX_RASTER=1, the G-buffer's
+    primary visibility rasterized (csrc/raster.cu, R).  One warm and
+    HYBRID_TIMED_FRAMES timed frames with the launch counts set to 0 just
+    before and read just after (one R and one K2 launch a frame, no K1);
+    the frame against the traced one; ms/frame of both in turns (traced,
+    raster, raster, traced); 2 profiled frames of each (device busy, the
+    stages' spans, the runtime's synchronizing calls, which the raster
+    must not add); the G-buffer stage alone both ways; the raster record
+    against K1's traced G-buffer record on all pixels within
+    tests/test_raster.py's 3% budget; the kernel alone over the frame's
+    subtiles (CUDA events, 50 launches) with its bound, and against
+    _raster_tiles_plain on every RASTER_STRIDE-th subtile and the densest
+    with kernel_parity's budgets; then the Cornell box at 1280x720 with the
+    raster, and fit_env_surrogate's sample gathering on the card against
+    the CPU."""
+    from steeljax_torch.accel import cuda_traverse
+    from steeljax_torch.apps import kernel_parity as kp
+    from steeljax_torch.apps.timing import REPS, time_ms, wall_ms
+    from steeljax_torch.render.hybrid import gbuffer, raster
+    from steeljax_torch.render.hybrid.renderer import pixel_center_rays
+
+    scene, flat, tables = scenes["sunlit"]
+    width, height = kp.HYBRID_WIDTH, kp.HYBRID_HEIGHT
+    renderer = _raster_renderer(scene, width, height, path_h["env"], device,
+                                prepared=(flat, tables))
+    rscene = renderer.raster_scene
+    _reset_launches()
+    ms_frame, image = _raster_frames(renderer, rscene, HYBRID_TIMED_FRAMES)
+    launches = dict(cuda_traverse.LAUNCHES)
+    total = 1 + HYBRID_TIMED_FRAMES
+    want = {k: total if k in ("R", "K2") else 0 for k in launches}
+    if launches != want:
+        raise RuntimeError(f"path R launched {launches} over {total} "
+                           f"frames, expected {want}")
+    traced_ms, traced = _raster_frames(renderer, None, HYBRID_TIMED_FRAMES)
+    image, traced = image.cpu().numpy(), traced.cpu().numpy()
+    if image.shape != (width * height, 3) or not np.isfinite(image).all() \
+            or image.std() <= 0.0:
+        raise RuntimeError(f"path R: bad frame {image.shape}")
+    rmse = float(np.sqrt(np.mean((image - traced) ** 2)))
+    turns = {"traced": [], "raster": []}
+    for name in ("traced", "raster", "raster", "traced"):
+        turns[name].append(_raster_frames(
+            renderer, rscene if name == "raster" else None,
+            HYBRID_TIMED_FRAMES)[0])
+    turns = {k: sum(v) / len(v) for k, v in turns.items()}
+    print(f"path R {width}x{height} (path H with STEELJAX_RASTER=1): "
+          f"{ms_frame:.3f} ms/frame over {HYBRID_TIMED_FRAMES} timed frames "
+          f"(traced G-buffer {traced_ms:.3f} in this phase, path H "
+          f"{path_h['ms_frame']:.3f} in phase 11); launches over {total} "
+          "frames " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f" (R {launches['R'] / total:.0f}, K2 {launches['K2'] / total:.0f}"
+          f" a frame, no K1); RMSE against the traced frame {rmse:.3e}; in "
+          f"turns (traced, raster, raster, traced): raster "
+          f"{turns['raster']:.3f}, traced {turns['traced']:.3f} ms/frame")
+    if rmse >= 0.02:
+        raise RuntimeError(f"path R: RMSE {rmse} against the traced frame")
+
+    stages = ("gbuffer_stage", "lighting_stage", "forward_stage")
+    profiles = {}
+    for name, rs in (("raster", rscene), ("traced", None)):
+        renderer.raster_scene = rs
+        profiles[name] = _profile_frames(renderer.render_frame_device,
+                                         spans=stages, top=10)
+    renderer.raster_scene = rscene
+    for name, prof in profiles.items():
+        busy = prof["busy_ms"]
+        print(f"path R {name} frame torch.profiler, per frame: device busy "
+              f"{busy:.3f} ms of {prof['wall_ms']:.3f} ms wall (idle share "
+              + (f"{1.0 - busy / prof['wall_ms']:.3f}" if busy > 0.0
+                 else "not measured")
+              + f"), {prof['kernels']:.0f} device kernels, "
+              + ", ".join(f"{k} {v:.1f}" for k, v in prof["syncs"].items())
+              + "; trace kernels " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in sorted(
+                      prof["trace_ms"].items()))
+              + "; stage device spans " + ", ".join(
+                  f"{k} {prof['span_ms'].get(k, 0.0):.3f} ms"
+                  for k in stages))
+    for ms, count, key in profiles["raster"]["top"]:
+        print(f"  path R raster frame {ms:8.3f} ms/frame in {count:6.0f} "
+              f"launches: {key[:90]}")
+    # A host synchronization: a stream or device synchronize, or a copy
+    # from or to pageable host memory (a cudaMemcpyAsync between device
+    # buffers does not wait for the host).
+    added = {k: profiles["raster"]["syncs"][k] - profiles["traced"]["syncs"][k]
+             for k in SYNC_CALLS}
+    kinds = set(profiles["raster"]["copies"]) | set(
+        profiles["traced"]["copies"])
+    copies = {k: profiles["raster"]["copies"].get(k, 0.0)
+              - profiles["traced"]["copies"].get(k, 0.0) for k in kinds}
+    waits = {k: v for k, v in added.items() if k != "cudaMemcpyAsync"}
+    waits.update({k: v for k, v in copies.items() if "Pageable" in k})
+    print("path R calls and copies added a frame by the raster: "
+          + ", ".join(f"{k} {v:+.1f}" for k, v in added.items())
+          + "; device copies " + (", ".join(
+              f"{k} {v:+.1f}" for k, v in sorted(copies.items()))
+              or "none") + "; host synchronizations added "
+          + f"{sum(waits.values()):+.1f}")
+    if any(v > 0.0 for v in waits.values()):
+        raise RuntimeError(f"the raster adds host synchronizations: {waits}")
+
+    # The rays, the records and the G-buffer stage alone, both ways.
+    inverse_view, inverse_proj, view_proj = renderer.matrices
+    o, d, _ = pixel_center_rays(inverse_view, inverse_proj, width, height,
+                                *renderer.pixels)
+    near, far = renderer.frame.camera_near, renderer.frame.camera_far
+    spread = 2.0 * inverse_proj[1, 1].abs() / height
+    raster_args = (rscene, width, height, renderer.tile)
+
+    def stage(raster_arg):
+        return lambda: gbuffer.generate_gbuffer(
+            flat, tables, o, d, near, far, view_proj, inverse_view[:3, 3],
+            pixel_spread=spread, raster=raster_arg)
+
+    stage_ms = {"raster": [], "traced": []}
+    for name in ("raster", "traced", "traced", "raster"):
+        stage_ms[name].append(wall_ms(stage(
+            raster_args if name == "raster" else None)))
+    print(f"path R G-buffer stage alone (generate_gbuffer, host ms a call "
+          f"ending in a synchronize, {REPS} calls, in turns raster, traced, "
+          f"traced, raster): raster " + " / ".join(
+              f"{v:.3f}" for v in stage_ms["raster"]) + ", traced (K1) "
+          + " / ".join(f"{v:.3f}" for v in stage_ms["traced"]))
+    rec_r = raster.raster_rec(rscene, view_proj, width, height,
+                              renderer.tile, d, near)
+    rec_t = gbuffer.trace_opaque(flat, tables, o, d, near, far, 4)
+    versus = _raster_vs_trace("path R raster record against K1's traced "
+                              "G-buffer record", rec_r, rec_t, 0.03)
+
+    # The kernel alone at the frame's inputs, and against its plain version.
+    recs_sorted, _, tile_ids, segments = raster._binned(
+        rscene, view_proj, width, height, near)
+    ntx = width // raster.TILE_W
+    launch, out = raster.raster_tiles_launcher(recs_sorted, tile_ids,
+                                               segments, ntx)
+    kernel_ms = time_ms(launch, 50)
+    work = _raster_work(recs_sorted, tile_ids, segments, ntx)
+    bound = _raster_bound(work, tile_ids.shape[0],
+                          int((out[0] > 0.0).sum()))
+    density = segments[1] + segments[3]
+    subset = torch.unique(torch.cat([
+        torch.arange(0, tile_ids.shape[0], RASTER_STRIDE, device=device),
+        density.argmax().reshape(1)]))
+    sub_args = (recs_sorted, tile_ids[subset], [s[subset] for s in segments],
+                ntx)
+    kept = {}
+
+    def plain():
+        kept["out"] = raster._raster_tiles_plain(*sub_args)
+
+    plain_ms = time_ms(plain, 3)
+    sub_launch, sub_out = raster.raster_tiles_launcher(*sub_args)
+    subset_ms = time_ms(sub_launch, 50)
+    parity = _tile_parity(sub_out, kept["out"])
+    stats = raster.raster_stats(rscene, view_proj, width, height, near)
+    print(f"R raster_tiles path R: {tile_ids.shape[0]} subtiles "
+          f"({width}x{height}), kernel {kernel_ms:.4f} ms; bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+          f"({bound['bytes']:.4e} B: {work['candidates']:,} candidate "
+          f"records; {bound['ops']:.4e} fp32 ops: {work['covering']:,} "
+          f"covering candidates x {raster.PX} pixels); binning {stats}; on "
+          f"{subset.shape[0]} subtiles (every {RASTER_STRIDE}th and the "
+          f"densest, {int(density.max())} local candidates): kernel "
+          f"{subset_ms:.4f} ms, plain {plain_ms:.4f} ms; against plain "
+          f"{parity}")
+    if not parity["ok"]:
+        raise RuntimeError(f"R: the kernel disagrees with its plain "
+                           f"version: {parity}")
+
+    _raster_cornell(device, path_h["env"])
+    _surrogate_on_card(device)
+    kernel = {"ms": kernel_ms, "plain_ms": plain_ms, "subset_ms": subset_ms,
+              "max_abs_err": parity["max_abs_err"], "library_ms": None,
+              "tolerance": "kernel_parity._compare's budgets on the "
+                           "subtiles' pixels: hit flags (bz > 0) "
+                           "max(2, N/5000), |1/Fw| 2e-3, |Fu/Fw|, |Fv/Fw| "
+                           "5e-3; written to agree bit for bit",
+              "shapes": f"{tile_ids.shape[0]} subtiles of {raster.PX} "
+                        f"pixels, {recs_sorted.shape[0]} records of "
+                        f"{raster._REC_COLS} floats",
+              "rays": width * height,
+              "plain_rays": int(subset.shape[0]) * raster.PX,
+              "parity": parity, "bit_equal": parity["bit_equal"], **bound}
+    return {"launches": launches, "ms_frame": ms_frame,
+            "traced_ms_frame": traced_ms, "turns": turns,
+            "stage_ms": stage_ms, "versus_trace": versus,
+            "syncs_added": waits, "kernel": kernel}
+
+
 def phase_kernel_ab(scenes, old_dir, ptxas: dict) -> None:
     """K2 and K2-dense against the earlier kernels built from `old_dir`, in
     turns, on path L's first-bounce shadow rays and their live subset, and
@@ -3192,6 +3623,9 @@ def main(argv=None) -> int:
     engine = phase("15. the engine", phase_engine, device)
     path_g = phase("16. path G (light-volume GI on path L's scene)",
                    phase_gi, device, scenes, path_h)
+    path_r = phase("17. path R (raster G-buffer on path H)", phase_raster,
+                   device, scenes, path_h)
+    kernels["R"] = path_r["kernel"]
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
     # Phase 16's rows of K1 and K2 at the capture's shapes.
@@ -3219,7 +3653,8 @@ def main(argv=None) -> int:
                 "K7": path_u["launches"]["K7"],
                 "K7_shade1": path_ul["launches"]["K7"],
                 "K7_anyhit": path_ul["launches"]["K7_anyhit"],
-                "K7_pick": path_u["launches"]["K7_pick"]}
+                "K7_pick": path_u["launches"]["K7_pick"],
+                "R": path_r["launches"]["R"]}
     frames_h = 1 + HYBRID_TIMED_FRAMES
     frames = 1 + TIMED_FRAMES
     sub_paths = {"path_h": (path_h, frames_h), "path_c": (path_c, frames),
@@ -3250,6 +3685,7 @@ def main(argv=None) -> int:
         sources[k] = "steeljax_torch/csrc/treelet8.cu"
     for k in ("K6", "K6_shade2", "K6_anyhit"):
         sources[k] = "steeljax_torch/csrc/instanced8.cu"
+    sources["R"] = "steeljax_torch/csrc/raster.cu"
     titles = {
         "K1": "K1 trace_alpha8 NEAREST without masks (BVH8 nearest hit, "
               "cull, shade mode 1)",
@@ -3279,7 +3715,10 @@ def main(argv=None) -> int:
         "K7_anyhit": "K7 treelet_round8 (treelet rounds in place, any-hit "
                      "occlusion; launches on path UL)",
         "K7_pick": "K7 treelet_pick8 (the treelet scheduler's first packet "
-                   "pick of a trace; launches on path U)"}
+                   "pick of a trace; launches on path U)",
+        "R": "R raster_tiles (the raster G-buffer's tile stage, one block a "
+             "32x24 subtile; launches on path R; plain_ms and subset_ms on "
+             "the subset of plain_rays pixels, ms on the whole frame)"}
     replaces = {
         "K1": "steeljax/accel/pallas_traverse.py:249",
         "K2": "steeljax/accel/pallas_traverse.py:506",
@@ -3294,7 +3733,8 @@ def main(argv=None) -> int:
         "K7": "steeljax/accel/pallas_traverse.py:1252",
         "K7_shade1": "steeljax/accel/pallas_traverse.py:1252",
         "K7_anyhit": "steeljax/accel/pallas_traverse.py:1252",
-        "K7_pick": "steeljax/accel/treelets.py:184"}
+        "K7_pick": "steeljax/accel/treelets.py:184",
+        "R": "steeljax/render/hybrid/raster.py:306"}
     print(json.dumps({"kernels": [{
         "name": titles[k], "route": "cuda", "source": sources[k],
         "replaces": replaces[k], "launches": launches[k],
@@ -3307,6 +3747,8 @@ def main(argv=None) -> int:
         "tolerance": kernels[k]["tolerance"],
         "shapes": kernels[k]["shapes"], "rays": kernels[k]["rays"],
         "plain_rays": kernels[k]["plain_rays"],
+        **{key: kernels[k][key] for key in ("subset_ms", "bit_equal")
+           if key in kernels[k]},
         **{key: sub_row(k, key) for key in (*sub_paths, "path_g")
            if key in kernels[k]},
         "engine_launches": {name: counts[k] for name, counts in

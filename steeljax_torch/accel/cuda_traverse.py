@@ -71,10 +71,11 @@ EMPTY_KEY = (1 << 63) - 1
 # instanced nearest hit (every shade mode), K6_anyhit its any-hit query, K7
 # one treelet round of nearest hits (every shade mode, with or without
 # coarse alpha masks), K7_anyhit a treelet round of occlusion flags, K7_pick
-# the first packet pick of a treelet trace.
+# the first packet pick of a treelet trace, R the raster G-buffer's tile
+# kernel (render/hybrid/raster.py, csrc/raster.cu).
 LAUNCHES = {"K1": 0, "K2": 0, "K2_dense": 0, "K3": 0, "K4": 0,
             "K4_anyhit": 0, "K5": 0, "K6": 0, "K6_anyhit": 0, "K7": 0,
-            "K7_anyhit": 0, "K7_pick": 0}
+            "K7_anyhit": 0, "K7_pick": 0, "R": 0}
 # The profiler range of a launch: this prefix and its LAUNCHES key.
 PROFILER_RANGE = "trace_kernel."
 # The slot counts the multi-hit kernel is compiled for.

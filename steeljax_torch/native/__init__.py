@@ -1,10 +1,10 @@
 """Native builds: the binned-SAH BVH builder (g++) and the CUDA kernels.
 
-The BVH builder is the reference's own C++ source,
-`steeljax/native/bvh_builder.cpp`, compiled by path with the reference's
-g++ line into this package's build directory, so both packages build the
-same tree from one source.  Unlike the reference (which falls back to a
-numpy Morton builder, a different tree), a failed build or load raises.
+The BVH builder is this package's `native/bvh_builder.cpp`, a byte-for-byte
+copy of the reference's source compiled with the reference's g++ line into
+this package's build directory, so both packages build the same tree.
+Unlike the reference (which falls back to a numpy Morton builder, a
+different tree), a failed build or load raises.
 
 `cuda_library()` builds `csrc/*.cu` with nvcc for sm_90a into a shared
 library with a plain C interface, loaded with ctypes: one nvcc process per
@@ -30,10 +30,11 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG / "_build"
-BVH_SOURCE = _PKG.parent / "steeljax" / "native" / "bvh_builder.cpp"
+BVH_SOURCE = _PKG / "native" / "bvh_builder.cpp"
 CUDA_SOURCES = (_PKG / "csrc" / "alpha8.cu",
                 _PKG / "csrc" / "instanced8.cu",
-                _PKG / "csrc" / "treelet8.cu")
+                _PKG / "csrc" / "treelet8.cu",
+                _PKG / "csrc" / "raster.cu")
 # Headers the sources include: a change rebuilds the library too.
 CUDA_HEADERS = (_PKG / "csrc" / "trace8_common.cuh",)
 NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -145,6 +146,9 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
     lib.steeljax_treelet_pick8.restype = ctypes.c_int
     lib.steeljax_treelet_pick8.argtypes = (
         [ptr] * 4 + [ctypes.c_int] * 4 + [ptr])
+    lib.steeljax_raster_tiles.restype = ctypes.c_int
+    lib.steeljax_raster_tiles.argtypes = (
+        [ptr] * 13 + [ctypes.c_int] * 4 + [ptr])
 
 
 def bvh_library() -> ctypes.CDLL:

@@ -13,8 +13,10 @@ The reference skips a re-trace pass in which no ray was rejected
 (`lax.cond`); here every pass is launched, with the dead interval for the
 rays that need none, so the stage never reads a device value on the host.
 The output is the same.  Opaque scenes return after the first trace, as
-the reference does.  The raster G-buffer (render/hybrid/raster.py) is not
-ported.
+the reference does.  With `raster=` (the reference's opt-in raster
+G-buffer, HybridRenderer under STEELJAX_RASTER=1) primary visibility comes
+from render/hybrid/raster.py instead of the trace, and only alpha-tested
+scenes re-trace after it.
 
 `generate_gbuffer` has the reference's two branches: tables with fused
 shading (the trace kernel's interpolated normal, material id and, in shade
@@ -31,6 +33,7 @@ import torch
 
 from steeljax_torch.accel.dispatch import TraceTables, trace_nearest
 from steeljax_torch.core.constants import RAY_DEAD_T
+from steeljax_torch.render.hybrid.raster import raster_rec
 from steeljax_torch.render.pt import brdf as brdf_lib
 from steeljax_torch.render.pt.integrator import (_alpha_rejected, _normalize,
                                                  material_select, shade_rows)
@@ -80,6 +83,23 @@ def trace_opaque(scene: FlatScene, tables: TraceTables, o, d, t_min, t_max,
     return _alpha_retrace(scene, tables, o, d, rec, t_max, max_retrace)
 
 
+def raster_or_trace_opaque(scene: FlatScene, tables: TraceTables, o, d,
+                           t_min, t_max, max_retrace: int, raster,
+                           view_proj) -> dict:
+    """Rasterized primary visibility (render/hybrid/raster.py, the
+    reference's raster G-buffer pipeline, GBufferStage.cpp:147-157).
+
+    `raster` is (RasterScene, width, height, tile).  The raster gives the
+    traced path's nearest-opaque record; alpha-blend triangles are left out
+    of its input, and alpha-test discards resolve through the same bounded
+    re-trace as the traced path."""
+    rscene, width, height, tile = raster
+    rec = raster_rec(rscene, view_proj, width, height, tile, d, t_min)
+    if not scene.any_alpha_test:
+        return rec
+    return _alpha_retrace(scene, tables, o, d, rec, t_max, max_retrace)
+
+
 def _alpha_retrace(scene: FlatScene, tables: TraceTables, o, d, rec,
                    t_max, max_retrace: int) -> dict:
     """`max_retrace` re-trace passes past the rejected hits of an initial
@@ -102,14 +122,20 @@ def _alpha_retrace(scene: FlatScene, tables: TraceTables, o, d, rec,
 
 def generate_gbuffer(scene: FlatScene, tables: TraceTables, o, d,
                      t_min, t_max, view_proj, camera_position,
-                     max_retrace: int = 4, pixel_spread: float = 0.0
-                     ) -> dict:
+                     max_retrace: int = 4, pixel_spread: float = 0.0,
+                     raster=None) -> dict:
     """The G-buffer of a ray batch: normal (N, 3) in [0, 1] at 10 bits,
     emission (N, 3) linear, base_color_occlusion (N, 4) at 8 bits,
     rough_metal (N, 2) at 8 bits, depth (N,) reverse-z NDC (0 = miss), hit
     (N,).  view_proj and camera_position are tensors on the rays'
-    device."""
-    rec = trace_opaque(scene, tables, o, d, t_min, t_max, max_retrace)
+    device.  `raster` = (RasterScene, width, height, tile) takes primary
+    visibility from the rasterizer (the rays then are the full frame's in
+    tiled_order of `tile`); None keeps the traced path."""
+    if raster is not None:
+        rec = raster_or_trace_opaque(scene, tables, o, d, t_min, t_max,
+                                     max_retrace, raster, view_proj)
+    else:
+        rec = trace_opaque(scene, tables, o, d, t_min, t_max, max_retrace)
     u, v = rec["u"], rec["v"]
     hit = rec["hit"]
     p = o + d * rec["t"][..., None]

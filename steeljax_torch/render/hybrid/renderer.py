@@ -7,11 +7,16 @@ mode).  Each stage runs inside a torch.profiler range named as the
 reference's scopes: `gbuffer_stage`, `lighting_stage`, `forward_stage`.
 A config with `global_illumination_enabled` bakes the light volume
 (gi.generate_light_volume) when the renderer is built, and the deferred
-lighting samples it.  The raster G-buffer (the reference's opt-in
-STEELJAX_RASTER=1, ROADMAP Queue 1 entry 7) is not ported.
+lighting samples it.  With STEELJAX_RASTER=1 (the reference's opt-in)
+the G-buffer's primary visibility is rasterized (render/hybrid/raster.py,
+the tile kernel csrc/raster.cu on the card) on frames that tile into
+32x24-pixel subtiles, with a perspective camera, reverse depth and flat
+tables; every other frame keeps the traced G-buffer.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -23,6 +28,7 @@ from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.env.environment import Environment, load_environment
 from steeljax_torch.render.hybrid.forward import forward_stage
 from steeljax_torch.render.hybrid.gbuffer import generate_gbuffer
+from steeljax_torch.render.hybrid.raster import prepare_raster, supported
 from steeljax_torch.gi.light_volume import generate_light_volume
 from steeljax_torch.render.hybrid.lighting import (deferred_lighting,
                                                    restore_position)
@@ -77,13 +83,16 @@ def render_hybrid_pixels(scene, tables, env: Environment,
                          force_forward: bool = False,
                          max_blend_layers: int = 4,
                          debug_view: str | None = None,
-                         override_material: tuple | None = None
-                         ) -> torch.Tensor:
+                         override_material: tuple | None = None,
+                         raster_scene=None, tile=None) -> torch.Tensor:
     """One hybrid frame for the pixels (px, py) (int tensors on the scene's
     device); the matrices are (4, 4) float32 tensors there.  Returns (N, 3)
     display colour in [0, 1] (tone-mapped).  `light_volume` (a
     gi.LightVolume on the scene's device) replaces the environment's
-    diffuse irradiance."""
+    diffuse irradiance.  The G-buffer is rasterized only when the caller
+    passes `raster_scene` (raster.prepare_raster) and `tile`, which says
+    that (px, py) is the whole frame in tiled_order of that tile; sharded
+    and partial pixel batches keep the traced path."""
     origin, direction, uv = pixel_center_rays(inverse_view, inverse_proj,
                                               width, height, px, py)
     camera_position = inverse_view[:3, 3]
@@ -101,11 +110,15 @@ def render_hybrid_pixels(scene, tables, env: Environment,
         # Vertical pixel spread 2 tan(fovy / 2) / H: inverse_proj[1][1] is
         # tan(fovy / 2) (with the Vulkan flip).
         pixel_spread = 2.0 * inverse_proj[1, 1].abs() / height
+        raster = None
+        if raster_scene is not None and tile is not None:
+            raster = (raster_scene, width, height, tile)
         with record_function("gbuffer_stage"):
             gbuffer = generate_gbuffer(scene, tables, origin, direction,
                                        camera_near, camera_far, view_proj,
                                        camera_position,
-                                       pixel_spread=pixel_spread)
+                                       pixel_spread=pixel_spread,
+                                       raster=raster)
         if debug_view in GBUFFER_VIEWS:
             return _gbuffer_view(gbuffer, debug_view)
 
@@ -165,6 +178,7 @@ class HybridRenderer:
         self.env = environment
         self.light_volume = None
         self._set_camera_arrays()
+        self.raster_scene = self._prepare_raster()
         if config.global_illumination_enabled:
             self.bake_light_volume()
 
@@ -188,12 +202,31 @@ class HybridRenderer:
         self.pixels = (torch.as_tensor(px, device=self.device),
                        torch.as_tensor(py, device=self.device))
 
+    def _prepare_raster(self):
+        """The raster inputs of the rasterized G-buffer, or None (the
+        default) where the traced G-buffer stays: opt-in with
+        STEELJAX_RASTER=1, and only for frames that tile into subtiles, a
+        perspective camera (an orthographic w_clip carries no eye depth),
+        reverse depth (the raster's z test assumes reverse-z NDC) and flat
+        tables (raster.prepare_raster)."""
+        if os.environ.get("STEELJAX_RASTER", "0") != "1":
+            return None
+        if not supported(self.width, self.height):
+            return None
+        if self.scene.camera_projection.y_fov == 0.0:
+            return None
+        if not self.config.reverse_depth:
+            return None
+        return prepare_raster(self.flat, self.tables)
+
     def refresh_scene(self, prepared=None) -> None:
-        """New device tables after a scene edit, and the camera's matrices
-        anew; the light volume stays as baked, as in the reference."""
+        """New device tables after a scene edit, the camera's matrices and
+        the raster inputs anew; the light volume stays as baked, as in the
+        reference."""
         self.flat, self.tables = prepared or prepare_scene(self.scene,
                                                            self.device)
         self._set_camera_arrays()
+        self.raster_scene = self._prepare_raster()
 
     def bake_light_volume(self, spp: int = 8, **kwargs) -> None:
         """Run the light-volume GI bake (GlobalIllumination::
@@ -215,7 +248,9 @@ class HybridRenderer:
             force_forward=config.force_forward,
             max_blend_layers=config.max_blend_layers,
             debug_view=config.debug_view,
-            override_material=config.override_material)
+            override_material=config.override_material,
+            raster_scene=self.raster_scene,
+            tile=self.tile if self.raster_scene is not None else None)
         if self.tile is not None:
             out = detile(out, self.width, self.height,
                          self.tile).reshape(-1, 3)

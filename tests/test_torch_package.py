@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports with jax and steeljax blocked,
-no file of it imports either, TF32 is off, and its stdlib PNG writer gives
-the reference writer's pixels."""
+no file of it imports either or builds a path into the steeljax package
+(its BVH builder source is its own copy of the reference's), TF32 is off,
+and its stdlib PNG writer gives the reference writer's pixels."""
 
 import ast
 import pkgutil
@@ -41,7 +42,8 @@ def test_slice_modules_are_present():
                 "engine.systems", "engine.engine", "apps.compare",
                 "apps.testsystem_demo", "apps.viewer", "gi", "gi.probes",
                 "gi.sh", "gi.tets", "gi.light_volume", "gi.sample",
-                "gi.debug", "parallel", "parallel.mesh", "entry"):
+                "gi.debug", "parallel", "parallel.mesh", "entry",
+                "render.hybrid.raster", "apps.fit_env_surrogate"):
         assert f"steeljax_torch.{mod}" in names, mod
 
 
@@ -79,6 +81,62 @@ def test_no_file_imports_jax_flax_or_steeljax():
                 if name.split(".")[0] in FORBIDDEN:
                     offenders.append(f"{path.relative_to(REPO)}: {name}")
     assert not offenders, offenders
+
+
+def _path_into_steeljax(node) -> bool:
+    """A string constant naming the steeljax package directory as a path
+    component: "steeljax" alone, or a path whose first component it is."""
+    if not (isinstance(node, ast.Constant) and isinstance(node.value, str)):
+        return False
+    parts = node.value.replace("\\", "/").split("/")
+    return parts[0] == "steeljax" and (len(parts) > 1
+                                        or node.value == "steeljax")
+
+
+def _path_calls(tree):
+    """The string constants that a path is built from: operands of `/`,
+    arguments of Path(), PurePath(), open() and os.path.join()."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            yield from (node.left, node.right)
+        elif isinstance(node, ast.Call):
+            func = node.func
+            name = (func.id if isinstance(func, ast.Name) else
+                    func.attr if isinstance(func, ast.Attribute) else "")
+            if name in ("Path", "PurePath", "open", "join"):
+                yield from node.args
+
+
+def test_no_file_builds_a_path_into_steeljax():
+    """No .py file of the port, nor chip_smoke.py, reads a file of the
+    reference package: no path built from a "steeljax" component (strings
+    that only name a reference file:line, as the kernels' "replaces", are
+    not paths)."""
+    offenders = []
+    for path in [*sorted(PKG_DIR.rglob("*.py")), REPO / "chip_smoke.py"]:
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and node.value == "steeljax"):
+                offenders.append(f"{path.relative_to(REPO)}:{node.lineno}")
+        for node in _path_calls(tree):
+            if _path_into_steeljax(node):
+                offenders.append(f"{path.relative_to(REPO)}:{node.lineno}")
+    assert not offenders, offenders
+
+
+def test_bvh_source_is_the_ports_copy():
+    """The BVH builder compiles from the port's own source, a byte-for-byte
+    copy of the reference's, so both packages build the same trees."""
+    import steeljax
+    from steeljax_torch import native
+
+    source = native.BVH_SOURCE.resolve()
+    assert source.is_relative_to(PKG_DIR.resolve())
+    reference = Path(steeljax.__file__).parent / "native" / "bvh_builder.cpp"
+    assert source.read_bytes() == reference.read_bytes()
+    for cuda_source in native.CUDA_SOURCES + native.CUDA_HEADERS:
+        assert cuda_source.resolve().is_relative_to(PKG_DIR.resolve())
+        assert cuda_source.exists()
 
 
 def test_tf32_is_off():
