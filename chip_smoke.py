@@ -52,8 +52,13 @@ PyTorch version:
   * path R, path H's frame with STEELJAX_RASTER=1: the G-buffer's primary
     visibility rasterized, R (csrc/raster.cu, the tile stage of
     render/hybrid/raster.py: one thread block a 32x24 subtile) once a
-    frame in K1's place, K2 for the sun rays.
-Paths L, T, F, S, J, U, UL, C and L16 are above the repack threshold
+    frame in K1's place, K2 for the sun rays;
+  * paths LS and FS, path L's and path F's scenes prepared with
+    STEELJAX_SBVH=1 (the reference's switch: spatial splits, so a
+    triangle may sit under several leaves, one record a slot): K1 and K2
+    on LS, K4 on FS and, with multihit_k = 4, K5 over the reference-list
+    tables.
+Paths L, T, F, S, J, U, UL, C, L16, LS and FS are above the repack threshold
 (path I's 310 instances of 544 records on average are not), so their rays
 are repacked before every secondary bounce, and the alpha paths' re-traces
 compact their rejected rays first.  Every phase raises on failure, so the
@@ -171,14 +176,31 @@ Phases:
      budget), R alone over the frame's 2,700 subtiles with its bound and
      against its plain version on every 5th subtile and the densest; the
      Cornell box at 1280x720 with the raster; and fit_env_surrogate's
-     sample gathering on a synthetic image on the card against the CPU.
+     sample gathering on a synthetic image on the card against the CPU;
+  18. paths LS and FS (phase_sbvh): path L's and path F's scenes prepared
+     with STEELJAX_SBVH=1 (restored after): source triangles, references,
+     padded slots, binary and BVH8 depth, BVH8 rows, the walk's stack
+     against MAX_STACK, the host seconds of the build and the collapse
+     with splits and without (phase 3a); K1 and K2 on path L's primaries
+     and first-bounce shadow rays, K4 and K5 (K = 4) on path F's primaries,
+     each alone as phase 3b's rows over the spatial-split tables (the
+     plain version timed over one call after a warm one), held to its
+     plain version on a strided subset by source triangle (K5's lists
+     without repeats of one triangle: kernel_parity.
+     _compare_slots_by_source), its bound the smaller of its own and the
+     object-SAH row's; the frames of LS, FS and FS with multihit_k = 4
+     (launches, busy time, kernels a frame) beside paths L, F and F
+     multihit of this call, the pixels beyond 1e-4 against them, each
+     held to it (as path L16 to path L).
 The second-to-last line is the kernels' JSON summary (K1's and K2's
 entries carry their rows of paths H, C and L16 and their launches a frame
 there under "path_h", "path_c" and "path_l16"; a kernel that phase 15's
 engines launched carries those launches under "engine_launches": the
 TestSystem engine's hybrid ticks as "testsystem", its path-traced ticks
 as "pt", the default engine's ticks as "default"; K1 and K2 carry path
-G's launches under "path_g": the capture's and a GI frame's; R's entry
+G's launches under "path_g": the capture's and a GI frame's; K1, K2, K4
+and K5 carry phase 18's rows under "sbvh", with the launches a frame of
+paths LS, FS and FS multihit and their tables' counts; R's entry
 carries its time on the subset beside its plain version's as "subset_ms"),
 the last line the device JSON.
 
@@ -261,7 +283,9 @@ ROWS = (("K1", "Cornell", PRIMARIES), ("K1", "path L", PRIMARIES),
         ("K1", "path C", PRIMARIES), ("K2", "path C", SHADOW),
         ("K1", "path L16", PRIMARIES), ("K1", "path L16", BOUNCE1),
         ("K2", "path L16", SHADOW), ("K1", "path G", PROBE),
-        ("K2", "path G", PROBE_SHADOW))
+        ("K2", "path G", PROBE_SHADOW), ("K1", "path LS", PRIMARIES),
+        ("K2", "path LS", SHADOW), ("K4", "path FS", PRIMARIES),
+        ("K5", "path FS", PRIMARIES))
 # The earlier designs of K1-K5 (one thread per ray, scalar loads, a stack
 # in local memory, each leaf tested as it is popped), per ray on the same
 # rays as phase 3b: counted by their COUNT instances on the H100 (K4, K5:
@@ -541,11 +565,12 @@ def _bound(kernel: str, rec: dict, live_rays: int, tri_base=None,
 
 
 def _timed_kernel(row, launcher, plain, rays, plain_rays, check=None,
-                  width: int = 8):
+                  width: int = 8, plain_calls: int = 3):
     """Time the kernel of `row` (one of ROWS) alone over 50 launches of
     `launcher(False)` (kernel_launcher, anyhit_launcher, multihit_launcher
     or inst_launcher with fixed arguments, the `rays` (o, d, t_min, t_max)
-    among them, and counters=False) and `plain` over 3 calls; take the work
+    among them, and counters=False) and `plain` over `plain_calls` calls
+    after a warm one; take the work
     counts from one launch of `launcher(True)`, capped by the row's
     EARLIER_PER_RAY entry where it has one.  `check(plain_rec)`, where
     given, runs the kernel on the plain version's rays and returns
@@ -564,7 +589,7 @@ def _timed_kernel(row, launcher, plain, rays, plain_rays, check=None,
     def plain_kept():
         kept["rec"] = plain()
 
-    plain_ms = time_ms(plain_kept, 3)
+    plain_ms = time_ms(plain_kept, plain_calls)
     launch, rec = launcher(True)
     launch()
     bound = _bound(row[0], rec, _live_rays(n_rays, rays[2], rays[3]),
@@ -769,7 +794,7 @@ def _describe_tables(tables) -> str:
             f"{chunk.fine_mask_rows is not None}")
 
 
-def phase_prepare(device) -> tuple[dict, dict, dict]:
+def phase_prepare(device) -> tuple[dict, dict, dict, dict]:
     """Prepare paths L, T, F, S, F with multihit_k = 4, U, UL, C, C as one
     chunk and L16 through prepare_scene, and paths I and J through
     PathTracingRenderer(instancing=True), each under a host-only
@@ -778,17 +803,19 @@ def phase_prepare(device) -> tuple[dict, dict, dict]:
     refresh_scene() with the seconds of that re-preparation, and put
     back.  Returns ({name: (scene,
     flat, tables)}, {name: renderer} of the instanced paths, {name: host
-    seconds of the preparation})."""
+    seconds of the preparation}, {name: {step: host seconds}} of the flat
+    paths)."""
     from steeljax_torch.apps import kernel_parity
     from steeljax_torch.core.config import RenderConfig
     from steeljax_torch.render.pt.renderer import PathTracingRenderer
 
-    scenes, renderers, seconds = {}, {}, {}
+    scenes, renderers, seconds, steps_by = {}, {}, {}, {}
     for name in (kernel_parity.PATH_SCENES + kernel_parity.FOLIAGE_SCENES
                  + kernel_parity.TREELET_SCENES
                  + kernel_parity.CHUNKED_SCENES):
         scenes[name], seconds[name], steps = _profiled_steps(
             lambda: kernel_parity.prepare_path_scene(name, device))
+        steps_by[name] = steps
         _, flat, tables = scenes[name]
         print(f"prepare_scene {name}: {flat.source_tri_count} triangles, "
               f"{_describe_tables(tables)}, {seconds[name]:.3f} s (scene "
@@ -829,7 +856,7 @@ def phase_prepare(device) -> tuple[dict, dict, dict]:
             raise RuntimeError(f"{name}: the scene put back gives other "
                                "instance rows")
         scenes[name] = (scene, renderer.flat, renderer.tables)
-    return scenes, renderers, seconds
+    return scenes, renderers, seconds, steps_by
 
 
 def _chunked_row(row, flat, tables, one_chunk, rays, any_hit: bool) -> dict:
@@ -944,10 +971,13 @@ def _chunked_row(row, flat, tables, one_chunk, rays, any_hit: bool) -> dict:
     return entry
 
 
-def _nearest_row(row, chunk, flat, mode, rays, subset):
+def _nearest_row(row, chunk, flat, mode, rays, subset, source=None,
+                 plain_calls: int = 3):
     """Phase 3b's row of K1 or K3 (by shade `mode`) through the chunk's
     record tables, as the render path calls it, on `rays`, held against
-    its plain version on `subset` with kernel_parity's tolerances."""
+    its plain version on `subset` with kernel_parity's tolerances
+    (`source`: the slots' source triangles, kernel_parity.source_ids, for
+    spatial-split tables; `plain_calls` as _timed_kernel's)."""
     from steeljax_torch.accel import cuda_traverse as ct
     from steeljax_torch.apps import kernel_parity as kp
 
@@ -965,7 +995,7 @@ def _nearest_row(row, chunk, flat, mode, rays, subset):
         kp._compare(" ".join(row), rec, plain_rec,
                     flat.tri_pos.cpu().numpy(), results,
                     attrs={k: v.cpu().numpy() for k, v in fields.items()},
-                    d=subset[1].cpu().numpy())
+                    d=subset[1].cpu().numpy(), source=source)
         return results[" ".join(row)]
 
     return _timed_kernel(
@@ -974,12 +1004,14 @@ def _nearest_row(row, chunk, flat, mode, rays, subset):
             records=chunk.tri_records),
         lambda: ct.trace_nearest_bvh8_plain(*args, *subset, True, shade,
                                             mode),
-        rays, subset[0].shape[0], check, width=chunk.bvh8.width)
+        rays, subset[0].shape[0], check, width=chunk.bvh8.width,
+        plain_calls=plain_calls)
 
 
-def _anyhit_row(row, chunk, rays):
+def _anyhit_row(row, chunk, rays, plain_calls: int = 3):
     """Phase 3b's row of K2 (or K2-dense, by the chunk's tables) alone on
-    `rays`, held against its plain version on a strided subset."""
+    `rays`, held against its plain version on a strided subset
+    (`plain_calls` as _timed_kernel's)."""
     from steeljax_torch.accel import cuda_traverse as ct
     from steeljax_torch.accel.dispatch import anyhit_tables
     from steeljax_torch.apps import kernel_parity as kp
@@ -998,7 +1030,8 @@ def _anyhit_row(row, chunk, rays):
             bvh8, tris, *rays, dense=dense, counters=counters,
             records=records),
         lambda: ct.trace_any_bvh8_plain(bvh8, tris, *subset, dense),
-        rays, subset[0].shape[0], check, width=bvh8.width)
+        rays, subset[0].shape[0], check, width=bvh8.width,
+        plain_calls=plain_calls)
 
 
 def phase_parity(device, scenes) -> dict:
@@ -3527,6 +3560,200 @@ def phase_raster(device, scenes, path_h) -> dict:
             "syncs_added": waits, "kernel": kernel}
 
 
+# Phase 18, paths LS and FS: path L's and path F's scenes prepared with
+# STEELJAX_SBVH=1, the reference's switch (steeljax/accel/bvh.py:120-143:
+# spatial splits at alpha 1e-5, the reference list at most 1.5x the
+# triangles), which bvh.build_bvh's "auto" method reads at the build.
+SBVH_SCENES = {"path LS": "sunlit", "path FS": "foliage"}
+# Phase 18 times each plain version over one call after a warm one (the
+# brute-force calls take 2-6 s each; phase 3b's rows take 3).
+PLAIN_CALLS_SBVH = 1
+
+
+def _sbvh_tables(label, flat, tables, steps, sah_steps) -> dict:
+    """Print and return what the spatial splits did to one path's tables:
+    source triangles, references (real slots), padded slots, binary and
+    BVH8 depth, BVH8 rows, the stack the walk needs against
+    cuda_traverse.MAX_STACK, and the host seconds of the build and the
+    collapse both ways (this preparation's steps and phase 3a's)."""
+    from steeljax_torch.accel.cuda_traverse import MAX_STACK
+
+    chunk = tables.chunks[0]
+    nodes = chunk.bvh.nodes
+    refs = int(nodes[nodes[:, 7] > 0, 7].sum())
+    stack = chunk.bvh8.width * chunk.bvh8.depth + 16
+    out = {"source_triangles": flat.source_tri_count, "references": refs,
+           "padded": chunk.rows, "binary_nodes": len(nodes),
+           "binary_depth": chunk.bvh.depth,
+           "bvh8_rows": int(chunk.bvh8.rows.shape[0]),
+           "bvh8_depth": chunk.bvh8.depth, "stack": stack,
+           "max_stack": MAX_STACK}
+    for way, st in (("sbvh", steps), ("sah", sah_steps)):
+        for step in ("build_bvh", "collapse_bvh8"):
+            out[f"{way}_{step}_s"] = st.get(f"prepare_tables.{step}", 0.0)
+    print(f"{label}: {out['source_triangles']} source triangles, "
+          f"{refs} references ({refs / out['source_triangles']:.4f}x), "
+          f"{chunk.rows} padded slots, {len(nodes)} binary nodes of depth "
+          f"{chunk.bvh.depth}, {out['bvh8_rows']} BVH8 rows of depth "
+          f"{chunk.bvh8.depth}: a stack of {stack} of MAX_STACK {MAX_STACK} "
+          f"(margin {MAX_STACK - stack}); host seconds of the build "
+          f"{out['sbvh_build_bvh_s']:.3f} with splits, "
+          f"{out['sah_build_bvh_s']:.3f} object SAH (phase 3a), of the "
+          f"collapse {out['sbvh_collapse_bvh8_s']:.3f} and "
+          f"{out['sah_collapse_bvh8_s']:.3f}")
+    if stack > MAX_STACK:
+        raise RuntimeError(f"{label}: the walk needs a stack of {stack}")
+    if refs <= out["source_triangles"]:
+        raise RuntimeError(f"{label}: the spatial splits made no reference")
+    return out
+
+
+def phase_sbvh(device, scenes, kernels, prepare_steps, sah_paths) -> dict:
+    """Paths LS and FS: path L's and path F's scenes prepared as a user
+    would (kernel_parity.prepare_path_scene) with STEELJAX_SBVH=1, which is
+    restored afterwards; FS multihit is path FS's tables with multihit_k =
+    4.  Prints each tree's counts and build seconds (_sbvh_tables).  Times,
+    as phase 3b's rows, K1 and K2 on path L's primaries and first-bounce
+    shadow rays and K4 and K5 (K = 4) on path F's primaries, over the
+    spatial-split tables, each against its plain version on a strided
+    subset by source triangle (kernel_parity.source_ids: a hit on a
+    duplicated triangle may come from either slot; K5's lists compared
+    without repeats, kernel_parity._compare_slots_by_source), its bound the
+    smaller of its own and the object-SAH row's on the same rays
+    (_least_bound).  Then the frames of LS, FS and FS multihit (drive_path:
+    launches, busy time, kernels a frame) beside the object-SAH frames of
+    phases 5a, 7a and 7c in this call, the pixels beyond 1e-4 against them,
+    each held to it (_same_frame).  Returns {"tables", "rows", "frames"}."""
+    import os
+
+    from steeljax_torch.accel import cuda_traverse as ct
+    from steeljax_torch.apps import kernel_parity as kp
+
+    prepared, info = {}, {}
+    before = os.environ.get("STEELJAX_SBVH")
+    os.environ["STEELJAX_SBVH"] = "1"
+    try:
+        for label, name in SBVH_SCENES.items():
+            prepared[label], seconds, steps = _profiled_steps(
+                lambda: kp.prepare_path_scene(name, device))
+            print(f"prepare_scene {label} (STEELJAX_SBVH=1): {seconds:.3f} "
+                  f"s (scene construction included): {_steps_text(steps)}")
+            info[label] = _sbvh_tables(label, *prepared[label][1:], steps,
+                                       prepare_steps[name])
+    finally:
+        if before is None:
+            del os.environ["STEELJAX_SBVH"]
+        else:
+            os.environ["STEELJAX_SBVH"] = before
+
+    rows = {}
+    # K1 and K2 on path L's rays (the primaries are LS's own; the shadow
+    # rays start at path L's primary hits, which LS's tables give again but
+    # on exact ties), held by source triangle.
+    scene, flat, tables = prepared["path LS"]
+    chunk = tables.chunks[0]
+    source = kp.source_ids(flat.tri_pos.cpu().numpy())
+    l_scene, l_flat, l_tables = scenes["sunlit"]
+    primary = kp.tiled_primary(l_scene, device, WIDTH, HEIGHT)[:4]
+    row = ("K1", "path LS", PRIMARIES)
+    rows["K1"] = _nearest_row(row, chunk, flat, tables.shade_mode, primary,
+                              kp.strided_subset(primary, kp.SHADOW_SUBSET),
+                              source=source, plain_calls=PLAIN_CALLS_SBVH)
+    _least_bound(row, rows["K1"], kernels["K1"]["path_l"],
+                 "path L's row on the same rays, object-SAH tables")
+    shadow = kp.sunlit_shadow_case(l_scene, l_flat, l_tables, WIDTH, HEIGHT)
+    row = ("K2", "path LS", SHADOW)
+    rows["K2"] = _anyhit_row(row, chunk, shadow,
+                             plain_calls=PLAIN_CALLS_SBVH)
+    _least_bound(row, rows["K2"], kernels["K2"],
+                 "path L's row on the same rays, object-SAH tables")
+
+    # K4 and K5 on path F's primaries, coarse and fine masks.
+    scene, flat, tables = prepared["path FS"]
+    chunk = tables.chunks[0]
+    tri_pos = flat.tri_pos.cpu().numpy()
+    source = kp.source_ids(tri_pos)
+    kw = dict(alpha_mask=True, fine_rows=chunk.fine_mask_rows)
+    args = (chunk.bvh8, chunk.tris_packed)
+    rays = kp.tiled_primary(scene, device, WIDTH, HEIGHT)[:4]
+    subset = kp.strided_subset(rays, kp.FOLIAGE_SUBSET)
+    k_hits = kp.FOLIAGE_MULTIHIT_K
+
+    def check_k4(plain_rec):
+        rec = ct.trace_nearest_bvh8(*args, *subset, True, None, 0,
+                                    records=chunk.tri_records, **kw)
+        results = {}
+        kp._compare("K4 path FS", rec, plain_rec, tri_pos, results,
+                    source=source)
+        return results["K4 path FS"]
+
+    def check_k5(plain_slots):
+        slots = ct.trace_multihit_bvh8(*args, *subset, k_hits, True,
+                                       records=chunk.tri_records, **kw)
+        results = {}
+        kp._compare_slots_by_source("K5 path FS", slots, plain_slots, source,
+                                    results)
+        return results["K5 path FS"]
+
+    row = ("K4", "path FS", PRIMARIES)
+    rows["K4"] = _timed_kernel(
+        row, lambda counters: ct.kernel_launcher(
+            *args, *rays, True, None, 0, counters=counters,
+            records=chunk.tri_records, **kw),
+        lambda: ct.trace_nearest_bvh8_plain(*args, *subset, True, None, 0,
+                                            **kw),
+        rays, subset[0].shape[0], check_k4, plain_calls=PLAIN_CALLS_SBVH)
+    _least_bound(row, rows["K4"], kernels["K4"],
+                 "path F's row on the same rays, object-SAH tables")
+    row = ("K5", "path FS", PRIMARIES)
+    rows["K5"] = _timed_kernel(
+        row, lambda counters: ct.multihit_launcher(
+            *args, *rays, k_hits, True, counters=counters,
+            records=chunk.tri_records, **kw),
+        lambda: ct.trace_multihit_bvh8_plain(*args, *subset, k_hits, True,
+                                             **kw),
+        rays, subset[0].shape[0], check_k5, plain_calls=PLAIN_CALLS_SBVH)
+    _least_bound(row, rows["K5"], kernels["K5"],
+                 "path F's row on the same rays, object-SAH tables")
+    for k, ray_set, rays_of in (("K1", PRIMARIES, "path L"),
+                                ("K2", SHADOW, "path L"),
+                                ("K4", PRIMARIES, "path F"),
+                                ("K5", PRIMARIES, "path F")):
+        rows[k]["shapes"] = (f"{rays_of}'s {ray_set} over {rays_of}S's "
+                             "spatial-split tables, 1280x720")
+    rows["K5"]["tolerance"] = ("by source triangle, repeats of one "
+                               "triangle dropped: |dt| < 2e-3, |du|, |dv| < "
+                               "5e-3 on equal ids, ray mismatches <= max(2, "
+                               "N K/5000)")
+
+    # The frames, beside the object-SAH frames of this call.
+    alpha_passes = 2 * (1 + 4)
+    scene, flat, tables = prepared["path FS"]
+    drives = (("path LS", prepared["path LS"], {"K1": 1, "K2": 1},
+               "path L"),
+              ("path FS", prepared["path FS"], {"K4": alpha_passes},
+               "path F"),
+              ("path FS multihit", (scene, flat, tables.replace(
+                  multihit_k=k_hits)), {"K5": alpha_passes},
+               "path F multihit"))
+    frames = {}
+    for label, (scene, flat, tables), expected, sah in drives:
+        out = drive_path(label, scene, flat, tables, expected)
+        ref = sah_paths[sah]
+        delta = np.abs(out["image"] - ref["image"]).max(axis=-1)
+        out["pixels_beyond"] = int((delta > PIXEL_ATOL).sum())
+        print(f"{label} against {sah} (object SAH, this call): "
+              f"{out['ms_frame']:.3f} against {ref['ms_frame']:.3f} "
+              f"ms/frame, device busy {out['busy_ms']:.3f} against "
+              f"{ref['busy_ms']:.3f} ms, {out['device_kernels']:.0f} against "
+              f"{ref['device_kernels']:.0f} device kernels a frame; "
+              f"{out['pixels_beyond']} of {delta.size} pixels differ by "
+              f"more than {PIXEL_ATOL} (max {float(delta.max()):.3e})")
+        _same_frame(label, out, sah, ref)
+        frames[label] = out
+    return {"tables": info, "rows": rows, "frames": frames}
+
+
 def phase_kernel_ab(scenes, old_dir, ptxas: dict) -> None:
     """K2 and K2-dense against the earlier kernels built from `old_dir`, in
     turns, on path L's first-bounce shadow rays and their live subset, and
@@ -3564,7 +3791,7 @@ def main(argv=None) -> int:
 
     smi = phase("1. device and toolchain", phase_device)
     ptxas = phase("2. build", phase_build)
-    scenes, renderers, prepare_s = phase(
+    scenes, renderers, prepare_s, prepare_steps = phase(
         "3a. prepare paths L, T, F, S, F multihit, U, UL, C, C one chunk, "
         "L16, I and J",
         phase_prepare, device)
@@ -3626,6 +3853,10 @@ def main(argv=None) -> int:
     path_r = phase("17. path R (raster G-buffer on path H)", phase_raster,
                    device, scenes, path_h)
     kernels["R"] = path_r["kernel"]
+    sbvh = phase("18. paths LS and FS (SBVH)", phase_sbvh, device, scenes,
+                 kernels, prepare_steps,
+                 {"path L": path_l, "path F": path_f,
+                  "path F multihit": path_fm})
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
     # Phase 16's rows of K1 and K2 at the capture's shapes.
@@ -3638,6 +3869,21 @@ def main(argv=None) -> int:
         path_g["rows"]["K2"]["parity"]["hit_mismatches"])
     kernels["K2"]["max_abs_err"] = float(
         max(kernels["K2"]["mismatches"].values()) > 0)
+    # Phase 18's rows of K1, K2, K4 and K5 over spatial-split tables.
+    for k, row in sbvh["rows"].items():
+        kernels[k]["sbvh"] = row
+        if k == "K2":
+            kernels[k]["mismatches"][f"path LS {SHADOW}"] = (
+                row["parity"]["hit_mismatches"])
+            kernels[k]["max_abs_err"] = float(
+                max(kernels[k]["mismatches"].values()) > 0)
+        else:
+            kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"],
+                                            row["parity_max_abs_err"])
+    # The frames whose launches each sbvh sub-row reports, and its tables.
+    sbvh_frames = {"K1": ("path LS", "path LS"), "K2": ("path LS", "path LS"),
+                   "K4": ("path FS", "path FS"),
+                   "K5": ("path FS multihit", "path FS")}
 
     launches = {"K1": cornell["launches"]["K1"],
                 "K2": path_l["launches"]["K2"],
@@ -3661,11 +3907,21 @@ def main(argv=None) -> int:
                  "path_l16": (path_l16, frames)}
 
     def sub_row(k, key):
-        """A sub-row of K1 or K2 at another path's shapes (phase 3b; path
-        G's phase 16), with the kernel's launches a frame on that path
-        (phases 11-13; path G: a GI frame's, and the capture's)."""
+        """A sub-row of a kernel at another path's shapes (phase 3b; path
+        G's phase 16; over spatial-split tables, phase 18), with the
+        kernel's launches a frame on that path (phases 11-13; path G: a GI
+        frame's, and the capture's; the sbvh row: path LS's, FS's or FS
+        multihit's, with the tables' counts and the frame's ms)."""
         row = kernels[k][key]
-        if key == "path_g":
+        if key == "sbvh":
+            label, tables_of = sbvh_frames[k]
+            out = sbvh["frames"][label]
+            launches = {"launches_per_frame": out["launches"][k] / frames,
+                        "frames_of": label, "ms_frame": out["ms_frame"],
+                        "busy_ms": out["busy_ms"],
+                        "pixels_beyond_sah": out["pixels_beyond"],
+                        "tables": sbvh["tables"][tables_of]}
+        elif key == "path_g":
             launches = {
                 "launches_per_frame": path_g["frame_launches"][k]
                 / path_g["frames"],
@@ -3677,7 +3933,8 @@ def main(argv=None) -> int:
                 **{f: row[f] for f in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "shapes", "rays",
                                        "plain_rays", "own_bound_ms",
-                                       "bound_from", "one_chunk_ms")
+                                       "bound_from", "one_chunk_ms",
+                                       "tolerance", "parity_max_abs_err")
                    if f in row}}
 
     sources = {k: "steeljax_torch/csrc/alpha8.cu" for k in launches}
@@ -3749,7 +4006,7 @@ def main(argv=None) -> int:
         "plain_rays": kernels[k]["plain_rays"],
         **{key: kernels[k][key] for key in ("subset_ms", "bit_equal")
            if key in kernels[k]},
-        **{key: sub_row(k, key) for key in (*sub_paths, "path_g")
+        **{key: sub_row(k, key) for key in (*sub_paths, "path_g", "sbvh")
            if key in kernels[k]},
         "engine_launches": {name: counts[k] for name, counts in
                             engine.items() if counts.get(k)}}

@@ -1,4 +1,5 @@
-"""BVH construction on the host: binned object SAH, leaf alignment, BVH8.
+"""BVH construction on the host: binned SAH with optional spatial splits,
+the Morton build, leaf alignment, BVH8.
 
 Port of steeljax/accel/bvh.py:28-387.  The arrays are built by the same
 numpy code and the same C++ builder (native.build_bvh_sah), so they equal
@@ -8,14 +9,20 @@ the reference's.  Node format:
     internal: meta0 = left child index (right child = left + 1), meta1 = 0
     leaf:     meta0 = first triangle, meta1 = triangle count (> 0)
 
-Only the object-SAH build is ported (what the reference's "auto" method
-uses by default); there is no Morton fallback, because it builds a
-different tree.
+build_bvh's methods are the reference's: "sah" (object SAH), "sbvh"
+(spatial splits at alpha 1e-5), "morton" (a complete tree over Morton-
+sorted leaves) and "auto", the native build at the alpha STEELJAX_SBVH
+gives (_spatial_alpha; off by default).  With spatial splits `order` is a
+reference list: a triangle id may fill several slots, one record a slot,
+and every consumer gathers by slot.  Where the reference's "auto" falls
+back to the Morton tree when its native build is unavailable, the port's
+always builds its library and raises on a failed build.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 
 import numpy as np
@@ -77,15 +84,102 @@ def _morton3(x: np.ndarray) -> np.ndarray:
     return (expand(x[:, 0]) << 2) | (expand(x[:, 1]) << 1) | expand(x[:, 2])
 
 
-def build_bvh(tri_pos: np.ndarray, leaf_size: int = 64
-              ) -> tuple[BVH, np.ndarray, int]:
-    """Build a BVH over (T, 3, 3) world-space triangles.
+def _build_morton(tri_pos: np.ndarray, leaf_size: int
+                  ) -> tuple[np.ndarray, np.ndarray, int]:
+    """Morton-ordered complete-tree build -> (nodes, permutation, depth)
+    (steeljax/accel/bvh.py:63-117): the centroids' Morton order cut into
+    leaves of `leaf_size` slots, 2^k of them (pad slots at 3e37), and a
+    complete binary tree over them."""
+    count = len(tri_pos)
+    centroids = tri_pos.mean(axis=1)
+    lo = centroids.min(axis=0)
+    hi = centroids.max(axis=0)
+    extent = np.maximum(hi - lo, 1e-9)
+    quantized = np.clip(
+        ((centroids - lo) / extent * 1023.0), 0, 1023).astype(np.uint32)
+    order = np.argsort(_morton3(quantized), kind="stable").astype(np.int64)
+
+    num_leaves_raw = -(-count // leaf_size)
+    num_leaves = 1 << max(0, (num_leaves_raw - 1).bit_length())
+    padded = num_leaves * leaf_size
+
+    sorted_pos = np.full((padded, 3, 3), _PAD_VALUE, np.float32)
+    sorted_pos[:count] = tri_pos[order]
+
+    chunk = sorted_pos.reshape(num_leaves, leaf_size, 3, 3)
+    leaf_min = chunk.min(axis=(1, 2))
+    leaf_max = chunk.max(axis=(1, 2))
+    pad_leaf = leaf_min[:, 0] >= _PAD_VALUE
+    leaf_min[pad_leaf] = _PAD_VALUE
+    leaf_max[pad_leaf] = -_PAD_VALUE
+    mixed = (leaf_max[:, 0] >= _PAD_VALUE) & ~pad_leaf
+    for li in np.nonzero(mixed)[0]:
+        tris = chunk[li].reshape(-1, 3)
+        real = tris[:, 0] < _PAD_VALUE
+        leaf_min[li] = tris[real].min(axis=0)
+        leaf_max[li] = tris[real].max(axis=0)
+
+    depth = int(np.log2(num_leaves)) + 1
+    first_leaf = num_leaves - 1
+    nodes = np.zeros((2 * num_leaves - 1, 8), np.float32)
+    nodes[first_leaf:, 0:3] = leaf_min
+    nodes[first_leaf:, 3:6] = leaf_max
+    nodes[first_leaf:, 6] = (np.arange(num_leaves) * leaf_size).astype(
+        np.float32)
+    nodes[first_leaf:, 7] = float(leaf_size)
+    for level in range(depth - 2, -1, -1):
+        first = (1 << level) - 1
+        size = 1 << level
+        child_first = 2 * first + 1
+        cmin = nodes[child_first:child_first + 2 * size, 0:3].reshape(
+            size, 2, 3)
+        cmax = nodes[child_first:child_first + 2 * size, 3:6].reshape(
+            size, 2, 3)
+        nodes[first:first + size, 0:3] = cmin.min(axis=1)
+        nodes[first:first + size, 3:6] = cmax.max(axis=1)
+        nodes[first:first + size, 6] = (
+            2 * np.arange(first, first + size) + 1).astype(np.float32)
+        nodes[first:first + size, 7] = 0.0
+    return nodes, order, depth
+
+
+BUILD_METHODS = ("auto", "sbvh", "sah", "morton")
+
+
+def _spatial_alpha(method: str) -> float:
+    """The spatial-split alpha of a native build method
+    (steeljax/accel/bvh.py:120-143): "sah" 0 (object SAH), "sbvh" 1e-5,
+    "auto" from STEELJAX_SBVH, read at the call: unset or "0" off, "1"
+    1e-5, another float that alpha, anything else 1e-5."""
+    if method == "sah":
+        return 0.0
+    if method == "sbvh":
+        return 1e-5
+    env = os.environ.get("STEELJAX_SBVH", "0")
+    if env == "0":
+        return 0.0
+    if env == "1":
+        return 1e-5
+    try:
+        return float(env)
+    except ValueError:
+        return 1e-5
+
+
+def build_bvh(tri_pos: np.ndarray, leaf_size: int = 64,
+              method: str = "auto") -> tuple[BVH, np.ndarray, int]:
+    """Build a BVH over (T, 3, 3) world-space triangles by `method`, one of
+    BUILD_METHODS (the module docstring).
 
     Returns (bvh, order, padded_count): reorder all per-triangle arrays by
-    `order` (entries of -1 are pad slots) and pad to `padded_count`
+    `order` (entries of -1 are pad slots; with spatial splits a triangle id
+    may appear in several slots) and pad to `padded_count`
     (apply_permutation)."""
     from steeljax_torch.native import build_bvh_sah
 
+    if method not in BUILD_METHODS:
+        raise ValueError(f"build method must be one of {BUILD_METHODS}, "
+                         f"got {method!r}")
     tri_pos = np.asarray(tri_pos, np.float32)
     if len(tri_pos) == 0:
         nodes = np.zeros((1, 8), np.float32)
@@ -94,8 +188,18 @@ def build_bvh(tri_pos: np.ndarray, leaf_size: int = 64
         return (BVH(nodes=nodes, depth=1, max_leaf=leaf_size),
                 np.zeros(0, np.int64),
                 -(-leaf_size // TRI_PER_ROW) * TRI_PER_ROW)
-    nodes, perm, depth = build_bvh_sah(tri_pos, leaf_size)
-    nodes, perm, padded = _align_leaves(nodes, perm, leaf_size)
+    if method != "morton":
+        nodes, perm, depth = build_bvh_sah(
+            tri_pos, leaf_size, spatial_alpha=_spatial_alpha(method))
+        nodes, perm, padded = _align_leaves(nodes, perm, leaf_size)
+        return BVH(nodes=nodes, depth=depth, max_leaf=leaf_size), perm, padded
+    nodes, perm, depth = _build_morton(tri_pos, leaf_size)
+    # Morton leaves start at multiples of leaf_size, which need not be
+    # TRI_PER_ROW-aligned: re-lay them out as the native builds'.
+    num_leaves = (len(nodes) + 1) // 2
+    perm_full = np.full(num_leaves * leaf_size, -1, np.int64)
+    perm_full[:len(perm)] = perm
+    nodes, perm, padded = _align_leaves(nodes, perm_full, leaf_size)
     return BVH(nodes=nodes, depth=depth, max_leaf=leaf_size), perm, padded
 
 
@@ -234,10 +338,11 @@ def subtree_tri_ranges(nodes: np.ndarray) -> tuple[np.ndarray, np.ndarray,
                                                    np.ndarray]:
     """Per-node (count, lo, hi) over the aligned triangle layout.
 
-    The SAH build partitions triangles in place, so every subtree owns a
-    contiguous range of the permuted arrays; after _align_leaves each leaf
-    range is TRI_PER_ROW-aligned.  `hi` is the exclusive row-aligned end of
-    the last leaf.  Iterative post-order (trees reach ~10^5 nodes)."""
+    Every build lays its leaves out depth first, so every subtree owns a
+    contiguous range of the slots (counts are slots: under spatial splits
+    a duplicated triangle counts once per slot); after _align_leaves each
+    leaf range is TRI_PER_ROW-aligned.  `hi` is the exclusive row-aligned
+    end of the last leaf.  Iterative post-order (trees reach ~10^5 nodes)."""
     nodes = np.asarray(nodes)
     n = len(nodes)
     count = np.zeros(n, np.int64)

@@ -1,9 +1,9 @@
 """Trace tables, the nearest-hit query and the any-hit query.
 
 Port of steeljax/accel/dispatch.py:76-135 (ChunkTables/TraceTables),
-:159-343 (prepare_tables, _prepare_treelet_tables), :368-418
-(attach_shade_tables), :426-442 (_chunk_interval), :451-530
-(trace_nearest) and :533-589 (trace_any).
+:159-343 (prepare_tables, _prepare_treelet_tables), :346-365
+(make_trace_tables), :368-418 (attach_shade_tables), :426-442
+(_chunk_interval), :451-530 (trace_nearest) and :533-589 (trace_any).
 The reference picks its backend with a `use_pallas` flag; here the device
 of the tensors decides (cuda_traverse.trace_nearest_bvh8,
 trace_any_bvh8).  Fused-shading tables
@@ -134,13 +134,17 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
                    tri_fine_mask: np.ndarray | None = None,
                    treelets: bool = False,
                    treelet_tris: int = treelets_lib.TREELET_TRIS,
-                   snode_width: int = SNODE_WIDTH
+                   snode_width: int = SNODE_WIDTH, method: str = "auto"
                    ) -> tuple[TraceTables, np.ndarray, int]:
     """Build the acceleration tables on `device`: one chunk, or above
     `max_chunk` triangles (default MAX_CHUNK_TRIS, read at the call)
     ceil(count / max_chunk) chunks, the triangles' centroid Morton order
-    cut into equal runs (np.array_split), each with its own SAH tree, rows
-    and AABB, its rows at `row_offset` of the concatenated order.
+    cut into equal runs (np.array_split), each with its own tree, rows
+    and AABB, its rows at `row_offset` of the concatenated order.  Every
+    tree, a chunk's or the treelets' one, is built by bvh.build_bvh's
+    `method` ("auto" follows STEELJAX_SBVH, as in the reference); with
+    spatial splits `order` is a reference list and each slot gets its own
+    record, masks and fine rows.
 
     `snode_width` (8 or 16) is the supernode rows' width, the counterpart
     of the reference's STEELJAX_BVH_WIDTH (8 by default there and here).
@@ -180,7 +184,7 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
     dense_anyhit = dense_anyhit and mask is None
     if treelets:
         return _prepare_treelet_tables(tri_pos, ds, device, leaf_size, mask,
-                                       treelet_tris)
+                                       treelet_tris, method)
 
     if count <= max_chunk:
         pieces = [np.arange(count, dtype=np.int64)]
@@ -205,7 +209,7 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
 
         chunk, sub_order = _prepare_chunk(
             part(tri_pos), part(ds), part(mask), part(fine), device,
-            leaf_size, dense_anyhit, snode_width, offset)
+            leaf_size, dense_anyhit, snode_width, offset, method)
         # The chunk-local order (with -1 pads) as global ids.
         order_parts.append(np.where(sub_order >= 0,
                                     piece[np.clip(sub_order, 0, None)], -1)
@@ -217,13 +221,13 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
 
 
 def _prepare_chunk(tri_pos, ds, mask, fine, device, leaf_size: int,
-                   dense_anyhit: bool, snode_width: int, row_offset: int
-                   ) -> tuple[ChunkTables, np.ndarray]:
+                   dense_anyhit: bool, snode_width: int, row_offset: int,
+                   method: str) -> tuple[ChunkTables, np.ndarray]:
     """The tables of one chunk's triangles (chunk-local arrays) at
     `row_offset` of the concatenated order: (chunk, chunk-local order with
     -1 pads)."""
     with record_function("prepare_tables.build_bvh"):
-        bvh, order, padded = build_bvh(tri_pos, leaf_size)
+        bvh, order, padded = build_bvh(tri_pos, leaf_size, method)
     with record_function("prepare_tables.collapse_bvh8"):
         rows8, depth8 = collapse_bvh8(bvh.nodes, leaf_size,
                                       width=snode_width)
@@ -278,13 +282,14 @@ def _prepare_chunk(tri_pos, ds, mask, fine, device, leaf_size: int,
 
 
 def _prepare_treelet_tables(tri_pos, ds, device, leaf_size: int,
-                            mask: np.ndarray | None, max_tris: int
+                            mask: np.ndarray | None, max_tris: int,
+                            method: str
                             ) -> tuple[TraceTables, np.ndarray, int]:
-    """One global SAH BVH cut into streamed treelets (accel.treelets).  The
-    kept chunk carries metadata only; the kernel reads the per-treelet
-    stacks."""
+    """One global BVH cut into streamed treelets (accel.treelets) of at most
+    `max_tris` slots.  The kept chunk carries metadata only; the kernel
+    reads the per-treelet stacks."""
     with record_function("prepare_tables.build_bvh"):
-        bvh, order, padded = build_bvh(tri_pos, leaf_size)
+        bvh, order, padded = build_bvh(tri_pos, leaf_size, method)
     with record_function("prepare_tables.pack_tris"):
         permuted_pos, permuted_ds = _permuted(order, padded, tri_pos, ds)
         permuted_mask = (None if mask is None
@@ -305,6 +310,32 @@ def _prepare_treelet_tables(tri_pos, ds, device, leaf_size: int,
         row_offset=0, rows=padded, aabb=aabb)
     return (TraceTables(chunks=(chunk,), treelets=tt,
                         alpha_masked=mask is not None), order, padded)
+
+
+def make_trace_tables(bvh: BVH, tri_pos, tri_double_sided,
+                      device: torch.device | str,
+                      snode_width: int = SNODE_WIDTH) -> TraceTables:
+    """One-chunk tables on `device` from an existing BVH and its permuted
+    (padded) triangle arrays (steeljax/accel/dispatch.py:346-365): its
+    supernode rows, triangle rows and Hopper record table.  The chunk's
+    AABB is that of the real (unpadded) triangles; the reference leaves it
+    at zero, which only its repack's sort key would read."""
+    tri_pos = np.asarray(tri_pos, np.float32)
+    rows8, depth8 = collapse_bvh8(bvh.nodes, bvh.max_leaf, width=snode_width)
+    tris_packed = torch.from_numpy(cuda_traverse.pack_tris(
+        tri_pos, np.asarray(tri_double_sided, bool))).to(device)
+    real = tri_pos[tri_pos[:, 0, 0] < 1e37].reshape(-1, 3)
+    aabb = ((tuple(float(v) for v in real.min(axis=0)),
+             tuple(float(v) for v in real.max(axis=0))) if len(real)
+            else ((0.0,) * 3, (0.0,) * 3))
+    chunk = ChunkTables(
+        bvh=bvh,
+        bvh8=BVH8(rows=torch.from_numpy(rows8).to(device), depth=depth8,
+                  max_leaf=bvh.max_leaf, width=snode_width),
+        tris_packed=tris_packed,
+        tri_records=cuda_traverse.hopper_records(tris_packed),
+        row_offset=0, rows=len(tri_pos), aabb=aabb)
+    return TraceTables(chunks=(chunk,))
 
 
 def attach_shade_tables(tables: TraceTables, tri_nrm, tri_mat,

@@ -15,7 +15,11 @@ thresholds (:149-222):
   * tri ids may differ, which they do only on exact-t ties;
   * multi-hit slots: at most max(2, N K / 5000) slots hit in one and not the
     other, |delta t| < 2e-3, and u, v within 5e-3 where the slot's tri ids
-    agree (_compare_slots).
+    agree (_compare_slots);
+  * over spatial-split tables (a triangle in several slots) hits compare
+    by source triangle (source_ids), and K-lists without the repeats of
+    one triangle, which the walk and the brute-force plain version find in
+    different numbers (_compare_slots_by_source).
 
 The kernels compile with FMA contraction and the plain versions run
 unfused tensor ops, so the two differ in the last bits of t; the
@@ -63,7 +67,8 @@ its TPU packet sizes; the port's kernel has none, and
 `flat_shade0_cull{0,1}` stand for them.
 
 Usage (needs a CUDA card):
-    python -m steeljax_torch.apps.kernel_parity [-o parity.json]
+    python -m steeljax_torch.apps.kernel_parity [-o parity.json] \
+        [--rays 10240] [--tris 30000]
 """
 
 from __future__ import annotations
@@ -110,7 +115,8 @@ def _numpy(rec):
 
 
 def _compare(name, rec_k, rec_o, tri_pos, results,
-             attrs=None, d=None, atol=2e-3, exact=False, direct=False):
+             attrs=None, d=None, atol=2e-3, exact=False, direct=False,
+             source=None):
     """Record per-field max deltas between kernel and oracle records
     (steeljax/apps/kernel_parity.py:149-222).
 
@@ -118,7 +124,10 @@ def _compare(name, rec_k, rec_o, tri_pos, results,
     is judged by |t| and the resolved hit positions, not the id.  `direct`
     compares the fused outputs of the two records with each other where
     both name the same triangle (and instance), for records whose
-    attributes are not world-space per-triangle arrays."""
+    attributes are not world-space per-triangle arrays.  `source` (a slot's
+    source triangle, source_ids) adds the share of hits on the same source
+    triangle: over spatial-split tables two slots of one triangle are one
+    hit, which the kernel and the plain version may name by either."""
     rec_k = _numpy(rec_k)
     rec_o = _numpy(rec_o)
     hk = rec_k["hit"]
@@ -133,6 +142,10 @@ def _compare(name, rec_k, rec_o, tri_pos, results,
         entry["max_t_delta"] = float(np.abs(tk - to).max())
         same_tri = rec_k["tri"][both] == rec_o["tri"][both]
         entry["tri_matches_pct"] = float(same_tri.mean() * 100.0)
+        if source is not None:
+            entry["source_matches_pct"] = float(
+                (source[rec_k["tri"][both]] == source[rec_o["tri"][both]])
+                .mean() * 100.0)
         if attrs is not None and same_tri.any():
             # Independent cross-check at the ORACLE's (tri, u, v) where
             # the ids agree.
@@ -209,6 +222,83 @@ def _compare(name, rec_k, rec_o, tri_pos, results,
     results[name] = entry
     print(f"{'PASS' if ok else 'FAIL'} {name}: {entry}")
     return ok
+
+
+def source_ids(tri_pos) -> np.ndarray:
+    """(P,) int64: each slot's source triangle, numbered by its vertices
+    ((P, 3, 3) permuted positions, pad slots included).  Spatial splits put
+    one triangle in several slots with identical records, so slots with the
+    same vertices hold the same triangle (and two source triangles with the
+    same vertices are one surface)."""
+    rows = np.ascontiguousarray(np.asarray(tri_pos, np.float32).reshape(
+        len(tri_pos), 9)).view(np.dtype((np.void, 36)))[:, 0]
+    return np.unique(rows, return_inverse=True)[1].reshape(-1).astype(
+        np.int64)
+
+
+def _distinct_slots(slots: dict, source: np.ndarray) -> tuple:
+    """Each ray's slots without the repeats of one triangle: a slot whose
+    source triangle an earlier slot of the ray holds at the same t
+    (relative 1e-6) is dropped, and the rest move up in order.  Returns
+    (t, u, v, source id) as (K, N) arrays (-1 source past the distinct
+    hits) and the distinct hits per ray."""
+    k, n = slots["t"].shape
+    src = np.where(slots["tri"] >= 0, source[np.maximum(slots["tri"], 0)],
+                   -1)
+    keep = src >= 0
+    for j in range(1, k):
+        for i in range(j):
+            keep[j] &= ~((src[i] == src[j]) & (np.abs(
+                slots["t"][i] - slots["t"][j]) <= 1e-6 * np.maximum(
+                    np.abs(slots["t"][j]), 1.0)))
+    order = np.argsort(~keep, axis=0, kind="stable")
+    out = tuple(np.take_along_axis(x, order, axis=0)
+                for x in (slots["t"], slots["u"], slots["v"],
+                          np.where(keep, src, -1)))
+    return out, keep.sum(axis=0)
+
+
+def _compare_slots_by_source(name, slots_k, slots_o, source, results):
+    """Multi-hit slots over spatial-split tables: kernel against plain
+    version by source triangle.  A hit on a triangle that several slots
+    hold fills one slot per copy the walk reaches, and the walk reaches the
+    copies whose leaf boxes the ray enters before its bound, while the
+    plain version, by brute force, finds every copy.  So each ray's lists
+    are compared without repeats (_distinct_slots): over the distinct hits
+    both have, in order, the source ids agree (or |delta t| < 2e-3, an
+    exact tie) with |delta t| < 2e-3, and u, v within 5e-3 where the ids
+    agree; a list that does not fill its K slots (the ray ran out of
+    surfaces) must hold at least as many distinct hits as the other.  At
+    most max(2, N K / 5000) rays may disagree."""
+    slots_k = _numpy(slots_k)
+    slots_o = _numpy(slots_o)
+    k, n = slots_o["t"].shape
+    (tk, uk, vk, sk), mk = _distinct_slots(slots_k, source)
+    (to, uo, vo, so), mo = _distinct_slots(slots_o, source)
+    common = np.arange(k)[:, None] < np.minimum(mk, mo)[None]
+    dt = np.where(common, np.abs(tk - to), 0.0)
+    same = common & (sk == so)
+    bad = (common & (sk != so) & (dt >= 2e-3)).any(axis=0)
+    short_k = slots_k["tri"][k - 1] < 0
+    short_o = slots_o["tri"][k - 1] < 0
+    bad |= (short_k & (mk < mo)) | (short_o & (mo < mk))
+    entry = {"rays": int(n), "k": int(k),
+             "ray_mismatches": int(bad.sum()),
+             "distinct_hits": int(mk.sum()),
+             "distinct_hits_plain": int(mo.sum()),
+             "repeats_kernel": int((slots_k["tri"] >= 0).sum() - mk.sum()),
+             "repeats_plain": int((slots_o["tri"] >= 0).sum() - mo.sum()),
+             "max_t_delta": float(dt[common & ~bad[None]].max())
+             if (common & ~bad[None]).any() else 0.0,
+             "max_uv_delta_same_tri": (float(max(
+                 np.abs(uk - uo)[same].max(), np.abs(vk - vo)[same].max()))
+                 if same.any() else 0.0)}
+    entry["ok"] = bool(entry["ray_mismatches"] <= max(2, n * k // 5000)
+                       and entry["max_t_delta"] < 2e-3
+                       and entry["max_uv_delta_same_tri"] < 5e-3)
+    results[name] = entry
+    print(f"{'PASS' if entry['ok'] else 'FAIL'} {name}: {entry}")
+    return entry["ok"]
 
 
 def _compare_slots(name, slots_k, slots_o, results):
@@ -1181,14 +1271,22 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
             "ok": bool(all_ok)}
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("-o", "--output", default=None)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    ap.add_argument("--rays", type=int, default=10240,
+                    help="rays of the soup variants")
+    ap.add_argument("--tris", type=int, default=30000,
+                    help="triangles of the soup variants")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_parity needs a CUDA card")
-    results = run(args.device)
+    results = run(args.device, args.rays, args.tris)
     results["device"] = torch.cuda.get_device_name(0)
     if args.output:
         with open(args.output, "w") as f:

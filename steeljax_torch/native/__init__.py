@@ -2,9 +2,10 @@
 
 The BVH builder is this package's `native/bvh_builder.cpp`, a byte-for-byte
 copy of the reference's source compiled with the reference's g++ line into
-this package's build directory, so both packages build the same tree.
-Unlike the reference (which falls back to a numpy Morton builder, a
-different tree), a failed build or load raises.
+this package's build directory, so both packages build the same tree, with
+or without spatial splits.  Unlike the reference (whose "auto" method falls
+back to a numpy Morton builder, a different tree, when its library cannot
+be built or a build fails), a failed compile, load or build raises.
 
 `cuda_library()` builds `csrc/*.cu` with nvcc for sm_90a into a shared
 library with a plain C interface, loaded with ctypes: one nvcc process per
@@ -253,33 +254,45 @@ def cuda_ptxas() -> dict:
     return ptxas_table(BUILD_LOGS[CUDA_LIBRARY])
 
 
-def build_bvh_sah(tri_pos: np.ndarray, max_leaf: int
+def build_bvh_sah(tri_pos: np.ndarray, max_leaf: int,
+                  spatial_alpha: float = 0.0, dup_ratio: float = 1.5
                   ) -> tuple[np.ndarray, np.ndarray, int]:
-    """Object-SAH build (spatial_alpha = 0, what the reference's "auto"
-    method uses by default).  Returns (nodes (N, 8) f32, permutation (T,)
-    int64, depth)."""
+    """Binned-SAH build, with spatial splits when `spatial_alpha` > 0 (the
+    reference's steeljax/native/__init__.py:73-113).  Returns (nodes (N, 8)
+    f32, refs (R,) int64, depth).
+
+    Without splits `refs` is a permutation of the T triangles.  With them it
+    is a reference list: a triangle id may sit under several leaves, with
+    R <= int(T * dup_ratio) + 16, the capacity the builder is given (its
+    nodes' capacity is twice that, plus 2).  A nonzero status of the builder
+    raises."""
     lib = bvh_library()
     tris = np.ascontiguousarray(
         np.asarray(tri_pos, np.float32).reshape(-1, 9))
     count = len(tris)
     if count == 0:
         raise ValueError("build_bvh_sah needs at least one triangle")
-    capacity = 2 * count + 2
+    ref_capacity = (count if spatial_alpha <= 0
+                    else int(count * dup_ratio) + 16)
+    capacity = 2 * ref_capacity + 2
     nodes = np.zeros((capacity, 8), np.float32)
-    refs = np.zeros(count, np.int64)
+    refs = np.zeros(ref_capacity, np.int64)
     node_count = ctypes.c_int64(0)
     ref_count = ctypes.c_int64(0)
     depth = ctypes.c_int(0)
     status = lib.steeljax_build_sbvh(
         tris.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        ctypes.c_int64(count), ctypes.c_int(max_leaf), ctypes.c_float(0.0),
+        ctypes.c_int64(count), ctypes.c_int(max_leaf),
+        ctypes.c_float(spatial_alpha),
         nodes.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         ctypes.c_int64(capacity),
         refs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        ctypes.c_int64(count),
+        ctypes.c_int64(ref_capacity),
         ctypes.byref(node_count), ctypes.byref(ref_count),
         ctypes.byref(depth))
     if status != 0:
-        raise RuntimeError(f"steeljax_build_sbvh failed with status {status}")
+        raise RuntimeError(f"steeljax_build_sbvh failed with status {status} "
+                           f"(spatial_alpha {spatial_alpha}, {count} "
+                           "triangles)")
     return (nodes[:node_count.value].copy(),
             refs[:ref_count.value].copy(), int(depth.value))

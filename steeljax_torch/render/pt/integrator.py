@@ -10,7 +10,9 @@ irradiance clamp.  The bounce loop is a Python loop over a flat ray batch
 with one nearest trace per bounce (plus one shadow trace in lit scenes);
 dead lanes ride along with an inverted t interval (RAY_DEAD_T) and cost the
 trace nothing.  Above REPACK_MIN_TRIS the in-flight rays are repacked
-before every secondary bounce (repack_rays).
+before every secondary bounce (repack_rays); the reference's
+STEELJAX_REPACK=force repacks below it too, and =live repacks by liveness
+alone (dead rays sink, the live ones keep their order).
 
 Alpha-tested materials (the reference's any-hit shader, AnyHit.rahit:
 25-52): the trace kernel K4 drops candidates the coverage masks prove
@@ -33,6 +35,7 @@ object-space row and the instance's material row (shade_rows).
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -644,7 +647,13 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
     # tail and the live block is ordered by (Morton origin cell, direction
     # octant), so neighbouring threads walk neighbouring nodes.  `slot`
     # carries each ray's pixel, which restores frame order at the end.
+    # STEELJAX_REPACK=force repacks small scenes too, =live with a key of
+    # liveness alone (steeljax/render/pt/integrator.py:826-848).
     use_repack = _total_triangles(tables) > REPACK_MIN_TRIS
+    repack_env = os.environ.get("STEELJAX_REPACK", "")
+    live_key_only = repack_env == "live"
+    if repack_env in ("force", "live"):
+        use_repack = True
     sort_bounds = scene_bounds(tables) if use_repack else None
     slot = torch.arange(count, device=device)
     compose = (config.debug_view
@@ -652,8 +661,9 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
     for bounce in range(config.max_bounce_count):
         if bounce > 0 and use_repack:
             key = (((~alive).to(torch.int32) << 19)
-                   | (miss.to(torch.int32) << 18)
-                   | _ray_sort_key(o, d, *sort_bounds))
+                   | (miss.to(torch.int32) << 18))
+            if not live_key_only:
+                key = key | _ray_sort_key(o, d, *sort_bounds)
             key, (o, d, throughput, ray_pdf, irradiance, seed,
                   slot) = repack_rays(
                 key, [o, d, throughput, ray_pdf, irradiance, seed, slot])

@@ -13,6 +13,7 @@ scene edit rebuilds only the instance tables.
 from __future__ import annotations
 
 import dataclasses
+import os
 from pathlib import Path
 
 import numpy as np
@@ -101,8 +102,12 @@ def prepare_scene(scene: Scene, device: torch.device | str,
 
     The environment is, in this order, the scene's `environment_cube`, its
     constant colour, the Radiance panorama at its `environment_path`, else
-    the procedural sky when `use_default_environment`, else none.  Leaf
-    size follows the reference: 48 at up to 50k triangles, else 24.
+    the procedural sky when `use_default_environment`, else none; a
+    panorama is converted on `device`.  Leaf size follows the reference:
+    STEELJAX_LEAF_SIZE when it is set and `leaf_size` is None, else 48 at
+    up to 50k triangles, else 24.  The trees follow the reference's
+    STEELJAX_SBVH (bvh.build_bvh's "auto" method; spatial splits off by
+    default), for the flat, treelet and instanced tables alike.
     `dense_anyhit` builds the dense any-hit tables, which shadow rays then
     read (the reference's STEELJAX_DENSE_ANYHIT=1, off by default; the
     reference's prepare_scene reaches them through that variable, the port's
@@ -140,7 +145,10 @@ def prepare_scene(scene: Scene, device: torch.device | str,
     elif scene.environment_path and Path(scene.environment_path).exists():
         with record_function("prepare_scene.environment"):
             panorama = load_hdr(scene.environment_path)
-            env_cube = panorama_to_cube(panorama, env_resolution).numpy()
+            # On the render device, as the reference converts on its
+            # accelerator; flatten_scene packs the cube on the host.
+            env_cube = panorama_to_cube(panorama, env_resolution,
+                                        device).cpu().numpy()
     elif use_default_environment:
         from steeljax_torch.env.sky import procedural_sky_cube
         with record_function("prepare_scene.environment"):
@@ -163,7 +171,9 @@ def prepare_scene(scene: Scene, device: torch.device | str,
         coarse, fine = _alpha_masks(flat, scene,
                                     fine_masks and not treelets)
     if leaf_size is None:
-        leaf_size = 48 if len(tri_pos) <= 50_000 else 24
+        env_leaf = os.environ.get("STEELJAX_LEAF_SIZE")
+        leaf_size = (int(env_leaf) if env_leaf is not None
+                     else 48 if len(tri_pos) <= 50_000 else 24)
     tables, order, total_padded = prepare_tables(
         tri_pos, flat.tri_double_sided.cpu().numpy(), device,
         leaf_size=leaf_size, dense_anyhit=dense_anyhit,

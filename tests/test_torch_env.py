@@ -319,3 +319,35 @@ def test_prepare_scene_takes_a_panorama(hdr_files, tmp_path):
     np.testing.assert_allclose(flat.env_cube.numpy(),
                                np.asarray(flat_r.env_cube), rtol=1e-4,
                                atol=1e-5)
+
+
+def test_prepare_scene_converts_the_panorama_on_its_device(hdr_files,
+                                                          monkeypatch):
+    """prepare_scene hands its device to panorama_to_cube (a spy records
+    the call), so a scene's panorama becomes its cube on the render device,
+    as the reference converts it on its accelerator; the 16x16 cube equals
+    the reference's within test_prepare_scene_takes_a_panorama's relative
+    1e-4 and absolute 1e-5 (texels up to 8)."""
+    calls = []
+    convert = renderer.panorama_to_cube
+
+    def spy(pano, resolution, *args, **kwargs):
+        calls.append((resolution, args, kwargs))
+        return convert(pano, resolution, *args, **kwargs)
+
+    monkeypatch.setattr(renderer, "panorama_to_cube", spy)
+    device = torch.device("cpu")
+    scene = builtin.make_cornell_scene(sphere_detail=2)
+    scene.environment_path = str(hdr_files[0])
+    flat, _ = renderer.prepare_scene(scene, device, env_resolution=16)
+    assert len(calls) == 1
+    resolution, args, kwargs = calls[0]
+    assert resolution == 16
+    assert [*args, *kwargs.values()] == [device]
+    scene_r = builtin_ref.make_cornell_scene(sphere_detail=2)
+    scene_r.environment_path = str(hdr_files[0])
+    flat_r, _ = renderer_ref.prepare_scene(scene_r, env_resolution=16)
+    assert flat.env_cube.shape == (6, 16, 16, 3)
+    np.testing.assert_allclose(flat.env_cube.numpy(),
+                               np.asarray(flat_r.env_cube), rtol=1e-4,
+                               atol=1e-5)

@@ -161,3 +161,29 @@ def test_write_png_matches_reference_writer(tmp_path):
         write_png_ref(ref, image)
         np.testing.assert_array_equal(np.asarray(Image.open(ours)),
                                       np.asarray(Image.open(ref)))
+
+
+# The reference's switches the port leaves out on purpose: both size the
+# TPU kernels (the fused shading mode's cap and the packet's sublanes).
+NOT_PORTED_SWITCHES = ("STEELJAX_SHADE_MODE", "STEELJAX_SUBLANES")
+
+
+def _switches(root: Path) -> set:
+    import re
+
+    return {name for path in root.rglob("*.py")
+            for name in re.findall(r"STEELJAX_[A-Z0-9_]+", path.read_text())}
+
+
+def test_every_reference_switch_is_in_the_port():
+    """Every STEELJAX_* name in the reference's .py files also appears in
+    the port's (read, or named where the port takes an argument instead),
+    except the not-ported TPU sizing switches, which the reference does
+    have."""
+    import steeljax
+
+    reference = _switches(Path(steeljax.__file__).parent)
+    assert set(NOT_PORTED_SWITCHES) <= reference
+    missing = sorted(reference - _switches(PKG_DIR)
+                     - set(NOT_PORTED_SWITCHES))
+    assert not missing, missing
