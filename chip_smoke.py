@@ -69,8 +69,8 @@ Phases:
   2. build of the BVH builder and the CUDA kernel library from the sources
      (the CUDA library even where a current one was built before), with
      ptxas' registers and spills for every kernel instance, a check that
-     every instance of csrc/alpha8.cu's walk (K1-K5) spills no byte, and
-     K2's registers;
+     every instance of csrc/alpha8.cu's walk (K1-K5) and the raster
+     kernel R spill no byte, and K2's and R's registers;
   3. preparation of paths L, T, F, S, F with multihit_k = 4, U, UL, C, C as
      one chunk and L16 through prepare_scene and of paths I and J through the
      renderer, each of these two with a refresh_scene() after an edit (host
@@ -173,10 +173,18 @@ Phases:
      frames of each (the raster adds no synchronizing call), the G-buffer
      stage alone both ways, the raster record against K1's traced
      G-buffer record on all 2,073,600 pixels (tests/test_raster.py's 3%
-     budget), R alone over the frame's 2,700 subtiles with its bound and
-     against its plain version on every 5th subtile and the densest; the
-     Cornell box at 1280x720 with the raster; and fit_env_surrogate's
-     sample gathering on a synthetic image on the card against the CPU;
+     budget), R alone over the frame's 2,700 subtiles with its bound at
+     strip granularity from the bytes its work reads (and the first
+     design's bound at subtile granularity beside it), the tail (density
+     against raster order, the densest subtile alone), its work split (candidates by segment, covering, rejected by the strip
+     test, the densest subtile, bytes staged) and bit-equal to its plain
+     version on every subtile; a tie-heavy launch (path R's records with
+     quantized depths) bit-equal at WINDOW 1, 3, 16 and 256; R's
+     registers; with --ab-old DIR holding an earlier raster.cu, the
+     earlier R against this tree's in turns (old, new, new, old); the
+     Cornell box at 1280x720 with the raster, R bit-equal to its plain
+     version there; and fit_env_surrogate's sample gathering on a
+     synthetic image on the card against the CPU;
   18. paths LS and FS (phase_sbvh): path L's and path F's scenes prepared
      with STEELJAX_SBVH=1 (restored after): source triangles, references,
      padded slots, binary and BVH8 depth, BVH8 rows, the walk's stack
@@ -200,15 +208,21 @@ TestSystem engine's hybrid ticks as "testsystem", its path-traced ticks
 as "pt", the default engine's ticks as "default"; K1 and K2 carry path
 G's launches under "path_g": the capture's and a GI frame's; K1, K2, K4
 and K5 carry phase 18's rows under "sbvh", with the launches a frame of
-paths LS, FS and FS multihit and their tables' counts; R's entry
-carries its time on the subset beside its plain version's as "subset_ms"),
-the last line the device JSON.
+paths LS, FS and FS multihit and their tables' counts; R's bound_ms is
+counted at strip granularity from the bytes its work reads, its entry
+carries the bound at subtile granularity as "subtile_bound_ms", its
+(subtile, winner) pairs, its work split, the tail, the tie-heavy launch,
+the Cornell check, its registers and, with --ab-old, the earlier R's
+times as "ab"), the last line the device JSON.
 
-With --ab-old DIR, phase 3c times K2 and K2-dense against the earlier
-kernels built from DIR (steeljax_torch/apps/kernel_ab.py says how to
-unpack them): its "A/B" lines give old and new ms in turns, the flag
-mismatches, both designs' per-ray work counts and a frame of path L and of
-path L dense with each design.
+With --ab-old DIR, DIR is an earlier commit's csrc directory
+(steeljax_torch/apps/kernel_ab.py says how to unpack it), and each kernel
+whose earlier source it holds is timed against this tree's: K2 and
+K2-dense from traverse8.cu in phase 3c (its "A/B" lines give old and new
+ms in turns, the flag mismatches, both designs' per-ray work counts and a
+frame of path L and of path L dense with each design), R from raster.cu
+in phase 17 on path R's frame and the Cornell raster frame ("A/B R"
+lines, both outputs bit-equal).
 
 Usage: python3 chip_smoke.py [--ab-old DIR]
 """
@@ -401,9 +415,22 @@ OPS_PER_RASTER_WINNER = 12
 RASTER_RECORD_BYTES = 96
 RASTER_TILE_IN_BYTES = 7 * 4
 RASTER_PIXEL_OUT_BYTES = 5 * 4
-# The subtiles phase 17 holds the kernel to its plain version on: every
-# RASTER_STRIDE-th, and the densest.
-RASTER_STRIDE = 5
+# What the kernel stages (csrc/raster.cu): each candidate's two bbox words,
+# and of each covering candidate the 12 floats its walk reads; and what it
+# reads of a winner at the end: Fw, Fu, Fv and the triangle id.
+RASTER_BBOX_BYTES = 8
+RASTER_STAGED_BYTES = 48
+RASTER_WINNER_BYTES = 40
+# The kernel in ptxas' report (phase 2 refuses a spill).
+RASTER_INSTANCE = "raster_tiles_kernel"
+# Phase 17's tie-heavy launch: path R's records with their depth forms
+# replaced by RASTER_TIE_PLANES (three constant depths and two shared
+# slanted planes, drawn per record from a generator seeded with
+# RASTER_TIE_SEED), at each of RASTER_TIE_WINDOWS.
+RASTER_TIE_PLANES = ((0.0, 0.0, 0.25), (0.0, 0.0, 0.5), (0.0, 0.0, 0.75),
+                     (2.0 ** -12, -2.0 ** -13, 0.4), (-2.0 ** -12, 0.0, 0.9))
+RASTER_TIE_SEED = 17
+RASTER_TIE_WINDOWS = (1, 3, 16, 256)
 
 
 def _run(cmd) -> str:
@@ -456,6 +483,19 @@ def check_spills(table: dict) -> dict:
     return k2
 
 
+def check_raster_ptxas(table: dict) -> tuple:
+    """Raise unless a ptxas table holds the raster kernel R and it spills
+    no byte; returns its (registers, stack frame, spill stores, spill
+    loads, static shared memory bytes)."""
+    entry = table.get(RASTER_INSTANCE)
+    if entry is None:
+        raise RuntimeError(f"the ptxas report has no {RASTER_INSTANCE}")
+    if entry[2] or entry[3]:
+        raise RuntimeError(f"{RASTER_INSTANCE} spills (store, load bytes): "
+                           f"{entry[2:4]}")
+    return entry
+
+
 def phase_build() -> dict:
     """Build both libraries, the CUDA library from the sources even where a
     current one was built before (native.cuda_ptxas); print ptxas'
@@ -475,6 +515,9 @@ def phase_build() -> dict:
     k2 = check_spills(table)
     print(f"ptxas: no instance of alpha8.cu's walk spills; K2's instances "
           f"(registers, stack frame bytes): {k2}")
+    regs, _, _, _, smem = check_raster_ptxas(table)
+    print(f"ptxas: R ({RASTER_INSTANCE}) {regs} registers, no spill, "
+          f"{smem} B static shared memory")
     return table
 
 
@@ -3168,10 +3211,14 @@ def phase_gi(device, scenes, path_h) -> dict:
 
 
 def _raster_work(recs_sorted, tile_ids, segments, ntx) -> dict:
-    """The work of one raster kernel launch on these inputs: the candidate
-    records its subtiles read (each subtile its three segments) and, of
-    them, those whose bbox covers the subtile (whose forms every pixel of
-    the subtile evaluates)."""
+    """The work of one raster kernel launch on these inputs, counted from
+    the records alone: the candidate records its subtiles read (each
+    subtile its three segments), by segment; of them those whose bbox
+    covers the subtile (whose forms every pixel of the subtile evaluates,
+    but for the strip test); of the (covering candidate, 32x3 strip) pairs,
+    those raster.strip_rejects skips; the densest subtile; and the bytes the
+    kernel stages (every candidate's bbox words, every covering record's
+    walk columns)."""
     from steeljax_torch.render.hybrid import raster
 
     sa, la, sb, lb, gs, gl = (x.to(torch.int64) for x in segments)
@@ -3189,24 +3236,155 @@ def _raster_work(recs_sorted, tile_ids, segments, ntx) -> dict:
     ty, tx = tiles[seg] // ntx, tiles[seg] % ntx
     covers = ((tx >= bmin % 4096) & (tx <= bmax % 4096)
               & (ty >= bmin // 4096) & (ty <= bmax // 4096))
-    return {"candidates": int(seg.shape[0]), "covering": int(covers.sum())}
+    strips = torch.arange(raster.TILE_H // raster.STRIP_ROWS,
+                          device=rows.device)
+    rejected = raster.strip_rejects(recs_sorted[rows[covers]][:, None, :],
+                                    tx[covers][:, None], ty[covers][:, None],
+                                    strips[None, :])
+    local = la + lb
+    dense = int(local.argmax())
+    candidates, covering = int(seg.shape[0]), int(covers.sum())
+    return {"candidates": candidates,
+            "by_segment": {"row above": int(la.sum()),
+                           "own row": int(lb.sum()), "big": int(gl.sum())},
+            "covering": covering, "strip_pairs": int(rejected.numel()),
+            "strip_rejected": int(rejected.sum()),
+            "strip_live": int((~rejected).sum()),
+            "densest": {"row": dense, "local": int(local[dense]),
+                        "candidates": int(local[dense] + gl[dense])},
+            "bbox_bytes": RASTER_BBOX_BYTES * candidates,
+            "staged_bytes": RASTER_STAGED_BYTES * covering}
 
 
-def _raster_bound(work: dict, tiles: int, hits: int) -> dict:
+def _raster_bound(work: dict, tiles: int, hits: int, winners: int = 0,
+                  strips: bool = False) -> dict:
     """The least time of the raster kernel's work: its bytes over the
-    card's memory rate against its operations over its fp32 rate."""
+    card's memory rate against its operations over its fp32 rate.  At
+    subtile granularity (the tile stage's first bound, kept so the designs
+    compare): every candidate's whole record read, every pixel's forms for
+    each candidate covering its subtile.  With `strips`, what the work
+    needs: every candidate's bbox words, every covering record's walk
+    columns and the attribute columns of each of the `winners` (subtile,
+    winning triangle) pairs read, and the forms of the (candidate, strip)
+    pairs the strip test keeps (raster.STRIP_ROWS x 32 pixels each), the
+    strip tests themselves not counted.  Both count the subtiles' ids and
+    segments read and their five outputs written."""
     from steeljax_torch.render.hybrid import raster
 
-    n_bytes = (RASTER_RECORD_BYTES * work["candidates"]
-               + RASTER_TILE_IN_BYTES * tiles
+    records = (work["bbox_bytes"] + work["staged_bytes"]
+               + RASTER_WINNER_BYTES * winners if strips
+               else RASTER_RECORD_BYTES * work["candidates"])
+    n_bytes = (records + RASTER_TILE_IN_BYTES * tiles
                + RASTER_PIXEL_OUT_BYTES * raster.PX * tiles)
-    ops = (OPS_PER_RASTER_TEST * raster.PX * work["covering"]
-           + OPS_PER_RASTER_WINNER * hits)
+    tests = (raster.STRIP_ROWS * raster.TILE_W * work["strip_live"]
+             if strips else raster.PX * work["covering"])
+    ops = OPS_PER_RASTER_TEST * tests + OPS_PER_RASTER_WINNER * hits
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_FP32_PER_S * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": n_bytes, "ops": ops, **work}
+            "bytes": n_bytes, "ops": ops}
+
+
+def _work_text(work: dict) -> str:
+    seg = work["by_segment"]
+    dense = work["densest"]
+    return (f"{work['candidates']:,} candidates ({seg['row above']:,} row "
+            f"above, {seg['own row']:,} own row, {seg['big']:,} big), "
+            f"{work['covering']:,} covering; of {work['strip_pairs']:,} "
+            f"(covering, strip) pairs {work['strip_rejected']:,} rejected by "
+            f"the strip test, {work['strip_live']:,} walked; densest "
+            f"subtile row {dense['row']} with {dense['local']:,} local, "
+            f"{dense['candidates']:,} candidates; staged "
+            f"{work['bbox_bytes']:,} B of bbox words and "
+            f"{work['staged_bytes']:,} B of records")
+
+
+def _raster_held(label, recs_sorted, tile_ids, segments, ntx) -> dict:
+    """One launch of R against _raster_tiles_plain on every subtile of
+    these inputs: raises unless the five outputs are bit-equal."""
+    from steeljax_torch.render.hybrid import raster
+
+    launch, out = raster.raster_tiles_launcher(recs_sorted, tile_ids,
+                                               segments, ntx)
+    launch()
+    plain = raster._raster_tiles_plain(recs_sorted, tile_ids, segments, ntx)
+    parity = _tile_parity(out, plain)
+    print(f"{label}: R against its plain version on all "
+          f"{tile_ids.shape[0]} subtiles at WINDOW {raster.WINDOW}: "
+          + ("bit-equal" if parity["bit_equal"] else f"DIFFERENT {parity}")
+          + f" ({parity['hits']:,} hit pixels)")
+    if not parity["bit_equal"]:
+        raise RuntimeError(f"{label}: R differs from its plain version")
+    return {"parity": parity, "out": out}
+
+
+def _raster_tail(recs_sorted, tile_ids, segments, ntx, work: dict) -> dict:
+    """Whether the densest subtiles set R's length: R with its blocks in
+    density order (the wrapper's) and in raster order (the C entry called
+    with the identity order, kernel_ab.raster_launcher), in turns
+    (density, raster, raster, density; timing.queued_ms over 20 launches),
+    and the densest subtile alone, one block with the card to itself."""
+    from steeljax_torch import native
+    from steeljax_torch.apps import kernel_ab
+    from steeljax_torch.apps.timing import queued_ms
+    from steeljax_torch.render.hybrid import raster
+
+    n = tile_ids.shape[0]
+    identity = torch.arange(n, dtype=torch.int32, device=tile_ids.device)
+    launches = {
+        "density": raster.raster_tiles_launcher(recs_sorted, tile_ids,
+                                                segments, ntx)[0],
+        "raster": kernel_ab.raster_launcher(
+            native.cuda_library().steeljax_raster_tiles, recs_sorted,
+            tile_ids, segments, ntx, identity)[0]}
+    turns = {"density": [], "raster": []}
+    for name in ("density", "raster", "raster", "density"):
+        turns[name].append(queued_ms(launches[name], 20))
+    d = work["densest"]["row"]
+    alone = raster.raster_tiles_launcher(
+        recs_sorted, tile_ids[d:d + 1], [x[d:d + 1] for x in segments],
+        ntx)[0]
+    densest_ms = queued_ms(alone, 20)
+    print(f"R tail path R: density order " + " / ".join(
+        f"{x:.4f}" for x in turns["density"]) + " ms, raster order "
+        + " / ".join(f"{x:.4f}" for x in turns["raster"])
+        + f" ms (density, raster, raster, density); the densest subtile "
+        f"alone (row {d}, {work['densest']['candidates']:,} candidates) "
+        f"{densest_ms:.4f} ms")
+    return {"density_ms": turns["density"], "raster_order_ms":
+            turns["raster"], "densest_alone_ms": densest_ms}
+
+
+def _raster_ties(recs_sorted, tile_ids, segments, ntx) -> dict:
+    """R against its plain version on path R's records with tie-heavy
+    depths (RASTER_TIE_PLANES) at each of RASTER_TIE_WINDOWS, bit-equal;
+    the pixels whose triangle differs between WINDOW 1 and 256 (the slices
+    decide them)."""
+    from steeljax_torch.render.hybrid import raster
+
+    gen = torch.Generator(device=recs_sorted.device)
+    gen.manual_seed(RASTER_TIE_SEED)
+    planes = torch.tensor(RASTER_TIE_PLANES, dtype=torch.float32,
+                          device=recs_sorted.device)
+    pick = torch.randint(len(RASTER_TIE_PLANES), (recs_sorted.shape[0],),
+                         generator=gen, device=recs_sorted.device)
+    recs = recs_sorted.clone()
+    recs[:, raster._Z:raster._Z + 3] = planes[pick]
+    window = raster.WINDOW
+    tri = {}
+    try:
+        for w in RASTER_TIE_WINDOWS:
+            raster.WINDOW = w
+            tri[w] = _raster_held("tie-heavy launch (path R's records, "
+                                  "quantized depths)", recs, tile_ids,
+                                  segments, ntx)["out"][4]
+    finally:
+        raster.WINDOW = window
+    decided = int((tri[1] != tri[256]).sum())
+    print(f"tie-heavy launch: {decided:,} pixels take another triangle at "
+          "WINDOW 1 than at 256")
+    return {"windows": list(RASTER_TIE_WINDOWS), "decided_by_slices": decided}
 
 
 def _tile_parity(out, plain) -> dict:
@@ -3306,10 +3484,14 @@ def _raster_renderer(scene, width, height, env, device, prepared=None):
     return renderer
 
 
-def _raster_cornell(device, env) -> None:
+def _raster_cornell(device, env, ab_old=None) -> dict:
     """The Cornell box at 1280x720 with the raster: one R and no K1 launch
-    a frame, the frame beside the traced one."""
+    a frame, the frame beside the traced one, R held bit-equal to its
+    plain version on the frame's subtiles and timed alone (CUDA events, 50
+    launches), with `ab_old` also against the earlier R in turns."""
     from steeljax_torch.accel import cuda_traverse
+    from steeljax_torch.apps.timing import time_ms
+    from steeljax_torch.render.hybrid import raster
     from steeljax_torch.scene.builtin import make_cornell_scene
 
     renderer = _raster_renderer(make_cornell_scene(), WIDTH, HEIGHT, env,
@@ -3333,6 +3515,28 @@ def _raster_cornell(device, env) -> None:
     if rmse >= 0.02:
         raise RuntimeError(f"Cornell raster frame: RMSE {rmse} against the "
                            "traced frame")
+    recs_sorted, _, tile_ids, segments = raster._binned(
+        rscene, renderer.matrices[2], WIDTH, HEIGHT,
+        renderer.frame.camera_near)
+    ntx = WIDTH // raster.TILE_W
+    held = _raster_held(f"Cornell {WIDTH}x{HEIGHT} raster frame",
+                        recs_sorted, tile_ids, segments, ntx)
+    launch, _ = raster.raster_tiles_launcher(recs_sorted, tile_ids, segments,
+                                             ntx)
+    kernel_ms = time_ms(launch, 50)
+    work = _raster_work(recs_sorted, tile_ids, segments, ntx)
+    print(f"R raster_tiles Cornell {WIDTH}x{HEIGHT}: {tile_ids.shape[0]} "
+          f"subtiles, kernel {kernel_ms:.4f} ms; {_work_text(work)}")
+    ab = None
+    if ab_old and (Path(ab_old) / "raster.cu").is_file():
+        from steeljax_torch.apps import kernel_ab
+
+        ab = kernel_ab.raster_ab(ab_old, recs_sorted, tile_ids, segments,
+                                 ntx, f"Cornell {WIDTH}x{HEIGHT}")
+        del ab["old_ptxas"]
+    return {"bit_equal": held["parity"]["bit_equal"],
+            "hits": held["parity"]["hits"], "ms": kernel_ms, "work": work,
+            "ab": ab, "ms_frame": ms, "traced_ms_frame": traced_ms}
 
 
 def _surrogate_on_card(device) -> None:
@@ -3368,7 +3572,8 @@ def _surrogate_on_card(device) -> None:
                            "from the CPU's")
 
 
-def phase_raster(device, scenes, path_h) -> dict:
+def phase_raster(device, scenes, path_h, ptxas: dict,
+                 ab_old=None) -> dict:
     """Path R: path H's frame (path L's scene, the bench's 1920x1080 hybrid
     config, path H's environment) with STEELJAX_RASTER=1, the G-buffer's
     primary visibility rasterized (csrc/raster.cu, R).  One warm and
@@ -3380,14 +3585,18 @@ def phase_raster(device, scenes, path_h) -> dict:
     must not add); the G-buffer stage alone both ways; the raster record
     against K1's traced G-buffer record on all pixels within
     tests/test_raster.py's 3% budget; the kernel alone over the frame's
-    subtiles (CUDA events, 50 launches) with its bound, and against
-    _raster_tiles_plain on every RASTER_STRIDE-th subtile and the densest
-    with kernel_parity's budgets; then the Cornell box at 1280x720 with the
-    raster, and fit_env_surrogate's sample gathering on the card against
-    the CPU."""
+    subtiles (CUDA events, 50 launches) with its bound (and the bound at
+    strip granularity), its work split (_raster_work), bit-equal to
+    _raster_tiles_plain on every subtile; the tie-heavy launch
+    (_raster_ties); R's registers from the build's `ptxas` table; with
+    `ab_old` a csrc directory holding an earlier raster.cu, the earlier R
+    against this tree's in turns (kernel_ab.raster_ab); then the Cornell
+    box at 1280x720 with the raster (R bit-equal to its plain version
+    there too), and fit_env_surrogate's sample gathering on the card
+    against the CPU."""
     from steeljax_torch.accel import cuda_traverse
     from steeljax_torch.apps import kernel_parity as kp
-    from steeljax_torch.apps.timing import REPS, time_ms, wall_ms
+    from steeljax_torch.apps.timing import REPS, wall_ms
     from steeljax_torch.render.hybrid import gbuffer, raster
     from steeljax_torch.render.hybrid.renderer import pixel_center_rays
 
@@ -3500,64 +3709,111 @@ def phase_raster(device, scenes, path_h) -> dict:
     versus = _raster_vs_trace("path R raster record against K1's traced "
                               "G-buffer record", rec_r, rec_t, 0.03)
 
-    # The kernel alone at the frame's inputs, and against its plain version.
-    recs_sorted, _, tile_ids, segments = raster._binned(
-        rscene, view_proj, width, height, near)
-    ntx = width // raster.TILE_W
-    launch, out = raster.raster_tiles_launcher(recs_sorted, tile_ids,
-                                               segments, ntx)
-    kernel_ms = time_ms(launch, 50)
-    work = _raster_work(recs_sorted, tile_ids, segments, ntx)
-    bound = _raster_bound(work, tile_ids.shape[0],
-                          int((out[0] > 0.0).sum()))
-    density = segments[1] + segments[3]
-    subset = torch.unique(torch.cat([
-        torch.arange(0, tile_ids.shape[0], RASTER_STRIDE, device=device),
-        density.argmax().reshape(1)]))
-    sub_args = (recs_sorted, tile_ids[subset], [s[subset] for s in segments],
-                ntx)
-    kept = {}
-
-    def plain():
-        kept["out"] = raster._raster_tiles_plain(*sub_args)
-
-    plain_ms = time_ms(plain, 3)
-    sub_launch, sub_out = raster.raster_tiles_launcher(*sub_args)
-    subset_ms = time_ms(sub_launch, 50)
-    parity = _tile_parity(sub_out, kept["out"])
-    stats = raster.raster_stats(rscene, view_proj, width, height, near)
-    print(f"R raster_tiles path R: {tile_ids.shape[0]} subtiles "
-          f"({width}x{height}), kernel {kernel_ms:.4f} ms; bound "
-          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
-          f"({bound['bytes']:.4e} B: {work['candidates']:,} candidate "
-          f"records; {bound['ops']:.4e} fp32 ops: {work['covering']:,} "
-          f"covering candidates x {raster.PX} pixels); binning {stats}; on "
-          f"{subset.shape[0]} subtiles (every {RASTER_STRIDE}th and the "
-          f"densest, {int(density.max())} local candidates): kernel "
-          f"{subset_ms:.4f} ms, plain {plain_ms:.4f} ms; against plain "
-          f"{parity}")
-    if not parity["ok"]:
-        raise RuntimeError(f"R: the kernel disagrees with its plain "
-                           f"version: {parity}")
-
-    _raster_cornell(device, path_h["env"])
+    kernel = _raster_kernel(rscene, view_proj, width, height, near, ptxas,
+                            ab_old)
+    kernel["cornell"] = _raster_cornell(device, path_h["env"], ab_old)
     _surrogate_on_card(device)
-    kernel = {"ms": kernel_ms, "plain_ms": plain_ms, "subset_ms": subset_ms,
-              "max_abs_err": parity["max_abs_err"], "library_ms": None,
-              "tolerance": "kernel_parity._compare's budgets on the "
-                           "subtiles' pixels: hit flags (bz > 0) "
-                           "max(2, N/5000), |1/Fw| 2e-3, |Fu/Fw|, |Fv/Fw| "
-                           "5e-3; written to agree bit for bit",
-              "shapes": f"{tile_ids.shape[0]} subtiles of {raster.PX} "
-                        f"pixels, {recs_sorted.shape[0]} records of "
-                        f"{raster._REC_COLS} floats",
-              "rays": width * height,
-              "plain_rays": int(subset.shape[0]) * raster.PX,
-              "parity": parity, "bit_equal": parity["bit_equal"], **bound}
     return {"launches": launches, "ms_frame": ms_frame,
             "traced_ms_frame": traced_ms, "turns": turns,
             "stage_ms": stage_ms, "versus_trace": versus,
             "syncs_added": waits, "kernel": kernel}
+
+
+def _raster_kernel(rscene, view_proj, width, height, near, ptxas: dict,
+                   ab_old=None) -> dict:
+    """Phase 17's rows of R on one frame's inputs: the kernel alone (CUDA
+    events, 50 launches) with its bound and its bound at strip
+    granularity, its work split, bit-equal to _raster_tiles_plain on every
+    subtile (the plain version timed over 3 calls), the tie-heavy launch,
+    its registers from the build's `ptxas` table, and with `ab_old` a
+    csrc directory holding an earlier raster.cu, the earlier R against
+    this one in turns.  Returns the kernels line's entry of R."""
+    from steeljax_torch.apps.timing import time_ms
+    from steeljax_torch.render.hybrid import raster
+
+    recs_sorted, _, tile_ids, segments = raster._binned(
+        rscene, view_proj, width, height, near)
+    ntx = width // raster.TILE_W
+    n_tiles = tile_ids.shape[0]
+    launch, out = raster.raster_tiles_launcher(recs_sorted, tile_ids,
+                                               segments, ntx)
+    kernel_ms = time_ms(launch, 50)
+    work = _raster_work(recs_sorted, tile_ids, segments, ntx)
+    kept = {}
+
+    def plain():
+        kept["out"] = raster._raster_tiles_plain(recs_sorted, tile_ids,
+                                                 segments, ntx)
+
+    plain_ms = time_ms(plain, 3)
+    parity = _tile_parity(out, kept["out"])
+    # The (subtile, winning triangle) pairs of the plain version's output.
+    pz, ptri = kept["out"][0], kept["out"][4]
+    hit = pz > 0.0
+    row = torch.arange(n_tiles, device=pz.device)[:, None].expand_as(pz)
+    hits = int(hit.sum())
+    winners = int(torch.unique(torch.stack(
+        [row[hit], ptri[hit].to(torch.int64)]), dim=1).shape[1])
+    bound = _raster_bound(work, n_tiles, hits, winners, strips=True)
+    subtile_bound = _raster_bound(work, n_tiles, hits)
+    stats = raster.raster_stats(rscene, view_proj, width, height, near)
+    print(f"R raster_tiles path R: {n_tiles} subtiles ({width}x{height}), "
+          f"kernel {kernel_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']} ({bound['bytes']:.4e} B: "
+          f"{work['candidates']:,} candidates' bbox words, "
+          f"{work['covering']:,} covering records' walk columns, {winners:,} "
+          f"(subtile, winner) pairs' attributes; {bound['ops']:.4e} fp32 "
+          f"ops: {work['strip_live']:,} (covering, strip) pairs x "
+          f"{raster.STRIP_ROWS * raster.TILE_W} pixels), R takes "
+          f"{kernel_ms / bound['bound_ms']:.2f}x it; at subtile granularity "
+          f"(whole records, every pixel of a covering candidate) "
+          f"{subtile_bound['bound_ms']:.4f} ms by "
+          f"{subtile_bound['bound_by']} ({subtile_bound['bytes']:.4e} B, "
+          f"{subtile_bound['ops']:.4e} fp32 ops); binning {stats}; plain "
+          f"{plain_ms:.4f} ms on all {n_tiles} subtiles; against plain "
+          + ("bit-equal" if parity["bit_equal"] else f"DIFFERENT {parity}"))
+    print(f"R work split path R: {_work_text(work)}")
+    if kernel_ms < subtile_bound["bound_ms"]:
+        print(f"R runs under its subtile-granularity bound ({kernel_ms:.4f} "
+              f"< {subtile_bound['bound_ms']:.4f} ms): the kernel reads "
+              "whole records of covering candidates only, and the strip "
+              f"test skips {work['strip_rejected']:,} of "
+              f"{work['strip_pairs']:,} (covering, strip) pairs that that "
+              "bound charges")
+    if not parity["bit_equal"]:
+        raise RuntimeError(f"R: the kernel differs from its plain version: "
+                           f"{parity}")
+    tail = _raster_tail(recs_sorted, tile_ids, segments, ntx, work)
+    ties = _raster_ties(recs_sorted, tile_ids, segments, ntx)
+    registers = check_raster_ptxas(ptxas)
+    print(f"ptxas this tree: {RASTER_INSTANCE}: {registers[0]} registers, "
+          f"{registers[1]} B stack frame, spill stores {registers[2]} B, "
+          f"spill loads {registers[3]} B, static smem {registers[4]} B")
+    ab = None
+    if ab_old and (Path(ab_old) / "raster.cu").is_file():
+        from steeljax_torch.apps import kernel_ab
+
+        ab = kernel_ab.raster_ab(ab_old, recs_sorted, tile_ids, segments,
+                                 ntx, "path R")
+        _print_ptxas("earlier", {k: v for k, v in ab.pop("old_ptxas").items()
+                                 if k.startswith(RASTER_INSTANCE)})
+
+    return {"ms": kernel_ms, "plain_ms": plain_ms,
+              "max_abs_err": parity["max_abs_err"], "library_ms": None,
+              "tolerance": "bit-equal: torch.equal of all five outputs on "
+                           "every subtile of path R, of the Cornell raster "
+                           "frame and of the tie-heavy launch at WINDOW "
+                           + ", ".join(map(str, RASTER_TIE_WINDOWS)),
+              "shapes": f"{n_tiles} subtiles of {raster.PX} pixels, "
+                        f"{recs_sorted.shape[0]} records of "
+                        f"{raster._REC_COLS} floats",
+              "rays": width * height, "plain_rays": width * height,
+              "parity": parity, "bit_equal": parity["bit_equal"],
+              **bound, "subtile_bound_ms": subtile_bound["bound_ms"],
+              "subtile_bound_by": subtile_bound["bound_by"],
+              "winners": winners, "work": work,
+              "tail": tail, "ties": ties, "registers": registers[0],
+              "ab": ab}
 
 
 # Phase 18, paths LS and FS: path L's and path F's scenes prepared with
@@ -3770,9 +4026,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ab-old", default=None, metavar="DIR",
-                    help="also time K2 and K2-dense against the earlier "
-                         "kernels built from this csrc directory "
-                         "(phase 3c)")
+                    help="also time K2 and K2-dense (phase 3c, where DIR "
+                         "holds traverse8.cu) or R (phase 17, where it "
+                         "holds raster.cu) against the earlier kernels "
+                         "built from this csrc directory")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: chip_smoke.py runs only on the GPU")
@@ -3797,9 +4054,13 @@ def main(argv=None) -> int:
         phase_prepare, device)
     kernels = phase("3b. parity and kernel times", phase_parity, device,
                     scenes)
-    if args.ab_old:
+    if args.ab_old and (Path(args.ab_old) / "traverse8.cu").is_file():
         phase("3c. earlier kernels against this tree's", phase_kernel_ab,
               scenes, args.ab_old, ptxas)
+    elif args.ab_old:
+        print(f"== 3c. skipped: {args.ab_old} holds no traverse8.cu (the "
+              "earlier K2); phase 17 times the earlier R if it holds "
+              "raster.cu")
     cornell = phase("4. Cornell main path", phase_cornell, device)
     path_l = phase("5a. path L (sunlit stress)", drive_path, "path L",
                    *scenes["sunlit"], {"K1": 1, "K2": 1})
@@ -3851,7 +4112,7 @@ def main(argv=None) -> int:
     path_g = phase("16. path G (light-volume GI on path L's scene)",
                    phase_gi, device, scenes, path_h)
     path_r = phase("17. path R (raster G-buffer on path H)", phase_raster,
-                   device, scenes, path_h)
+                   device, scenes, path_h, ptxas, args.ab_old)
     kernels["R"] = path_r["kernel"]
     sbvh = phase("18. paths LS and FS (SBVH)", phase_sbvh, device, scenes,
                  kernels, prepare_steps,
@@ -3974,8 +4235,12 @@ def main(argv=None) -> int:
         "K7_pick": "K7 treelet_pick8 (the treelet scheduler's first packet "
                    "pick of a trace; launches on path U)",
         "R": "R raster_tiles (the raster G-buffer's tile stage, one block a "
-             "32x24 subtile; launches on path R; plain_ms and subset_ms on "
-             "the subset of plain_rays pixels, ms on the whole frame)"}
+             "32x24 subtile, candidates culled by bbox before staging, "
+             "slice tags, a 32x3 strip a warp; launches on path R; ms and "
+             "plain_ms on the whole frame; bound_ms at strip granularity "
+             "from the bytes the work reads; subtile_bound_ms the bound at "
+             "subtile granularity, whole records and every pixel of a "
+             "covering candidate)"}
     replaces = {
         "K1": "steeljax/accel/pallas_traverse.py:249",
         "K2": "steeljax/accel/pallas_traverse.py:506",
@@ -4004,8 +4269,10 @@ def main(argv=None) -> int:
         "tolerance": kernels[k]["tolerance"],
         "shapes": kernels[k]["shapes"], "rays": kernels[k]["rays"],
         "plain_rays": kernels[k]["plain_rays"],
-        **{key: kernels[k][key] for key in ("subset_ms", "bit_equal")
-           if key in kernels[k]},
+        **{key: kernels[k][key] for key in (
+            "bit_equal", "subtile_bound_ms", "subtile_bound_by", "winners",
+            "work", "tail", "ties", "cornell", "registers", "ab")
+            if key in kernels[k]},
         **{key: sub_row(k, key) for key in (*sub_paths, "path_g", "sbvh")
            if key in kernels[k]},
         "engine_launches": {name: counts[k] for name, counts in

@@ -1,12 +1,15 @@
-"""Old against new for the any-hit kernels K2 and K2-dense, on one card.
+"""Old against new, on one card: the any-hit kernels K2 and K2-dense, and
+the raster tile kernel R.
 
 The earlier kernels are built from a `csrc` directory of an earlier commit
 into a library of their own, with the same nvcc flags, and called through
-their own C entry on the same tables and rays as this tree's, each call
-timed in turns (old, new, new, old): CUDA events around KERNEL_REPS
-launches queued behind a device sleep (timing.queued_ms), so no host gap
-between launches counts.  The earlier K2 and K2-dense (commit dabca91's
-`traverse8.cu`, `steeljax_trace_any8`) are the port's first one-thread
+their own C entry on the same inputs as this tree's, each call timed in
+turns (old, new, new, old): CUDA events around KERNEL_REPS launches queued
+behind a device sleep (timing.queued_ms), so no host gap between launches
+counts.
+
+K2: the earlier K2 and K2-dense (commit dabca91's `traverse8.cu`,
+`steeljax_trace_any8`) are the port's first one-thread
 walk: scalar loads of child boxes and of the reference's 36-byte records
 (in 12-record rows at a 40-byte stride, or in the dense 14-record rows),
 each leaf tested as it is popped.  This tree's are csrc/alpha8.cu's ANY
@@ -23,6 +26,11 @@ rays_traced must agree, and the frame's host wall time in turns (old, new,
 new, old); then the ptxas registers of the earlier library's K2 instances
 beside this tree's.
 
+R: `raster_ab` builds the earlier `raster.cu` of a csrc directory (commit
+c8f8491's: every candidate staged whole, a slice at a time) and times it
+against this tree's on one launch's inputs, the outputs bit-equal;
+chip_smoke.py phase 17 calls it on path R's frame.
+
 Usage, on the card, from the repository root (`_archive/` is not tracked):
     mkdir -p _archive/parent
     git archive dabca91 steeljax_torch/csrc | tar -x -C _archive/parent
@@ -30,7 +38,8 @@ Usage, on the card, from the repository root (`_archive/` is not tracked):
         --old _archive/parent/steeljax_torch/csrc
 It first holds this tree's K2 and K2-dense against their plain versions
 (the any-hit variants of kernel_parity).  chip_smoke.py --ab-old DIR runs
-the same comparison on its prepared paths, without that step.
+the same comparison on its prepared paths, without that step, where DIR
+holds traverse8.cu, and R's where it holds raster.cu.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ import torch
 from steeljax_torch.apps.timing import queued_ms, wall_ms
 
 OLD_LIBRARY = "libsteeljax_torch_cuda_old.so"
+OLD_RASTER_LIBRARY = "libsteeljax_torch_raster_old.so"
 # Launches a timed turn of a kernel queues behind the device sleep.
 KERNEL_REPS = 32
 # Frames a turn of the frame walls times, after one warm frame.
@@ -73,6 +83,90 @@ def build_old(src_dir) -> ctypes.CDLL:
     lib.steeljax_trace_any8.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return lib
+
+
+def build_old_raster(src_dir) -> ctypes.CDLL:
+    """The earlier raster tile kernel R of `src_dir` (commit c8f8491's
+    raster.cu: one block a subtile, every candidate's whole record staged a
+    WINDOW-piece slice at a time and walked by the whole block), built into
+    a library of its own."""
+    from steeljax_torch import native
+
+    src = Path(src_dir) / "raster.cu"
+    if not src.is_file():
+        raise FileNotFoundError(f"{src} not found: --old names the earlier "
+                                "kernels' csrc directory")
+    target = native.BUILD_DIR / OLD_RASTER_LIBRARY
+    native.build_cuda(target, [src])
+    lib = ctypes.CDLL(str(target))
+    lib.steeljax_raster_tiles.restype = ctypes.c_int
+    lib.steeljax_raster_tiles.argtypes = (
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    return lib
+
+
+def raster_launcher(fn, recs_sorted, tile_ids, segments, ntx, order=None):
+    """(launch, out) of a raster tile kernel's C entry `fn` on the inputs of
+    raster.raster_tiles_launcher (WINDOW-piece slices), not counted in
+    cuda_traverse.LAUNCHES: the earlier R's entry, whose blocks take the
+    rows in their own order, without `order`; this tree's with its blocks
+    taking the rows in `order` (int32 on the device)."""
+    from steeljax_torch.render.hybrid import raster
+
+    device = recs_sorted.device
+    n = tile_ids.shape[0]
+    ints = [x.to(torch.int32).contiguous() for x in (tile_ids, *segments)]
+    out = tuple(torch.empty((n, raster.PX), dtype=torch.float32,
+                            device=device) for _ in range(5))
+    tensors = ((recs_sorted, *ints, *out) if order is None
+               else (recs_sorted, ints[0], order, *ints[1:], *out))
+    args = [x.data_ptr() for x in tensors]
+    args += [recs_sorted.shape[0], n, ntx, raster.WINDOW]
+
+    def launch():
+        status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if status != 0:
+            raise RuntimeError(f"R launch failed: CUDA error {status}")
+
+    launch.tensors = tensors
+    return launch, out
+
+
+def raster_ab(old_dir, recs_sorted, tile_ids, segments, ntx,
+              label: str) -> dict:
+    """The earlier R built from `old_dir` against this tree's on one
+    launch's inputs: both outputs bit-equal (raises otherwise), then each
+    timed in turns old, new, new, old (queued_ms over KERNEL_REPS launches);
+    the earlier library's ptxas table under "old_ptxas"."""
+    from steeljax_torch import native
+    from steeljax_torch.render.hybrid import raster
+
+    lib = build_old_raster(old_dir)
+    launchers = {
+        "old": raster_launcher(lib.steeljax_raster_tiles, recs_sorted,
+                               tile_ids, segments, ntx),
+        "new": raster.raster_tiles_launcher(recs_sorted, tile_ids, segments,
+                                            ntx)}
+    for launch, _ in launchers.values():
+        launch()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(launchers["old"][1],
+                                                  launchers["new"][1]))
+    turns = {"old": [], "new": []}
+    for who in ("old", "new", "new", "old"):
+        turns[who].append(queued_ms(launchers[who][0], KERNEL_REPS))
+    print(f"A/B R {label}: {tile_ids.shape[0]} subtiles; old "
+          + " / ".join(f"{x:.4f}" for x in turns["old"]) + " ms, new "
+          + " / ".join(f"{x:.4f}" for x in turns["new"])
+          + f" ms (old, new, new, old); old/new "
+          f"{sum(turns['old']) / sum(turns['new']):.2f}x; outputs "
+          + ("bit-equal" if equal else "DIFFER"))
+    if not equal:
+        raise RuntimeError(f"A/B R {label}: the earlier and this tree's "
+                           "kernel disagree")
+    return {"ms": turns, "bit_equal": equal,
+            "old_ptxas": native.ptxas_table(
+                native.BUILD_LOGS.get(OLD_RASTER_LIBRARY, ""))}
 
 
 def old_anyhit_launcher(lib, bvh8, tris, rays, dense: bool,

@@ -149,7 +149,7 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
         [ptr] * 4 + [ctypes.c_int] * 4 + [ptr])
     lib.steeljax_raster_tiles.restype = ctypes.c_int
     lib.steeljax_raster_tiles.argtypes = (
-        [ptr] * 13 + [ctypes.c_int] * 4 + [ptr])
+        [ptr] * 14 + [ctypes.c_int] * 4 + [ptr])
 
 
 def bvh_library() -> ctypes.CDLL:

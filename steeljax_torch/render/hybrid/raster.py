@@ -23,13 +23,26 @@ shadows; this module is that raster stage in four steps:
     reverse-z maximum, and take the winner's Fu, Fv, Fw and triangle from
     ONE pinned piece, so coplanar exact-z ties never mix attributes.
     Within a slice the last piece of the greatest z wins; a later slice
-    replaces the running winner only on a strictly greater z.  On a CUDA
-    tensor this stage is the hand-written kernel csrc/raster.cu (one
-    thread block a subtile, no host read, so the frame keeps no host
-    synchronization); on a CPU tensor it is `_raster_tiles_plain`, which
-    reads the slices' trip counts on the host.  The reference orders the
-    subtiles by density for its chip's lockstep map; results are per
-    subtile, so the port keeps raster order.
+    replaces the running winner only on a strictly greater z.  On a CPU
+    tensor this stage is `_raster_tiles_plain`, the reference's slice loop
+    (its trip counts read on the host).  On a CUDA tensor it is the
+    hand-written kernel csrc/raster.cu, one thread block a subtile, which
+    walks otherwise with the same result.  Each candidate carries a slice
+    tag (its segment, then its slice), and a pixel takes a piece on a
+    greater z, or on an equal z with the tag of its current winner: the
+    slice rule in one pass, and the greatest (z, -tag, row) of the pieces
+    inside the pixel (equal z: the earliest slice, and in it the last
+    piece), a maximum that can be taken over parts and then over the
+    parts.  So the block culls its candidates by bounding box 512 at a
+    time, stages only the covering ones in walk order (cp.async into two
+    shared buffers, the next chunk's copies in flight while this one is
+    walked), the two warps of each 32x3 strip skip the pieces that miss it
+    (`corner_max`, `strip_rejects`) and take the others 32 at a time in
+    turn, the two warps' winners merge by that maximum, and the winner's
+    Fu, Fv, Fw are evaluated once at the end.  Blocks take the subtiles
+    densest first (`density_order`), as the reference orders them for its
+    lockstep map; the outputs stay in the caller's row order.  No host
+    read, so the frame keeps no host synchronization.
  4. RESOLVE: u = Fu / Fw, v = Fv / Fw, w_eye = 1 / Fw per pixel.
 
 The stage is opt-in (STEELJAX_RASTER=1, HybridRenderer._prepare_raster).
@@ -56,7 +69,7 @@ TILE_W = 32
 TILE_H = 24
 PX = TILE_W * TILE_H
 SPAN = 2      # subtile span (columns or rows) from which a piece is "big"
-WINDOW = 256  # pieces per slice (the kernel stages at most 256)
+WINDOW = 256  # pieces per slice of the tie rule
 _KEY_BIG = 1 << 29
 _KEY_CULL = 1 << 30
 _REC_COLS = 24
@@ -66,6 +79,9 @@ _TRI, _BMIN, _BMAX = 21, 22, 23
 # The plain version keeps each batch of subtiles' (pixels x pieces)
 # intermediates near this many bytes: 64 MiB on the host, 1 GiB on the card.
 _PLAIN_CHUNK_BYTES = {"cpu": 64 << 20, "cuda": 1 << 30}
+# The raster kernel's warps: each owns STRIP_ROWS rows of a subtile and
+# skips the pieces strip_rejects names.
+STRIP_ROWS = 3
 
 
 def supported(width: int, height: int) -> bool:
@@ -325,41 +341,79 @@ def _raster_tiles_plain(recs_sorted, tile_ids, segments, ntx):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def corner_max(recs, base: int, tx, ty, strip):
+    """The linear form at record columns base..base+2 of `recs` (..., 24)
+    float32 at the corner pixel centre of the raster kernel's strip
+    `strip` (rows STRIP_ROWS * strip .. STRIP_ROWS * strip + STRIP_ROWS - 1)
+    of subtile (tx, ty) where it is largest: x_hi where a >= 0, else x_lo;
+    likewise y (tx, ty, strip: integer tensors that broadcast with
+    recs[..., 0]).  Evaluated as every pixel evaluates it (_form), it
+    bounds the form at every pixel centre of the strip: each rounded
+    operation is monotone, so no margin is needed.  The raster kernel
+    evaluates the same operations in the same order."""
+    row = ty * TILE_H + STRIP_ROWS * strip
+    x_lo = (tx * TILE_W).to(torch.float32) + 0.5
+    y_lo = row.to(torch.float32) + 0.5
+    x = torch.where(recs[..., base] >= 0.0, x_lo + (TILE_W - 1), x_lo)
+    y = torch.where(recs[..., base + 1] >= 0.0, y_lo + (STRIP_ROWS - 1),
+                    y_lo)
+    return _form(recs, base, x, y)
+
+
+def strip_rejects(recs, tx, ty, strip):
+    """Whether the raster kernel's warps that own strip `strip` of subtile
+    (tx, ty) skip each record of `recs`: one of its edge forms is below 0
+    at corner_max, so at every pixel centre of the strip."""
+    out = [corner_max(recs, base, tx, ty, strip) < 0.0
+           for base in (_E0, _E1, _E2)]
+    return out[0] | out[1] | out[2]
+
+
+def density_order(la, lb):
+    """The rows by descending local candidate count (la + lb; the big
+    segment is the same for every subtile): the order in which the raster
+    kernel's blocks take them, computed on the rows' device."""
+    return torch.argsort(la + lb, descending=True).to(torch.int32)
+
+
 def raster_tiles_launcher(recs_sorted, tile_ids, segments, ntx):
     """Check the inputs of one launch of the raster kernel (csrc/raster.cu)
     on CUDA tensors and allocate its outputs.  Returns (launch, out): each
     `launch()` runs the kernel on the current stream into out's five
     (tiles, 768) float32 tensors (bz, fu, fv, fw, ft) and adds one to
     cuda_traverse.LAUNCHES["R"].  The wrapper calls it once; a benchmark
-    can repeat it without the wrapper's host work.  The slices are WINDOW
-    pieces long."""
+    can repeat it without the wrapper's host work.  The tie rule's slices
+    are WINDOW pieces long; the blocks take the rows in density_order."""
     from steeljax_torch.accel.cuda_traverse import _launch_fn
 
-    if not 1 <= WINDOW <= 256:
-        raise ValueError(f"the raster kernel stages 1..256 pieces a slice, "
-                         f"got WINDOW {WINDOW}")
+    if WINDOW < 1:
+        raise ValueError(f"the tie rule's slices need WINDOW >= 1, got "
+                         f"{WINDOW}")
     device = recs_sorted.device
     if device.type != "cuda":
         raise ValueError(f"the raster kernel needs CUDA tensors, got "
                          f"{device}")
     if (recs_sorted.dtype != torch.float32 or recs_sorted.dim() != 2
             or recs_sorted.shape[1] != _REC_COLS
-            or not recs_sorted.is_contiguous()):
-        raise ValueError(f"records must be contiguous (P, {_REC_COLS}) "
-                         f"float32, got {tuple(recs_sorted.shape)} "
-                         f"{recs_sorted.dtype}")
+            or not recs_sorted.is_contiguous()
+            or recs_sorted.data_ptr() % 16):
+        raise ValueError(f"records must be contiguous 16-byte aligned (P, "
+                         f"{_REC_COLS}) float32, got "
+                         f"{tuple(recs_sorted.shape)} {recs_sorted.dtype}")
     n = tile_ids.shape[0]
     ints = [x.to(torch.int32).contiguous() for x in (tile_ids, *segments)]
     if len(ints) != 7 or any(x.shape != (n,) or x.device != device
                              for x in ints):
         raise ValueError("tile_ids and the six segment arrays must be (n,) "
                          f"on {device}")
+    order = density_order(ints[2], ints[4])
     out = tuple(torch.empty((n, PX), dtype=torch.float32, device=device)
                 for _ in range(5))
-    args = [x.data_ptr() for x in (recs_sorted, *ints, *out)]
+    args = [x.data_ptr() for x in (recs_sorted, ints[0], order, *ints[1:],
+                                   *out)]
     args += [recs_sorted.shape[0], n, ntx, WINDOW]
     return _launch_fn("R", "steeljax_raster_tiles", args,
-                      [recs_sorted, *ints, *out]), out
+                      [recs_sorted, *ints, order, *out]), out
 
 
 def _raster_tiles(recs_sorted, tile_ids, segments, ntx):

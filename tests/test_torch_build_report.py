@@ -3,7 +3,7 @@ library's ptxas table comes from a build in this process even when a
 library built earlier is current, and the check that no instance of
 csrc/alpha8.cu's walk (K1-K5, the any-hit kernel K2's instances among them)
 spills refuses a spill, a report without K2 and an empty report instead of
-passing them."""
+passing them; likewise the check of the raster kernel R (csrc/raster.cu)."""
 
 from __future__ import annotations
 
@@ -106,3 +106,30 @@ def test_cuda_ptxas_builds_when_the_process_has_built_nothing(
     assert builds == [tmp_path / native.CUDA_LIBRARY]
     native.cuda_ptxas()
     assert len(builds) == 1
+
+
+# The raster kernel R as nvcc reports it (csrc/raster.cu's
+# raster_tiles_kernel in the anonymous namespace: 14 pointers, 3 ints).
+RASTER_MANGLED = ("_ZN12_GLOBAL__N_119raster_tiles_kernelEPKfPKiS3_S3_S3_S3_"
+                  "S3_S3_S3_PfS4_S4_S4_S4_iii")
+
+
+def test_raster_check_reads_a_report():
+    """R's entry of a report in nvcc's words, demangled: its registers and
+    shared memory; a spill of another kernel is not this check's."""
+    log = (REPORT.format(name=RASTER_MANGLED, frame=0, spill=0, regs=40)
+           + REPORT.format(name="inst8_kernel", frame=0, spill=8, regs=64))
+    table = native.ptxas_table(log)
+    assert chip_smoke.RASTER_INSTANCE in table
+    assert chip_smoke.check_raster_ptxas(table) == (40, 0, 0, 0, 0)
+
+
+def test_raster_check_refuses_a_spill():
+    with pytest.raises(RuntimeError, match="spills"):
+        chip_smoke.check_raster_ptxas(
+            {chip_smoke.RASTER_INSTANCE: (40, 16, 8, 8, 28736)})
+
+
+def test_raster_check_refuses_a_report_without_r():
+    with pytest.raises(RuntimeError, match="no raster_tiles_kernel"):
+        chip_smoke.check_raster_ptxas(_table())

@@ -12,7 +12,15 @@ own traced visibility.  Then the hybrid frame at 64x48 with
 STEELJAX_RASTER=1.
 
 On the CPU the tile stage runs its plain version (_raster_tiles_plain);
-chip_smoke.py holds the kernel csrc/raster.cu to it on the card.
+chip_smoke.py holds the kernel csrc/raster.cu to it on the card.  Here a
+Python model of the kernel's order (slice tags, chunks of candidates culled
+by bounding box and compacted in walk order, the strips' reject, the
+winner's attributes at the end) is held bit-equal to the plain version on
+tie-heavy records at WINDOW 1, 3, 16 and 256 and on the Cornell frame, the
+plain version is held to the reference's _raster_tiles on those records
+(the same depths and triangles at every pixel), and the strips' corner
+bound, which the kernel's culls rest on, is held on
+random forms.
 
 The reference evaluates the linear forms with a (768, 3) @ (3, 7 * WINDOW)
 product, the port element by element in float32; at grazing pixels of a
@@ -395,3 +403,395 @@ def test_hybrid_renderer_keeps_trace_without_the_variable(monkeypatch):
     monkeypatch.setenv("STEELJAX_RASTER", "1")
     r.refresh_scene(prepared())
     assert r.raster_scene is not None
+
+
+# The raster kernel's order (csrc/raster.cu), modelled in Python.
+
+
+def kernel_model(recs, tile_ids, segments, ntx, chunk, shares=1):
+    """_raster_tiles as csrc/raster.cu computes it: each candidate tagged
+    with its slice (segment base, then offset // WINDOW); `chunk`
+    candidates at a time culled by bounding box and the covering ones kept
+    in walk order; a strip's `shares` warps take the chunk's staged pieces
+    32 at a time in turn (piece j of the chunk to warp (j // 32) % shares),
+    each skipping the pieces strip_rejects names for the strip; a warp's
+    pixel takes an inside piece on z > bz, or on z == bz with the tag of
+    its winner; then the greatest (z, -tag, row) of the warps' winners;
+    the winner's Fu, Fv, Fw and triangle evaluated once at the end."""
+    idx = torch.arange(raster.PX)
+    sub, lane = idx // raster.TILE_W, idx % raster.TILE_W
+    strip = sub // raster.STRIP_ROWS
+    strips = torch.arange(raster.TILE_H // raster.STRIP_ROWS)
+    n = tile_ids.shape[0]
+    outs = [np.full((n, raster.PX), v, np.float32)
+            for v in (-1.0, 0.0, 0.0, 1.0, -1.0)]
+    for i in range(n):
+        tile = int(tile_ids[i])
+        ty, tx = divmod(tile, ntx)
+        px = (tx * raster.TILE_W + lane).to(torch.float32) + 0.5
+        py = (ty * raster.TILE_H + sub).to(torch.float32) + 0.5
+        rows, tags, base = [], [], 0
+        for s in range(3):
+            start = int(segments[2 * s][i])
+            length = max(int(segments[2 * s + 1][i]), 0)
+            rows += range(start, start + length)
+            tags += [base + off // raster.WINDOW for off in range(length)]
+            base += -(-length // raster.WINDOW)
+        bz = np.full((shares, raster.PX), -1.0, np.float32)
+        btag = np.full((shares, raster.PX), -1)
+        brow = np.full((shares, raster.PX), -1)
+        for c0 in range(0, len(rows), chunk):
+            part = torch.tensor(rows[c0:c0 + chunk], dtype=torch.int64)
+            part_tags = np.array(tags[c0:c0 + chunk])
+            if part.numel() == 0:
+                continue
+            bmin = recs[part, raster._BMIN].to(torch.int64)
+            bmax = recs[part, raster._BMAX].to(torch.int64)
+            covers = ((tx >= bmin % 4096) & (tx <= bmax % 4096)
+                      & (ty >= bmin // 4096) & (ty <= bmax // 4096))
+            staged = part[covers]
+            staged_tags = part_tags[covers.numpy()]
+            if staged.numel() == 0:
+                continue
+            r = recs[staged][:, None, :]                       # (m, 1, 24)
+            skip = raster.strip_rejects(r, torch.tensor(tx), torch.tensor(ty),
+                                        strips)[:, strip]      # (m, PX)
+            z = raster._form(r, raster._Z, px, py)              # (m, PX)
+            inside = ((raster._form(r, raster._E0, px, py) >= 0.0)
+                      & (raster._form(r, raster._E1, px, py) >= 0.0)
+                      & (raster._form(r, raster._E2, px, py) >= 0.0)
+                      & (z > 0.0) & (z <= 1.0) & ~skip).numpy()
+            z = z.numpy()
+            for j, (row, tag) in enumerate(zip(staged.tolist(),
+                                               staged_tags)):
+                w = (j // 32) % shares
+                take = inside[j] & ((z[j] > bz[w]) | ((z[j] == bz[w])
+                                                      & (tag == btag[w])))
+                bz[w] = np.where(take, z[j], bz[w])
+                btag[w] = np.where(take, tag, btag[w])
+                brow[w] = np.where(take, row, brow[w])
+        for w in range(1, shares):
+            take = (bz[w] > bz[0]) | ((bz[w] == bz[0]) & (
+                (btag[w] < btag[0]) | ((btag[w] == btag[0])
+                                       & (brow[w] > brow[0]))))
+            bz[0] = np.where(take, bz[w], bz[0])
+            btag[0] = np.where(take, btag[w], btag[0])
+            brow[0] = np.where(take, brow[w], brow[0])
+        bz, brow = bz[0], brow[0]
+        win = torch.from_numpy(brow >= 0)
+        rw = recs[torch.from_numpy(brow).clamp(min=0)]          # (PX, 24)
+        outs[0][i] = bz
+        for k, base_col in ((1, raster._FU), (2, raster._FV),
+                            (3, raster._FW)):
+            outs[k][i] = torch.where(win, raster._form(rw, base_col, px, py),
+                                     outs[k][i][0]).numpy()
+        outs[4][i] = torch.where(win, rw[:, raster._TRI], -1.0).numpy()
+    return tuple(torch.from_numpy(o) for o in outs)
+
+
+def tie_records(seed: int, pieces: int = 360, ntx: int = 3, nty: int = 3):
+    """Tie-heavy piece records over a frame of ntx x nty subtiles, from a
+    seeded numpy generator: screen triangles from a pixel to the whole
+    frame, each triangle's edge forms as _piece_records makes them (a
+    fifth of them wound backwards: outside everywhere); depths from three
+    constant values and two shared planes (coplanar pieces), so equal z
+    at a pixel is common; random Fu, Fv, Fw; the bounding box of the
+    triangle's subtiles, or for a fifth of them a random one (candidates
+    that do not cover their subtile, and some that cover it but miss).
+    Returns records (pieces + 16, 24) float32, the last 16 rows zero."""
+    rng = np.random.default_rng(seed)
+    w, h = ntx * raster.TILE_W, nty * raster.TILE_H
+    recs = np.zeros((pieces + 16, 24), np.float32)
+    planes = [(0.0, 0.0, 0.25), (0.0, 0.0, 0.5), (0.0, 0.0, 0.75),
+              (2.0 ** -10, -2.0 ** -11, 0.375), (-2.0 ** -9, 0.0, 0.875)]
+    for i in range(pieces):
+        size = rng.choice([2.0, 12.0, 40.0, 160.0])
+        centre = rng.uniform(0.0, [w, h])
+        xy = (centre + rng.uniform(-size, size, (3, 2))).astype(np.float32)
+        (x0, y0), (x1, y1), (x2, y2) = xy
+        area2 = np.float32((x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0))
+        if abs(area2) < 1e-3:
+            continue
+        inv = np.float32(1.0) / area2 * np.float32(rng.choice([1.0, -1.0],
+                                                              p=[0.8, 0.2]))
+        for k, (xa, ya, xb, yb) in enumerate(((x1, y1, x2, y2),
+                                              (x2, y2, x0, y0),
+                                              (x0, y0, x1, y1))):
+            recs[i, 3 * k:3 * k + 3] = ((ya - yb) * inv, (xb - xa) * inv,
+                                        (xa * yb - xb * ya) * inv)
+        recs[i, raster._Z:raster._Z + 3] = planes[rng.integers(len(planes))]
+        recs[i, raster._FW:raster._FV + 3] = rng.normal(size=9)
+        recs[i, raster._FW + 2] += 2.0
+        recs[i, raster._TRI] = i
+        if rng.random() < 0.2:
+            t0 = rng.integers(0, [ntx, nty])
+            t1 = np.minimum(t0 + rng.integers(0, 3, 2), [ntx - 1, nty - 1])
+        else:
+            lo = np.clip((xy.min(0) - 0.5) // [raster.TILE_W, raster.TILE_H],
+                         0, [ntx - 1, nty - 1])
+            hi = np.clip((xy.max(0) - 0.5) // [raster.TILE_W, raster.TILE_H],
+                         0, [ntx - 1, nty - 1])
+            t0, t1 = lo.astype(int), hi.astype(int)
+        recs[i, raster._BMIN] = t0[0] + 4096 * t0[1]
+        recs[i, raster._BMAX] = t1[0] + 4096 * t1[1]
+    return torch.from_numpy(recs)
+
+
+def tie_segments(seed: int, pieces: int, tiles: int):
+    """Random candidate segments of `tiles` subtiles inside `pieces`
+    records: the two local segments anywhere (so they cross slice
+    boundaries at any WINDOW, and may overlap), each up to a third of the
+    records, and one big segment, longer than 256, for every subtile."""
+    rng = np.random.default_rng(seed)
+    sa = rng.integers(0, pieces // 2, tiles)
+    la = rng.integers(0, pieces // 3, tiles)
+    sb = rng.integers(0, pieces // 2, tiles)
+    lb = rng.integers(0, pieces // 3, tiles)
+    la[0], lb[1] = 0, 0
+    gs = np.full(tiles, pieces - 300)
+    gl = np.full(tiles, 300)
+    return tuple(torch.from_numpy(x.astype(np.int32))
+                 for x in (sa, la, sb, lb, gs, gl))
+
+
+@pytest.mark.parametrize("window", [1, 3, 16, 256])
+@pytest.mark.parametrize("chunk,shares", [(7, 1), (256, 1), (512, 2),
+                                          (100, 3)])
+def test_kernel_order_equals_plain_on_tie_records(monkeypatch, window, chunk,
+                                                  shares):
+    """The kernel's order gives _raster_tiles_plain's outputs bit for bit
+    on tie-heavy records at every WINDOW, for chunks unrelated to it and
+    for one to three warps a strip."""
+    monkeypatch.setattr(raster, "WINDOW", window)
+    recs = tie_records(11)
+    tile_ids = torch.arange(9, dtype=torch.int32)
+    segs = tie_segments(12, recs.shape[0] - 16, 9)
+    plain = raster._raster_tiles_plain(recs, tile_ids, segs, 3)
+    model = kernel_model(recs, tile_ids, segs, 3, chunk, shares)
+    for name, a, b in zip(("bz", "fu", "fv", "fw", "ft"), model, plain):
+        assert torch.equal(a, b), name
+    assert (plain[0] > 0.0).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("window", [1, 3, 16, 256])
+def test_plain_matches_reference_on_tie_records(monkeypatch, window):
+    """On the same tie-heavy records the plain version, which the kernel is
+    held to bit for bit, picks the reference's winners: depths and triangle
+    ids equal at every pixel, at every WINDOW in both.  The reference
+    evaluates Fu, Fv and Fw with its matrix product, which rounds
+    otherwise: they are held to 4 float32 ulps of |a| px + |b| py + |c| of
+    the winner's form (tie_records' triangle id is its row).  (The
+    reference slices WINDOW rows from each start, so its records carry
+    WINDOW zero rows more: a zero record's z = 0 is never inside.)"""
+    monkeypatch.setattr(raster, "WINDOW", window)
+    monkeypatch.setattr(raster_ref, "WINDOW", window)
+    recs = tie_records(11)
+    tile_ids = torch.arange(9, dtype=torch.int32)
+    segs = tie_segments(12, recs.shape[0] - 16, 9)
+    plain = raster._raster_tiles_plain(recs, tile_ids, segs, 3)
+    padded = np.concatenate([recs.numpy(), np.zeros((window, 24),
+                                                    np.float32)])
+    ref = [torch.from_numpy(np.array(x)) for x in raster_ref._raster_tiles(
+        jnp.asarray(padded), jnp.asarray(tile_ids.numpy()),
+        tuple(jnp.asarray(s.numpy()) for s in segs), 3)]
+    assert torch.equal(plain[0], ref[0])
+    assert torch.equal(plain[4], ref[4])
+    hit = plain[0] > 0.0
+    assert hit.float().mean() > 0.5
+    win = recs[plain[4].long().clamp(min=0)]                   # (9, PX, 24)
+    idx = torch.arange(raster.PX)
+    px = (tile_ids[:, None] % 3 * raster.TILE_W
+          + idx % raster.TILE_W).float() + 0.5
+    py = (tile_ids[:, None] // 3 * raster.TILE_H
+          + idx // raster.TILE_W).float() + 0.5
+    for k, col in ((1, raster._FU), (2, raster._FV), (3, raster._FW)):
+        scale = (win[..., col].abs() * px + win[..., col + 1].abs() * py
+                 + win[..., col + 2].abs())
+        err = (plain[k] - ref[k]).abs() / (scale * np.finfo(np.float32).eps)
+        print(f"WINDOW {window} column {col}: at most "
+              f"{float(err[hit].max()):.2f} ulps of the form's scale")
+        assert (err[hit] <= 4.0).all()
+
+
+def test_tie_records_are_tie_heavy():
+    """The records of tie_records put several inside pieces of one depth
+    on many pixels, so the slices decide winners (WINDOW 1, where the
+    first piece of the greatest z wins, and one slice a segment, where the
+    last does: no segment here is longer than 512, part on many
+    pixels), and candidates that do not cover
+    their subtile among the segments."""
+    recs = tie_records(11)
+    tile_ids = torch.arange(9, dtype=torch.int32)
+    segs = tie_segments(12, recs.shape[0] - 16, 9)
+    winners = []
+    for window in (1, 512):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(raster, "WINDOW", window)
+            winners.append(raster._raster_tiles_plain(recs, tile_ids, segs,
+                                                      3)[4])
+    assert int((winners[0] != winners[1]).sum()) > 1000
+    tile_ids = torch.arange(9, dtype=torch.int32)
+    segs = tie_segments(12, recs.shape[0] - 16, 9)
+    work = {"covering": 0, "candidates": 0}
+    ties = 0
+    for i in range(9):
+        ty, tx = divmod(i, 3)
+        rows = torch.cat([torch.arange(int(segs[2 * s][i]),
+                                       int(segs[2 * s][i])
+                                       + int(segs[2 * s + 1][i]))
+                          for s in range(3)])
+        r = recs[rows]
+        bmin, bmax = r[:, raster._BMIN].long(), r[:, raster._BMAX].long()
+        cov = ((tx >= bmin % 4096) & (tx <= bmax % 4096)
+               & (ty >= bmin // 4096) & (ty <= bmax // 4096))
+        work["covering"] += int(cov.sum())
+        work["candidates"] += rows.numel()
+        idx = torch.arange(raster.PX)
+        px = (tx * 32 + idx % 32).float() + 0.5
+        py = (ty * 24 + idx // 32).float() + 0.5
+        rc = r[cov][:, None, :]
+        z = raster._form(rc, raster._Z, px, py)
+        inside = ((raster._form(rc, raster._E0, px, py) >= 0)
+                  & (raster._form(rc, raster._E1, px, py) >= 0)
+                  & (raster._form(rc, raster._E2, px, py) >= 0))
+        zm = torch.where(inside, z, -1.0)
+        best = zm.max(dim=0).values
+        ties += int((((zm == best) & (best > 0)).sum(0) > 1).sum())
+    assert 0 < work["covering"] < work["candidates"]
+    assert ties > 1000
+
+
+def test_kernel_order_equals_plain_on_cornell(cornell):
+    """The same on the Cornell frame's binned records, all 12 subtiles."""
+    (_, _, rscene), _, frame, *_ = cornell
+    recs, _, tile_ids, segs = raster._binned(
+        rscene, torch.from_numpy(frame.view_proj), W, H, frame.camera_near)
+    ntx = W // raster.TILE_W
+    plain = raster._raster_tiles_plain(recs, tile_ids, segs, ntx)
+    model = kernel_model(recs, tile_ids, segs, ntx, 512, 2)
+    for a, b in zip(model, plain):
+        assert torch.equal(a, b)
+    assert (plain[0] > 0.0).float().mean() > 0.3
+
+
+def _edge_forms(regime: str, n: int, rng):
+    """n edge forms (a, b, c) float32 and a strip (tx, ty, strip) each, in
+    a 1920x1080 frame: "random" (|a|, |b| from 1e-8 to 1e3, |c| to 1e4),
+    "large_c" (|c| from 1e4 to 1e30), "near_zero" (c set so that the form
+    at the strip's corner where it is largest rounds to within a few units
+    in the last place of 0, on either side: the edge grazes the strip) and
+    "sliver" (as near_zero, with |a| or |b| 1e-7 to 1e-3 of the other: a
+    near-degenerate edge, almost parallel to the strip's rows or columns,
+    whose pixels differ by less than the rounding of the sum)."""
+    tx = rng.integers(0, 60, n)
+    ty = rng.integers(0, 45, n)
+    strip = rng.integers(0, 8, n)
+    sign = lambda: rng.choice([-1.0, 1.0], n)  # noqa: E731
+    a = sign() * 10.0 ** rng.uniform(-8, 3, n)
+    b = sign() * 10.0 ** rng.uniform(-8, 3, n)
+    if regime == "sliver":
+        small = rng.random(n) < 0.5
+        ratio = 10.0 ** rng.uniform(-7, -3, n)
+        a = np.where(small, np.abs(b) * ratio * np.sign(a), a)
+        b = np.where(small, b, np.abs(a) * ratio * np.sign(b))
+    a[rng.random(n) < 0.05] = 0.0
+    b[rng.random(n) < 0.05] = 0.0
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    if regime == "random":
+        c = (sign() * 10.0 ** rng.uniform(-3, 4, n)).astype(np.float32)
+    elif regime == "large_c":
+        c = (sign() * 10.0 ** rng.uniform(4, 30, n)).astype(np.float32)
+    else:
+        x_lo = (tx * 32).astype(np.float32) + np.float32(0.5)
+        y_lo = (ty * 24 + 3 * strip).astype(np.float32) + np.float32(0.5)
+        c = -(np.where(a >= 0, x_lo + np.float32(31), x_lo) * a
+              + np.where(b >= 0, y_lo + np.float32(2), y_lo) * b)
+        for _ in range(3):
+            step = rng.integers(-4, 5, n)
+            c = np.where(step > 0, np.nextafter(c, np.float32(np.inf)),
+                         np.where(step < 0, np.nextafter(
+                             c, np.float32(-np.inf)), c))
+        c = c.astype(np.float32)
+    return (torch.from_numpy(np.stack([a, b, c], -1)),
+            *(torch.from_numpy(t) for t in (tx, ty, strip)))
+
+
+def _rejected_but_inside(forms, tx, ty, strip):
+    """(rejected count, count of rejected forms that evaluate >= 0 at some
+    pixel centre of their strip), the forms as E0 of records otherwise
+    inside everywhere (E1 = E2 = 1, Z = 0.5)."""
+    recs = torch.zeros((forms.shape[0], 24), dtype=torch.float32)
+    recs[:, raster._E0:raster._E0 + 3] = forms
+    recs[:, raster._E1 + 2] = 1.0
+    recs[:, raster._E2 + 2] = 1.0
+    recs[:, raster._Z + 2] = 0.5
+    rej = raster.strip_rejects(recs, tx, ty, strip)
+    f = forms[rej]
+    col = torch.arange(raster.TILE_W)
+    row = torch.arange(raster.STRIP_ROWS)
+    px = ((tx[rej] * raster.TILE_W)[:, None, None] + col[None, None, :]
+          ).to(torch.float32) + 0.5
+    py = ((ty[rej] * raster.TILE_H + raster.STRIP_ROWS * strip[rej])
+          [:, None, None] + row[None, :, None]).to(torch.float32) + 0.5
+    value = raster._form(f[:, None, None, :], 0, px, py)   # (m, 3, 32)
+    return int(rej.sum()), int((value >= 0.0).flatten(1).any(1).sum())
+
+
+@pytest.mark.parametrize("regime", ["random", "large_c", "near_zero",
+                                    "sliver"])
+def test_strip_reject_is_sound(regime):
+    """A record the strip test rejects evaluates the rejecting edge below 0
+    at every pixel centre of the strip, under the rounded evaluation: the
+    test has no margin, and needs none (strip_rejects)."""
+    rng = np.random.default_rng({"random": 1, "large_c": 2, "near_zero": 3,
+                                 "sliver": 4}[regime])
+    rejected, wrong = _rejected_but_inside(*_edge_forms(regime, 200_000,
+                                                        rng))
+    assert rejected > 20_000
+    assert wrong == 0
+
+
+@pytest.mark.parametrize("regime", ["random", "large_c", "near_zero",
+                                    "sliver"])
+def test_corner_max_bounds_the_strip(regime):
+    """corner_max is at least the form's rounded value at every pixel centre
+    of the strip, for every form (test_strip_reject_is_sound sees only
+    those below 0 there), on the same kinds of forms, in two columns."""
+    rng = np.random.default_rng({"random": 5, "large_c": 6, "near_zero": 7,
+                                 "sliver": 8}[regime])
+    forms, tx, ty, strip = _edge_forms(regime, 50_000, rng)
+    recs = torch.zeros((forms.shape[0], 24), dtype=torch.float32)
+    recs[:, raster._Z:raster._Z + 3] = forms
+    recs[:, raster._E1:raster._E1 + 3] = forms
+    col = torch.arange(raster.TILE_W)
+    row = torch.arange(raster.STRIP_ROWS)
+    px = ((tx * raster.TILE_W)[:, None, None] + col[None, None, :]
+          ).to(torch.float32) + 0.5
+    py = ((ty * raster.TILE_H + raster.STRIP_ROWS * strip)[:, None, None]
+          + row[None, :, None]).to(torch.float32) + 0.5
+    for base in (raster._Z, raster._E1):
+        top = raster.corner_max(recs, base, tx, ty, strip)
+        value = raster._form(recs[:, None, None, :], base, px, py)
+        finite = torch.isfinite(top)
+        assert finite.float().mean() > 0.99
+        assert (value[finite] <= top[finite, None, None]).all()
+
+
+def test_density_order():
+    """The kernel's blocks take the rows by descending la + lb: a
+    permutation of the rows in int32."""
+    la = torch.tensor([3, 0, 9, 4, 4], dtype=torch.int32)
+    lb = torch.tensor([1, 0, 2, 8, 0], dtype=torch.int32)
+    order = raster.density_order(la, lb)
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(5))
+    dens = (la + lb)[order.long()]
+    assert (dens[:-1] >= dens[1:]).all()
+    assert order[0] == 3 and order[-1] == 1
+
+
+def test_raster_tiles_launcher_refuses_cpu_tensors():
+    recs = torch.zeros((20, 24), dtype=torch.float32)
+    zero = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        raster.raster_tiles_launcher(recs, zero, (zero,) * 6, 1)
