@@ -53,11 +53,16 @@ PyTorch version:
     visibility rasterized, R (csrc/raster.cu, the tile stage of
     render/hybrid/raster.py: one thread block a 32x24 subtile) once a
     frame in K1's place, K2 for the sun rays;
-  * paths LS and FS, path L's and path F's scenes prepared with
-    STEELJAX_SBVH=1 (the reference's switch: spatial splits, so a
-    triangle may sit under several leaves, one record a slot): K1 and K2
-    on LS, K4 on FS and, with multihit_k = 4, K5 over the reference-list
-    tables.
+  * paths LS, FS, IS and US, path L's, path F's, path I's and path U's
+    scenes prepared with STEELJAX_SBVH=1 (the reference's switch: spatial
+    splits, so a triangle may sit under several leaves, one record a
+    slot): K1 and K2 on LS, K4 on FS and, with multihit_k = 4, K5 over the
+    reference-list tables, K6 on IS (whose BLAS take no split) and on
+    opaque leaf cards whose BLAS does, K7 on US;
+  * STEELJAX_SHADE_MODE (the reference's cap on the flat nearest trace's
+    fused shading) unset and at 0 on Cornell and paths L, T and H: K1 in
+    shade mode 0 with the tri_shade row gather after it (on path T in
+    K3's place), and the textured tables' cap of 1 refused.
 Paths L, T, F, S, J, U, UL, C, L16, LS and FS are above the repack threshold
 (path I's 310 instances of 544 records on average are not), so their rays
 are repacked before every secondary bounce, and the alpha paths' re-traces
@@ -199,7 +204,23 @@ Phases:
      object-SAH row's; the frames of LS, FS and FS with multihit_k = 4
      (launches, busy time, kernels a frame) beside paths L, F and F
      multihit of this call, the pixels beyond 1e-4 against them, each
-     held to it (as path L16 to path L).
+     held to it (as path L16 to path L); likewise paths IS and US (path
+     I's and path U's scenes: the pool's references and BLAS build
+     seconds, the treelets' references, count and depth) with K6 and its
+     any-hit query on path I's rays over IS's tables, K7 on path U's
+     primaries over US's, and K6 both ways over the cards case's split
+     BLAS (make_foliage_scene(cards=CARDS_IS) opaque and untextured, no
+     frame), the frames of IS and US beside paths I and U;
+  19. STEELJAX_SHADE_MODE (phase_shade_mode): tri_shade on the card for
+     every path; K1 in shade mode 0 alone on the primaries of Cornell,
+     path L and path T and on path H's G-buffer rays, against its plain
+     version, beside phase 3b's K1 and K3 rows; Cornell, paths L and T
+     (drive_path, one warm and 2 timed frames) and path H with the switch
+     unset and at 0 in turns (unset, 0, 0, unset): launches (capped, path
+     T launches K1 for K3), the integrator's material branch by its
+     ranges, ms/frame, device busy, kernels a frame, the trace kernels,
+     rays_traced, and each capped frame held to the uncapped one beside
+     it (SHADE_PIXEL_DIVISOR, SHADE_RAYS_PER_PIXEL); path T at 1 raises.
 The second-to-last line is the kernels' JSON summary (K1's and K2's
 entries carry their rows of paths H, C and L16 and their launches a frame
 there under "path_h", "path_c" and "path_l16"; a kernel that phase 15's
@@ -208,7 +229,10 @@ TestSystem engine's hybrid ticks as "testsystem", its path-traced ticks
 as "pt", the default engine's ticks as "default"; K1 and K2 carry path
 G's launches under "path_g": the capture's and a GI frame's; K1, K2, K4
 and K5 carry phase 18's rows under "sbvh", with the launches a frame of
-paths LS, FS and FS multihit and their tables' counts; R's bound_ms is
+paths LS, FS and FS multihit and their tables' counts, K6, K6_anyhit and
+K7 theirs of paths IS and US, and K6 and K6_anyhit the cards case's
+under "sbvh_cards"; K1 carries phase 19's rows under "shade_mode0", with
+its launches a frame under STEELJAX_SHADE_MODE=0; R's bound_ms is
 counted at strip granularity from the bytes its work reads, its entry
 carries the bound at subtile granularity as "subtile_bound_ms", its
 (subtile, winner) pairs, its work split, the tail, the tie-heavy launch,
@@ -267,9 +291,10 @@ OPS_PER_MASK_TEST = 16
 # (9 products, 6 sums each) and scales the uv density; entering an instance
 # transforms the ray (origin 9 products and 9 sums, direction 9 and 6) and
 # takes three guarded reciprocals: 45.
-OPS_EPILOGUE = {"K1": 25, "K3": 60, "K2": 0, "K2_dense": 0, "K4": 0,
-                "K4_anyhit": 0, "K5": 0, "K6": 40, "K6_shade2": 91,
-                "K6_anyhit": 0, "K7": 60, "K7_shade1": 25, "K7_anyhit": 0}
+OPS_EPILOGUE = {"K1": 25, "K1_shade0": 0, "K3": 60, "K2": 0,
+                "K2_dense": 0, "K4": 0, "K4_anyhit": 0, "K5": 0, "K6": 40,
+                "K6_shade2": 91, "K6_anyhit": 0, "K7": 60, "K7_shade1": 25,
+                "K7_anyhit": 0}
 # The treelet pick reads each ray's K entry distances, its t_far and its
 # visited words and writes one key per packet; per (ray, treelet) it tests
 # a visited bit and compares twice (4 operations).
@@ -299,7 +324,13 @@ ROWS = (("K1", "Cornell", PRIMARIES), ("K1", "path L", PRIMARIES),
         ("K2", "path L16", SHADOW), ("K1", "path G", PROBE),
         ("K2", "path G", PROBE_SHADOW), ("K1", "path LS", PRIMARIES),
         ("K2", "path LS", SHADOW), ("K4", "path FS", PRIMARIES),
-        ("K5", "path FS", PRIMARIES))
+        ("K5", "path FS", PRIMARIES), ("K6", "path IS", PRIMARIES),
+        ("K6_anyhit", "path IS", SHADOW), ("K6", "cards IS", PRIMARIES),
+        ("K6_anyhit", "cards IS", SHADOW),
+        ("K1_shade0", "Cornell", PRIMARIES),
+        ("K1_shade0", "path L", PRIMARIES),
+        ("K1_shade0", "path T", PRIMARIES),
+        ("K1_shade0", "path H", GBUFFER))
 # The earlier designs of K1-K5 (one thread per ray, scalar loads, a stack
 # in local memory, each leaf tested as it is popped), per ray on the same
 # rays as phase 3b: counted by their COUNT instances on the H100 (K4, K5:
@@ -334,6 +365,12 @@ EARLIER_PER_RAY = {
     ("K2_dense", "path L", SHADOW): {"supernode_pops": 0.4516,
                                      "triangle_tests": 0.4384},
 }
+# K1 in shade mode 0 (STEELJAX_SHADE_MODE=0, phase 19) walks as K1 and K3
+# do on the same rays and tables: the same earlier counts cap its bound.
+for _path, _row in (("Cornell", ("K1", "Cornell", PRIMARIES)),
+                    ("path L", ("K1", "path L", PRIMARIES)),
+                    ("path T", ("K3", "path T", PRIMARIES))):
+    EARLIER_PER_RAY[("K1_shade0", _path, PRIMARIES)] = EARLIER_PER_RAY[_row]
 assert set(EARLIER_PER_RAY) <= set(ROWS)
 # The walk of csrc/alpha8.cu (K1-K5) in ptxas' report: every instance's
 # name starts so, and K2's (ANY, K = 1, no masks; COUNT either way) so.
@@ -344,9 +381,10 @@ K2_INSTANCE = "alpha8_kernel<1, 1, false, false, "
 # kernel (K5 writes K = 4 slots of t, u, v and tri).
 RAY_IN_BYTES = 32
 DEAD_RAY_IN_BYTES = 8
-RAY_OUT_BYTES = {"K1": 32, "K3": 56, "K2": 1, "K2_dense": 1, "K4": 16,
-                 "K4_anyhit": 1, "K5": 64, "K6": 36, "K6_shade2": 60,
-                 "K6_anyhit": 1, "K7": 56, "K7_shade1": 32, "K7_anyhit": 1}
+RAY_OUT_BYTES = {"K1": 32, "K1_shade0": 16, "K3": 56, "K2": 1,
+                 "K2_dense": 1, "K4": 16, "K4_anyhit": 1, "K5": 64,
+                 "K6": 36, "K6_shade2": 60, "K6_anyhit": 1, "K7": 56,
+                 "K7_shade1": 32, "K7_anyhit": 1}
 # Table bytes a kernel reads per distinct entry its walk touches: a
 # supernode pop reads floats 0-7 of each of the row's 8 (or 16) children
 # (SNODE_CHILD_BYTES each); a triangle
@@ -356,15 +394,15 @@ RAY_OUT_BYTES = {"K1": 32, "K3": 56, "K2": 1, "K2_dense": 1, "K4": 16,
 # (K5); the epilogue reads the winner's shade record (mode 1: 10 floats,
 # mode 2: 26).
 SNODE_CHILD_BYTES = 8 * 4
-TRI_RECORD_BYTES = {"K1": 40, "K3": 40, "K2": 36, "K2_dense": 36,
-                    "K4": 40, "K4_anyhit": 40, "K5": 40, "K6": 40,
-                    "K6_shade2": 40, "K6_anyhit": 36, "K7": 40,
+TRI_RECORD_BYTES = {"K1": 40, "K1_shade0": 40, "K3": 40, "K2": 36,
+                    "K2_dense": 36, "K4": 40, "K4_anyhit": 40, "K5": 40,
+                    "K6": 40, "K6_shade2": 40, "K6_anyhit": 36, "K7": 40,
                     "K7_shade1": 40, "K7_anyhit": 36}
 FINE_WORD_BYTES = {"K4": 4, "K4_anyhit": 4, "K5": 8}
-SHADE_RECORD_BYTES = {"K1": 40, "K3": 104, "K2": 0, "K2_dense": 0, "K4": 0,
-                      "K4_anyhit": 0, "K5": 0, "K6": 40, "K6_shade2": 104,
-                      "K6_anyhit": 0, "K7": 104, "K7_shade1": 40,
-                      "K7_anyhit": 0}
+SHADE_RECORD_BYTES = {"K1": 40, "K1_shade0": 0, "K3": 104, "K2": 0,
+                      "K2_dense": 0, "K4": 0, "K4_anyhit": 0, "K5": 0,
+                      "K6": 40, "K6_shade2": 104, "K6_anyhit": 0, "K7": 104,
+                      "K7_shade1": 40, "K7_anyhit": 0}
 # K6 reads of an instance row: entering it, the inverse 3x4, the BLAS root
 # and the double-sided flag (14 floats); shading a winner, the material id
 # and the normal matrix (10 floats), in mode 2 also 1 / scale and the world
@@ -693,7 +731,8 @@ def _least_bound(row, entry: dict, other: dict, source: str) -> None:
           f"({source})")
 
 
-def _timed_treelet_trace(name, tt, rays, subset, cull, any_hit) -> dict:
+def _timed_treelet_trace(name, tt, rays, subset, cull, any_hit, check=None,
+                         label=None) -> dict:
     """The treelet kernel K7 over one trace of `rays` through the scheduler:
     the device time of the trace's K rounds, and of the whole trace, its
     first pick included (timing.trace_device_ms: the host queues every
@@ -702,7 +741,10 @@ def _timed_treelet_trace(name, tt, rays, subset, cull, any_hit) -> dict:
     every ray read and written once, the table entries the rounds touched,
     each once, the rounds' operations.  The plain version's time is one
     trace of the strided `subset` through the scheduler with the plain
-    round and pick."""
+    round and pick.  `check(plain_rec)`, where given, holds the kernels'
+    trace of the subset against that plain trace and returns
+    kernel_parity's comparison; the row raises unless it passes.  `label`
+    names the row in the printout (default `name`)."""
     from steeljax_torch.accel import cuda_traverse as ct
     from steeljax_torch.accel import treelets as treelets_lib
     from steeljax_torch.apps import kernel_parity as kp
@@ -728,19 +770,38 @@ def _timed_treelet_trace(name, tt, rays, subset, cull, any_hit) -> dict:
     kernel_ms = trace_device_ms(tt, rays, cull, any_hit, pick=False)
     trace_ms = trace_device_ms(tt, rays, cull, any_hit)
     plain = kp.plain_round(tt, cull, any_hit)
-    plain_ms = time_ms(lambda: treelets_lib.trace_treelets(
-        tt, *subset, cull, any_hit, trace_fn=plain), 1)
-    print(f"{name}: {n_rays} rays, {k} treelets, the {k} rounds of one "
-          f"trace: device {kernel_ms:.4f} ms; the whole trace (first pick "
+    kept = {}
+
+    def plain_kept():
+        kept["rec"] = treelets_lib.trace_treelets(tt, *subset, cull,
+                                                  any_hit, trace_fn=plain)
+
+    plain_ms = time_ms(plain_kept, 1)
+    entry = {"ms": kernel_ms, "trace_ms": trace_ms, "plain_ms": plain_ms,
+             "plain_rays": subset[0].shape[0], "rays": n_rays,
+             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+             "trace_bound_ms": bound["bound_ms"], "rounds": k,
+             "live_packets": live}
+    held = ""
+    if check is not None:
+        parity = check(kept["rec"])
+        entry["parity"] = parity
+        entry["parity_max_abs_err"] = max(parity.get(f, 0.0) for f in (
+            "max_t_delta", "max_normal_delta", "max_tan_delta",
+            "max_uv_delta"))
+        if not parity["ok"]:
+            raise RuntimeError(f"{label or name}: the kernels disagree with "
+                               f"the plain trace: {parity}")
+        held = (f", max |kernel - plain| {entry['parity_max_abs_err']:.3e}"
+                f" ({parity['hit_mismatches']} hit mismatches)")
+    print(f"{label or name}: {n_rays} rays, {k} treelets, the {k} rounds of "
+          f"one trace: device {kernel_ms:.4f} ms; the whole trace (first pick "
           f"and {k} rounds) {trace_ms:.4f} ms; plain {plain_ms:.4f} ms "
           f"for one trace of {subset[0].shape[0]} rays (a strided subset) "
-          f"through the scheduler; live packets of {-(-n_rays // block)} by "
-          f"round {live}; the trace as one function: " + _bound_text(bound))
-    return {"ms": kernel_ms, "trace_ms": trace_ms, "plain_ms": plain_ms,
-            "plain_rays": subset[0].shape[0], "rays": n_rays,
-            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "trace_bound_ms": bound["bound_ms"], "rounds": k,
-            "live_packets": live}
+          f"through the scheduler{held}; live packets of "
+          f"{-(-n_rays // block)} by round {live}; the trace as one "
+          "function: " + _bound_text(bound))
+    return entry
 
 
 def _timed_treelet_pick(tt, rays, any_hit) -> dict:
@@ -846,8 +907,8 @@ def phase_prepare(device) -> tuple[dict, dict, dict, dict]:
     refresh_scene() with the seconds of that re-preparation, and put
     back.  Returns ({name: (scene,
     flat, tables)}, {name: renderer} of the instanced paths, {name: host
-    seconds of the preparation}, {name: {step: host seconds}} of the flat
-    paths)."""
+    seconds of the preparation}, {name: {step: host seconds}} of the first
+    preparations)."""
     from steeljax_torch.apps import kernel_parity
     from steeljax_torch.core.config import RenderConfig
     from steeljax_torch.render.pt.renderer import PathTracingRenderer
@@ -871,6 +932,7 @@ def phase_prepare(device) -> tuple[dict, dict, dict, dict]:
             lambda: PathTracingRenderer(scene, WIDTH, HEIGHT, config,
                                         instancing=True, device=device))
         renderers[name] = renderer
+        steps_by[name] = steps
         first = renderer.tables
         scenes[name] = (scene, renderer.flat, first)
         print(f"PathTracingRenderer(instancing=True) {name}: "
@@ -1016,9 +1078,9 @@ def _chunked_row(row, flat, tables, one_chunk, rays, any_hit: bool) -> dict:
 
 def _nearest_row(row, chunk, flat, mode, rays, subset, source=None,
                  plain_calls: int = 3):
-    """Phase 3b's row of K1 or K3 (by shade `mode`) through the chunk's
-    record tables, as the render path calls it, on `rays`, held against
-    its plain version on `subset` with kernel_parity's tolerances
+    """Phase 3b's row of K1 or K3 (by shade `mode`, 0 to 2) through the
+    chunk's record tables, as the render path calls it, on `rays`, held
+    against its plain version on `subset` with kernel_parity's tolerances
     (`source`: the slots' source triangles, kernel_parity.source_ids, for
     spatial-split tables; `plain_calls` as _timed_kernel's)."""
     from steeljax_torch.accel import cuda_traverse as ct
@@ -1026,7 +1088,7 @@ def _nearest_row(row, chunk, flat, mode, rays, subset, source=None,
 
     args = (chunk.bvh8, chunk.tris_packed)
     shade = chunk.shade_packed if mode else None
-    fields = {"nrm": flat.tri_nrm, "mat": flat.tri_mat}
+    fields = {"nrm": flat.tri_nrm, "mat": flat.tri_mat} if mode else None
     if mode == 2:
         fields.update(tan=flat.tri_tan, uv=flat.tri_uv)
 
@@ -1037,7 +1099,8 @@ def _nearest_row(row, chunk, flat, mode, rays, subset, source=None,
         results = {}
         kp._compare(" ".join(row), rec, plain_rec,
                     flat.tri_pos.cpu().numpy(), results,
-                    attrs={k: v.cpu().numpy() for k, v in fields.items()},
+                    attrs=fields and {k: v.cpu().numpy()
+                                      for k, v in fields.items()},
                     d=subset[1].cpu().numpy(), source=source)
         return results[" ".join(row)]
 
@@ -1513,7 +1576,7 @@ def _reset_launches() -> None:
 
 
 def drive_path(label, scene, flat, tables, expected: dict,
-               frames: int = TIMED_FRAMES) -> dict:
+               frames: int = TIMED_FRAMES, spans=()) -> dict:
     """Render one warm and `frames` timed 1280x720 frames of a prepared
     scene through render_pixels, with the launch counts set to 0 just
     before and read just after; check the launches (each kernel of
@@ -1529,8 +1592,10 @@ def drive_path(label, scene, flat, tables, expected: dict,
     must have traced once per material and per shadow trace, with one
     launch of the pick kernel and K rounds per trace and no host read; the
     traces, rounds (the launches) and host reads per frame are printed.
-    Returns the launches, ms/frame, rays/s, rays per frame and the last
-    frame."""
+    The profiled frames also give the device span of each record_function
+    range named in `spans`.  Returns the launches, ms/frame, rays/s, rays
+    per frame, the last frame, and the profiled frames' busy time, device
+    kernels, trace kernels' times and spans."""
     from steeljax_torch.accel import cuda_traverse, treelets
     from steeljax_torch.core import camera as camera_lib
     from steeljax_torch.core.config import RenderConfig
@@ -1647,7 +1712,7 @@ def drive_path(label, scene, flat, tables, expected: dict,
               "trace call in bounce order: "
               + "; ".join(f"{name} {counts}" for name, counts in calls))
 
-    prof = _profile_frames(lambda: step(total))
+    prof = _profile_frames(lambda: step(total), spans=spans)
     if prof["busy_ms"] > 0.0:
         share = sum(prof["trace_ms"].values())
         print(f"{label} torch.profiler, per frame: device busy "
@@ -1661,7 +1726,9 @@ def drive_path(label, scene, flat, tables, expected: dict,
               f"{100.0 * share / prof['busy_ms']:.1f}% of device time, "
               f"{100.0 * share / ms_frame:.1f}% of the unprofiled frame ("
               + ", ".join(f"{k} {v:.3f} ms" for k, v in
-                          sorted(prof["trace_ms"].items())) + ")")
+                          sorted(prof["trace_ms"].items())) + ")"
+              + "".join(f"; range {k} {prof['span_ms'].get(k, 0.0):.3f} ms"
+                        for k in spans))
         for ms, count, key in prof["top"]:
             print(f"  {ms:8.3f} ms/frame in {count:6.0f} launches: "
                   f"{key[:90]}")
@@ -1671,7 +1738,8 @@ def drive_path(label, scene, flat, tables, expected: dict,
     return {"launches": launches, "ms_frame": ms_frame,
             "rays_per_s": rays_per_s, "rays_frame": sum(per_frame) / frames,
             "image": image, "scheduler": scheduler,
-            "busy_ms": prof["busy_ms"], "device_kernels": prof["kernels"]}
+            "busy_ms": prof["busy_ms"], "device_kernels": prof["kernels"],
+            "trace_ms": prof["trace_ms"], "span_ms": prof["span_ms"]}
 
 
 def _same_frame(label, ours: dict, ref_label, ref: dict) -> None:
@@ -1706,6 +1774,7 @@ def phase_cornell(device) -> dict:
           f"{tables.bvh8.rows.shape[0]} BVH8 rows, depth "
           f"{tables.bvh8.depth}, {time.perf_counter() - t0:.3f} s")
     out = drive_path("Cornell", scene, flat, tables, {"K1": 1})
+    out["prepared"] = (scene, flat, tables)
 
     with tempfile.TemporaryDirectory() as tmp:
         png_path = Path(tmp) / "cornell.png"
@@ -3820,7 +3889,14 @@ def _raster_kernel(rscene, view_proj, width, height, near, ptxas: dict,
 # STEELJAX_SBVH=1, the reference's switch (steeljax/accel/bvh.py:120-143:
 # spatial splits at alpha 1e-5, the reference list at most 1.5x the
 # triangles), which bvh.build_bvh's "auto" method reads at the build.
-SBVH_SCENES = {"path LS": "sunlit", "path FS": "foliage"}
+SBVH_SCENES = {"path LS": "sunlit", "path FS": "foliage",
+               "path IS": "sunlit_inst", "path US": "stress_tex_treelets"}
+# Path IS's three BLAS (a sphere, a box, a quad) take no split at any
+# alpha, so its trees are path I's.  The two-level kernel K6 meets a
+# reference list in phase 18's cards case: path F's leaf cards at
+# CARDS_IS cards, opaque and untextured (shade mode 1), one split BLAS
+# beside the ground quad, under STEELJAX_SBVH=1.
+CARDS_IS = 50_000
 # Phase 18 times each plain version over one call after a warm one (the
 # brute-force calls take 2-6 s each; phase 3b's rows take 3).
 PLAIN_CALLS_SBVH = 1
@@ -3864,11 +3940,139 @@ def _sbvh_tables(label, flat, tables, steps, sah_steps) -> dict:
     return out
 
 
+def _pool_sources(tables) -> np.ndarray:
+    """The source triangle of every record of a two-level pool
+    (kernel_parity.source_ids over its Hopper records' v0, e1, e2): the
+    slots of one triangle in a split BLAS have identical records."""
+    from steeljax_torch.apps import kernel_parity as kp
+
+    rec = tables.tri_records.cpu().numpy()
+    return kp.source_ids(np.stack([rec[:, 0:3], rec[:, 4:7], rec[:, 8:11]],
+                                  axis=1))
+
+
+def _sbvh_pool(label, tables, steps, sah_label, sah_tables, sah_steps
+               ) -> dict:
+    """Print and return what the spatial splits did to two-level tables:
+    the pool's real records (references) and the distinct triangles among
+    them, both ways, the supernode rows and depth, and the host seconds of
+    the BLAS builds (instances.blas) both ways.  A BLAS that takes no split
+    keeps the object-SAH tree (the split search finds no split worth its cost
+    in a closed, finely tessellated mesh)."""
+    def counts(t):
+        real = t.tri_records[:, 0].cpu().numpy() < 1e37
+        return int(real.sum()), int(np.unique(_pool_sources(t)[real]).size)
+
+    refs, source = counts(tables)
+    sah_refs, sah_source = counts(sah_tables)
+    out = {"source_triangles": source, "references": refs,
+           "sah_references": sah_refs, "blas": len(tables.blas_tri_offset),
+           "instances": tables.instance_count,
+           "supernode_rows": int(tables.snode_rows.shape[0]),
+           "depth": tables.depth,
+           "sbvh_blas_s": steps.get("instances.blas", 0.0),
+           "sah_blas_s": sah_steps.get("instances.blas", 0.0)}
+    print(f"{label}: {tables.instance_count} instances of {out['blas']} "
+          f"BLAS, {refs} references for {source} distinct triangles "
+          f"({sah_refs} for {sah_source} on {sah_label}), "
+          f"{out['supernode_rows']} supernode rows, two-level depth "
+          f"{tables.depth}; "
+          + ("split" if refs > source
+             else "no BLAS split (the object-SAH trees)")
+          + f"; host seconds of the BLAS builds {out['sbvh_blas_s']:.3f} "
+          f"with splits, {out['sah_blas_s']:.3f} object SAH")
+    return out
+
+
+def _sbvh_treelets(label, flat, tables, steps, sah_label, sah_tables,
+                   sah_steps) -> dict:
+    """Print and return what the spatial splits did to treelet tables:
+    references against source triangles, treelets and BVH8 depth both
+    ways, and the host seconds of the one global build both ways."""
+    def refs(t):
+        nodes = t.chunks[0].bvh.nodes
+        return int(nodes[nodes[:, 7] > 0, 7].sum())
+
+    tt, sah_tt = tables.treelets, sah_tables.treelets
+    out = {"source_triangles": flat.source_tri_count,
+           "references": refs(tables), "padded": tables.chunks[0].rows,
+           "treelets": tt.count, "bvh8_depth": tt.depth,
+           "sah_references": refs(sah_tables), "sah_treelets": sah_tt.count,
+           "sah_bvh8_depth": sah_tt.depth,
+           "sbvh_build_bvh_s": steps.get("prepare_tables.build_bvh", 0.0),
+           "sah_build_bvh_s": sah_steps.get("prepare_tables.build_bvh",
+                                            0.0)}
+    print(f"{label}: {out['source_triangles']} source triangles, "
+          f"{out['references']} references "
+          f"({out['references'] / out['source_triangles']:.4f}x), "
+          f"{out['padded']} padded slots, {tt.count} treelets, BVH8 depth "
+          f"{tt.depth} ({sah_label}: {out['sah_references']} references, "
+          f"{sah_tt.count} treelets, depth {sah_tt.depth}); host seconds "
+          f"of the build {out['sbvh_build_bvh_s']:.3f} with splits, "
+          f"{out['sah_build_bvh_s']:.3f} object SAH")
+    if out["references"] <= out["source_triangles"]:
+        raise RuntimeError(f"{label}: the spatial splits made no reference")
+    return out
+
+
+def _inst_row(row, tables, rays, any_hit: bool, source=None,
+              plain_calls: int = PLAIN_CALLS_SBVH) -> dict:
+    """Phase 3b's row of K6 (nearest, culling on) or its any-hit query on
+    `rays` through two-level `tables`, held against its plain version on a
+    strided subset (`source`: the pool's source triangles, _pool_sources,
+    for split BLAS)."""
+    from steeljax_torch.accel import cuda_traverse as ct
+    from steeljax_torch.apps import kernel_parity as kp
+
+    subset = kp.strided_subset(rays, kp.SHADOW_SUBSET)
+    label = " ".join(row)
+
+    def check(plain_rec):
+        rec = ct.trace_nearest_bvh8_inst(tables, *subset, not any_hit,
+                                         any_hit)
+        torch.cuda.synchronize()
+        results = {}
+        if any_hit:
+            kp._compare_hits(label, rec["hit"], plain_rec["hit"], results)
+        else:
+            kp._compare(label, rec, plain_rec, None, results, direct=True,
+                        source=source)
+        return results[label]
+
+    return _timed_kernel(
+        row, lambda counters: ct.inst_launcher(
+            tables, *rays, not any_hit, any_hit, counters=counters),
+        lambda: ct.trace_nearest_bvh8_inst_plain(tables, *subset,
+                                                 not any_hit, any_hit),
+        rays, subset[0].shape[0], check, plain_calls=plain_calls)
+
+
+def _opaque_cards(device):
+    """Phase 18's cards case: make_foliage_scene(cards=CARDS_IS) with its
+    leaves opaque and untextured, prepared through the two-level structure
+    under STEELJAX_SBVH=1 (the caller sets it): (scene, flat, tables)."""
+    from steeljax_torch.accel.instances import InstancedAccel
+    from steeljax_torch.render.pt.renderer import prepare_scene
+    from steeljax_torch.scene.builtin import make_foliage_scene
+    from steeljax_torch.scene.material import MaterialFlags
+
+    scene = make_foliage_scene(cards=CARDS_IS)
+    scene.textures = []
+    for material in scene.materials:
+        material.base_color_texture = -1
+        material.flags &= ~MaterialFlags.ALPHA_TEST
+    flat, tables = prepare_scene(scene, device, env_resolution=64,
+                                 accel=InstancedAccel(device=device))
+    return scene, flat, tables
+
+
 def phase_sbvh(device, scenes, kernels, prepare_steps, sah_paths) -> dict:
-    """Paths LS and FS: path L's and path F's scenes prepared as a user
-    would (kernel_parity.prepare_path_scene) with STEELJAX_SBVH=1, which is
-    restored afterwards; FS multihit is path FS's tables with multihit_k =
-    4.  Prints each tree's counts and build seconds (_sbvh_tables).  Times,
+    """Paths LS, FS, IS and US: path L's, path F's, path I's and path U's
+    scenes prepared as a user would (kernel_parity.prepare_path_scene) with
+    STEELJAX_SBVH=1, which is restored afterwards, and the cards case
+    (_opaque_cards); FS multihit is path FS's tables with multihit_k = 4.
+    Prints each tree's counts and build seconds (_sbvh_tables, _sbvh_pool,
+    _sbvh_treelets).  Times,
     as phase 3b's rows, K1 and K2 on path L's primaries and first-bounce
     shadow rays and K4 and K5 (K = 4) on path F's primaries, over the
     spatial-split tables, each against its plain version on a strided
@@ -3876,13 +4080,18 @@ def phase_sbvh(device, scenes, kernels, prepare_steps, sah_paths) -> dict:
     duplicated triangle may come from either slot; K5's lists compared
     without repeats, kernel_parity._compare_slots_by_source), its bound the
     smaller of its own and the object-SAH row's on the same rays
-    (_least_bound).  Then the frames of LS, FS and FS multihit (drive_path:
-    launches, busy time, kernels a frame) beside the object-SAH frames of
-    phases 5a, 7a and 7c in this call, the pixels beyond 1e-4 against them,
-    each held to it (_same_frame).  Returns {"tables", "rows", "frames"}."""
+    (_least_bound); K6 and its any-hit query on path I's primaries and
+    first-bounce shadow rays over IS's tables and on the cards' own, K7 on
+    path U's primaries over US's tables, likewise.  Then the frames of LS,
+    FS, FS multihit, IS and US (drive_path: launches, busy time, kernels a
+    frame) beside the object-SAH frames of phases 5a, 7a, 7c, 9a and 10a in
+    this call, the pixels beyond 1e-4 against them, each held to it
+    (_same_frame).  Returns {"tables", "rows" (by kernel), "cards_rows" (K6
+    and K6_anyhit on the cards), "frames"}."""
     import os
 
     from steeljax_torch.accel import cuda_traverse as ct
+    from steeljax_torch.accel import treelets as treelets_lib
     from steeljax_torch.apps import kernel_parity as kp
 
     prepared, info = {}, {}
@@ -3894,13 +4103,45 @@ def phase_sbvh(device, scenes, kernels, prepare_steps, sah_paths) -> dict:
                 lambda: kp.prepare_path_scene(name, device))
             print(f"prepare_scene {label} (STEELJAX_SBVH=1): {seconds:.3f} "
                   f"s (scene construction included): {_steps_text(steps)}")
-            info[label] = _sbvh_tables(label, *prepared[label][1:], steps,
-                                       prepare_steps[name])
+            sah_label = label[:-1]
+            if name in kp.INSTANCED_SCENES:
+                info[label] = _sbvh_pool(label, prepared[label][2], steps,
+                                         sah_label, scenes[name][2],
+                                         prepare_steps[name])
+            elif name in kp.TREELET_SCENES:
+                info[label] = _sbvh_treelets(
+                    label, *prepared[label][1:], steps, sah_label,
+                    scenes[name][2], prepare_steps[name])
+            else:
+                info[label] = _sbvh_tables(label, *prepared[label][1:],
+                                           steps, prepare_steps[name])
+        cards, seconds, steps = _profiled_steps(lambda: _opaque_cards(device))
     finally:
         if before is None:
             del os.environ["STEELJAX_SBVH"]
         else:
             os.environ["STEELJAX_SBVH"] = before
+    cards_tables = cards[2]
+    real = cards_tables.tri_records[:, 0].cpu().numpy() < 1e37
+    cards_source = _pool_sources(cards_tables)
+    info["cards"] = {"references": int(real.sum()),
+                     "source_triangles": int(np.unique(
+                         cards_source[real]).size),
+                     "blas": len(cards_tables.blas_tri_offset),
+                     "depth": cards_tables.depth,
+                     "shade_mode": cards_tables.shade_mode,
+                     "prepare_s": seconds,
+                     "blas_s": steps.get("instances.blas", 0.0)}
+    print(f"cards IS (make_foliage_scene(cards={CARDS_IS}), opaque, "
+          f"untextured, instancing, STEELJAX_SBVH=1): {seconds:.3f} s, "
+          f"BLAS builds {info['cards']['blas_s']:.3f} s; "
+          f"{info['cards']['references']} references for "
+          f"{info['cards']['source_triangles']} distinct triangles in "
+          f"{info['cards']['blas']} BLAS, two-level depth "
+          f"{cards_tables.depth}, shade mode {cards_tables.shade_mode}")
+    if info["cards"]["references"] <= info["cards"]["source_triangles"] or \
+            cards_tables.shade_mode != 1:
+        raise RuntimeError("cards IS: no split BLAS in shade mode 1")
 
     rows = {}
     # K1 and K2 on path L's rays (the primaries are LS's own; the shadow
@@ -3971,6 +4212,59 @@ def phase_sbvh(device, scenes, kernels, prepare_steps, sah_paths) -> dict:
         rays, subset[0].shape[0], check_k5, plain_calls=PLAIN_CALLS_SBVH)
     _least_bound(row, rows["K5"], kernels["K5"],
                  "path F's row on the same rays, object-SAH tables")
+
+    # K6 and its any-hit query on path I's rays over IS's tables (path I's
+    # trees when no BLAS split), and on the cards' own rays over their
+    # split BLAS; K7 on path U's primaries over US's treelets.
+    i_scene, i_flat, i_tables = scenes["sunlit_inst"]
+    tables = prepared["path IS"][2]
+    primary = kp.tiled_primary(i_scene, device, WIDTH, HEIGHT)[:4]
+    shadow = kp.sunlit_shadow_case(i_scene, i_flat, i_tables, WIDTH, HEIGHT)
+    source = _pool_sources(tables)
+    for k, row, rays, any_hit in (
+            ("K6", ("K6", "path IS", PRIMARIES), primary, False),
+            ("K6_anyhit", ("K6_anyhit", "path IS", SHADOW), shadow, True)):
+        rows[k] = _inst_row(row, tables, rays, any_hit, source)
+        _least_bound(row, rows[k], kernels[k],
+                     "path I's row on the same rays, object-SAH BLAS")
+        rows[k]["shapes"] = (f"path I's {row[2]} over path IS's two-level "
+                             "tables, 1280x720")
+    cards_rows = {}
+    c_scene, c_flat, c_tables = cards
+    primary = kp.tiled_primary(c_scene, device, WIDTH, HEIGHT)[:4]
+    shadow = kp.sunlit_shadow_case(c_scene, c_flat, c_tables, WIDTH, HEIGHT)
+    for k, row, rays, any_hit in (
+            ("K6", ("K6", "cards IS", PRIMARIES), primary, False),
+            ("K6_anyhit", ("K6_anyhit", "cards IS", SHADOW), shadow, True)):
+        cards_rows[k] = _inst_row(row, c_tables, rays, any_hit, cards_source)
+        cards_rows[k]["shapes"] = (
+            f"{row[2]} of make_foliage_scene(cards={CARDS_IS}) made opaque "
+            "and untextured, its cards one split BLAS (STEELJAX_SBVH=1), "
+            "1280x720")
+    u_scene, u_flat, u_tables = scenes["stress_tex_treelets"]
+    _, flat, tables = prepared["path US"]
+    rays = kp.tiled_primary(u_scene, device, WIDTH, HEIGHT)[:4]
+    subset = kp.strided_subset(rays, kp.TEX_SUBSET)
+    source = kp.source_ids(flat.tri_pos.cpu().numpy())
+    label = f"K7 path US {PRIMARIES}"
+
+    def check_k7(plain_rec):
+        rec = treelets_lib.trace_treelets(tables.treelets, *subset, True)
+        torch.cuda.synchronize()
+        results = {}
+        kp._compare(label, rec, plain_rec, flat.tri_pos.cpu().numpy(),
+                    results, attrs={k: v.cpu().numpy() for k, v in (
+                        ("nrm", flat.tri_nrm), ("tan", flat.tri_tan),
+                        ("uv", flat.tri_uv), ("mat", flat.tri_mat))},
+                    d=subset[1].cpu().numpy(), source=source)
+        return results[label]
+
+    rows["K7"] = _timed_treelet_trace("K7", tables.treelets, rays, subset,
+                                      True, False, check_k7, label)
+    _least_bound(("K7", "path US", PRIMARIES), rows["K7"], kernels["K7"],
+                 "path U's row on the same rays, object-SAH treelets")
+    rows["K7"]["shapes"] = ("path U's primaries over path US's treelets, "
+                            "1280x720, every round of one trace")
     for k, ray_set, rays_of in (("K1", PRIMARIES, "path L"),
                                 ("K2", SHADOW, "path L"),
                                 ("K4", PRIMARIES, "path F"),
@@ -3991,7 +4285,11 @@ def phase_sbvh(device, scenes, kernels, prepare_steps, sah_paths) -> dict:
                "path F"),
               ("path FS multihit", (scene, flat, tables.replace(
                   multihit_k=k_hits)), {"K5": alpha_passes},
-               "path F multihit"))
+               "path F multihit"),
+              ("path IS", prepared["path IS"], {"K6": 1, "K6_anyhit": 1},
+               "path I"),
+              ("path US", prepared["path US"], {"K7": None, "K7_pick": None},
+               "path U"))
     frames = {}
     for label, (scene, flat, tables), expected, sah in drives:
         out = drive_path(label, scene, flat, tables, expected)
@@ -4007,7 +4305,276 @@ def phase_sbvh(device, scenes, kernels, prepare_steps, sah_paths) -> dict:
               f"more than {PIXEL_ATOL} (max {float(delta.max()):.3e})")
         _same_frame(label, out, sah, ref)
         frames[label] = out
-    return {"tables": info, "rows": rows, "frames": frames}
+    return {"tables": info, "rows": rows, "cards_rows": cards_rows,
+            "frames": frames}
+
+
+# Phase 19, STEELJAX_SHADE_MODE: the reference's cap on the flat nearest
+# trace's fused shading mode (steeljax/accel/dispatch.py:27-32, :476-478),
+# read by dispatch.trace_nearest at every trace.  Each path renders with
+# the switch unset and at 0 in SHADE_TURNS, one warm and SHADE_TIMED_FRAMES
+# timed frames and 2 profiled ones a turn.
+SHADE_SWITCH = "STEELJAX_SHADE_MODE"
+SHADE_TURNS = (None, "0", "0", None)
+SHADE_TIMED_FRAMES = 2
+# The integrator's two material branches (record_function ranges): the
+# fused kernel's outputs, or the tri_shade row gather and unpack_material.
+SHADE_SPANS = ("integrator.shade_fused", "integrator.shade_gather")
+# A capped frame against the uncapped one (tests/test_torch_shade_mode.py,
+# the path tracer's budget of tests/test_torch_integrator.py): at most
+# max(2, N / SHADE_PIXEL_DIVISOR) pixels beyond PIXEL_ATOL, and rays_traced
+# within SHADE_RAYS_PER_PIXEL segments a diverging pixel or RAYS_RTOL of
+# the frame's, the larger: the fused normal and the gathered one part in
+# their last bits, and a path that parts there and adds no radiance (a
+# roulette flip whose segment hits an unlit wall) changes rays_traced and
+# no pixel.  The tiles of the CPU tests part in none.
+SHADE_PIXEL_DIVISOR = 200
+SHADE_RAYS_PER_PIXEL = 4
+
+
+def _with_switch(name: str, value, fn):
+    """fn() with the environment variable `name` set to `value` (None:
+    unset), restored afterwards."""
+    import os
+
+    before = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        return fn()
+    finally:
+        if before is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = before
+
+
+def _capped_held(label, capped: dict, fused: dict) -> dict:
+    """Hold a capped turn's last frame to an uncapped turn's (the budget
+    above; rays_traced where the turns count it)."""
+    delta = np.abs(capped["image"] - fused["image"]).max(axis=-1)
+    beyond = int((delta > PIXEL_ATOL).sum())
+    budget = max(2, delta.size // SHADE_PIXEL_DIVISOR)
+    out = {"pixels_beyond": beyond, "max_delta": float(delta.max())}
+    text = ""
+    ok = beyond <= budget
+    if "rays_frame" in capped:
+        out["rays_delta"] = abs(capped["rays_frame"] - fused["rays_frame"])
+        rays_budget = max(SHADE_RAYS_PER_PIXEL * beyond,
+                          RAYS_RTOL * fused["rays_frame"])
+        ok &= out["rays_delta"] <= rays_budget
+        text = (f"; rays_traced a frame {capped['rays_frame']:.0f} against "
+                f"{fused['rays_frame']:.0f} (|delta| {out['rays_delta']:.0f},"
+                f" budget {rays_budget:.1f})")
+    print(f"{label}: {beyond} of {delta.size} pixels beyond {PIXEL_ATOL} "
+          f"(budget {budget}), max |delta| {out['max_delta']:.3e}" + text)
+    if not ok:
+        raise RuntimeError(f"{label}: the capped frame is beyond the "
+                           "uncapped one's budget")
+    return out
+
+
+def _shade_way(label, turns: list, kernel_ms: float) -> dict:
+    """One way's numbers from its two turns: ms/frame of each turn and
+    their mean, the first turn's launches a frame, and of its profile
+    device busy, kernels a frame, trace kernels, the ranges' device ms and
+    rays_traced."""
+    first = turns[0]
+    way = {"launches_per_frame": {
+               k: v / (1 + SHADE_TIMED_FRAMES)
+               for k, v in first["launches"].items() if v},
+           "ms_frame": [t["ms_frame"] for t in turns],
+           "ms_frame_mean": float(np.mean([t["ms_frame"] for t in turns])),
+           "busy_ms": first["busy_ms"],
+           "device_kernels": first["device_kernels"],
+           "trace_ms": first["trace_ms"], "span_ms": first["span_ms"],
+           "primaries_kernel_ms": kernel_ms}
+    if "rays_frame" in first:
+        way["rays_frame"] = first["rays_frame"]
+    print(f"{label}: " + ", ".join(f"{ms:.3f}" for ms in way["ms_frame"])
+          + f" ms/frame (mean {way['ms_frame_mean']:.3f}), device busy "
+          f"{way['busy_ms']:.3f} ms, {way['device_kernels']:.0f} kernels a "
+          "frame, trace kernels "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+              way["trace_ms"].items()))
+          + " ms, ranges " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in sorted(way["span_ms"].items()))
+          + f"; the primaries' kernel alone {kernel_ms:.4f} ms; launches a "
+          "frame " + ", ".join(f"{k} {v:.0f}" for k, v in
+                               way["launches_per_frame"].items())
+          + (f"; rays_traced {way['rays_frame']:.0f} a frame"
+             if "rays_frame" in way else ""))
+    return way
+
+
+def _shade_turns(label, run, kernel_ms: dict, branch: dict) -> dict:
+    """Run `run(value)` for each value of SHADE_TURNS under that switch;
+    check that each turn took its material branch (`branch`: {way: the
+    record_function range that must have device time, the other none}),
+    hold each capped turn to the uncapped turn beside it, print each way
+    (_shade_way) and return both ways with the held deltas."""
+    turns = [_with_switch(SHADE_SWITCH, value, lambda: run(value))
+             for value in SHADE_TURNS]
+    ways = {"unset": [turns[0], turns[3]], "0": [turns[1], turns[2]]}
+    for way, outs in ways.items():
+        for out in outs:
+            spans = out["span_ms"]
+            if out["busy_ms"] > 0.0 and branch and not (
+                    spans.get(branch[way], 0.0) > 0.0 and all(
+                        spans.get(k, 0.0) == 0.0 for k in branch.values()
+                        if k != branch[way])):
+                raise RuntimeError(f"{label} with the switch {way}: device "
+                                   f"time in the ranges {spans}, expected "
+                                   f"{branch[way]} alone")
+    result = {way: _shade_way(f"{label} {SHADE_SWITCH} {way}", outs,
+                              kernel_ms[way]) for way, outs in ways.items()}
+    result["held"] = [
+        _capped_held(f"{label} capped turn {i} against the uncapped turn "
+                     "beside it", turns[i], turns[j])
+        for i, j in ((1, 0), (2, 3))]
+    for i, j, way in ((0, 3, "unset"), (1, 2, "0")):
+        same = bool(np.array_equal(turns[i]["image"], turns[j]["image"]))
+        result[way]["turns_bit_equal"] = same
+        print(f"{label} {SHADE_SWITCH} {way}: its two turns' frames "
+              f"bit-equal: {same}")
+    return result
+
+
+def _hybrid_turn(renderer, frames: int) -> dict:
+    """One warm and `frames` timed path H frames with the launch counts
+    set to 0 just before and read just after (one K1 and one K2 a frame,
+    no other kernel), then 2 profiled frames with the G-buffer stage's
+    device span."""
+    from steeljax_torch.accel import cuda_traverse
+
+    _reset_launches()
+    ms_frame, image = _hybrid_frames(renderer, frames)
+    launches = dict(cuda_traverse.LAUNCHES)
+    total = 1 + frames
+    want = {name: total if name in ("K1", "K2") else 0 for name in launches}
+    if launches != want:
+        raise RuntimeError(f"path H launched {launches} over {total} "
+                           f"frames, expected {want}")
+    image = image.cpu().numpy()
+    if not np.isfinite(image).all() or float(image.std()) <= 0.0:
+        raise RuntimeError("path H: a non-finite or constant frame")
+    prof = _profile_frames(renderer.render_frame_device,
+                           spans=("gbuffer_stage",))
+    return {"ms_frame": ms_frame, "image": image, "launches": launches,
+            "busy_ms": prof["busy_ms"], "device_kernels": prof["kernels"],
+            "trace_ms": prof["trace_ms"], "span_ms": prof["span_ms"]}
+
+
+def phase_shade_mode(device, scenes, cornell, path_h, kernels) -> dict:
+    """STEELJAX_SHADE_MODE on the card.  Checks that prepare_scene put
+    every path's tri_shade rows on the card (the gather's table).  Times K1
+    in shade mode 0 alone (rows K1_shade0) on the primaries of Cornell,
+    path L and path T and on path H's G-buffer rays, each against its plain
+    version, beside phase 3b's K1 and K3 rows on the same rays.  Renders
+    Cornell, path L and path T (drive_path) and path H (the hybrid frame
+    at 1920x1080) with the switch unset and at 0 in turns (_shade_turns):
+    the launches each way (capped, path T launches K1 in K3's place), the
+    material branch each took, the frames held to each other, and per way
+    ms/frame, device busy, kernels a frame, the trace kernels and the
+    ranges' device ms, and rays_traced.  Path T at 1 must raise the clear
+    error, and any other outcome fails the phase.  The switch is restored
+    afterwards.  Returns {"rows", "paths", "launches"}."""
+    import os
+
+    from steeljax_torch.accel import dispatch
+    from steeljax_torch.apps import kernel_parity as kp
+    from steeljax_torch.core.config import RenderConfig
+    from steeljax_torch.render.hybrid.renderer import HybridRenderer
+
+    before = os.environ.get(SHADE_SWITCH)
+    l_scene, l_flat, l_tables = scenes["sunlit"]
+    t_scene, t_flat, t_tables = scenes["stress_tex"]
+    paths = {"Cornell": (cornell["prepared"], {"K1": 1}, {"K1": 1}),
+             "path L": (scenes["sunlit"], {"K1": 1, "K2": 1},
+                        {"K1": 1, "K2": 1}),
+             "path T": (scenes["stress_tex"], {"K3": 1}, {"K1": 1})}
+    for label, ((_, flat, tables), _, _) in paths.items():
+        if flat.tri_shade.device != device:
+            raise RuntimeError(f"{label}: tri_shade on "
+                               f"{flat.tri_shade.device}, not {device}")
+        print(f"{label}: tri_shade {tuple(flat.tri_shade.shape)} on "
+              f"{flat.tri_shade.device}, tables in shade mode "
+              f"{tables.shade_mode}")
+
+    rows = {}
+    cflat, ctables, cases = kp.cornell_cases(device, WIDTH, HEIGHT)
+    hw, hh = kp.HYBRID_WIDTH, kp.HYBRID_HEIGHT
+    l_rays = kp.tiled_primary(l_scene, device, WIDTH, HEIGHT)[:4]
+    t_rays = kp.tiled_primary(t_scene, device, WIDTH, HEIGHT)[:4]
+    h_rays = kp.hybrid_rays(l_scene, device, hw, hh)[:4]
+    for label, ray_set, chunk, flat, rays, subset in (
+            ("Cornell", PRIMARIES, ctables.chunks[0], cflat,
+             cases["primary"], cases["primary"]),
+            ("path L", PRIMARIES, l_tables.chunks[0], l_flat, l_rays,
+             kp.strided_subset(l_rays, kp.SHADOW_SUBSET)),
+            ("path T", PRIMARIES, t_tables.chunks[0], t_flat, t_rays,
+             kp.strided_subset(t_rays, kp.TEX_SUBSET)),
+            ("path H", GBUFFER, l_tables.chunks[0], l_flat, h_rays,
+             kp.strided_subset(h_rays, kp.SHADOW_SUBSET))):
+        rows[label] = _nearest_row(("K1_shade0", label, ray_set), chunk,
+                                   flat, 0, rays, subset, plain_calls=1)
+        rows[label]["shapes"] = (f"{label} {ray_set}, "
+                                 + (f"{hw}x{hh}" if label == "path H"
+                                    else f"{WIDTH}x{HEIGHT}")
+                                 + ", shade mode 0 (STEELJAX_SHADE_MODE=0)")
+    fused_ms = {"Cornell": kernels["K1"]["ms"],
+                "path L": kernels["K1"]["path_l"]["ms"],
+                "path T": kernels["K3"]["ms"],
+                "path H": kernels["K1"]["path_h"]["ms"]}
+
+    out, launches = {}, {}
+    branch = {"unset": SHADE_SPANS[0], "0": SHADE_SPANS[1]}
+    for label, (prepared, unset, capped) in paths.items():
+        def run(value, label=label, prepared=prepared, unset=unset,
+                capped=capped):
+            way = "unset" if value is None else f"at {value}"
+            return drive_path(f"{label} ({SHADE_SWITCH} {way})", *prepared,
+                              unset if value is None else capped,
+                              frames=SHADE_TIMED_FRAMES, spans=SHADE_SPANS)
+
+        out[label] = _shade_turns(
+            label, run, {"unset": fused_ms[label],
+                         "0": rows[label]["ms"]}, branch)
+    # The hybrid G-buffer has no range of its own: the switch's effect on
+    # its trace is read off the record.
+    h_subset = kp.strided_subset(h_rays, kp.SHADOW_SUBSET)
+    for value, fused in ((None, True), ("0", False)):
+        rec = _with_switch(SHADE_SWITCH, value,
+                           lambda: dispatch.trace_nearest(l_tables, *h_subset))
+        if ("n" in rec) != fused:
+            raise RuntimeError(f"path H's trace with {SHADE_SWITCH} "
+                               f"{value}: record fields {sorted(rec)}")
+    renderer = HybridRenderer(l_scene, hw, hh, RenderConfig(width=hw,
+                                                            height=hh),
+                              environment=path_h["env"],
+                              prepared=(l_flat, l_tables), device=device)
+    out["path H"] = _shade_turns(
+        "path H", lambda value: _hybrid_turn(renderer, SHADE_TIMED_FRAMES),
+        {"unset": fused_ms["path H"], "0": rows["path H"]["ms"]}, {})
+    for label in out:
+        launches[label] = out[label]["0"]["launches_per_frame"]["K1"]
+
+    try:
+        _with_switch(SHADE_SWITCH, "1", lambda: drive_path(
+            f"path T ({SHADE_SWITCH}=1)", *scenes["stress_tex"], {"K3": 1},
+            frames=1))
+    except ValueError as err:
+        if f"{SHADE_SWITCH}=1" not in str(err):
+            raise
+        print(f"path T with {SHADE_SWITCH}=1 raises, as it must: {err}")
+    else:
+        raise RuntimeError(f"path T rendered with {SHADE_SWITCH}=1; the "
+                           "textured tables' cap of 1 must raise")
+    if os.environ.get(SHADE_SWITCH) != before:
+        raise RuntimeError(f"{SHADE_SWITCH} was not restored")
+    return {"rows": rows, "paths": out, "launches": launches}
 
 
 def phase_kernel_ab(scenes, old_dir, ptxas: dict) -> None:
@@ -4019,6 +4586,16 @@ def phase_kernel_ab(scenes, old_dir, ptxas: dict) -> None:
 
     result = kernel_ab.run(scenes, old_dir, WIDTH, HEIGHT)
     kernel_ab.compare_ptxas(result["old_ptxas"], ptxas)
+
+
+def _row_fields(row: dict) -> dict:
+    """The fields of a kernel's sub-row in the kernels line."""
+    return {f: row[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "shapes", "rays", "plain_rays",
+                                "own_bound_ms", "bound_from", "one_chunk_ms",
+                                "trace_ms", "tolerance",
+                                "parity_max_abs_err")
+            if f in row}
 
 
 def main(argv=None) -> int:
@@ -4037,6 +4614,7 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda", 0)
     seconds = {}
+    start = time.perf_counter()
 
     def phase(title, fn, *args):
         print(f"== {title}")
@@ -4114,12 +4692,17 @@ def main(argv=None) -> int:
     path_r = phase("17. path R (raster G-buffer on path H)", phase_raster,
                    device, scenes, path_h, ptxas, args.ab_old)
     kernels["R"] = path_r["kernel"]
-    sbvh = phase("18. paths LS and FS (SBVH)", phase_sbvh, device, scenes,
-                 kernels, prepare_steps,
+    sbvh = phase("18. paths LS, FS, IS and US (SBVH)", phase_sbvh, device,
+                 scenes, kernels, prepare_steps,
                  {"path L": path_l, "path F": path_f,
-                  "path F multihit": path_fm})
+                  "path F multihit": path_fm, "path I": path_i,
+                  "path U": path_u})
+    shade = phase("19. STEELJAX_SHADE_MODE unset and 0 (Cornell, paths L, "
+                  "T and H)", phase_shade_mode, device, scenes, cornell,
+                  path_h, kernels)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
-                                        for k, v in seconds.items()))
+                                        for k, v in seconds.items())
+          + f"; the run {time.perf_counter() - start:.1f} s")
     # Phase 16's rows of K1 and K2 at the capture's shapes.
     for k, row in path_g["rows"].items():
         kernels[k]["path_g"] = row
@@ -4130,11 +4713,20 @@ def main(argv=None) -> int:
         path_g["rows"]["K2"]["parity"]["hit_mismatches"])
     kernels["K2"]["max_abs_err"] = float(
         max(kernels["K2"]["mismatches"].values()) > 0)
-    # Phase 18's rows of K1, K2, K4 and K5 over spatial-split tables.
-    for k, row in sbvh["rows"].items():
-        kernels[k]["sbvh"] = row
-        if k == "K2":
-            kernels[k]["mismatches"][f"path LS {SHADOW}"] = (
+    # Phase 18's rows over spatial-split tables (K1, K2, K4 and K5 on paths
+    # LS and FS, K6 and its any-hit query on path IS and the cards, K7 on
+    # path US) and phase 19's K1 in shade mode 0: each adds its parity to
+    # its kernel's error.
+    subrows = [(k, "sbvh", row) for k, row in sbvh["rows"].items()]
+    subrows += [(k, "sbvh_cards", row)
+                for k, row in sbvh["cards_rows"].items()]
+    for k, key, row in subrows:
+        kernels[k][key] = row
+    kernels["K1"]["shade_mode0"] = shade["rows"]
+    subrows += [("K1", "shade_mode0", row) for row in shade["rows"].values()]
+    for k, key, row in subrows:
+        if "mismatches" in kernels[k]:
+            kernels[k]["mismatches"][f"{key} {row['shapes']}"] = (
                 row["parity"]["hit_mismatches"])
             kernels[k]["max_abs_err"] = float(
                 max(kernels[k]["mismatches"].values()) > 0)
@@ -4144,7 +4736,10 @@ def main(argv=None) -> int:
     # The frames whose launches each sbvh sub-row reports, and its tables.
     sbvh_frames = {"K1": ("path LS", "path LS"), "K2": ("path LS", "path LS"),
                    "K4": ("path FS", "path FS"),
-                   "K5": ("path FS multihit", "path FS")}
+                   "K5": ("path FS multihit", "path FS"),
+                   "K6": ("path IS", "path IS"),
+                   "K6_anyhit": ("path IS", "path IS"),
+                   "K7": ("path US", "path US")}
 
     launches = {"K1": cornell["launches"]["K1"],
                 "K2": path_l["launches"]["K2"],
@@ -4172,9 +4767,20 @@ def main(argv=None) -> int:
         G's phase 16; over spatial-split tables, phase 18), with the
         kernel's launches a frame on that path (phases 11-13; path G: a GI
         frame's, and the capture's; the sbvh row: path LS's, FS's or FS
-        multihit's, with the tables' counts and the frame's ms)."""
+        multihit's, IS's or US's, with the tables' counts and the frame's
+        ms; the cards' rows, which no frame drives; K1 in shade mode 0 on
+        Cornell, paths L, T and H, phase 19, with its launches a frame
+        under STEELJAX_SHADE_MODE=0)."""
         row = kernels[k][key]
-        if key == "sbvh":
+        if key == "shade_mode0":
+            return {label: {**{"launches_per_frame":
+                                   shade["launches"][label]},
+                            **_row_fields(entry)}
+                    for label, entry in row.items()}
+        if key == "sbvh_cards":
+            launches = {"launches_per_frame": None,
+                        "tables": sbvh["tables"]["cards"]}
+        elif key == "sbvh":
             label, tables_of = sbvh_frames[k]
             out = sbvh["frames"][label]
             launches = {"launches_per_frame": out["launches"][k] / frames,
@@ -4190,13 +4796,7 @@ def main(argv=None) -> int:
         else:
             out, n = sub_paths[key]
             launches = {"launches_per_frame": out["launches"][k] / n}
-        return {**launches,
-                **{f: row[f] for f in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "shapes", "rays",
-                                       "plain_rays", "own_bound_ms",
-                                       "bound_from", "one_chunk_ms",
-                                       "tolerance", "parity_max_abs_err")
-                   if f in row}}
+        return {**launches, **_row_fields(row)}
 
     sources = {k: "steeljax_torch/csrc/alpha8.cu" for k in launches}
     for k in ("K7", "K7_shade1", "K7_anyhit", "K7_pick"):
@@ -4273,7 +4873,8 @@ def main(argv=None) -> int:
             "bit_equal", "subtile_bound_ms", "subtile_bound_by", "winners",
             "work", "tail", "ties", "cornell", "registers", "ab")
             if key in kernels[k]},
-        **{key: sub_row(k, key) for key in (*sub_paths, "path_g", "sbvh")
+        **{key: sub_row(k, key) for key in (*sub_paths, "path_g", "sbvh",
+                                            "sbvh_cards", "shade_mode0")
            if key in kernels[k]},
         "engine_launches": {name: counts[k] for name, counts in
                             engine.items() if counts.get(k)}}

@@ -299,8 +299,8 @@ def _per_material(out, planes, tri_uv, tri_mat, mat_base_color, mat_params,
 
 
 def compute_fine_masks(tri_uv, tri_mat, mat_base_color, mat_params,
-                       mat_tex, mat_flags, textures,
-                       device: torch.device | str = "cpu") -> np.ndarray:
+                       mat_tex, mat_flags, textures, *,
+                       device: torch.device | str) -> np.ndarray:
     """(T, FINE_STRIDE) int32 two-plane fine masks, with the material
     semantics of compute_alpha_masks, computed on `device`.
     Non-participating triangles get PASS = OPAQUE = all-ones: their hits
@@ -314,8 +314,8 @@ def compute_fine_masks(tri_uv, tri_mat, mat_base_color, mat_params,
 
 
 def compute_alpha_masks(tri_uv, tri_mat, mat_base_color, mat_params,
-                        mat_tex, mat_flags, textures,
-                        device: torch.device | str = "cpu") -> np.ndarray:
+                        mat_tex, mat_flags, textures, *,
+                        device: torch.device | str) -> np.ndarray:
     """(T,) uint32 conservative coverage masks from unpermuted
     per-triangle arrays and raw (H, W, 4) uint8 textures (Scene.textures
     order), computed on `device`.  Only materials with the ALPHA_TEST flag

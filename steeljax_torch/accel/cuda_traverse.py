@@ -269,6 +269,26 @@ def _alpha_tensors(tensors: dict, alpha_mask: bool, fine_rows,
                          f"(shade_mode {shade_mode})")
 
 
+def _check_shade_rows(shade_rows, shade_mode: int, tri_rows: int) -> None:
+    """Shading rows of `shade_mode` for `tri_rows` triangle rows: exactly
+    1 row per triangle row in mode 1 and TRI_PER_ROW / SHADE2_PER_ROW in
+    mode 2 (pack_shade_records of the same triangles).  Mode-2 rows hold
+    three times as many rows as mode-1 ones, so a count that is only large
+    enough would let a mode-1 walk read 26-float records as 10-float ones."""
+    if shade_mode not in (0, 1, 2):
+        raise ValueError(f"shade_mode must be 0, 1 or 2, got {shade_mode}")
+    if not shade_mode:
+        return
+    if shade_rows is None:
+        raise ValueError(f"shade_mode {shade_mode} needs shade_rows")
+    per_tri_row = 1 if shade_mode == 1 else TRI_PER_ROW // SHADE2_PER_ROW
+    if shade_rows.shape[0] != per_tri_row * tri_rows:
+        raise ValueError(f"shade_rows has {shade_rows.shape[0]} rows for "
+                         f"{tri_rows} triangle rows; shade mode {shade_mode} "
+                         f"needs exactly {per_tri_row} per triangle row "
+                         "(rows packed in another mode?)")
+
+
 def trace_nearest_bvh8(bvh8: BVH8, tris_packed: torch.Tensor,
                        o: torch.Tensor, d: torch.Tensor, t_min, t_max,
                        cull_backface: bool = True,
@@ -489,16 +509,7 @@ def kernel_launcher(bvh8, tris_packed, o, d, t_min, t_max,
     and K3 read the winner's shading from `shade_rows` (pack_shade_records
     of `shade_mode`).  counters=True adds the telemetry of _telemetry."""
     _alpha_tensors({}, alpha_mask, fine_rows, shade_mode)
-    if shade_mode not in (0, 1, 2):
-        raise ValueError(f"shade_mode must be 0, 1 or 2, got {shade_mode}")
-    if shade_mode:
-        if shade_rows is None:
-            raise ValueError(f"shade_mode {shade_mode} needs shade_rows")
-        per_tri_row = 1 if shade_mode == 1 else TRI_PER_ROW // SHADE2_PER_ROW
-        if shade_rows.shape[0] < per_tri_row * tris_packed.shape[0]:
-            raise ValueError(f"shade_rows has {shade_rows.shape[0]} rows; "
-                             f"mode {shade_mode} needs {per_tri_row} per "
-                             "triangle row")
+    _check_shade_rows(shade_rows, shade_mode, tris_packed.shape[0])
     kernel = "K4" if alpha_mask else "K3" if shade_mode == 2 else "K1"
     return _alpha8_launcher(kernel, 0, bvh8, tris_packed, o, d, t_min, t_max,
                             cull_backface, counters=counters,
@@ -701,9 +712,8 @@ def trace_nearest_bvh8_plain(bvh8: BVH8, tris_packed: torch.Tensor,
     candidate wins), on grazing box-boundary rays and on candidates whose
     last-bit u or v falls on a mask cell boundary, the cases
     kernel_parity._compare budgets."""
-    if shade_mode not in (0, 1, 2):
-        raise ValueError(f"shade_mode must be 0, 1 or 2, got {shade_mode}")
     _alpha_tensors({}, alpha_mask, fine_rows, shade_mode)
+    _check_shade_rows(shade_rows, shade_mode, tris_packed.shape[0])
     device = o.device
     o, d, tmn, tmx = _rays_and_interval(o, d, t_min, t_max, device)
     n = o.shape[0]
@@ -908,15 +918,12 @@ def _inst_tensors(tables, any_hit: bool) -> tuple[dict, int]:
     """The tensors one two-level trace reads, by name, and its shade mode
     (occlusion queries skip the fused shading)."""
     mode = 0 if any_hit else tables.shade_mode
-    if mode not in (0, 1, 2):
-        raise ValueError(f"shade_mode must be 0, 1 or 2, got {mode}")
     tensors = {"snode_rows": tables.snode_rows,
                "tris_packed": tables.tris_packed,
                "tri_records": tables.tri_records,
                "inst_trace": tables.inst_trace}
+    _check_shade_rows(tables.shade_rows, mode, tables.tris_packed.shape[0])
     if mode:
-        if tables.shade_rows is None:
-            raise ValueError(f"shade_mode {mode} needs shade_rows")
         tensors["shade_rows"] = tables.shade_rows
     return tensors, mode
 
@@ -1000,9 +1007,6 @@ def inst_launcher(tables, o, d, t_min, t_max, cull_backface: bool = True,
                          f"{tuple(inst.shape)} {inst.dtype} on {inst.device}")
     rows = tables.tris_packed.shape[0]
     _check_records(tables.tri_records, rows * TRI_PER_ROW, device)
-    if mode and tables.shade_rows.shape[0] < (1 if mode == 1 else 3) * rows:
-        raise ValueError(f"shade_rows has {tables.shade_rows.shape[0]} rows "
-                         f"for {rows} triangle rows in mode {mode}")
     if not 1 <= tables.n_tlas <= tables.snode_rows.shape[0]:
         raise ValueError(f"n_tlas {tables.n_tlas} outside the "
                          f"{tables.snode_rows.shape[0]} supernode rows")

@@ -25,11 +25,14 @@ query (K5) traces one chunk, as the reference's integrator gates it.
 `prepare_tables(treelets=True)` builds the streamed-treelet tables instead
 (accel.treelets, kernel K7), and both queries route
 instances.InstancedTables to the two-level trace (K6).
+STEELJAX_SHADE_MODE caps the fused shading mode of the flat nearest trace
+(_shade_mode_cap).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -457,6 +460,49 @@ def sweep_any(chunks, trace_chunk, o: torch.Tensor, d: torch.Tensor, t_min,
     return occluded
 
 
+def _shade_mode_cap() -> int | None:
+    """STEELJAX_SHADE_MODE, the cap on the flat nearest trace's fused
+    shading mode (steeljax/accel/dispatch.py:27-32): unset is no cap, an
+    integer >= 0 (as int() reads it) the cap.  Anything else, an empty or
+    negative value included, raises ValueError.  The reference reads the
+    switch once, at import; here it is read at every trace, as
+    STEELJAX_SBVH, STEELJAX_REPACK and STEELJAX_RASTER are, so a process may
+    change it between frames.  That changes when the value is read, not
+    what it means."""
+    value = os.environ.get("STEELJAX_SHADE_MODE")
+    if value is None:
+        return None
+    try:
+        cap = int(value)
+    except ValueError:
+        cap = -1
+    if cap < 0:
+        raise ValueError(f"STEELJAX_SHADE_MODE={value!r}: expected an integer "
+                         ">= 0 (0 gathers the shading rows after the trace, "
+                         "1 caps the fused mode at normal and material), or "
+                         "unset for the tables' own mode")
+    return cap
+
+
+def _capped_shade_mode(tables: TraceTables) -> int:
+    """The fused shading mode of a flat nearest trace: the tables' mode,
+    capped by STEELJAX_SHADE_MODE (steeljax/accel/dispatch.py:476-478).  A
+    cap of 1 over textured (mode 2) tables raises: their rows hold 26-float
+    records, which a mode-1 trace would read as 10-float ones (the
+    reference's kernel does, and its integrator then fails on the missing
+    uv)."""
+    cap = _shade_mode_cap()
+    mode = tables.shade_mode
+    if cap is None or cap >= mode:
+        return mode
+    if cap == 1:
+        raise ValueError("STEELJAX_SHADE_MODE=1 over textured (shade mode 2) "
+                         "tables: their shading rows hold mode-2 records; "
+                         "use STEELJAX_SHADE_MODE=0 (gather the shading rows "
+                         "after the trace) or leave it unset")
+    return 0
+
+
 def trace_nearest(tables: TraceTables | InstancedTables, o: torch.Tensor,
                   d: torch.Tensor, t_min, t_max, cull_backface: bool = True
                   ) -> dict:
@@ -466,7 +512,17 @@ def trace_nearest(tables: TraceTables | InstancedTables, o: torch.Tensor,
     masks (K4), instanced tables through the two-level trace (K6, with
     "inst" in the record and tri indexing the BLAS pool), treelet tables
     through the treelet scheduler (K7).  Several chunks trace through
-    sweep_nearest, one kernel launch a chunk."""
+    sweep_nearest, one kernel launch a chunk.
+
+    STEELJAX_SHADE_MODE caps the fused mode of flat tables only
+    (_capped_shade_mode): at 0 the record has no n/mat (nor tan/uv/uvd),
+    and the integrator and the G-buffer gather the tri_shade rows instead.
+    As in the reference, instanced and treelet tables keep their fused
+    shading under any cap, and the occlusion query has none to cap.  The
+    reference caps only its kernel path (use_pallas), because its CPU path
+    has no fused shading at all; here the plain versions run the fused
+    path the kernels do on every device, so the cap applies on both and
+    the CPU and the card stay on one code path."""
     if isinstance(tables, InstancedTables):
         return trace_nearest_instanced(tables, o, d, t_min, t_max,
                                        cull_backface=cull_backface)
@@ -474,12 +530,13 @@ def trace_nearest(tables: TraceTables | InstancedTables, o: torch.Tensor,
         return treelets_lib.trace_treelets(tables.treelets, o, d, t_min,
                                            t_max,
                                            cull_backface=cull_backface)
+    mode = _capped_shade_mode(tables)
 
     def trace(chunk, chunk_tmax):
         return cuda_traverse.trace_nearest_bvh8(
             chunk.bvh8, chunk.tris_packed, o, d, t_min, chunk_tmax,
             cull_backface=cull_backface, shade_rows=chunk.shade_packed,
-            shade_mode=tables.shade_mode, alpha_mask=tables.alpha_masked,
+            shade_mode=mode, alpha_mask=tables.alpha_masked,
             fine_rows=chunk.fine_mask_rows, records=chunk.tri_records)
 
     if len(tables.chunks) == 1:

@@ -65,7 +65,7 @@ def _fine_rows(flat, chunk, scene) -> np.ndarray:
         np.asarray(flat.tri_uv)[s], np.asarray(flat.tri_mat)[s],
         np.asarray(flat.mat_base_color), np.asarray(flat.mat_params),
         np.asarray(flat.mat_tex), np.asarray(flat.mat_flags),
-        scene.textures)
+        scene.textures, device="cpu")
     return pack_fine_mask_rows(masks)
 
 

@@ -83,7 +83,7 @@ def load_environment(panorama_path: str | None = None,
     if cube is None:
         if panorama_path and Path(panorama_path).exists():
             cube = panorama_to_cube(image_io.load_hdr(panorama_path),
-                                    cube_resolution, device)
+                                    cube_resolution, device=device)
         else:
             cube = procedural_sky_cube(cube_resolution)
             analytic = True
@@ -96,7 +96,8 @@ def load_environment(panorama_path: str | None = None,
     irradiance = ibl.generate_irradiance_cube(
         cube, irradiance_resolution, irradiance_delta)
     irradiance_sh, _ = ibl.fit_cube_sh(irradiance, device=device)
-    lut = ibl.specular_brdf_lut(lut_resolution, lut_samples, device)
+    lut = ibl.specular_brdf_lut(lut_resolution, lut_samples,
+                                device=device)
 
     def quads(c):
         return torch.from_numpy(pack_cube_quads(c.cpu().numpy())).to(device)

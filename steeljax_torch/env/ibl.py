@@ -59,8 +59,8 @@ def _batches(count: int, texels: int):
     return [(s, min(s + step, count)) for s in range(0, count, step)]
 
 
-def specular_brdf_lut(resolution: int = 256, sample_count: int = 4096,
-                      device: torch.device | str = "cpu") -> torch.Tensor:
+def specular_brdf_lut(resolution: int = 256, sample_count: int = 4096, *,
+                      device: torch.device | str) -> torch.Tensor:
     """(R, R, 2) split-sum scale/offset table on `device`; u = NoV,
     v = roughness."""
     texel = (torch.arange(resolution, dtype=torch.float32, device=device)
@@ -327,8 +327,8 @@ def sh_basis(dirs: torch.Tensor, order: int) -> torch.Tensor:
 
 
 def fit_cube_sh(cube, max_order: int = 8, rel_tol: float = 0.005,
-                noise_cap: float = 0.04,
-                device: torch.device | str = "cpu"):
+                noise_cap: float = 0.04, *,
+                device: torch.device | str):
     """Weighted least-squares SH fit of a (6, R, R, 3) cube (host numpy
     lstsq).  Accepts the SMALLEST order whose RMS texel residual, relative
     to the cube's mean magnitude, is under max(rel_tol, noise floor): the

@@ -40,8 +40,8 @@ def _sample_panorama(panorama: torch.Tensor, uv: torch.Tensor
     return top * (1 - fy) + bot * fy
 
 
-def panorama_to_cube(panorama, resolution: int = 256,
-                     device: torch.device | str = "cpu") -> torch.Tensor:
+def panorama_to_cube(panorama, resolution: int = 256, *,
+                     device: torch.device | str) -> torch.Tensor:
     """(H, W, 3) float32 equirect (array or tensor) -> (6, R, R, 3) cubemap
     on `device`."""
     pano = torch.as_tensor(np.asarray(panorama, np.float32)

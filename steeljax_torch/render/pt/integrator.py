@@ -39,6 +39,7 @@ import os
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from steeljax_torch.accel.bvh import TRI_PER_ROW
 from steeljax_torch.accel.cuda_traverse import rotate as rotate3
@@ -684,10 +685,14 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
         alive = alive & rec["hit"]
 
         if "n" in rec:  # the fused kernel's shading outputs
-            surface, tbn = unpack_material_fused(scene, rec)
+            with record_function("integrator.shade_fused"):
+                surface, tbn = unpack_material_fused(scene, rec)
         else:
-            surface, tbn = unpack_material(scene, rec, d,
-                                           shade_rows(scene, tables, rec))
+            # No fused shading (STEELJAX_SHADE_MODE=0, or tables without
+            # it): gather the hits' tri_shade rows.
+            with record_function("integrator.shade_gather"):
+                surface, tbn = unpack_material(
+                    scene, rec, d, shade_rows(scene, tables, rec))
         if config.override_material is not None:
             # DEBUG_OVERRIDE_MATERIAL (RayGen.rgen:99-102).
             r_ov, m_ov = config.override_material

@@ -148,7 +148,7 @@ def prepare_scene(scene: Scene, device: torch.device | str,
             # On the render device, as the reference converts on its
             # accelerator; flatten_scene packs the cube on the host.
             env_cube = panorama_to_cube(panorama, env_resolution,
-                                        device).cpu().numpy()
+                                        device=device).cpu().numpy()
     elif use_default_environment:
         from steeljax_torch.env.sky import procedural_sky_cube
         with record_function("prepare_scene.environment"):

@@ -73,8 +73,8 @@ def test_masks_equal_reference(serrated):
     uv = np.concatenate([uv, card_uv])
     mat = np.concatenate([mat, np.zeros(len(card_uv), np.int32)])
     args = (uv, mat, *_materials(), textures)
-    coarse = alphamask.compute_alpha_masks(*args)
-    fine = alphamask.compute_fine_masks(*args)
+    coarse = alphamask.compute_alpha_masks(*args, device="cpu")
+    fine = alphamask.compute_fine_masks(*args, device="cpu")
     np.testing.assert_array_equal(coarse,
                                   alphamask_ref.compute_alpha_masks(*args))
     np.testing.assert_array_equal(fine,
@@ -94,9 +94,9 @@ def test_masks_equal_reference(serrated):
 def test_masks_without_textures_are_full():
     uv, mat = _mask_inputs(1)
     args = (uv, mat, *_materials(), [])
-    assert (alphamask.compute_alpha_masks(*args)
+    assert (alphamask.compute_alpha_masks(*args, device="cpu")
             == alphamask.MASK_FULL).all()
-    assert (alphamask.compute_fine_masks(*args) == -1).all()
+    assert (alphamask.compute_fine_masks(*args, device="cpu") == -1).all()
 
 
 def test_mask_tests_equal_reference():

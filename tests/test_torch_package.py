@@ -163,9 +163,9 @@ def test_write_png_matches_reference_writer(tmp_path):
                                       np.asarray(Image.open(ref)))
 
 
-# The reference's switches the port leaves out on purpose: both size the
-# TPU kernels (the fused shading mode's cap and the packet's sublanes).
-NOT_PORTED_SWITCHES = ("STEELJAX_SHADE_MODE", "STEELJAX_SUBLANES")
+# The reference's switches the port leaves out on purpose: the TPU kernels'
+# packet size (sublanes), which sizes a TPU packet and has no CUDA meaning.
+NOT_PORTED_SWITCHES = ("STEELJAX_SUBLANES",)
 
 
 def _switches(root: Path) -> set:
@@ -178,7 +178,7 @@ def _switches(root: Path) -> set:
 def test_every_reference_switch_is_in_the_port():
     """Every STEELJAX_* name in the reference's .py files also appears in
     the port's (read, or named where the port takes an argument instead),
-    except the not-ported TPU sizing switches, which the reference does
+    except the not-ported TPU sizing switch, which the reference does
     have."""
     import steeljax
 
@@ -187,3 +187,45 @@ def test_every_reference_switch_is_in_the_port():
     missing = sorted(reference - _switches(PKG_DIR)
                      - set(NOT_PORTED_SWITCHES))
     assert not missing, missing
+
+
+def _public_callables():
+    """(qualified name, function) of every public function of the port's
+    modules and every public method and __init__ of their classes."""
+    import importlib
+    import inspect
+
+    for name in _submodules():
+        mod = importlib.import_module(name)
+        for attr, obj in vars(mod).items():
+            if attr.startswith("_") or getattr(obj, "__module__",
+                                                None) != name:
+                continue
+            if inspect.isfunction(obj):
+                yield f"{name}.{attr}", obj
+            elif inspect.isclass(obj):
+                for meth, fn in vars(obj).items():
+                    if inspect.isfunction(fn) and (
+                            meth == "__init__" or not meth.startswith("_")):
+                        yield f"{name}.{attr}.{meth}", fn
+
+
+def test_no_public_function_defaults_device_to_cpu():
+    """The port's entry points and helpers run on the card unless the
+    caller asks for the CPU: no public function's parameter named like
+    `device` defaults to the CPU."""
+    import inspect
+
+    checked, cpu = 0, []
+    for qualname, fn in _public_callables():
+        for param in inspect.signature(fn).parameters.values():
+            if "device" not in param.name:
+                continue
+            checked += 1
+            default = param.default
+            if (isinstance(default, str) and default.split(":")[0] == "cpu"
+                    or isinstance(default, torch.device)
+                    and default.type == "cpu"):
+                cpu.append(f"{qualname}({param.name}={default!r})")
+    assert checked > 20, checked
+    assert not cpu, cpu
