@@ -4,7 +4,8 @@ Drives the port's paths through their user entry points (prepare_scene,
 render_pixels, HybridRenderer) at 1280x720, 1 spp per frame, at most 4
 bounces, roulette after bounce 2, irradiance clamp 8 (the hybrid frame at
 1920x1080), and holds every hand-written trace kernel against its plain
-PyTorch version:
+PyTorch version (and, on every ray of the big paths, against the
+reference's BVH walk: phase 20):
   * the Cornell box (kernel K1: nearest hit with fused mode-1 shading);
   * path L, the sunlit stress scene (208,084 triangles and a directional
     sun): K1 and, for the shadow rays of next-event estimation, the
@@ -220,7 +221,25 @@ Phases:
      T launches K1 for K3), the integrator's material branch by its
      ranges, ms/frame, device busy, kernels a frame, the trace kernels,
      rays_traced, and each capped frame held to the uncapped one beside
-     it (SHADE_PIXEL_DIVISOR, SHADE_RAYS_PER_PIXEL); path T at 1 raises.
+     it (SHADE_PIXEL_DIVISOR, SHADE_RAYS_PER_PIXEL); path T at 1 raises;
+  20. every ray against the walk (phase_walk): the reference's BVH walk
+     (accel.traverse, through dispatch.trace_nearest_walk / trace_any_walk
+     and instances.trace_nearest_instanced_walk) on the card over the same
+     tables, each kernel launch held against it on every ray of phases
+     3a/3b's ray sets by kernel_parity's budgets: K1 mode 1 on Cornell's
+     primaries, K1 on path L's primaries and first-bounce rays, K2 and
+     K2-dense on its shadow rays, K3 on path T's primaries, K4 with coarse
+     masks on path F's primaries and (any-hit) sun rays, K1 and K2 on path
+     H's G-buffer and sun rays, path C's two-chunk sweep, K6 on path I's
+     and K7 on path U's primaries, K1 over path LS's and K4 over path FS's
+     spatial-split tables (by source triangle too); rays both hit on other
+     surfaces count with the hit mismatches only at a grazing edge
+     (float64 barycentric margin below GRAZING_MARGIN); one line each with
+     the rays, the hit mismatches and their budget, max |dt|, the walk's
+     seconds, steps, host reads and peak memory, and the walk itself
+     against phase 3b's (or 18's) plain version on that row's strided
+     subset.  K5 keeps phase 3b's strided check (the reference has no
+     K-nearest walk).
 The second-to-last line is the kernels' JSON summary (K1's and K2's
 entries carry their rows of paths H, C and L16 and their launches a frame
 there under "path_h", "path_c" and "path_l16"; a kernel that phase 15's
@@ -232,7 +251,8 @@ and K5 carry phase 18's rows under "sbvh", with the launches a frame of
 paths LS, FS and FS multihit and their tables' counts, K6, K6_anyhit and
 K7 theirs of paths IS and US, and K6 and K6_anyhit the cards case's
 under "sbvh_cards"; K1 carries phase 19's rows under "shade_mode0", with
-its launches a frame under STEELJAX_SHADE_MODE=0; R's bound_ms is
+its launches a frame under STEELJAX_SHADE_MODE=0; the kernels phase 20
+held carry its comparisons under "walk"; R's bound_ms is
 counted at strip granularity from the bytes its work reads, its entry
 carries the bound at subtile granularity as "subtile_bound_ms", its
 (subtile, winner) pairs, its work split, the tail, the tie-heavy launch,
@@ -253,6 +273,8 @@ Usage: python3 chip_smoke.py [--ab-old DIR]
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -676,7 +698,9 @@ def _timed_kernel(row, launcher, plain, rays, plain_rays, check=None,
     bound = _bound(row[0], rec, _live_rays(n_rays, rays[2], rays[3]),
                    cap=EARLIER_PER_RAY.get(row), width=width)
     entry = {"ms": kernel_ms, "plain_ms": plain_ms, "plain_rays": plain_rays,
-             "rays": n_rays, **bound}
+             "rays": n_rays, **bound,
+             # The row's rays and plain record, for phase 20 (not printed).
+             "held": {"rays": rays, "plain": kept["rec"]}}
     if check is not None:
         parity = check(kept["rec"])
         entry["parity"] = parity
@@ -781,7 +805,8 @@ def _timed_treelet_trace(name, tt, rays, subset, cull, any_hit, check=None,
              "plain_rays": subset[0].shape[0], "rays": n_rays,
              "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
              "trace_bound_ms": bound["bound_ms"], "rounds": k,
-             "live_packets": live}
+             "live_packets": live,
+             "held": {"rays": rays, "plain": kept["rec"]}}
     held = ""
     if check is not None:
         parity = check(kept["rec"])
@@ -4087,7 +4112,8 @@ def phase_sbvh(device, scenes, kernels, prepare_steps, sah_paths) -> dict:
     frame) beside the object-SAH frames of phases 5a, 7a, 7c, 9a and 10a in
     this call, the pixels beyond 1e-4 against them, each held to it
     (_same_frame).  Returns {"tables", "rows" (by kernel), "cards_rows" (K6
-    and K6_anyhit on the cards), "frames"}."""
+    and K6_anyhit on the cards), "frames", "prepared" (the paths' (scene,
+    flat, tables) by label, for phase 20)}."""
     import os
 
     from steeljax_torch.accel import cuda_traverse as ct
@@ -4306,7 +4332,7 @@ def phase_sbvh(device, scenes, kernels, prepare_steps, sah_paths) -> dict:
         _same_frame(label, out, sah, ref)
         frames[label] = out
     return {"tables": info, "rows": rows, "cards_rows": cards_rows,
-            "frames": frames}
+            "frames": frames, "prepared": prepared}
 
 
 # Phase 19, STEELJAX_SHADE_MODE: the reference's cap on the flat nearest
@@ -4577,6 +4603,432 @@ def phase_shade_mode(device, scenes, cornell, path_h, kernels) -> dict:
     return {"rows": rows, "paths": out, "launches": launches}
 
 
+# Phase 20, every ray of the big paths against the walk: each kernel launch
+# of phases 3a/3b's rays held against dispatch.trace_nearest_walk /
+# trace_any_walk (instances.trace_nearest_instanced_walk for K6), the
+# reference's CPU oracle run on the card.  The phase's budget in seconds:
+# every comparison runs on all of its rays within it (PERF.md §6).
+WALK_BUDGET_S = 90.0
+
+
+def _walk_timed(fn, device) -> tuple:
+    """(fn(stats), the walk's seconds, its stats, its peak memory in MiB
+    above what was allocated before it)."""
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    stats = {}
+    t0 = time.perf_counter()
+    out = fn(stats)
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    return (out, seconds, stats,
+            (torch.cuda.max_memory_allocated(device) - base) / 2**20)
+
+
+def _every(x, step: int):
+    """Every step-th ray of a record (a dict of (N, ...) tensors) or of an
+    (N,) tensor: kernel_parity.strided_subset's choice."""
+    if isinstance(x, dict):
+        return {k: v[::step] for k, v in x.items()}
+    return x[::step]
+
+
+# A ray on which the kernel and the walk hit different surfaces (both hit,
+# |dt| past kernel_parity's limit) is a grazing flip when, in float64, the
+# nearer of the two triangles is hit within this barycentric margin of its
+# edge: float32 rounding, FMA contraction in the kernel and the reference's
+# in the walk, may put such a hit on either side of the edge.
+GRAZING_MARGIN = 1e-5
+
+
+def _margins64(p, o, d) -> tuple:
+    """float64 Moller-Trumbore of rays o, d (n, 3) on triangles p (n, 3,
+    3): (t, the smallest barycentric coordinate)."""
+    v0, e1, e2 = p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]
+    pvec = np.cross(d, e2)
+    inv = 1.0 / (e1 * pvec).sum(-1)
+    tvec = o - v0
+    u = (tvec * pvec).sum(-1) * inv
+    qvec = np.cross(tvec, e1)
+    v = (d * qvec).sum(-1) * inv
+    t = (e2 * qvec).sum(-1) * inv
+    return t, np.minimum(np.minimum(u, v), 1.0 - u - v)
+
+
+def flat_geometry(tri_pos):
+    """The `geometry` of _surface_flips over flat tables: the triangles'
+    permuted (T, 3, 3) positions, the world rays."""
+    pos = np.asarray(tri_pos, np.float64)
+
+    def geometry(tri, inst, o, d):
+        return pos[tri], o, d
+
+    return geometry
+
+
+def instanced_geometry(tables):
+    """The `geometry` of _surface_flips over two-level tables: the pooled
+    object-space triangles (the BLAS' permuted positions in BLAS order, as
+    blas_tri_offset counts them), each ray in its instance's object space
+    (t is the same there: the transform is affine)."""
+    pool = np.concatenate([b.tri_pos.cpu().numpy() for b in
+                           tables.cpu_blas]).astype(np.float64)
+    inv = tables.inst_trace[:, :12].cpu().double().numpy().reshape(-1, 3, 4)
+
+    def geometry(tri, inst, o, d):
+        a = inv[inst]
+        return (pool[tri], np.einsum("nij,nj->ni", a[:, :, :3], o)
+                + a[:, :, 3], np.einsum("nij,nj->ni", a[:, :, :3], d))
+
+    return geometry
+
+
+def _surface_flips(label, entry, rec_k, rec_w, rays, judge,
+                   geometry) -> dict:
+    """Re-judge a nearest-hit comparison whose rays include some that both
+    records hit at |dt| >= atol, on different triangles: each such ray is
+    listed with both t, both triangles and, from float64 on the triangles
+    and rays `geometry(tri, inst, o, d)` gives (flat_geometry,
+    instanced_geometry), the barycentric margin of the nearer triangle's
+    hit; the rest are judged by _compare with those rays taken out; and the
+    comparison passes only if every such ray is a grazing flip
+    (GRAZING_MARGIN) and they and the hit mismatches together stay within
+    max(2, N/5000), the budget of rays that may disagree."""
+    from steeljax_torch.apps import kernel_parity as kp
+
+    k, w = kp._numpy(rec_k), kp._numpy(rec_w)
+    idx = np.nonzero(k["hit"] & w["hit"] & (np.abs(k["t"] - w["t"])
+                                            >= judge.get("atol", 2e-3)))[0]
+    if not len(idx):
+        return entry
+    o, d = (x[torch.as_tensor(idx, device=x.device)].double().cpu().numpy()
+            for x in rays[:2])
+    inst_k, inst_w = (r.get("inst", r["tri"])[idx] for r in (k, w))
+    t_k, m_k = _margins64(*geometry(k["tri"][idx], inst_k, o, d))
+    t_w, m_w = _margins64(*geometry(w["tri"][idx], inst_w, o, d))
+    nearer = np.where(t_k < t_w, m_k, m_w)
+    for rec in (k, w):
+        rec["hit"] = rec["hit"].copy()
+        rec["hit"][idx] = False
+    results = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        kp._compare(label, k, w, results=results, **judge)
+    out = results[label]
+    out["max_t_delta_all"] = entry.get("max_t_delta", 0.0)
+    out["surface_flips"] = [
+        {"ray": int(i), "t_kernel": float(k["t"][i]),
+         "t_walk": float(w["t"][i]), "tri_kernel": int(k["tri"][i]),
+         "tri_walk": int(w["tri"][i]), "nearer_margin": float(m)}
+        for i, m in zip(idx, nearer)]
+    out["ok"] = bool(out["ok"] and (np.abs(nearer) < GRAZING_MARGIN).all()
+                     and out["hit_mismatches"] + len(idx)
+                     <= max(2, k["hit"].shape[0] // 5000))
+    return out
+
+
+def _held_to_walk(label, kernel, walk, rays, device, plain=None,
+                  plain_limit=None, judge=None, walked=None,
+                  geometry=None) -> dict:
+    """One comparison of phase 20: `kernel(rays)` (a record, or (N,) flags
+    for an any-hit query) against `walk(rays, stats)` on every ray of
+    `rays`, by kernel_parity's _compare (`judge`: its keywords) or
+    _compare_hits, with its budgets.
+    `plain`, the plain version's record of phase 3b on the strided subset
+    of at most `plain_limit` rays, holds the walk itself there.  `walked`
+    caches walks by label across comparisons on the same rays.  With
+    `geometry` (flat_geometry, instanced_geometry), rays the two hit on
+    other surfaces are judged by _surface_flips.  Prints one line and
+    raises on a disagreement."""
+    from steeljax_torch.apps import kernel_parity as kp
+
+    n = rays[0].shape[0]
+    hits = judge is None
+    rec_k = kernel(rays)
+    torch.cuda.synchronize(device)
+    key = (walk, id(rays[0]))
+    if walked is not None and key in walked:
+        rec_w, seconds, stats, peak = walked[key]
+        reused = True
+    else:
+        rec_w, seconds, stats, peak = _walk_timed(
+            lambda stats: walk(rays, stats), device)
+        reused = False
+        if walked is not None:
+            walked[key] = (rec_w, seconds, stats, peak)
+    results = {}
+    # kernel_parity's judges print a line each; this phase prints its own.
+    with contextlib.redirect_stdout(io.StringIO()):
+        if hits:
+            kp._compare_hits(label, rec_k, rec_w, results)
+        else:
+            kp._compare(label, rec_k, rec_w, results=results, **judge)
+    entry = results[label]
+    if geometry is not None:
+        entry = _surface_flips(label, entry, rec_k, rec_w, rays, judge,
+                               geometry)
+    entry.update(budget=max(2, n // 5000),
+                 walk_s=seconds, walk_steps=stats.get("steps", 0),
+                 walk_host_reads=stats.get("host_reads", 0),
+                 walk_batches=stats.get("batches", 0),
+                 walk_peak_mib=peak, walk_reused=reused)
+    text = (f"{label}: {n} rays compared, {entry['hit_mismatches']} hit "
+            f"mismatches (budget "
+            f"max(2, N/5000) = {entry['budget']}), {entry['hits']} hits")
+    flips = entry.get("surface_flips", [])
+    if flips:
+        text += (f", {len(flips)} rays on another surface (max |dt| "
+                 f"{entry['max_t_delta_all']:.3e}; float64 barycentric margin "
+                 "of the nearer triangle "
+                 + ", ".join(f"{f['nearer_margin']:.2e}" for f in flips[:8])
+                 + f"; grazing below {GRAZING_MARGIN:g}; counted with the hit "
+                 "mismatches)")
+    if not hits:
+        text += (f", max |dt| {entry.get('max_t_delta', 0.0):.3e}"
+                 + (" on the other common hits" if flips else "")
+                 + f", tri ids equal on {entry.get('tri_matches_pct', 100.0):.4f}"
+                 "% of the common hits"
+                 + (f", source triangles on {entry['source_matches_pct']:.4f}%"
+                    if "source_matches_pct" in entry else ""))
+    text += ("; the walk " + ("(the one above, reused)" if reused else
+             f"{seconds:.3f} s, {entry['walk_steps']} steps in "
+             f"{entry['walk_batches']} batches, {entry['walk_host_reads']} "
+             f"host reads, peak {peak:.0f} MiB"))
+    if plain is not None:
+        step = -(-n // plain_limit)
+        sub = {}
+        with contextlib.redirect_stdout(io.StringIO()):
+            if hits:
+                kp._compare_hits("walk", _every(rec_w, step), plain, sub)
+            else:
+                # The plain version's record is the kernel's kind; the
+                # walk's has no fused outputs to compare.
+                kp._compare("walk", plain, _every(rec_w, step),
+                            judge["tri_pos"], sub)
+        entry["walk_against_plain"] = sub["walk"]
+        text += (f"; the walk against the plain version on its "
+                 f"{sub['walk']['rays']} rays: "
+                 f"{sub['walk']['hit_mismatches']} hit mismatches"
+                 + ("" if hits else
+                    f", max |dt| {sub['walk'].get('max_t_delta', 0.0):.3e}")
+                 + f" ({'PASS' if sub['walk']['ok'] else 'FAIL'})")
+    print(text)
+    if not entry["ok"]:
+        raise RuntimeError(f"{label}: the kernel disagrees with the walk: "
+                           f"{entry}")
+    if plain is not None and not entry["walk_against_plain"]["ok"]:
+        raise RuntimeError(f"{label}: the walk disagrees with the plain "
+                           f"version: {entry['walk_against_plain']}")
+    return entry
+
+
+def phase_walk(device, scenes, kernels, sbvh) -> dict:
+    """Phase 20, every ray against the walk.  The reference holds its
+    kernels against its BVH walk (steeljax/apps/kernel_parity.py:229-400),
+    which costs about rays x log(triangles); phase 3b holds the kernels
+    against their brute-force plain versions, which cost rays x records, on
+    strided subsets of the big paths' rays.  Here the walk
+    (dispatch.trace_nearest_walk, trace_any_walk,
+    instances.trace_nearest_instanced_walk) runs on the card over the same
+    tables, and each kernel launch is held against it on every ray of
+    phases 3a/3b's ray sets, by kernel_parity's _compare or _compare_hits
+    and their budgets (at most max(2, N/5000) hit mismatches; |dt| < 2e-3,
+    fused normals within 5e-3 of the interpolated attributes, no material
+    mismatch):
+      * K1 in mode 1 on Cornell's 921,600 primaries, its fused outputs
+        checked against the interpolated attributes, as flat_shade1;
+      * K1 on path L's primaries and first-bounce rays;
+      * K2 and K2-dense on path L's first-bounce shadow rays;
+      * K3 (mode 2) on path T's primaries, with the attributes;
+      * K4 with the coarse masks only (the tables' fine rows are left out:
+        the reference's walk has no fine plane), nearest on path F's
+        primaries and any-hit on its first-bounce sun rays;
+      * K1 and K2 on path H's 2,073,600 G-buffer and sun rays;
+      * path C's two-chunk sweep (dispatch.trace_nearest: K1 a chunk) on
+        its primaries against the walk's sweep over the same chunks;
+      * K6 on path I's primaries, instance ids recorded;
+      * K7 through the scheduler on path U's primaries, against the walk
+        of the one tree its treelets were cut from;
+      * over phase 18's spatial-split tables (`sbvh`), by source triangle
+        as well (kernel_parity.source_ids): K1 on path L's primaries over
+        path LS's and K4 with coarse masks on path F's primaries over path
+        FS's.
+    A ray both hit on different surfaces (|dt| past the limit) counts with
+    the hit mismatches, and only where float64 puts the nearer triangle's
+    hit within GRAZING_MARGIN of its edge (_surface_flips); its line lists
+    those margins.
+    The walk itself is held against phase 3b's plain version on that row's
+    strided subset (the plain record phase 3b or 18 kept), except for K4
+    with coarse masks, whose plain version runs here on
+    kernel_parity.FOLIAGE_SUBSET rays, and K7, whose plain trace runs the
+    scheduler.  K5 keeps phase 3b's strided check: the reference has no
+    K-nearest walk.  Returns {label: entry}."""
+    from steeljax_torch.accel import cuda_traverse as ct
+    from steeljax_torch.accel import dispatch
+    from steeljax_torch.accel.instances import trace_nearest_instanced_walk
+    from steeljax_torch.accel.treelets import trace_treelets
+    from steeljax_torch.apps import kernel_parity as kp
+
+    def flat_walk(prepared, any_hit=False):
+        _, flat, tables = prepared
+        pos, ds = flat.tri_pos, flat.tri_double_sided
+        if any_hit:
+            return lambda rays, stats: dispatch.trace_any_walk(
+                tables, pos, ds, *rays, stats=stats)
+        return lambda rays, stats: dispatch.trace_nearest_walk(
+            tables, pos, ds, *rays, True, stats=stats)
+
+    def nearest(chunk, mode, alpha=False):
+        shade = chunk.shade_packed if mode else None
+        return lambda rays: ct.trace_nearest_bvh8(
+            chunk.bvh8, chunk.tris_packed, *rays, True, shade, mode,
+            alpha_mask=alpha, records=chunk.tri_records)
+
+    def anyhit(chunk, alpha=False):
+        bvh8, tris, records, dense = dispatch.anyhit_tables(chunk)
+        return lambda rays: ct.trace_any_bvh8(
+            bvh8, tris, *rays, dense, alpha_mask=alpha, records=records)
+
+    def judged(flat, rays, attrs=("nrm", "mat")):
+        return {"tri_pos": flat.tri_pos.cpu().numpy(),
+                "attrs": {k: getattr(flat, f"tri_{k}").cpu().numpy()
+                          for k in attrs} if attrs else None,
+                "d": rays[1].cpu().numpy()}
+
+    def held(row):
+        return row["held"]["rays"], row["held"]["plain"]
+
+    out, walked = {}, {}
+
+    def check(kernel_key, label, kernel, walk, rays, plain=None,
+              plain_limit=None, judge=None, geometry=None):
+        if geometry is None and judge is not None and \
+                judge["tri_pos"] is not None:
+            geometry = flat_geometry(judge["tri_pos"])
+        out[label] = _held_to_walk(label, kernel, walk, rays, device, plain,
+                                   plain_limit, judge, walked, geometry)
+        out[label]["kernel"] = kernel_key
+
+    start = time.perf_counter()
+    cflat, ctables, _ = kp.cornell_cases(device, WIDTH, HEIGHT)
+    rays, plain = held(kernels["K1"])
+    check("K1", "K1 Cornell primaries", nearest(ctables.chunks[0], 1),
+          flat_walk((None, cflat, ctables)), rays, plain, rays[0].shape[0],
+          judged(cflat, rays))
+
+    path_l = scenes["sunlit"]
+    _, lflat, ltables = path_l
+    lchunk = ltables.chunks[0]
+    l_walk, l_walk_any = flat_walk(path_l), flat_walk(path_l, any_hit=True)
+    for label, row in (("K1 path L primaries", kernels["K1"]["path_l"]),
+                       ("K1 path L first-bounce rays",
+                        kernels["K1"]["path_l_bounce1"])):
+        rays, plain = held(row)
+        check("K1", label, nearest(lchunk, ltables.shade_mode), l_walk, rays,
+              plain, kp.SHADOW_SUBSET, judged(lflat, rays))
+    # K2 and K2-dense trace the same rays: one walk holds both.
+    for name, label, chunk in (
+            ("K2", "K2 path L first-bounce shadow rays", lchunk),
+            ("K2_dense", "K2-dense path L first-bounce shadow rays",
+             scenes["sunlit_dense"][2].chunks[0])):
+        rays, plain = held(kernels[name])
+        check(name, label, anyhit(chunk), l_walk_any, rays, plain,
+              kp.SHADOW_SUBSET)
+
+    path_t = scenes["stress_tex"]
+    _, tflat, ttables = path_t
+    rays, plain = held(kernels["K3"])
+    check("K3", "K3 path T primaries", nearest(ttables.chunks[0], 2),
+          flat_walk(path_t), rays, plain, kp.TEX_SUBSET,
+          judged(tflat, rays, ("nrm", "tan", "uv", "mat")))
+
+    path_f = scenes["foliage"]
+    _, fflat, ftables = path_f
+    fchunk = ftables.chunks[0]
+    for name, label in (
+            ("K4", "K4 (coarse masks) path F primaries"),
+            ("K4_anyhit",
+             "K4 any-hit (coarse masks) path F first-bounce sun rays")):
+        any_hit = name == "K4_anyhit"
+        rays = kernels[name]["held"]["rays"]
+        subset = kp.strided_subset(rays, kp.FOLIAGE_SUBSET)
+        if any_hit:
+            plain = ct.trace_any_bvh8_plain(fchunk.bvh8, fchunk.tris_packed,
+                                            *subset, alpha_mask=True)
+        else:
+            plain = ct.trace_nearest_bvh8_plain(
+                fchunk.bvh8, fchunk.tris_packed, *subset, True,
+                alpha_mask=True)
+        check(name, label, anyhit(fchunk, True) if any_hit
+              else nearest(fchunk, 0, True), flat_walk(path_f, any_hit),
+              rays, plain, kp.FOLIAGE_SUBSET,
+              None if any_hit else judged(fflat, rays, None))
+
+    for name, label, row in (
+            ("K1", "K1 path H G-buffer rays", kernels["K1"]["path_h"]),
+            ("K2", "K2 path H sun rays", kernels["K2"]["path_h"])):
+        rays, plain = held(row)
+        if name == "K2":
+            check(name, label, anyhit(lchunk), l_walk_any, rays, plain,
+                  kp.SHADOW_SUBSET)
+        else:
+            check(name, label, nearest(lchunk, ltables.shade_mode), l_walk,
+                  rays, plain, kp.SHADOW_SUBSET, judged(lflat, rays))
+
+    path_c = scenes["sunlit_chunked"]
+    _, c_flat, c_tables = path_c
+    rays, plain = held(kernels["K1"]["path_c"])
+    check("K1", "K1 path C primaries (both chunks, the sweep)",
+          lambda rays: dispatch.trace_nearest(c_tables, *rays, True),
+          flat_walk(path_c), rays, plain, kp.TEX_SUBSET,
+          judged(c_flat, rays))
+
+    _, _, itables = scenes["sunlit_inst"]
+    rays, plain = held(kernels["K6"])
+    check("K6", "K6 path I primaries",
+          lambda rays: ct.trace_nearest_bvh8_inst(itables, *rays, True),
+          lambda rays, stats: trace_nearest_instanced_walk(
+              itables, *rays, True, stats=stats),
+          rays, plain, kp.SHADOW_SUBSET, {"tri_pos": None, "direct": True},
+          instanced_geometry(itables))
+
+    _, uflat, utables = scenes["stress_tex_treelets"]
+    rays = kernels["K7"]["held"]["rays"]
+    check("K7", "K7 path U primaries",
+          lambda rays: trace_treelets(utables.treelets, *rays, True),
+          flat_walk(scenes["stress_tex_treelets"]), rays,
+          judge=judged(uflat, rays, ("nrm", "tan", "uv", "mat")))
+
+    # Phase 18's spatial-split tables: a triangle may fill several slots.
+    path_ls = sbvh["prepared"]["path LS"]
+    _, ls_flat, ls_tables = path_ls
+    rays, plain = held(sbvh["rows"]["K1"])
+    judge = judged(ls_flat, rays)
+    judge["source"] = kp.source_ids(judge["tri_pos"])
+    check("K1", "K1 path LS primaries (path L's, by source triangle)",
+          nearest(ls_tables.chunks[0], ls_tables.shade_mode),
+          flat_walk(path_ls), rays, plain, kp.SHADOW_SUBSET, judge)
+    path_fs = sbvh["prepared"]["path FS"]
+    _, fs_flat, fs_tables = path_fs
+    fs_chunk = fs_tables.chunks[0]
+    rays = sbvh["rows"]["K4"]["held"]["rays"]
+    plain = ct.trace_nearest_bvh8_plain(
+        fs_chunk.bvh8, fs_chunk.tris_packed,
+        *kp.strided_subset(rays, kp.FOLIAGE_SUBSET), True, alpha_mask=True)
+    judge = judged(fs_flat, rays, None)
+    judge["source"] = kp.source_ids(judge["tri_pos"])
+    check("K4", "K4 (coarse masks) path FS primaries (by source triangle)",
+          nearest(fs_chunk, 0, True), flat_walk(path_fs), rays, plain,
+          kp.FOLIAGE_SUBSET, judge)
+    seconds = time.perf_counter() - start
+    walks = sum(e["walk_s"] for e in out.values() if not e["walk_reused"])
+    print(f"phase 20: {len(out)} comparisons of "
+          f"{sum(e['rays'] for e in out.values())} rays in all, the walks "
+          f"{walks:.1f} s of the phase's {seconds:.1f} s (budget "
+          f"{WALK_BUDGET_S:.0f} s)")
+    return out
+
+
 def phase_kernel_ab(scenes, old_dir, ptxas: dict) -> None:
     """K2 and K2-dense against the earlier kernels built from `old_dir`, in
     turns, on path L's first-bounce shadow rays and their live subset, and
@@ -4700,6 +5152,8 @@ def main(argv=None) -> int:
     shade = phase("19. STEELJAX_SHADE_MODE unset and 0 (Cornell, paths L, "
                   "T and H)", phase_shade_mode, device, scenes, cornell,
                   path_h, kernels)
+    walk = phase("20. every ray against the walk", phase_walk, device,
+                 scenes, kernels, sbvh)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items())
           + f"; the run {time.perf_counter() - start:.1f} s")
@@ -4733,6 +5187,11 @@ def main(argv=None) -> int:
         else:
             kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"],
                                             row["parity_max_abs_err"])
+    # Phase 20's comparisons with the walk, under the kernel each holds.
+    for label, entry in walk.items():
+        kernels[entry["kernel"]].setdefault("walk", {})[label] = {
+            f: entry.get(f) for f in ("rays", "hit_mismatches", "budget",
+                                      "max_t_delta", "walk_s")}
     # The frames whose launches each sbvh sub-row reports, and its tables.
     sbvh_frames = {"K1": ("path LS", "path LS"), "K2": ("path LS", "path LS"),
                    "K4": ("path FS", "path FS"),
@@ -4871,7 +5330,7 @@ def main(argv=None) -> int:
         "plain_rays": kernels[k]["plain_rays"],
         **{key: kernels[k][key] for key in (
             "bit_equal", "subtile_bound_ms", "subtile_bound_by", "winners",
-            "work", "tail", "ties", "cornell", "registers", "ab")
+            "work", "tail", "ties", "cornell", "registers", "ab", "walk")
             if key in kernels[k]},
         **{key: sub_row(k, key) for key in (*sub_paths, "path_g", "sbvh",
                                             "sbvh_cards", "shade_mode0")

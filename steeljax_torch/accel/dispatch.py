@@ -27,6 +27,13 @@ query (K5) traces one chunk, as the reference's integrator gates it.
 instances.InstancedTables to the two-level trace (K6).
 STEELJAX_SHADE_MODE caps the fused shading mode of the flat nearest trace
 (_shade_mode_cap).
+
+`trace_nearest_walk` and `trace_any_walk` are the reference's
+`use_pallas=False` branches (:451-530, :533-589): every chunk's binary tree
+walked by accel.traverse over the chunk's slice of the permuted triangle
+arrays, through the same sweep.  They are the oracle the kernels are held
+against (apps.kernel_parity, chip_smoke.py phase 20), not the render path:
+the port's CPU route stays on the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -39,13 +46,15 @@ import torch
 
 from torch.profiler import record_function
 
-from steeljax_torch.accel import cuda_traverse, treelets as treelets_lib
+from steeljax_torch.accel import cuda_traverse, traverse
+from steeljax_torch.accel import treelets as treelets_lib
 from steeljax_torch.accel.alphamask import MASK_FULL
 from steeljax_torch.accel.bvh import (BVH, BVH8, DENSE_PER_ROW, SNODE_WIDTH,
                                       _align_leaves, _morton3, build_bvh,
                                       collapse_bvh8)
 from steeljax_torch.accel.instances import (InstancedTables,
-                                            trace_nearest_instanced)
+                                            trace_nearest_instanced,
+                                            trace_nearest_instanced_walk)
 from steeljax_torch.core.constants import RAY_DEAD_T
 
 # The reference's chunk size (steeljax/accel/dispatch.py MAX_CHUNK_TRIS):
@@ -567,6 +576,69 @@ def trace_any(tables: TraceTables | InstancedTables, o: torch.Tensor,
             bvh8, tris, o, d, t_min, chunk_tmax, dense=dense,
             alpha_mask=tables.alpha_masked, fine_rows=chunk.fine_mask_rows,
             records=records)
+
+    if len(tables.chunks) == 1:
+        return trace(tables.chunks[0], t_max)
+    return sweep_any(tables.chunks, trace, o, d, t_min, t_max)
+
+
+def _chunk_arrays(chunk: ChunkTables, tri_pos, tri_double_sided) -> tuple:
+    """The chunk's slice of the permuted per-triangle arrays
+    (steeljax/accel/dispatch.py:421-423)."""
+    s = slice(chunk.row_offset, chunk.row_offset + chunk.rows)
+    return tri_pos[s], tri_double_sided[s]
+
+
+def trace_nearest_walk(tables: TraceTables | InstancedTables, tri_pos,
+                       tri_double_sided, o: torch.Tensor, d: torch.Tensor,
+                       t_min, t_max, cull_backface: bool = True,
+                       stats: dict | None = None) -> dict:
+    """The reference's CPU nearest hit (steeljax/accel/dispatch.py:451-530,
+    use_pallas=False): each chunk's binary tree walked
+    (traverse.trace_nearest) over its slice of `tri_pos`/`tri_double_sided`
+    (the tables' permuted (T, 3, 3) positions and (T,) flags, as
+    prepare_scene's FlatScene holds them) with the chunk's coarse masks;
+    above one chunk through sweep_nearest (the AABB pre-cull, tri ids
+    offset by row_offset, the interval shrunk to the best hit, a later
+    chunk winning only at a strictly smaller t).  Instanced tables go to
+    the two-level walk (instances.trace_nearest_instanced_walk; tri_pos is
+    not read), treelet tables walk the one tree their treelets were cut
+    from (the kept chunk's).  The record has the walk's fields: t, tri, u,
+    v, hit (and inst), no fused shading.  `stats` is
+    traverse.trace_nearest's."""
+    if isinstance(tables, InstancedTables):
+        return trace_nearest_instanced_walk(tables, o, d, t_min, t_max,
+                                            cull_backface=cull_backface,
+                                            stats=stats)
+
+    def trace(chunk, chunk_tmax):
+        return traverse.trace_nearest(
+            chunk.bvh, *_chunk_arrays(chunk, tri_pos, tri_double_sided), o,
+            d, t_min, chunk_tmax, cull_backface=cull_backface,
+            tri_alpha_mask=chunk.tri_mask, stats=stats)
+
+    if len(tables.chunks) == 1:
+        return trace(tables.chunks[0], t_max)
+    return sweep_nearest(tables.chunks, trace, o, d, t_min, t_max)
+
+
+def trace_any_walk(tables: TraceTables | InstancedTables, tri_pos,
+                   tri_double_sided, o: torch.Tensor, d: torch.Tensor, t_min,
+                   t_max, stats: dict | None = None) -> torch.Tensor:
+    """The reference's CPU occlusion query (steeljax/accel/dispatch.py:
+    533-589, use_pallas=False): traverse.trace_any over each chunk's tree
+    and slice with its coarse masks, through sweep_any above one chunk (a
+    ray occluded in one chunk is dead in the next); instanced tables through
+    the two-level walk's hit flags.  (N,) bool."""
+    if isinstance(tables, InstancedTables):
+        return trace_nearest_instanced_walk(
+            tables, o, d, t_min, t_max, cull_backface=False,
+            stats=stats)["hit"]
+
+    def trace(chunk, chunk_tmax):
+        return traverse.trace_any(
+            chunk.bvh, *_chunk_arrays(chunk, tri_pos, tri_double_sided), o,
+            d, t_min, chunk_tmax, tri_alpha_mask=chunk.tri_mask, stats=stats)
 
     if len(tables.chunks) == 1:
         return trace(tables.chunks[0], t_max)

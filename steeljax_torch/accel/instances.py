@@ -22,7 +22,10 @@ trace_nearest_bvh8_inst, csrc/instanced8.cu) for CUDA tensors and its plain
 version for CPU tensors; there is no `use_pallas` flag, and the fused shade
 records are built on every device.  Triangle facing is decided by
 object-space winding, and double-sidedness is an instance (material)
-property applied at trace time.
+property applied at trace time.  Each BLAS also keeps its binary tree and
+permuted triangles on the device (CpuBlas, the tables' `cpu_blas`), which
+`trace_nearest_instanced_walk`, the reference's CPU two-level trace and
+K6's oracle, walks instance by instance.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from steeljax_torch.accel import cuda_traverse
-from steeljax_torch.accel.bvh import (apply_permutation, build_bvh,
+from steeljax_torch.accel import cuda_traverse, traverse
+from steeljax_torch.accel.bvh import (BVH, apply_permutation, build_bvh,
                                       collapse_bvh8)
 from steeljax_torch.scene.flatten import _to_linear_np, pack_tri_shade
 
@@ -68,6 +71,9 @@ class InstancedTables:
     # World bounds of the instances, for the ray-sort keys.
     aabb_lo: tuple = (0.0, 0.0, 0.0)
     aabb_hi: tuple = (1.0, 1.0, 1.0)
+    # Every cached BLAS's binary tree and permuted triangles, in BLAS index
+    # order, for the walk (trace_nearest_instanced_walk).
+    cpu_blas: tuple = ()       # tuple[CpuBlas]
     # BLAS index of every instance, and the first pool record of every
     # BLAS: the plain trace walks them, _total_triangles counts them.
     inst_blas: tuple = ()
@@ -78,10 +84,19 @@ class InstancedTables:
         return self.inst_trace.shape[0]
 
 
-class _Blas:
-    """Host-side cached BLAS of one primitive."""
+@dataclasses.dataclass
+class CpuBlas:
+    """One BLAS as the walk reads it (steeljax/accel/instances.py:84-87)."""
+    bvh: BVH
+    tri_pos: torch.Tensor           # (Tp, 3, 3) permuted object space
+    tri_double_sided: torch.Tensor  # (Tp,) bool, all False
 
-    def __init__(self, primitive, leaf_size: int):
+
+class _Blas:
+    """Host-side cached BLAS of one primitive; `cpu` is its CpuBlas on the
+    accel's device."""
+
+    def __init__(self, primitive, leaf_size: int, device: torch.device):
         tri = np.asarray(primitive.indices).reshape(-1, 3)
         pos = np.asarray(primitive.positions, np.float32)
         tri_pos = pos[tri]
@@ -92,7 +107,12 @@ class _Blas:
             "tri_tan": np.asarray(primitive.tangents, np.float32)[tri],
             "tri_uv": np.asarray(primitive.tex_coords, np.float32)[tri],
         })
+        self.bvh = bvh
         self.tri_pos = permuted["tri_pos"]
+        self.cpu = CpuBlas(
+            bvh=bvh, tri_pos=torch.from_numpy(self.tri_pos).to(device),
+            tri_double_sided=torch.zeros(padded, dtype=torch.bool,
+                                         device=device))
         # The records carry no double-sided flag: the instance's does.
         self.rows8, self.depth8 = collapse_bvh8(np.asarray(bvh.nodes),
                                                 leaf_size)
@@ -227,7 +247,7 @@ class InstancedAccel:
         key = id(primitive)
         blas = self._blas.get(key)
         if blas is None:
-            blas = _Blas(primitive, self.leaf_size)
+            blas = _Blas(primitive, self.leaf_size, self.device)
             self._blas[key] = blas
             self.blas_builds += 1
         return key, blas
@@ -381,6 +401,7 @@ class InstancedAccel:
                 max_leaf=self.leaf_size,
                 aabb_lo=tuple(float(v) for v in aabb_lo),
                 aabb_hi=tuple(float(v) for v in aabb_hi),
+                cpu_blas=tuple(self._blas[k].cpu for k in sorted_keys),
                 inst_blas=tuple(blas_index[k] for k in blas_keys),
                 blas_tri_offset=tuple(offsets[k][1] for k in sorted_keys))
 
@@ -395,3 +416,67 @@ def trace_nearest_instanced(tables: InstancedTables, o, d, t_min, t_max,
     return cuda_traverse.trace_nearest_bvh8_inst(
         tables, o, d, t_min, t_max, cull_backface=cull_backface,
         any_hit=any_hit)
+
+
+def _transform_rays(inv_row: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+    """The rays in an instance's object space (steeljax/accel/instances.py:
+    402-406): o A^T + a and d A^T for the inverse world 3x4 [A | a] in
+    inv_row[:12], each component's products summed left to right.  The
+    reference's eager matrix product rounds its own way, so the object-space
+    rays, and with them t, may differ from it in the last bit."""
+    a = inv_row[:12].reshape(3, 4)
+
+    def apply(x):
+        return torch.stack([(x[:, 0] * a[j, 0] + x[:, 1] * a[j, 1])
+                            + x[:, 2] * a[j, 2] for j in range(3)], dim=-1)
+
+    return apply(o) + a[:, 3], apply(d)
+
+
+def trace_nearest_instanced_walk(tables: InstancedTables, o, d, t_min,
+                                 t_max, cull_backface: bool = True,
+                                 stats: dict | None = None) -> dict:
+    """The two-level nearest hit of the reference's CPU path
+    (steeljax/accel/instances.py:425-451), the oracle of K6: instance by
+    instance, the rays transformed into its object space, the BLAS walked
+    (traverse.trace_nearest) with the instance's double-sided flag ORed in,
+    the interval shrunk to the best hit so far; a later instance wins only
+    at a strictly smaller t.  Returns the walk's record with tri indexing
+    the BLAS pool and "inst" (N,) int32 (-1 on a miss); its hit flags
+    answer the occlusion query too, as the reference's CPU path (which
+    takes any_hit and walks for the nearest hit all the same) answers it.
+    `stats` is traverse.trace_nearest's."""
+    n = o.shape[0]
+    tmn = torch.as_tensor(t_min, dtype=torch.float32,
+                          device=o.device).expand(n)
+    cur = torch.as_tensor(t_max, dtype=torch.float32,
+                          device=o.device).expand(n)
+    best = None
+    for i in range(tables.instance_count):
+        blas = tables.cpu_blas[tables.inst_blas[i]]
+        row = tables.inst_trace[i]
+        o2, d2 = _transform_rays(row, o, d)
+        rec = traverse.trace_nearest(
+            blas.bvh, blas.tri_pos, blas.tri_double_sided | (row[13] > 0.5),
+            o2, d2, tmn, cur, cull_backface=cull_backface, stats=stats)
+        rec["inst"] = torch.where(rec["hit"], i, -1).to(torch.int32)
+        rec["tri"] = torch.where(
+            rec["hit"],
+            rec["tri"] + tables.blas_tri_offset[tables.inst_blas[i]], -1)
+        if best is None:
+            best = rec
+        else:
+            better = rec["hit"] & (~best["hit"] | (rec["t"] < best["t"]))
+            best = {k: torch.where(better, rec[k], v)
+                    for k, v in best.items()}
+        cur = torch.where(best["hit"], best["t"], cur)
+    if best is None:
+        best = {"t": torch.full((n,), -1.0, device=o.device),
+                "tri": torch.full((n,), -1, dtype=torch.int32,
+                                  device=o.device),
+                "u": torch.zeros((n,), device=o.device),
+                "v": torch.zeros((n,), device=o.device),
+                "hit": torch.zeros((n,), dtype=torch.bool, device=o.device),
+                "inst": torch.full((n,), -1, dtype=torch.int32,
+                                   device=o.device)}
+    return best

@@ -1,5 +1,6 @@
 """Kernel parity gate for the trace kernels K1 to K7: each CUDA kernel
-against its plain PyTorch version, on the card.
+against its plain PyTorch version, on the card, and the variants the
+reference judges against its BVH walk against that walk too.
 
 Port of steeljax/apps/kernel_parity.py for the ported kernels: the inputs
 (`_soup`, `_rays`, seeded as :242-264), the deterministic grid
@@ -58,6 +59,21 @@ The reference's multi-chunk and 16-wide variants (:403-443) are
 cut in three, through dispatch's sweep) and `flat_shade0_width16` (K1 over
 16-wide supernode rows); the walk serves K2, K4 and K5 at width 16 too,
 which `anyhit_width16`, `alpha_width16` and `multihit_width16` hold.
+
+The reference's oracle is its BVH walk (:229-400, tables with
+use_pallas=False), the port's accel.traverse: the variants it judges
+against the walk (flat_shade0_cull{0,1}, flat_shade0_shared_origin,
+flat_shade{1,2}, flat_anyhit, flat_anyhit_dense, flat_alpha_mask,
+flat_alpha_mask_anyhit, flat_deterministic_exact, chunked_shade0,
+chunked_anyhit, flat_shade0_width16) and the soup-scale instanced ones
+(instanced_fused, instanced_anyhit, instanced_shade0, instanced_shade2)
+are judged by the same _compare against dispatch.trace_nearest_walk /
+trace_any_walk or instances.trace_nearest_instanced_walk as well (_judge,
+_judge_hits): a variant passes only if the kernel agrees with both
+references, and its entry keeps the walk's under "walk".  The fine-mask
+and multi-hit variants have no walk (the reference's has neither a fine
+plane nor K slots), and the path-scale ones are held against the walk on
+every ray by chip_smoke.py's phase 20.
 
 `flat_shade0_shared_origin` is the reference's variant of K1 on rays that
 share one origin (:279-286, the hybrid G-buffer's kind of ray); the port's
@@ -186,8 +202,10 @@ def _compare(name, rec_k, rec_o, tri_pos, results,
                 entry["max_tan_delta"] = float(np.abs(
                     rec_k["tan"][both] - tan_ref[both]).max())
         if direct:
+            # Only the fields both records have: the walk's has no fused
+            # outputs.
             same = both & (rec_k["tri"] == rec_o["tri"])
-            if "inst" in rec_k:
+            if "inst" in rec_k and "inst" in rec_o:
                 entry["inst_matches_pct"] = float(
                     (rec_k["inst"][both] == rec_o["inst"][both]).mean()
                     * 100.0)
@@ -195,15 +213,15 @@ def _compare(name, rec_k, rec_o, tri_pos, results,
             for field, key in (("n", "max_normal_delta"),
                                ("tan", "max_tan_delta"),
                                ("uv", "max_uv_delta")):
-                if field in rec_k and same.any():
+                if field in rec_k and field in rec_o and same.any():
                     entry[key] = float(np.abs(rec_k[field][same]
                                               - rec_o[field][same]).max())
-            if "uvd" in rec_k and same.any():
+            if "uvd" in rec_k and "uvd" in rec_o and same.any():
                 ref = rec_o["uvd"][same]
                 entry["max_uvd_rel_delta"] = float(
                     (np.abs(rec_k["uvd"][same] - ref)
                      / np.maximum(np.abs(ref), 1.0)).max())
-            if "mat" in rec_k:
+            if "mat" in rec_k and "mat" in rec_o:
                 entry["mat_mismatches"] = int(
                     (rec_k["mat"][same] != rec_o["mat"][same]).sum())
     # Borderline-grazing rays may flip on fp fusion-order differences
@@ -222,6 +240,40 @@ def _compare(name, rec_k, rec_o, tri_pos, results,
     results[name] = entry
     print(f"{'PASS' if ok else 'FAIL'} {name}: {entry}")
     return ok
+
+
+def _judge(name, rec_k, rec_p, rec_w, tri_pos, results, **kw) -> bool:
+    """A variant the reference judges against its BVH walk: the kernel's
+    record against its plain version's and against the walk's
+    (dispatch.trace_nearest_walk, the reference's oracle), each by _compare
+    with the same keywords and budgets.  The walk's entry is the field
+    "walk" of the variant's entry, and the variant passes only if both
+    hold."""
+    ok = _compare(name, rec_k, rec_p, tri_pos, results, **kw)
+    walk = {}
+    ok_w = _compare(f"{name} against the walk", rec_k, rec_w, tri_pos,
+                    walk, **kw)
+    results[name]["walk"] = walk.popitem()[1]
+    results[name]["ok"] = bool(ok and ok_w)
+    return results[name]["ok"]
+
+
+def _judge_hits(name, hit_k, hit_p, hit_w, results) -> bool:
+    """_judge for occlusion flags (_compare_hits against the plain version
+    and against dispatch.trace_any_walk)."""
+    ok = _compare_hits(name, hit_k, hit_p, results)
+    walk = {}
+    ok_w = _compare_hits(f"{name} against the walk", hit_k, hit_w, walk)
+    results[name]["walk"] = walk.popitem()[1]
+    results[name]["ok"] = bool(ok and ok_w)
+    return results[name]["ok"]
+
+
+def walk_arrays(pos, ds, device) -> tuple:
+    """Permuted (T, 3, 3) positions and (T,) double-sided flags as the
+    walk's tensors on `device`."""
+    return (torch.as_tensor(np.asarray(pos, np.float32), device=device),
+            torch.as_tensor(np.asarray(ds, bool), device=device))
 
 
 def source_ids(tri_pos) -> np.ndarray:
@@ -742,6 +794,8 @@ def _alpha_variants(device, tables, o, d, n_tris: int, variants) -> bool:
         trace_any_bvh8, trace_any_bvh8_plain, trace_multihit_bvh8,
         trace_multihit_bvh8_plain, trace_nearest_bvh8,
         trace_nearest_bvh8_plain)
+    from steeljax_torch.accel.dispatch import (trace_any_walk,
+                                               trace_nearest_walk)
 
     ok = True
     mtables, mperm = alpha_soup_case(n_tris, device)
@@ -750,17 +804,33 @@ def _alpha_variants(device, tables, o, d, n_tris: int, variants) -> bool:
                              ("fine_mask", ftables, fperm)):
         chunk = tab.chunks[0]
         kw = dict(alpha_mask=True, fine_rows=chunk.fine_mask_rows)
+        # The reference's walk has no fine plane: it is the oracle of the
+        # coarse variants only (:341-370), as here.
+        arrays = (walk_arrays(perm["pos"], perm["ds"], device)
+                  if label == "alpha_mask" else None)
         args = (chunk.bvh8, chunk.tris_packed, o, d, 0.001, 1000.0, True,
                 None, 0)
         rec_k = trace_nearest_bvh8(*args, **kw)
         rec_p = trace_nearest_bvh8_plain(*args, **kw)
         torch.cuda.synchronize(device)
-        ok &= _compare(f"flat_{label}", rec_k, rec_p, perm["pos"], variants)
+        if arrays:
+            ok &= _judge(f"flat_{label}", rec_k, rec_p, trace_nearest_walk(
+                tab, *arrays, o, d, 0.001, 1000.0, True), perm["pos"],
+                variants)
+        else:
+            ok &= _compare(f"flat_{label}", rec_k, rec_p, perm["pos"],
+                           variants)
         args = (chunk.bvh8, chunk.tris_packed, o, d, 0.001, 40.0, False)
         hit_k = trace_any_bvh8(*args, **kw)
         hit_p = trace_any_bvh8_plain(*args, **kw)
         torch.cuda.synchronize(device)
-        ok &= _compare_hits(f"flat_{label}_anyhit", hit_k, hit_p, variants)
+        if arrays:
+            ok &= _judge_hits(f"flat_{label}_anyhit", hit_k, hit_p,
+                              trace_any_walk(tab, *arrays, o, d, 0.001,
+                                             40.0), variants)
+        else:
+            ok &= _compare_hits(f"flat_{label}_anyhit", hit_k, hit_p,
+                                variants)
     for label, tab in (("flat_multihit", tables),
                        ("flat_multihit_masked", mtables),
                        ("flat_multihit_fine", ftables)):
@@ -777,7 +847,7 @@ def _alpha_variants(device, tables, o, d, n_tris: int, variants) -> bool:
 
 
 def _chunked_width16_variants(device, tables, perm, o, d, n_tris: int,
-                              variants) -> bool:
+                              variants, walk, hit_walk) -> bool:
     """The reference's multi-chunk and 16-wide variants (kernel_parity.py:
     403-443) and the 16-wide cases of the port's other instances of the
     walk: `chunked_shade0` (the soup cut into chunks of n_tris // 3, traced
@@ -787,14 +857,18 @@ def _chunked_width16_variants(device, tables, perm, o, d, n_tris: int,
     chunk), `flat_shade0_width16` (K1 over 16-wide rows), `anyhit_width16`
     (K2), `alpha_width16` (K4 nearest with coarse and fine masks) and
     `multihit_width16` (K5, K = 4, on the first 2048 rays), each against
-    its plain version."""
+    its plain version.  As in the reference, chunked_shade0 and
+    chunked_anyhit are judged against the walk over the one-chunk tables
+    too (`walk`, `hit_walk`), and flat_shade0_width16 against the walk
+    over the 16-wide tables' binary tree."""
     from steeljax_torch.accel.bvh import apply_permutation
     from steeljax_torch.accel.cuda_traverse import (
         trace_any_bvh8, trace_any_bvh8_plain, trace_multihit_bvh8,
         trace_multihit_bvh8_plain, trace_nearest_bvh8,
         trace_nearest_bvh8_plain)
     from steeljax_torch.accel.dispatch import (prepare_tables, trace_any,
-                                               trace_nearest)
+                                               trace_nearest,
+                                               trace_nearest_walk)
 
     ok = True
     tris, ds = soup_inputs(n_tris)
@@ -807,27 +881,34 @@ def _chunked_width16_variants(device, tables, perm, o, d, n_tris: int,
     rec_p = trace_nearest_bvh8_plain(chunk.bvh8, chunk.tris_packed, o, d,
                                      0.001, 1000.0, True)
     torch.cuda.synchronize(device)
-    for rec in (rec_k, rec_p):
+    rec_w = dict(walk)
+    for rec in (rec_k, rec_p, rec_w):
         rec["tri"] = torch.full_like(rec["tri"], -2)
-    ok &= _compare("chunked_shade0", rec_k, rec_p, perm["pos"], variants)
+    ok &= _judge("chunked_shade0", rec_k, rec_p, rec_w, perm["pos"],
+                 variants)
     variants["chunked_shade0"]["chunks"] = len(ctables.chunks)
     hit_k = trace_any(ctables, o, d, 0.001, 40.0)
     hit_p = trace_any_bvh8_plain(chunk.bvh8, chunk.tris_packed, o, d, 0.001,
                                  40.0)
     torch.cuda.synchronize(device)
-    ok &= _compare_hits("chunked_anyhit", hit_k, hit_p, variants)
+    ok &= _judge_hits("chunked_anyhit", hit_k, hit_p, hit_walk, variants)
 
     wtables, worder, wpadded = prepare_tables(tris, ds, device, leaf_size=24,
                                               snode_width=16)
     wchunk = wtables.chunks[0]
     if wchunk.bvh8.width != 16:
         raise RuntimeError("the 16-wide soup has other rows")
-    wpos = apply_permutation((None, worder, wpadded), {"pos": tris})["pos"]
+    wperm = apply_permutation((None, worder, wpadded),
+                              {"pos": tris, "ds": ds})
     args = (wchunk.bvh8, wchunk.tris_packed, o, d, 0.001, 1000.0, True)
     rec_k = trace_nearest_bvh8(*args, records=wchunk.tri_records)
     rec_p = trace_nearest_bvh8_plain(*args)
     torch.cuda.synchronize(device)
-    ok &= _compare("flat_shade0_width16", rec_k, rec_p, wpos, variants)
+    rec_w = trace_nearest_walk(wtables, *walk_arrays(wperm["pos"],
+                                                     wperm["ds"], device),
+                               o, d, 0.001, 1000.0, True)
+    ok &= _judge("flat_shade0_width16", rec_k, rec_p, rec_w, wperm["pos"],
+                 variants)
     args = (wchunk.bvh8, wchunk.tris_packed, o, d, 0.001, 40.0)
     hit_k = trace_any_bvh8(*args, records=wchunk.tri_records)
     hit_p = trace_any_bvh8_plain(*args)
@@ -985,13 +1066,15 @@ def _instanced_variants(device, n_rays: int, variants) -> bool:
 
     from steeljax_torch.accel.cuda_traverse import (
         trace_nearest_bvh8_inst, trace_nearest_bvh8_inst_plain)
+    from steeljax_torch.accel.instances import trace_nearest_instanced_walk
 
     def both(tables, o, d, t_max, cull, any_hit=False):
-        args = (tables, o, d, 0.001, t_max, cull, any_hit)
-        rec_k = trace_nearest_bvh8_inst(*args)
-        rec_p = trace_nearest_bvh8_inst_plain(*args)
+        args = (tables, o, d, 0.001, t_max, cull)
+        rec_k = trace_nearest_bvh8_inst(*args, any_hit)
+        rec_p = trace_nearest_bvh8_inst_plain(*args, any_hit)
+        rec_w = trace_nearest_instanced_walk(*args)
         torch.cuda.synchronize(device)
-        return rec_k, rec_p
+        return rec_k, rec_p, rec_w
 
     ok = True
     for spread, cases in (
@@ -1008,12 +1091,14 @@ def _instanced_variants(device, n_rays: int, variants) -> bool:
             if mode == 0:
                 tables = dataclasses.replace(tables, shade_mode=0,
                                              shade_rows=None)
-            rec_k, rec_p = both(tables, o, d, 1000.0, mode != 0)
-            ok &= _compare(name, rec_k, rec_p, None, variants, direct=True)
+            rec_k, rec_p, rec_w = both(tables, o, d, 1000.0, mode != 0)
+            ok &= _judge(name, rec_k, rec_p, rec_w, None, variants,
+                         direct=True)
             if variant == "cornell":
-                rec_k, rec_p = both(tables, o, d, 6.0, False, any_hit=True)
-                ok &= _compare_hits("instanced_anyhit", rec_k["hit"],
-                                    rec_p["hit"], variants)
+                rec_k, rec_p, rec_w = both(tables, o, d, 6.0, False,
+                                           any_hit=True)
+                ok &= _judge_hits("instanced_anyhit", rec_k["hit"],
+                                  rec_p["hit"], rec_w["hit"], variants)
     return ok
 
 
@@ -1138,7 +1223,9 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
                                                     trace_any_bvh8_plain,
                                                     trace_nearest_bvh8,
                                                     trace_nearest_bvh8_plain)
-    from steeljax_torch.accel.dispatch import anyhit_tables
+    from steeljax_torch.accel.dispatch import (anyhit_tables,
+                                               trace_any_walk,
+                                               trace_nearest_walk)
 
     device = torch.device(device)
     if device.type != "cuda":
@@ -1168,42 +1255,56 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
     tables, perm, o_np, d_np = soup_case(n_tris, n_rays, device)
     o = torch.as_tensor(o_np, device=device)
     d = torch.as_tensor(d_np, device=device)
+    pos, ds = walk_arrays(perm["pos"], perm["ds"], device)
     attrs = {"nrm": perm["nrm"], "mat": perm["mat"]}
+    walks = {}
     for cull in (True, False):
         rec_k, rec_p = both(tables, o, d, 0.001, 1000.0, cull, 0)
-        all_ok &= _compare(f"flat_shade0_cull{int(cull)}", rec_k, rec_p,
-                           perm["pos"], variants)
+        walks[cull] = trace_nearest_walk(tables, pos, ds, o, d, 0.001,
+                                         1000.0, cull)
+        all_ok &= _judge(f"flat_shade0_cull{int(cull)}", rec_k, rec_p,
+                         walks[cull], perm["pos"], variants)
     # K1 on rays with one shared origin (the reference's shared-origin
     # specialization, :279-286).
-    os_np, ds_np = _rays(n_rays, 7, shared_origin=True)
-    rec_k, rec_p = both(tables, torch.as_tensor(os_np, device=device),
-                        torch.as_tensor(ds_np, device=device), 0.001, 1000.0,
-                        True, 0)
-    all_ok &= _compare("flat_shade0_shared_origin", rec_k, rec_p,
-                       perm["pos"], variants)
+    o_sh, d_sh = (torch.as_tensor(x, device=device)
+                  for x in _rays(n_rays, 7, shared_origin=True))
+    rec_k, rec_p = both(tables, o_sh, d_sh, 0.001, 1000.0, True, 0)
+    all_ok &= _judge("flat_shade0_shared_origin", rec_k, rec_p,
+                     trace_nearest_walk(tables, pos, ds, o_sh, d_sh, 0.001,
+                                        1000.0, True),
+                     perm["pos"], variants)
     rec_k, rec_p = both(tables, o, d, 0.001, 1000.0, True, 1)
-    all_ok &= _compare("flat_shade1", rec_k, rec_p, perm["pos"], variants,
-                       attrs=attrs, d=d_np)
+    all_ok &= _judge("flat_shade1", rec_k, rec_p, walks[True], perm["pos"],
+                     variants, attrs=attrs, d=d_np)
     chunk = tables.chunks[0]
-    all_ok &= _compare_hits("flat_anyhit", *both_any(
-        chunk, o, d, 0.001, 40.0), variants)
+    hit_w = trace_any_walk(tables, pos, ds, o, d, 0.001, 40.0)
+    all_ok &= _judge_hits("flat_anyhit", *both_any(
+        chunk, o, d, 0.001, 40.0), hit_w, variants)
 
     tables2, perm2, _, _ = soup_case(n_tris, n_rays, device, textured=True,
                                      dense_anyhit=True)
+    # The textured soup is the same triangles in the same tree: the walk
+    # of the first soup is its oracle too, as in the reference.
+    if not np.array_equal(perm2["pos"], perm["pos"]):
+        raise RuntimeError("the textured soup has another permutation")
     rec_k, rec_p = both(tables2, o, d, 0.001, 1000.0, True, 2)
-    all_ok &= _compare("flat_shade2", rec_k, rec_p, perm2["pos"], variants,
-                       attrs={k: perm2[k] for k in ("nrm", "tan", "uv",
-                                                    "mat")}, d=d_np)
+    all_ok &= _judge("flat_shade2", rec_k, rec_p, walks[True], perm2["pos"],
+                     variants, attrs={k: perm2[k] for k in ("nrm", "tan",
+                                                             "uv", "mat")},
+                     d=d_np)
     chunk2 = tables2.chunks[0]
-    all_ok &= _compare_hits("flat_anyhit_dense", *both_any(
-        chunk2, o, d, 0.001, 40.0), variants)
+    all_ok &= _judge_hits("flat_anyhit_dense", *both_any(
+        chunk2, o, d, 0.001, 40.0), hit_w, variants)
 
     dtables, dpos, od, dd = deterministic_case(device)
-    rec_k, rec_p = both(dtables, torch.as_tensor(od, device=device),
-                        torch.as_tensor(dd, device=device), 0.001, 1000.0,
-                        False, 0)
-    all_ok &= _compare("flat_deterministic_exact", rec_k, rec_p, dpos,
-                       variants, atol=1e-5, exact=True)
+    od, dd = (torch.as_tensor(x, device=device) for x in (od, dd))
+    rec_k, rec_p = both(dtables, od, dd, 0.001, 1000.0, False, 0)
+    # Every quad is double-sided; pad slots (at 3e37) never hit.
+    rec_w = trace_nearest_walk(
+        dtables, *walk_arrays(dpos, dpos[:, 0, 0] < 1e37, device), od, dd,
+        0.001, 1000.0, False)
+    all_ok &= _judge("flat_deterministic_exact", rec_k, rec_p, rec_w, dpos,
+                     variants, atol=1e-5, exact=True)
 
     flat, ctables, cases = cornell_cases(device, width, height)
     cattrs = {"nrm": flat.tri_nrm.cpu().numpy(),
@@ -1261,7 +1362,7 @@ def run(device, n_rays: int = 10240, n_tris: int = 30000,
                        d=d_t.cpu().numpy())
 
     all_ok &= _chunked_width16_variants(device, tables, perm, o, d, n_tris,
-                                        variants)
+                                        variants, walks[True], hit_w)
     all_ok &= _alpha_variants(device, tables, o, d, n_tris, variants)
     all_ok &= _foliage_variants(device, scenes, width, height, variants)
     all_ok &= _instanced_variants(device, n_rays, variants)

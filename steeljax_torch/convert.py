@@ -20,7 +20,8 @@ supernode rows of either width (8 or 16) with theirs.
 
 Instanced tables (the reference's InstancedTables, as
 `InstancedAccel(use_pallas=True).prepare(scene)` packs them on the host,
-fused rows included) and TraceTables with treelet stacks come across too.
+fused rows included, with every BLAS's binary tree and permuted triangles
+for the walk) and TraceTables with treelet stacks come across too.
 The reference's CPU tables (`use_pallas=False`) carry no fused rows: the
 port then traces in shade mode 0 and shades from the composed rows.
 
@@ -43,7 +44,7 @@ from steeljax_torch.accel.cuda_traverse import (hopper_records,
                                                 pack_fine_mask_rows,
                                                 pack_shade_records)
 from steeljax_torch.accel.dispatch import ChunkTables, TraceTables
-from steeljax_torch.accel.instances import InstancedTables
+from steeljax_torch.accel.instances import CpuBlas, InstancedTables
 from steeljax_torch.accel.treelets import TreeletTables
 from steeljax_torch.env.cubemap import pack_mips_tri
 from steeljax_torch.env.environment import Environment
@@ -83,6 +84,9 @@ def _instanced(tables, dev) -> InstancedTables:
         depth=int(tables.depth), max_leaf=int(tables.max_leaf),
         aabb_lo=tuple(float(v) for v in np.asarray(tables.aabb_lo)),
         aabb_hi=tuple(float(v) for v in np.asarray(tables.aabb_hi)),
+        cpu_blas=tuple(CpuBlas(bvh=_bvh(b.bvh), tri_pos=dev(b.tri_pos),
+                               tri_double_sided=dev(b.tri_double_sided))
+                       for b in tables.cpu_blas),
         inst_blas=tuple(int(b) for b in tables.inst_blas),
         blas_tri_offset=tuple(int(t) for t in tables.blas_tri_offset))
 

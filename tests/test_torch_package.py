@@ -43,7 +43,8 @@ def test_slice_modules_are_present():
                 "apps.testsystem_demo", "apps.viewer", "gi", "gi.probes",
                 "gi.sh", "gi.tets", "gi.light_volume", "gi.sample",
                 "gi.debug", "parallel", "parallel.mesh", "entry",
-                "render.hybrid.raster", "apps.fit_env_surrogate"):
+                "render.hybrid.raster", "apps.fit_env_surrogate",
+                "accel.traverse", "accel.intersect"):
         assert f"steeljax_torch.{mod}" in names, mod
 
 
