@@ -44,8 +44,6 @@ import os
 import numpy as np
 import torch
 
-from torch.profiler import record_function
-
 from steeljax_torch.accel import cuda_traverse, traverse
 from steeljax_torch.accel import treelets as treelets_lib
 from steeljax_torch.accel.alphamask import MASK_FULL
@@ -55,6 +53,7 @@ from steeljax_torch.accel.bvh import (BVH, BVH8, DENSE_PER_ROW, SNODE_WIDTH,
 from steeljax_torch.accel.instances import (InstancedTables,
                                             trace_nearest_instanced,
                                             trace_nearest_instanced_walk)
+from steeljax_torch.core import profiling
 from steeljax_torch.core.constants import RAY_DEAD_T
 
 # The reference's chunk size (steeljax/accel/dispatch.py MAX_CHUNK_TRIS):
@@ -177,59 +176,65 @@ def prepare_tables(tri_pos, tri_double_sided, device: torch.device | str,
     gets the Hopper record table the kernels K1-K5 read, derived on the
     device from the triangle rows (cuda_traverse.hopper_records), and the
     dense any-hit tables their own, from the dense rows.
-    Each step is a `prepare_tables.<step>` range for torch.profiler.
+    The whole is the span `dispatch.prepare_tables` and each step a
+    `prepare_tables.<step>` span (core.profiling), those that launch device
+    work ending in a synchronize.
 
     Returns (tables, order, total_padded): reorder every per-triangle array
     by `order` (global ids; entries of -1 are pad slots) and pad to
     total_padded — bvh.apply_permutation does both."""
-    if max_chunk is None:
-        max_chunk = MAX_CHUNK_TRIS
-    tri_pos = np.asarray(tri_pos, np.float32)
-    ds = np.asarray(tri_double_sided)
-    count = len(tri_pos)
-    mask = (None if tri_alpha_mask is None
-            else np.asarray(tri_alpha_mask, np.uint32))
-    if mask is not None and count and int(mask.min()) == MASK_FULL:
-        mask = None
-    fine = (np.asarray(tri_fine_mask, np.int32)
-            if tri_fine_mask is not None and mask is not None else None)
-    dense_anyhit = dense_anyhit and mask is None
-    if treelets:
-        return _prepare_treelet_tables(tri_pos, ds, device, leaf_size, mask,
-                                       treelet_tris, method)
+    with profiling.named_scope("dispatch.prepare_tables", sync=device):
+        if max_chunk is None:
+            max_chunk = MAX_CHUNK_TRIS
+        tri_pos = np.asarray(tri_pos, np.float32)
+        ds = np.asarray(tri_double_sided)
+        count = len(tri_pos)
+        mask = (None if tri_alpha_mask is None
+                else np.asarray(tri_alpha_mask, np.uint32))
+        if mask is not None and count and int(mask.min()) == MASK_FULL:
+            mask = None
+        fine = (np.asarray(tri_fine_mask, np.int32)
+                if tri_fine_mask is not None and mask is not None else None)
+        dense_anyhit = dense_anyhit and mask is None
+        if treelets:
+            return _prepare_treelet_tables(tri_pos, ds, device, leaf_size,
+                                           mask, treelet_tris, method)
 
-    if count <= max_chunk:
-        pieces = [np.arange(count, dtype=np.int64)]
-    else:
-        with record_function("prepare_tables.morton_split"):
-            # steeljax/accel/dispatch.py:213-223.
-            centroids = tri_pos.mean(axis=1)
-            lo = centroids.min(axis=0)
-            extent = np.maximum(centroids.max(axis=0) - lo, 1e-9)
-            q = np.clip((centroids - lo) / extent * 1023.0,
-                        0, 1023).astype(np.uint32)
-            morton = np.argsort(_morton3(q), kind="stable").astype(np.int64)
-            pieces = np.array_split(morton, -(-count // max_chunk))
+        if count <= max_chunk:
+            pieces = [np.arange(count, dtype=np.int64)]
+        else:
+            with profiling.named_scope("prepare_tables.morton_split"):
+                # steeljax/accel/dispatch.py:213-223.
+                centroids = tri_pos.mean(axis=1)
+                lo = centroids.min(axis=0)
+                extent = np.maximum(centroids.max(axis=0) - lo, 1e-9)
+                q = np.clip((centroids - lo) / extent * 1023.0,
+                            0, 1023).astype(np.uint32)
+                morton = np.argsort(_morton3(q),
+                                    kind="stable").astype(np.int64)
+                pieces = np.array_split(morton, -(-count // max_chunk))
 
-    chunks, order_parts, offset = [], [], 0
-    for piece in pieces:
-        def part(arr):
-            # One chunk holds every triangle in its own order: no copy.
-            if arr is None or len(pieces) == 1:
-                return arr
-            return arr[piece]
+        chunks, order_parts, offset = [], [], 0
+        for piece in pieces:
+            def part(arr):
+                # One chunk holds every triangle in its own order: no copy.
+                if arr is None or len(pieces) == 1:
+                    return arr
+                return arr[piece]
 
-        chunk, sub_order = _prepare_chunk(
-            part(tri_pos), part(ds), part(mask), part(fine), device,
-            leaf_size, dense_anyhit, snode_width, offset, method)
-        # The chunk-local order (with -1 pads) as global ids.
-        order_parts.append(np.where(sub_order >= 0,
-                                    piece[np.clip(sub_order, 0, None)], -1)
-                           if len(pieces) > 1 else sub_order)
-        chunks.append(chunk)
-        offset += chunk.rows
-    return (TraceTables(chunks=tuple(chunks), alpha_masked=mask is not None),
-            np.concatenate(order_parts), offset)
+            chunk, sub_order = _prepare_chunk(
+                part(tri_pos), part(ds), part(mask), part(fine), device,
+                leaf_size, dense_anyhit, snode_width, offset, method)
+            # The chunk-local order (with -1 pads) as global ids.
+            order_parts.append(
+                np.where(sub_order >= 0, piece[np.clip(sub_order, 0, None)],
+                         -1)
+                if len(pieces) > 1 else sub_order)
+            chunks.append(chunk)
+            offset += chunk.rows
+        return (TraceTables(chunks=tuple(chunks),
+                            alpha_masked=mask is not None),
+                np.concatenate(order_parts), offset)
 
 
 def _prepare_chunk(tri_pos, ds, mask, fine, device, leaf_size: int,
@@ -238,14 +243,15 @@ def _prepare_chunk(tri_pos, ds, mask, fine, device, leaf_size: int,
     """The tables of one chunk's triangles (chunk-local arrays) at
     `row_offset` of the concatenated order: (chunk, chunk-local order with
     -1 pads)."""
-    with record_function("prepare_tables.build_bvh"):
+    with profiling.named_scope("prepare_tables.build_bvh"):
         bvh, order, padded = build_bvh(tri_pos, leaf_size, method)
-    with record_function("prepare_tables.collapse_bvh8"):
+    with profiling.named_scope("prepare_tables.collapse_bvh8"):
         rows8, depth8 = collapse_bvh8(bvh.nodes, leaf_size,
                                       width=snode_width)
     anyhit_bvh8 = anyhit_tris = anyhit_records = None
     if dense_anyhit:
-        with record_function("prepare_tables.dense_anyhit_tables"):
+        with profiling.named_scope("prepare_tables.dense_anyhit_tables",
+                                   sync=device):
             # The same binary tree, leaves re-aligned to DENSE_PER_ROW, and
             # ds-less 9-float records (steeljax/accel/dispatch.py:259-277).
             dnodes, dorder, dpadded = _align_leaves(
@@ -266,7 +272,7 @@ def _prepare_chunk(tri_pos, ds, mask, fine, device, leaf_size: int,
         hi = tuple(float(v) for v in real_pos.max(axis=0))
     else:
         lo, hi = (0.0,) * 3, (0.0,) * 3
-    with record_function("prepare_tables.pack_tris"):
+    with profiling.named_scope("prepare_tables.pack_tris", sync=device):
         permuted_pos, permuted_ds = _permuted(order, padded, tri_pos, ds)
         permuted_mask = (None if mask is None
                          else _permute(order, padded, mask, np.uint32(0)))
@@ -282,11 +288,13 @@ def _prepare_chunk(tri_pos, ds, mask, fine, device, leaf_size: int,
             tri_mask=(None if mask is None else torch.from_numpy(
                 permuted_mask.astype(np.int32)).to(device)),
             row_offset=row_offset, rows=padded, aabb=(lo, hi))
-    with record_function("prepare_tables.hopper_records"):
+    with profiling.named_scope("prepare_tables.hopper_records",
+                               sync=device):
         chunk = chunk.replace(tri_records=cuda_traverse.hopper_records(
             chunk.tris_packed))
     if fine is not None:
-        with record_function("prepare_tables.pack_fine_mask_rows"):
+        with profiling.named_scope("prepare_tables.pack_fine_mask_rows",
+                                   sync=device):
             chunk = chunk.replace(fine_mask_rows=torch.from_numpy(
                 cuda_traverse.pack_fine_mask_rows(_permute(
                     order, padded, fine, np.int32(0)))).to(device))
@@ -300,15 +308,16 @@ def _prepare_treelet_tables(tri_pos, ds, device, leaf_size: int,
     """One global BVH cut into streamed treelets (accel.treelets) of at most
     `max_tris` slots.  The kept chunk carries metadata only; the kernel
     reads the per-treelet stacks."""
-    with record_function("prepare_tables.build_bvh"):
+    with profiling.named_scope("prepare_tables.build_bvh"):
         bvh, order, padded = build_bvh(tri_pos, leaf_size, method)
-    with record_function("prepare_tables.pack_tris"):
+    with profiling.named_scope("prepare_tables.pack_tris"):
         permuted_pos, permuted_ds = _permuted(order, padded, tri_pos, ds)
         permuted_mask = (None if mask is None
                          else _permute(order, padded, mask, np.uint32(0)))
         packed = cuda_traverse.pack_tris(permuted_pos, permuted_ds,
                                          tri_alpha_mask=permuted_mask)
-    with record_function("prepare_tables.build_treelet_tables"):
+    with profiling.named_scope("prepare_tables.build_treelet_tables",
+                               sync=device):
         tt = treelets_lib.build_treelet_tables(
             bvh.nodes, packed, leaf_size, device, max_tris=max_tris)
         tt = tt.replace(alpha_mask=mask is not None)

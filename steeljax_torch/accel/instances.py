@@ -34,11 +34,11 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from steeljax_torch.accel import cuda_traverse, traverse
 from steeljax_torch.accel.bvh import (BVH, apply_permutation, build_bvh,
                                       collapse_bvh8)
+from steeljax_torch.core import profiling
 from steeljax_torch.scene.flatten import _to_linear_np, pack_tri_shade
 
 # Floats per row of inst_trace and inst_shade.
@@ -305,12 +305,13 @@ class InstancedAccel:
 
     def prepare(self, scene) -> InstancedTables:
         """Build or refresh the instance tables for the scene's current
-        entity state.  Each step is an `instances.<step>` range for
-        torch.profiler."""
+        entity state.  Each step is an `instances.<step>` span
+        (core.profiling), those that launch device work ending in a
+        synchronize."""
         from steeljax_torch.scene.material import MaterialFlags
 
         entries = []   # (blas key, world, material, material id)
-        with record_function("instances.blas"):
+        with profiling.named_scope("instances.blas", sync=self.device):
             for ei in scene.renderable_entities():
                 world = scene.world_transform(ei)
                 for ro in scene.entities[ei].render_objects:
@@ -329,7 +330,8 @@ class InstancedAccel:
         if not any_alpha_test:
             shade_mode = 2 if scene.textures else 1
 
-        with record_function("instances.pack_blas_tables"):
+        with profiling.named_scope("instances.pack_blas_tables",
+                                   sync=self.device):
             blas_rows, tris_packed, tri_records, blas_shade, fused_rows, \
                 offsets = self._pack_blas_tables(shade_mode)
         n_blas_rows = len(blas_rows)
@@ -341,7 +343,7 @@ class InstancedAccel:
         inst_shade = np.zeros((count, INST_COLS), np.float32)
         blas_keys = []
         max_blas_depth = 1
-        with record_function("instances.instance_rows"):
+        with profiling.named_scope("instances.instance_rows"):
             for i, (bkey, world, mat, mid) in enumerate(entries):
                 blas = self._blas[bkey]
                 inv = np.linalg.inv(world)[:3, :4]
@@ -369,7 +371,7 @@ class InstancedAccel:
                 blas_keys.append(bkey)
                 max_blas_depth = max(max_blas_depth, blas.depth8)
 
-        with record_function("instances.build_tlas"):
+        with profiling.named_scope("instances.build_tlas"):
             tlas_rows, tlas_depth = _build_tlas8(lo, hi)
             n_tlas = len(tlas_rows)
             # Shift every BLAS child reference past the TLAS prefix, and
@@ -388,7 +390,7 @@ class InstancedAccel:
         blas_index = {k: j for j, k in enumerate(sorted_keys)}
         aabb_lo = lo.min(axis=0) if count else np.zeros(3, np.float32)
         aabb_hi = hi.max(axis=0) if count else np.ones(3, np.float32)
-        with record_function("instances.upload"):
+        with profiling.named_scope("instances.upload", sync=self.device):
             def dev(a):
                 return torch.from_numpy(a).to(self.device)
 

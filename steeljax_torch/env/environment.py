@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from steeljax_torch.core import profiling
 from steeljax_torch.env import ibl
 from steeljax_torch.env.cubemap import pack_cube_quads, pack_mips_tri
 from steeljax_torch.env.panorama import panorama_to_cube
@@ -79,33 +80,45 @@ def load_environment(panorama_path: str | None = None,
     Sources in priority order: an explicit `cube`, a Radiance panorama at
     `panorama_path`, else the procedural sky.  A caller passing a cube it
     knows was baked from the procedural sky sets `analytic=True` to keep
-    the closed-form background."""
-    if cube is None:
-        if panorama_path and Path(panorama_path).exists():
-            cube = panorama_to_cube(image_io.load_hdr(panorama_path),
-                                    cube_resolution, device=device)
-        else:
-            cube = procedural_sky_cube(cube_resolution)
-            analytic = True
-    if not isinstance(cube, torch.Tensor):
-        cube = torch.from_numpy(np.array(cube, np.float32))
-    cube = cube.to(device=device, dtype=torch.float32)
-    reflection_mips = ibl.generate_reflection_mips(
-        cube, reflection_resolution, reflection_samples)
-    data, offsets, sizes = pack_mips_tri(reflection_mips, device)
-    irradiance = ibl.generate_irradiance_cube(
-        cube, irradiance_resolution, irradiance_delta)
-    irradiance_sh, _ = ibl.fit_cube_sh(irradiance, device=device)
-    lut = ibl.specular_brdf_lut(lut_resolution, lut_samples,
-                                device=device)
-
-    def quads(c):
-        return torch.from_numpy(pack_cube_quads(c.cpu().numpy())).to(device)
-
+    the closed-form background.  The whole is the span `environment.load`,
+    its steps `environment.cube`, `.reflection_mips`, `.irradiance` and
+    `.brdf_lut` (core.profiling), each ending in a synchronize."""
+    with profiling.named_scope("environment.load", sync=device):
+        with profiling.named_scope("environment.cube", sync=device):
+            if cube is None:
+                if panorama_path and Path(panorama_path).exists():
+                    cube = panorama_to_cube(image_io.load_hdr(panorama_path),
+                                            cube_resolution, device=device)
+                else:
+                    cube = procedural_sky_cube(cube_resolution)
+                    analytic = True
+            if not isinstance(cube, torch.Tensor):
+                cube = torch.from_numpy(np.array(cube, np.float32))
+            cube = cube.to(device=device, dtype=torch.float32)
+            cube_quads = _quads(cube, device)
+        with profiling.named_scope("environment.reflection_mips",
+                                   sync=device):
+            reflection_mips = ibl.generate_reflection_mips(
+                cube, reflection_resolution, reflection_samples)
+            data, offsets, sizes = pack_mips_tri(reflection_mips, device)
+        with profiling.named_scope("environment.irradiance", sync=device):
+            irradiance = ibl.generate_irradiance_cube(
+                cube, irradiance_resolution, irradiance_delta)
+            irradiance_sh, _ = ibl.fit_cube_sh(irradiance, device=device)
+            irradiance_quads = _quads(irradiance, device)
+        with profiling.named_scope("environment.brdf_lut", sync=device):
+            lut = ibl.specular_brdf_lut(lut_resolution, lut_samples,
+                                        device=device)
+            lut_quads = ibl.pack_lut_quads(lut)
     return Environment(
         cube=cube, irradiance=irradiance, reflection_mips=reflection_mips,
         reflection_tri_data=data, reflection_offsets=offsets,
-        reflection_sizes=sizes, specular_lut=lut, cube_quads=quads(cube),
-        irradiance_quads=quads(irradiance),
-        specular_lut_quads=ibl.pack_lut_quads(lut), analytic=analytic,
-        irradiance_sh=irradiance_sh)
+        reflection_sizes=sizes, specular_lut=lut, cube_quads=cube_quads,
+        irradiance_quads=irradiance_quads, specular_lut_quads=lut_quads,
+        analytic=analytic, irradiance_sh=irradiance_sh)
+
+
+def _quads(cube: torch.Tensor, device) -> torch.Tensor:
+    """A cube's bilinear-footprint quad rows (pack_cube_quads) on
+    `device`."""
+    return torch.from_numpy(pack_cube_quads(cube.cpu().numpy())).to(device)

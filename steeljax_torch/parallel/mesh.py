@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from steeljax_torch.core import profiling
 from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.render.pt.integrator import _matrix, render_pixels
 
@@ -113,7 +114,8 @@ def shard_pixels(mesh: Mesh, width: int, height: int):
 
 
 def _gather(blocks: list, pad: int, width: int, height: int) -> np.ndarray:
-    flat = torch.cat([b.cpu() for b in blocks]).numpy()
+    with profiling.named_scope("parallel.gather", wait=True):
+        flat = torch.cat([b.cpu() for b in blocks]).numpy()
     if pad:
         flat = flat[:-pad]
     return flat.reshape(height, width, 3)

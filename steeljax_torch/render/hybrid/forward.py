@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from steeljax_torch.accel.dispatch import TraceTables, trace_nearest
+from steeljax_torch.core import profiling
 from steeljax_torch.core.colors import to_linear, tone_map
 from steeljax_torch.core.constants import RAY_DEAD_T
 from steeljax_torch.env.cubemap import sample_cube_quads
@@ -57,8 +58,9 @@ def trace_blend(scene: FlatScene, tables: TraceTables, o, d, t_min, t_max,
     """Nearest forward-stage hit within [t_min, t_max]: the nearest
     alpha-blend surface, past non-blend ones, or with `all_materials` the
     nearest surface of any material that is not discarded."""
-    tmax = torch.as_tensor(t_max, dtype=torch.float32,
-                           device=o.device).expand(o.shape[0])
+    tmax = profiling.upload(t_max, "forward_stage.upload_tmax",
+                            dtype=torch.float32,
+                            device=o.device).expand(o.shape[0])
     rec = trace_nearest(tables, o, d, t_min, t_max, cull_backface=True)
     for _ in range(max_retrace):
         rejected = _forward_rejected(scene, tables, rec, all_materials)
@@ -156,37 +158,42 @@ def forward_stage(scene: FlatScene, tables: TraceTables, env: Environment,
     environment behind it, then up to `max_blend_layers` forward layers
     composited far to near."""
     hit = gbuffer["hit"]
-    if env.analytic:
-        # The procedural sky in closed form: no face discretization.
-        env_color = tone_map(sky_radiance(d))
-    else:
-        env_color = tone_map(sample_cube_quads(env.cube_quads, d))
-    display = torch.where(hit[..., None], tone_map(lit_linear), env_color)
+    with profiling.named_scope("forward_stage.background"):
+        if env.analytic:
+            # The procedural sky in closed form: no face discretization.
+            env_color = tone_map(sky_radiance(d))
+        else:
+            env_color = tone_map(sample_cube_quads(env.cube_quads, d))
+        display = torch.where(hit[..., None], tone_map(lit_linear),
+                              env_color)
     if not (scene.any_alpha_blend or all_materials):
         return display
 
     blend_tmax = torch.where(hit, opaque_t, 1000.0)
-    tmin = torch.as_tensor(t_min, dtype=torch.float32,
-                           device=o.device).expand(o.shape[0])
+    tmin = profiling.upload(t_min, "forward_stage.upload_tmin",
+                            dtype=torch.float32,
+                            device=o.device).expand(o.shape[0])
     layers = []
     for _ in range(max_blend_layers):
-        rec = trace_blend(scene, tables, o, d, tmin, blend_tmax,
-                          all_materials=all_materials)
-        color, alpha = shade_forward(scene, tables, env, rec, o, d,
-                                     camera_position, ray_tracing_enabled,
-                                     all_materials=all_materials,
-                                     override_material=override_material)
-        layers.append((rec["hit"], tone_map(color),
-                       torch.clamp(alpha, 0.0, 1.0)))
-        # Finished rays get an empty interval, so later peels reject them
-        # before the walk.
-        tmin = torch.where(rec["hit"], _retrace_tmin(rec["t"]),
-                           blend_tmax + 1.0)
+        with profiling.named_scope("forward_stage.peel"):
+            rec = trace_blend(scene, tables, o, d, tmin, blend_tmax,
+                              all_materials=all_materials)
+            color, alpha = shade_forward(
+                scene, tables, env, rec, o, d, camera_position,
+                ray_tracing_enabled, all_materials=all_materials,
+                override_material=override_material)
+            layers.append((rec["hit"], tone_map(color),
+                           torch.clamp(alpha, 0.0, 1.0)))
+            # Finished rays get an empty interval, so later peels reject
+            # them before the walk.
+            tmin = torch.where(rec["hit"], _retrace_tmin(rec["t"]),
+                               blend_tmax + 1.0)
 
     # Far to near over the opaque and background image: the blend state of
     # ForwardStage.cpp:94-104 (srcAlpha, oneMinusSrcAlpha).
-    for hit_i, src_i, a_i in reversed(layers):
-        a = a_i[..., None]
-        display = torch.where(hit_i[..., None], src_i * a
-                              + display * (1.0 - a), display)
+    with profiling.named_scope("forward_stage.composite"):
+        for hit_i, src_i, a_i in reversed(layers):
+            a = a_i[..., None]
+            display = torch.where(hit_i[..., None], src_i * a
+                                  + display * (1.0 - a), display)
     return display

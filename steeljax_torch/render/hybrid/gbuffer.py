@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from steeljax_torch.accel.dispatch import TraceTables, trace_nearest
+from steeljax_torch.core import profiling
 from steeljax_torch.core.constants import RAY_DEAD_T
 from steeljax_torch.render.hybrid.raster import raster_rec
 from steeljax_torch.render.pt import brdf as brdf_lib
@@ -105,8 +106,9 @@ def _alpha_retrace(scene: FlatScene, tables: TraceTables, o, d, rec,
     """`max_retrace` re-trace passes past the rejected hits of an initial
     nearest-hit record; a hit still rejected after them is a miss.  Every
     pass is launched, the rays not rejected with the dead interval."""
-    tmax = torch.as_tensor(t_max, dtype=torch.float32,
-                           device=o.device).expand(o.shape[0])
+    tmax = profiling.upload(t_max, "gbuffer.upload_tmax",
+                            dtype=torch.float32,
+                            device=o.device).expand(o.shape[0])
     for _ in range(max_retrace):
         rejected = _opaque_rejected(scene, tables, rec)
         again = trace_nearest(tables, o, d, rec["t"] + 1e-4,

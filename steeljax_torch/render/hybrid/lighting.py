@@ -18,9 +18,9 @@ the environment's irradiance, clipped to [0, 8].
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from steeljax_torch.accel.dispatch import TraceTables
+from steeljax_torch.core import profiling
 from steeljax_torch.core.colors import to_linear
 from steeljax_torch.core.constants import (BIAS, DIELECTRIC_F0, EPSILON,
                                            RAY_DEAD_T, RAY_MAX_T, RAY_MIN_T)
@@ -142,7 +142,7 @@ def compute_indirect_lighting(env: Environment, position, n, v, nov,
                               compose: str = "both"):
     """ComputeIndirectLighting (Lighting.glsl:245-272)."""
     if light_volume is not None:
-        with record_function("light_volume_sample"):
+        with profiling.named_scope("light_volume_sample"):
             irradiance = sample_light_volume(light_volume, position, n)
         # The reference divides raw (Lighting.glsl:252); the ratio is
         # bounded so that a near-zero environment irradiance cannot blow up
@@ -200,16 +200,18 @@ def deferred_lighting(scene: FlatScene, tables: TraceTables,
     v = _normalize(camera_position - position)
     nov = torch.clamp((n * v).sum(dim=-1), min=0.0)
 
-    if scene.light_count > 0:
-        direct = compute_direct_lighting(
-            scene, tables, position, n, v, nov, base_color, f0, roughness,
-            metallic, shadows=ray_tracing_enabled, live=gbuffer["hit"],
-            compose=compose)
-    else:
-        direct = torch.zeros_like(base_color)
-    indirect = compute_indirect_lighting(
-        env, position, n, v, nov, base_color, f0, roughness, metallic,
-        occlusion, light_volume, compose=compose)
+    with profiling.named_scope("lighting_stage.direct"):
+        if scene.light_count > 0:
+            direct = compute_direct_lighting(
+                scene, tables, position, n, v, nov, base_color, f0,
+                roughness, metallic, shadows=ray_tracing_enabled,
+                live=gbuffer["hit"], compose=compose)
+        else:
+            direct = torch.zeros_like(base_color)
+    with profiling.named_scope("lighting_stage.indirect"):
+        indirect = compute_indirect_lighting(
+            env, position, n, v, nov, base_color, f0, roughness, metallic,
+            occlusion, light_volume, compose=compose)
 
     if debug_view == "direct":
         return direct

@@ -3,8 +3,11 @@
 Port of steeljax/render/hybrid/renderer.py (HybridRenderer.cpp:79-91,
 GBufferStage -> LightingStage -> ForwardStage).  There is no
 accumulation: a hybrid frame is deterministic (the engine's real-time
-mode).  Each stage runs inside a torch.profiler range named as the
-reference's scopes: `gbuffer_stage`, `lighting_stage`, `forward_stage`.
+mode).  A frame is the span `hybrid.render_frame_device` (core.profiling)
+and each stage a span named as the reference's scopes: `gbuffer_stage`,
+`lighting_stage` (its pieces `lighting_stage.direct`, with the shadow
+rays, and `lighting_stage.indirect`), `forward_stage` (`.background`,
+`.peel` a blend layer, `.composite`).
 A config with `global_illumination_enabled` bakes the light volume
 (gi.generate_light_volume) when the renderer is built, and the deferred
 lighting samples it.  With STEELJAX_RASTER=1 (the reference's opt-in)
@@ -20,9 +23,9 @@ import os
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from steeljax_torch.core import camera as camera_lib
+from steeljax_torch.core import profiling
 from steeljax_torch.core.colors import tone_map
 from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.env.environment import Environment, load_environment
@@ -113,7 +116,7 @@ def render_hybrid_pixels(scene, tables, env: Environment,
         raster = None
         if raster_scene is not None and tile is not None:
             raster = (raster_scene, width, height, tile)
-        with record_function("gbuffer_stage"):
+        with profiling.named_scope("gbuffer_stage"):
             gbuffer = generate_gbuffer(scene, tables, origin, direction,
                                        camera_near, camera_far, view_proj,
                                        camera_position,
@@ -123,7 +126,7 @@ def render_hybrid_pixels(scene, tables, env: Environment,
             return _gbuffer_view(gbuffer, debug_view)
 
         inverse_proj_view = inverse_view @ inverse_proj
-        with record_function("lighting_stage"):
+        with profiling.named_scope("lighting_stage"):
             lit = deferred_lighting(scene, tables, env, gbuffer, uv,
                                     inverse_proj_view, camera_position,
                                     light_volume=light_volume,
@@ -137,7 +140,7 @@ def render_hybrid_pixels(scene, tables, env: Environment,
         position = restore_position(gbuffer["depth"], uv, inverse_proj_view)
         opaque_t = torch.linalg.vector_norm(position - origin, dim=-1)
 
-    with record_function("forward_stage"):
+    with profiling.named_scope("forward_stage"):
         return forward_stage(scene, tables, env, lit, gbuffer, origin,
                              direction, opaque_t, camera_near,
                              camera_position, ray_tracing_enabled,
@@ -240,23 +243,26 @@ class HybridRenderer:
         """One hybrid frame left on the device as (H*W, 3), row-major: the
         engine's frame ends at the swapchain image, not a host copy."""
         config = self.config
-        out = render_hybrid_pixels(
-            self.flat, self.tables, self.env, *self.matrices,
-            self.frame.camera_near, self.frame.camera_far, self.width,
-            self.height, *self.pixels, light_volume=self.light_volume,
-            ray_tracing_enabled=config.ray_tracing_enabled,
-            force_forward=config.force_forward,
-            max_blend_layers=config.max_blend_layers,
-            debug_view=config.debug_view,
-            override_material=config.override_material,
-            raster_scene=self.raster_scene,
-            tile=self.tile if self.raster_scene is not None else None)
-        if self.tile is not None:
-            out = detile(out, self.width, self.height,
-                         self.tile).reshape(-1, 3)
+        with profiling.frame("hybrid.render_frame_device"):
+            out = render_hybrid_pixels(
+                self.flat, self.tables, self.env, *self.matrices,
+                self.frame.camera_near, self.frame.camera_far, self.width,
+                self.height, *self.pixels, light_volume=self.light_volume,
+                ray_tracing_enabled=config.ray_tracing_enabled,
+                force_forward=config.force_forward,
+                max_blend_layers=config.max_blend_layers,
+                debug_view=config.debug_view,
+                override_material=config.override_material,
+                raster_scene=self.raster_scene,
+                tile=self.tile if self.raster_scene is not None else None)
+            if self.tile is not None:
+                out = detile(out, self.width, self.height,
+                             self.tile).reshape(-1, 3)
         return out
 
     def render_frame(self) -> np.ndarray:
         """One frame as (H, W, 3) float in [0, 1], numpy."""
         out = self.render_frame_device()
-        return out.cpu().numpy().reshape(self.height, self.width, 3)
+        with profiling.named_scope("hybrid.download", wait=True):
+            out = out.cpu()
+        return out.numpy().reshape(self.height, self.width, 3)

@@ -30,6 +30,15 @@ Instanced tables (accel.instances, kernel K6) and treelet tables
 (accel.treelets, K7) answer the same queries through accel.dispatch; with
 instanced tables the unfused shading rows are composed from the BLAS's
 object-space row and the instance's material row (shade_rows).
+
+`render_pixels` is a frame of core.profiling's record
+(`integrator.render_pixels`): the pixel upload `integrator.upload_pixels`
+(a wait: a copy of host data synchronizes the stream), then
+`integrator.primary_rays`, each bounce `integrator.bounce` (its
+`integrator.repack`, `integrator.trace_material` with the alpha re-trace's
+`integrator.retrace_pass`es, `integrator.shade_fused` or
+`integrator.shade_gather`, `integrator.nee`, `integrator.sample`) and
+`integrator.environment`.
 """
 
 from __future__ import annotations
@@ -39,14 +48,13 @@ import os
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from steeljax_torch.accel.bvh import TRI_PER_ROW
 from steeljax_torch.accel.cuda_traverse import rotate as rotate3
 from steeljax_torch.accel.dispatch import (TraceTables, trace_any,
                                            trace_multihit, trace_nearest)
 from steeljax_torch.accel.instances import InstancedTables
-from steeljax_torch.core import rng
+from steeljax_torch.core import profiling, rng
 from steeljax_torch.core.colors import luminance, to_linear
 from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.core.constants import (BIAS, DIRECT_LIGHT_DISK_RADIUS,
@@ -64,7 +72,8 @@ def _normalize(v: torch.Tensor) -> torch.Tensor:
 
 
 def _matrix(m, device) -> torch.Tensor:
-    return torch.as_tensor(m, dtype=torch.float32, device=device)
+    return profiling.upload(m, "integrator.upload_matrix",
+                            dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -421,8 +430,8 @@ def _bounded_retrace(tables: TraceTables, o, d, t_min, t_max, trace,
     Returns (rec, counts): counts, when count_pending, the pending rays
     before the first pass and after each, as 0-d tensors."""
     count = o.shape[0]
-    tmax = torch.as_tensor(t_max, dtype=torch.float32,
-                           device=o.device).expand(count)
+    tmax = profiling.upload(t_max, "integrator.upload_tmax",
+                            dtype=torch.float32, device=o.device).expand(count)
     rec, pending, restart_t = trace(o, d, t_min, tmax)
     compaction = _Compaction(tables, count)
     keys = sorted(rec)
@@ -434,15 +443,19 @@ def _bounded_retrace(tables: TraceTables, o, d, t_min, t_max, trace,
         rec = dict(zip(keys, cols[2:]))
     counts = [pending.sum()] if count_pending else None
     for _ in range(max_alpha_retrace):
-        again, pending_again, restart_again = trace(
-            o, d, _retrace_tmin(restart_t),
-            torch.where(pending, tmax, RAY_DEAD_T))
-        rec = {k: torch.where(pending, again[k], rec[k]) for k in rec}
-        restart_t = torch.where(pending, restart_again, restart_t)
-        # Only pending rays changed, so the pending set only shrinks.
-        pending = pending & pending_again
-        if count_pending:
-            counts.append(pending.sum())
+        with profiling.named_scope("integrator.retrace_pass"):
+            again, pending_again, restart_again = trace(
+                o, d, _retrace_tmin(restart_t),
+                torch.where(pending, tmax, RAY_DEAD_T))
+            rec = {k: torch.where(pending, again[k], rec[k]) for k in rec}
+            restart_t = torch.where(pending, restart_again, restart_t)
+            # Only pending rays changed, so the pending set only shrinks.
+            pending = pending & pending_again
+            if count_pending:
+                counts.append(pending.sum())
+    if count_pending:
+        # The rays entering each pass, each pass launched over the batch.
+        profiling.count_retrace(counts[:max_alpha_retrace], count)
     rec["hit"] = rec["hit"] & ~pending
     rec["tri"] = torch.where(rec["hit"], rec["tri"], -1)
     rec["t"] = torch.where(rec["hit"], rec["t"], -1.0)
@@ -660,113 +673,126 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
     compose = (config.debug_view
                if config.debug_view in ("diffuse", "specular") else "both")
     for bounce in range(config.max_bounce_count):
-        if bounce > 0 and use_repack:
-            key = (((~alive).to(torch.int32) << 19)
-                   | (miss.to(torch.int32) << 18))
-            if not live_key_only:
-                key = key | _ray_sort_key(o, d, *sort_bounds)
-            key, (o, d, throughput, ray_pdf, irradiance, seed,
-                  slot) = repack_rays(
-                key, [o, d, throughput, ray_pdf, irradiance, seed, slot])
-            alive = (key >> 19) == 0
-            miss = ((key >> 18) & 1) == 1
-            t_max = torch.where(alive, RAY_MAX_T, RAY_DEAD_T).to(
-                torch.float32)
-        rays_traced = rays_traced + alive.sum(dtype=torch.float32)
-        rec = trace_material_ray(scene, tables, o, d, t_min, t_max,
-                                 cull_backface=config.backface_culling,
-                                 max_alpha_retrace=config.max_alpha_retrace,
-                                 retrace_log=retrace_log)
-
-        weight = throughput / torch.clamp(ray_pdf, min=1e-30)[..., None]
-
-        # Miss -> environment (RayGen.rgen:353-357), deferred.
-        miss = miss | (alive & ~rec["hit"])
-        alive = alive & rec["hit"]
-
-        if "n" in rec:  # the fused kernel's shading outputs
-            with record_function("integrator.shade_fused"):
-                surface, tbn = unpack_material_fused(scene, rec)
-        else:
-            # No fused shading (STEELJAX_SHADE_MODE=0, or tables without
-            # it): gather the hits' tri_shade rows.
-            with record_function("integrator.shade_gather"):
-                surface, tbn = unpack_material(
-                    scene, rec, d, shade_rows(scene, tables, rec))
-        if config.override_material is not None:
-            # DEBUG_OVERRIDE_MATERIAL (RayGen.rgen:99-102).
-            r_ov, m_ov = config.override_material
-            surface = brdf_lib.make_surface(
-                surface["base_color"],
-                torch.full_like(surface["roughness"], r_ov),
-                torch.full_like(surface["metallic"], m_ov),
-                surface["emission"])
-
-        # Emission (RayGen.rgen:361).
-        irradiance = irradiance + torch.where(
-            alive[..., None], surface["emission"] * weight, 0.0)
-
-        p = o + d * rec["t"][..., None]
-        wo = _normalize(brdf_lib.world_to_tangent(-d, tbn))
-
-        # NEE against punctual lights (RayGen.rgen:366-371).
-        if scene.light_count > 0:
+        with profiling.named_scope("integrator.bounce"):
+            if bounce > 0 and use_repack:
+                with profiling.named_scope("integrator.repack"):
+                    key = (((~alive).to(torch.int32) << 19)
+                           | (miss.to(torch.int32) << 18))
+                    if not live_key_only:
+                        key = key | _ray_sort_key(o, d, *sort_bounds)
+                    key, (o, d, throughput, ray_pdf, irradiance, seed,
+                          slot) = repack_rays(
+                        key, [o, d, throughput, ray_pdf, irradiance, seed,
+                              slot])
+                    alive = (key >> 19) == 0
+                    miss = ((key >> 18) & 1) == 1
+                    t_max = torch.where(alive, RAY_MAX_T, RAY_DEAD_T).to(
+                        torch.float32)
             rays_traced = rays_traced + alive.sum(dtype=torch.float32)
-            direct, seed = direct_lighting(
-                scene, tables, surface, tbn, p, wo, seed, compose=compose,
-                max_alpha_retrace=config.max_alpha_retrace,
-                retrace_log=retrace_log)
+            with profiling.named_scope("integrator.trace_material"):
+                rec = trace_material_ray(
+                    scene, tables, o, d, t_min, t_max,
+                    cull_backface=config.backface_culling,
+                    max_alpha_retrace=config.max_alpha_retrace,
+                    retrace_log=retrace_log)
+
+            weight = throughput / torch.clamp(ray_pdf, min=1e-30)[..., None]
+
+            # Miss -> environment (RayGen.rgen:353-357), deferred.
+            miss = miss | (alive & ~rec["hit"])
+            alive = alive & rec["hit"]
+
+            if "n" in rec:  # the fused kernel's shading outputs
+                with profiling.named_scope("integrator.shade_fused"):
+                    surface, tbn = unpack_material_fused(scene, rec)
+            else:
+                # No fused shading (STEELJAX_SHADE_MODE=0, or tables
+                # without it): gather the hits' tri_shade rows.
+                with profiling.named_scope("integrator.shade_gather"):
+                    surface, tbn = unpack_material(
+                        scene, rec, d, shade_rows(scene, tables, rec))
+            if config.override_material is not None:
+                # DEBUG_OVERRIDE_MATERIAL (RayGen.rgen:99-102).
+                r_ov, m_ov = config.override_material
+                surface = brdf_lib.make_surface(
+                    surface["base_color"],
+                    torch.full_like(surface["roughness"], r_ov),
+                    torch.full_like(surface["metallic"], m_ov),
+                    surface["emission"])
+
+            # Emission (RayGen.rgen:361).
             irradiance = irradiance + torch.where(
-                alive[..., None], direct * weight, 0.0)
+                alive[..., None], surface["emission"] * weight, 0.0)
 
-        # BRDF sample (RayGen.rgen:374-385).
-        f, wi, pdf, seed = brdf_lib.sample_brdf(surface, wo, seed)
-        black = (f * f).sum(dim=-1) < EPSILON
-        alive = alive & (pdf >= EPSILON) & ~black
+            p = o + d * rec["t"][..., None]
+            wo = _normalize(brdf_lib.world_to_tangent(-d, tbn))
 
-        throughput = torch.where(
-            alive[..., None],
-            throughput * f * brdf_lib.cos_theta(wi)[..., None], throughput)
-        ray_pdf = torch.where(alive, ray_pdf * pdf, ray_pdf)
+            # NEE against punctual lights (RayGen.rgen:366-371).
+            if scene.light_count > 0:
+                with profiling.named_scope("integrator.nee"):
+                    rays_traced = rays_traced + alive.sum(dtype=torch.float32)
+                    direct, seed = direct_lighting(
+                        scene, tables, surface, tbn, p, wo, seed,
+                        compose=compose,
+                        max_alpha_retrace=config.max_alpha_retrace,
+                        retrace_log=retrace_log)
+                    irradiance = irradiance + torch.where(
+                        alive[..., None], direct * weight, 0.0)
 
-        # Russian roulette (RayGen.rgen:387-395).
-        if bounce >= config.min_bounce_count:
-            threshold = torch.clamp(
-                1.0 - throughput.max(dim=-1).values,
-                min=config.rr_min_threshold)
-            r, seed = rng.next_float(seed)
-            alive = alive & ~(r < threshold)
-            throughput = torch.where(
-                alive[..., None],
-                throughput / torch.clamp(1.0 - threshold,
-                                         min=1e-20)[..., None],
-                throughput)
+            with profiling.named_scope("integrator.sample"):
+                # BRDF sample (RayGen.rgen:374-385).
+                f, wi, pdf, seed = brdf_lib.sample_brdf(surface, wo, seed)
+                black = (f * f).sum(dim=-1) < EPSILON
+                alive = alive & (pdf >= EPSILON) & ~black
 
-        o = p
-        # Guarded so a ray that missed keeps its traced direction — that
-        # frozen d is the deferred environment lookup direction.
-        d = torch.where(alive[..., None],
-                        brdf_lib.tangent_to_world(wi, tbn), d)
-        t_min = torch.full_like(t_min, RAY_MIN_T)
-        # Dead lanes get an inverted interval: the trace reports them as
-        # misses without descending.
-        t_max = torch.where(alive, RAY_MAX_T, RAY_DEAD_T).to(torch.float32)
+                throughput = torch.where(
+                    alive[..., None],
+                    throughput * f * brdf_lib.cos_theta(wi)[..., None],
+                    throughput)
+                ray_pdf = torch.where(alive, ray_pdf * pdf, ray_pdf)
 
-    # Deferred env: throughput/ray_pdf/d froze at the miss bounce, so this
-    # reproduces the per-bounce miss shading (RayGen.rgen:353-357).
-    env_weight = torch.where(
-        miss[..., None],
-        throughput / torch.clamp(ray_pdf, min=1e-30)[..., None], 0.0)
-    irradiance = irradiance + _environment(scene, d) * env_weight
-    clamped = torch.clamp(irradiance, max=config.max_irradiance)
-    if use_repack and config.max_bounce_count > 1:
-        # Restore frame order: `slot` is a permutation, so scattering by it
-        # puts every ray's irradiance (and seed, for the caller's next
-        # sample) back at its pixel.
-        restored = [torch.empty_like(x) for x in (clamped, seed)]
-        restored[0][slot] = clamped
-        restored[1][slot] = seed
-        clamped, seed = restored
+                # Russian roulette (RayGen.rgen:387-395).
+                if bounce >= config.min_bounce_count:
+                    threshold = torch.clamp(
+                        1.0 - throughput.max(dim=-1).values,
+                        min=config.rr_min_threshold)
+                    r, seed = rng.next_float(seed)
+                    alive = alive & ~(r < threshold)
+                    throughput = torch.where(
+                        alive[..., None],
+                        throughput / torch.clamp(1.0 - threshold,
+                                                 min=1e-20)[..., None],
+                        throughput)
+
+                o = p
+                # Guarded so a ray that missed keeps its traced direction —
+                # that frozen d is the deferred environment lookup
+                # direction.
+                d = torch.where(alive[..., None],
+                                brdf_lib.tangent_to_world(wi, tbn), d)
+                t_min = torch.full_like(t_min, RAY_MIN_T)
+                # Dead lanes get an inverted interval: the trace reports
+                # them as misses without descending.
+                t_max = torch.where(alive, RAY_MAX_T, RAY_DEAD_T).to(
+                    torch.float32)
+
+    with profiling.named_scope("integrator.environment"):
+        # Deferred env: throughput/ray_pdf/d froze at the miss bounce, so
+        # this reproduces the per-bounce miss shading (RayGen.rgen:
+        # 353-357).
+        env_weight = torch.where(
+            miss[..., None],
+            throughput / torch.clamp(ray_pdf, min=1e-30)[..., None], 0.0)
+        irradiance = irradiance + _environment(scene, d) * env_weight
+        clamped = torch.clamp(irradiance, max=config.max_irradiance)
+        if use_repack and config.max_bounce_count > 1:
+            # Restore frame order: `slot` is a permutation, so scattering
+            # by it puts every ray's irradiance (and seed, for the caller's
+            # next sample) back at its pixel.
+            restored = [torch.empty_like(x) for x in (clamped, seed)]
+            restored[0][slot] = clamped
+            restored[1][slot] = seed
+            clamped, seed = restored
     return clamped, seed, rays_traced
 
 
@@ -784,26 +810,29 @@ def render_pixels(scene: FlatScene, tables: TraceTables,
     every material and shadow trace in bounce order, the rays still to
     re-trace before the first re-trace pass and after each, as 0-d tensors
     (trace_material_ray; empty otherwise).  No stat is read back."""
-    device = scene.device
-    px = torch.as_tensor(px, device=device).to(torch.int64)
-    py = torch.as_tensor(py, device=device).to(torch.int64)
-    count = px.shape[0]
-    total = torch.zeros((count, 3), dtype=torch.float32, device=device)
-    rays_traced = torch.zeros((), dtype=torch.float32, device=device)
-    retrace_log = [] if return_stats else None
+    with profiling.frame("integrator.render_pixels"):
+        device = scene.device
+        with profiling.named_scope("integrator.upload_pixels", wait=True):
+            px = torch.as_tensor(px, device=device).to(torch.int64)
+            py = torch.as_tensor(py, device=device).to(torch.int64)
+        count = px.shape[0]
+        total = torch.zeros((count, 3), dtype=torch.float32, device=device)
+        rays_traced = torch.zeros((), dtype=torch.float32, device=device)
+        retrace_log = [] if return_stats else None
 
-    for s in range(config.sample_count):
-        seed = rng.make_seed(px, py, s + int(sample_index),
-                             int(accumulation_index))
-        o, d, seed = primary_rays(inverse_view, inverse_proj, width, height,
-                                  px, py, seed)
-        sample, seed, rays = trace_paths(scene, tables, o, d, seed,
-                                         camera_near, camera_far, config,
-                                         retrace_log)
-        total = total + sample
-        rays_traced = rays_traced + rays
+        for s in range(config.sample_count):
+            with profiling.named_scope("integrator.primary_rays"):
+                seed = rng.make_seed(px, py, s + int(sample_index),
+                                     int(accumulation_index))
+                o, d, seed = primary_rays(inverse_view, inverse_proj, width,
+                                          height, px, py, seed)
+            sample, seed, rays = trace_paths(scene, tables, o, d, seed,
+                                             camera_near, camera_far, config,
+                                             retrace_log)
+            total = total + sample
+            rays_traced = rays_traced + rays
 
-    result = total / config.sample_count
+        result = total / config.sample_count
     if return_stats:
         return result, {"rays_traced": rays_traced,
                         "alpha_retrace": retrace_log}

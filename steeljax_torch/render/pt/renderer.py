@@ -18,7 +18,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from steeljax_torch.accel.alphamask import (compute_alpha_masks,
                                              compute_fine_masks)
@@ -29,6 +28,7 @@ from steeljax_torch.accel.dispatch import (TraceTables, attach_shade_tables,
 from steeljax_torch.accel.instances import InstancedAccel, InstancedTables
 from steeljax_torch.accel.treelets import TREELET_TRIS
 from steeljax_torch.core import camera as camera_lib
+from steeljax_torch.core import profiling
 from steeljax_torch.core import validate as validate_lib
 from steeljax_torch.core.colors import tone_map
 from steeljax_torch.core.config import RenderConfig
@@ -69,11 +69,12 @@ def _alpha_masks(flat: FlatScene, scene: Scene, fine_masks: bool):
     args = tuple(getattr(flat, name).cpu().numpy() for name in (
         "tri_uv", "tri_mat", "mat_base_color", "mat_params", "mat_tex",
         "mat_flags")) + (scene.textures,)
-    with record_function("prepare_scene.alpha_masks"):
+    with profiling.named_scope("prepare_scene.alpha_masks", sync=flat.device):
         coarse = compute_alpha_masks(*args, device=flat.device)
     fine = None
     if fine_masks:
-        with record_function("prepare_scene.fine_masks"):
+        with profiling.named_scope("prepare_scene.fine_masks",
+                                   sync=flat.device):
             fine = compute_fine_masks(*args, device=flat.device)
     return coarse, fine
 
@@ -128,8 +129,8 @@ def prepare_scene(scene: Scene, device: torch.device | str,
     and instanced tables stay at 8.  `validate` runs the structural checks
     of core.validate on the prepared scene and tables, the reference's
     STEELJAX_VALIDATE=1 (off by default there and here).  Each step is a
-    `prepare_scene.<step>` or `prepare_tables.<step>` range for
-    torch.profiler."""
+    `prepare_scene.<step>` or `prepare_tables.<step>` span (core.profiling),
+    those that launch device work ending in a synchronize."""
     if multihit_k and multihit_k not in MULTIHIT_K:
         raise ValueError(f"multihit_k must be 0 or one of {MULTIHIT_K}, "
                          f"got {multihit_k}")
@@ -143,7 +144,7 @@ def prepare_scene(scene: Scene, device: torch.device | str,
             np.asarray(scene.environment_color, np.float32),
             (6, env_resolution, env_resolution, 3)).copy()
     elif scene.environment_path and Path(scene.environment_path).exists():
-        with record_function("prepare_scene.environment"):
+        with profiling.named_scope("prepare_scene.environment", sync=device):
             panorama = load_hdr(scene.environment_path)
             # On the render device, as the reference converts on its
             # accelerator; flatten_scene packs the cube on the host.
@@ -151,14 +152,15 @@ def prepare_scene(scene: Scene, device: torch.device | str,
                                         device=device).cpu().numpy()
     elif use_default_environment:
         from steeljax_torch.env.sky import procedural_sky_cube
-        with record_function("prepare_scene.environment"):
+        with profiling.named_scope("prepare_scene.environment"):
             env_cube = procedural_sky_cube(env_resolution)
         env_analytic = True
-    with record_function("prepare_scene.flatten_scene"):
+    with profiling.named_scope("prepare_scene.flatten_scene", sync=device):
         flat = flatten_scene(scene, device, env_cube,
                              env_analytic=env_analytic)
     if accel is not None:
-        with record_function("prepare_scene.instanced_accel"):
+        with profiling.named_scope("prepare_scene.instanced_accel",
+                                   sync=device):
             tables = accel.prepare(scene)
         if tables.inst_trace.device != flat.device:
             raise ValueError(f"accel is on {tables.inst_trace.device}, the "
@@ -180,23 +182,24 @@ def prepare_scene(scene: Scene, device: torch.device | str,
         tri_alpha_mask=coarse, tri_fine_mask=fine, treelets=treelets,
         treelet_tris=treelet_tris, snode_width=snode_width)
     tables = tables.replace(multihit_k=multihit_k)
-    with record_function("prepare_scene.apply_permutation"):
+    with profiling.named_scope("prepare_scene.apply_permutation"):
         permuted = apply_permutation((None, order, total_padded), {
             name: getattr(flat, name).cpu().numpy()
             for name in ("tri_pos", "tri_nrm", "tri_tan", "tri_uv",
                          "tri_mat", "tri_double_sided", "tri_shade")})
     if not flat.any_alpha_test:
-        with record_function("prepare_scene.attach_shade_tables"):
+        with profiling.named_scope("prepare_scene.attach_shade_tables",
+                                   sync=device):
             tables = attach_shade_tables(
                 tables, permuted["tri_nrm"], permuted["tri_mat"],
                 textured=flat.has_textures, tri_tan=permuted["tri_tan"],
                 tri_uv=permuted["tri_uv"],
                 tri_uvd=permuted["tri_shade"][:, 27])
-    with record_function("prepare_scene.upload_permuted"):
+    with profiling.named_scope("prepare_scene.upload_permuted", sync=device):
         flat = flat.replace(**{name: torch.from_numpy(arr).to(device)
                                for name, arr in permuted.items()})
     if validate:
-        with record_function("prepare_scene.validate"):
+        with profiling.named_scope("prepare_scene.validate"):
             validate_lib.validate_flat_scene(flat)
             validate_lib.validate_tables(tables, int(flat.tri_pos.shape[0]))
     return flat, tables
@@ -282,9 +285,11 @@ class PathTracingRenderer:
             shown = self.state.accumulated
         else:
             shown = result
-        if self.config.render_to_hdr:
-            return shown.cpu().numpy()
-        return tone_map(shown).cpu().numpy()
+        if not self.config.render_to_hdr:
+            shown = tone_map(shown)
+        with profiling.named_scope("renderer.download", wait=True):
+            shown = shown.cpu()
+        return shown.numpy()
 
     def render(self, spp: int) -> np.ndarray:
         """Accumulate `spp` frames and return the final display image."""

@@ -258,15 +258,22 @@ def test_frame_timer_matches_reference(monkeypatch):
 
 def test_profiling_trace_writes_a_chrome_trace(tmp_path):
     """trace(log_dir) writes a Chrome trace that holds the named scopes of
-    its body."""
+    its body, and beside it the record of the spans (record.<pid>.json)."""
+    profiling.reset()
     with profiling.trace(tmp_path / "trace"):
-        with profiling.named_scope("gbuffer_stage"):
-            torch.ones(64).sum()
+        with profiling.frame("hybrid.render_frame_device"):
+            with profiling.named_scope("gbuffer_stage"):
+                torch.ones(64).sum()
     files = list((tmp_path / "trace").glob("*.pt.trace.json"))
     assert len(files) == 1
     names = {e.get("name") for e in json.loads(files[0].read_text())[
         "traceEvents"]}
-    assert "gbuffer_stage" in names
+    assert {"hybrid.render_frame_device", "gbuffer_stage"} <= names
+    records = list((tmp_path / "trace").glob("record.*.json"))
+    assert len(records) == 1
+    rows = json.loads(records[0].read_text())["rows"]
+    assert len(rows) == 1 and rows[0]["profiled"] is True
+    assert "gbuffer_stage" in rows[0]["spans"]
 
 
 def test_start_profiler_server_is_not_ported():
