@@ -96,8 +96,10 @@ Phases:
      on the same rays), for K7 the K rounds of one whole trace against the
      bound of that trace as one function (the trace's first pick is the pick
      kernel's entry);
-  4. the Cornell main path: one warm and 4 timed frames, K1's launches, the
-     kernel's share of a frame, the render CLI;
+  4. the Cornell main path: two warm frames (eager, then the CUDA graph's
+     capture) and 4 timed ones (replays), K1's launches in the frames the
+     host ran, the last replay bit-equal to the same frame run eagerly,
+     the kernel's share of a frame, the render CLI;
   5. path L: the same frames and checks, K1 and K2 launches, then the
      frames with the dense any-hit tables (K2-dense launches);
   6. path T: the same frames and checks, K3 launches;
@@ -216,7 +218,7 @@ Phases:
      every path; K1 in shade mode 0 alone on the primaries of Cornell,
      path L and path T and on path H's G-buffer rays, against its plain
      version, beside phase 3b's K1 and K3 rows; Cornell, paths L and T
-     (drive_path, one warm and 2 timed frames) and path H with the switch
+     (drive_path, two warm and 2 timed frames) and path H with the switch
      unset and at 0 in turns (unset, 0, 0, unset): launches (capped, path
      T launches K1 for K3), the integrator's material branch by its
      ranges, ms/frame, device busy, kernels a frame, the trace kernels,
@@ -1602,29 +1604,35 @@ def _reset_launches() -> None:
 
 def drive_path(label, scene, flat, tables, expected: dict,
                frames: int = TIMED_FRAMES, spans=()) -> dict:
-    """Render one warm and `frames` timed 1280x720 frames of a prepared
-    scene through render_pixels, with the launch counts set to 0 just
-    before and read just after; check the launches (each kernel of
-    `expected` launches that many times per bounce, every other kernel
-    never), rays_traced, the image and, above the repack threshold, the
-    sorts (the repack before every secondary bounce and, in alpha-tested
-    scenes, the rejected-first compaction of every material and shadow
-    ray's re-trace); profile 2 more frames.  In alpha-tested scenes print
-    the rays still to re-trace before and after each re-trace pass of the
-    first timed frame.  A kernel whose `expected` count is None launches as
-    often as the data asks (the treelet kernel: once per round of the
-    scheduler): it must launch at least once per bounce, and the scheduler
-    must have traced once per material and per shadow trace, with one
-    launch of the pick kernel and K rounds per trace and no host read; the
-    traces, rounds (the launches) and host reads per frame are printed.
-    The profiled frames also give the device span of each record_function
-    range named in `spans`.  Returns the launches, ms/frame, rays/s, rays
-    per frame, the last frame, and the profiled frames' busy time, device
-    kernels, trace kernels' times and spans."""
+    """Render two warm and `frames` timed 1280x720 frames of a prepared
+    scene through render_pixels, with fresh frame graphs (the first warm
+    frame runs eagerly, the second captures, the timed frames replay) and
+    the launch counts set to 0 just before and read just after; check the
+    launches of the frames the host ran (each kernel of `expected` launches
+    that many times per bounce, every other kernel never; a replay launches
+    from the host nothing that the counters see), rays_traced, the image
+    and, above the repack threshold, the sorts (the repack before every
+    secondary bounce and, in alpha-tested scenes, the rejected-first
+    compaction of every material and shadow ray's re-trace); hold the last
+    timed frame bit for bit against the same frame run eagerly; profile 2
+    more frames (eager, as every frame under a profiler).  In alpha-tested
+    scenes print the rays still to re-trace before and after each re-trace
+    pass of the first timed frame.  A kernel whose `expected` count is None
+    launches as often as the data asks (the treelet kernel: once per round
+    of the scheduler): it must launch at least once per bounce of a frame
+    the host ran, and the scheduler must have traced once per material and
+    per shadow trace, with one launch of the pick kernel and K rounds per
+    trace and no host read; the traces, rounds (the launches) and host
+    reads per frame are printed.  The profiled frames also give the device
+    span of each record_function range named in `spans`.  Returns the
+    launches, ms/frame, rays/s, rays per frame, the last frame, and the
+    profiled frames' busy time, device kernels, trace kernels' times and
+    spans."""
     from steeljax_torch.accel import cuda_traverse, treelets
     from steeljax_torch.core import camera as camera_lib
+    from steeljax_torch.core import profiling
     from steeljax_torch.core.config import RenderConfig
-    from steeljax_torch.render.pt import integrator
+    from steeljax_torch.render.pt import frame_graphs, integrator
 
     device = flat.device
     frame = camera_lib.make_frame(scene.camera_location,
@@ -1649,16 +1657,21 @@ def drive_path(label, scene, flat, tables, expected: dict,
         sorts[0] += 1
         return repack(*args)
 
+    graphs = integrator.FRAME_GRAPHS
     integrator.repack_rays = counting_repack
+    integrator.FRAME_GRAPHS = frame_graphs.FrameGraphs(
+        frame_graphs.CudaGraphs())
+    warm = 2  # eager, then the capture
     try:
         _reset_launches()
-        result, stats = step(0)  # warm frame
+        for i in range(warm):
+            step(i)
         torch.cuda.synchronize()
         rays = []
         t0 = time.perf_counter()
-        for i in range(frames):
-            result, stats = step(i + 1)
-            if i == 0:
+        for i in range(warm, warm + frames):
+            result, stats = step(i)
+            if i == warm:
                 retraces = stats["alpha_retrace"]
             rays.append(stats["rays_traced"])
         torch.cuda.synchronize()
@@ -1667,8 +1680,23 @@ def drive_path(label, scene, flat, tables, expected: dict,
         scheduler = dict(treelets.SCHEDULER)
     finally:
         integrator.repack_rays = repack
+        integrator.FRAME_GRAPHS = graphs
+    ran = [row["ran"] for row in
+           profiling.record()["rows"][-(warm + frames):]]
+    integrator.FRAME_GRAPHS = frame_graphs.FrameGraphs(frame_graphs.Eager())
+    try:
+        eager, eager_stats = step(warm + frames - 1)
+    finally:
+        integrator.FRAME_GRAPHS = graphs
+    if not (torch.equal(eager, result) and torch.equal(
+            eager_stats["rays_traced"], stats["rays_traced"])):
+        raise RuntimeError(f"{label}: the last timed frame ({ran[-1]}) "
+                           "differs from the same frame run eagerly")
 
-    total = 1 + frames
+    # Frames the host ran; a replay launches nothing the counters see.
+    total = len(ran) - ran.count("replay")
+    print(f"{label}: frames ran " + ", ".join(
+        f"{how} {ran.count(how)}" for how in ("eager", "capture", "replay")))
     bounces = config.max_bounce_count
     for name, count in launches.items():
         if name in expected and expected[name] is None:
@@ -1737,7 +1765,7 @@ def drive_path(label, scene, flat, tables, expected: dict,
               "trace call in bounce order: "
               + "; ".join(f"{name} {counts}" for name, counts in calls))
 
-    prof = _profile_frames(lambda: step(total), spans=spans)
+    prof = _profile_frames(lambda: step(warm + frames), spans=spans)
     if prof["busy_ms"] > 0.0:
         share = sum(prof["trace_ms"].values())
         print(f"{label} torch.profiler, per frame: device busy "
@@ -1760,8 +1788,8 @@ def drive_path(label, scene, flat, tables, expected: dict,
     else:
         print(f"{label}: torch.profiler recorded no device time: kernel "
               "share and idle share not measured")
-    return {"launches": launches, "ms_frame": ms_frame,
-            "rays_per_s": rays_per_s, "rays_frame": sum(per_frame) / frames,
+    return {"launches": launches, "host_frames": total,
+            "ms_frame": ms_frame, "rays_per_s": rays_per_s, "rays_frame": sum(per_frame) / frames,
             "image": image, "scheduler": scheduler,
             "busy_ms": prof["busy_ms"], "device_kernels": prof["kernels"],
             "trace_ms": prof["trace_ms"], "span_ms": prof["span_ms"]}
@@ -2317,7 +2345,7 @@ def _reflection_forms(renderer, env) -> dict:
 
 def phase_chunked(scenes, path_l) -> dict:
     """Path C: the sunlit stress scene above one chunk (2,633,508
-    triangles, two chunks at MAX_CHUNK_TRIS), one warm and TIMED_FRAMES
+    triangles, two chunks at MAX_CHUNK_TRIS), two warm and TIMED_FRAMES
     frames through render_pixels, K1 and K2 launched once per chunk per
     trace: twice path L's launches.  Prints the launches a frame, ms/frame,
     device busy and device kernels a frame beside path L's (the difference
@@ -2331,11 +2359,14 @@ def phase_chunked(scenes, path_l) -> dict:
     if n != 2:
         raise RuntimeError(f"path C has {n} chunks, expected 2")
     out = drive_path("path C", scene, flat, tables, {"K1": n, "K2": n})
+    frames = out["host_frames"]
     for k in ("K1", "K2"):
-        if out["launches"][k] != n * path_l["launches"][k]:
+        if out["launches"][k] * path_l["host_frames"] != \
+                n * path_l["launches"][k] * frames:
             raise RuntimeError(f"path C launched {k} {out['launches'][k]} "
-                               f"times, path L {path_l['launches'][k]}")
-    frames = 1 + TIMED_FRAMES
+                               f"times in {frames} frames, path L "
+                               f"{path_l['launches'][k]} in "
+                               f"{path_l['host_frames']}")
     print(f"path C: {n} chunks of {[c.rows for c in tables.chunks]} rows; "
           f"K1 {out['launches']['K1'] / frames:.0f} and K2 "
           f"{out['launches']['K2'] / frames:.0f} launches a frame ({n}x path "
@@ -4338,8 +4369,8 @@ def phase_sbvh(device, scenes, kernels, prepare_steps, sah_paths) -> dict:
 # Phase 19, STEELJAX_SHADE_MODE: the reference's cap on the flat nearest
 # trace's fused shading mode (steeljax/accel/dispatch.py:27-32, :476-478),
 # read by dispatch.trace_nearest at every trace.  Each path renders with
-# the switch unset and at 0 in SHADE_TURNS, one warm and SHADE_TIMED_FRAMES
-# timed frames and 2 profiled ones a turn.
+# the switch unset and at 0 in SHADE_TURNS, two warm and SHADE_TIMED_FRAMES
+# timed frames and 2 profiled ones a turn (path H: one warm).
 SHADE_SWITCH = "STEELJAX_SHADE_MODE"
 SHADE_TURNS = (None, "0", "0", None)
 SHADE_TIMED_FRAMES = 2
@@ -4409,7 +4440,7 @@ def _shade_way(label, turns: list, kernel_ms: float) -> dict:
     rays_traced."""
     first = turns[0]
     way = {"launches_per_frame": {
-               k: v / (1 + SHADE_TIMED_FRAMES)
+               k: v / first["host_frames"]
                for k, v in first["launches"].items() if v},
            "ms_frame": [t["ms_frame"] for t in turns],
            "ms_frame_mean": float(np.mean([t["ms_frame"] for t in turns])),
@@ -4489,6 +4520,7 @@ def _hybrid_turn(renderer, frames: int) -> dict:
     prof = _profile_frames(renderer.render_frame_device,
                            spans=("gbuffer_stage",))
     return {"ms_frame": ms_frame, "image": image, "launches": launches,
+            "host_frames": total,
             "busy_ms": prof["busy_ms"], "device_kernels": prof["kernels"],
             "trace_ms": prof["trace_ms"], "span_ms": prof["span_ms"]}
 
@@ -5216,10 +5248,9 @@ def main(argv=None) -> int:
                 "K7_anyhit": path_ul["launches"]["K7_anyhit"],
                 "K7_pick": path_u["launches"]["K7_pick"],
                 "R": path_r["launches"]["R"]}
-    frames_h = 1 + HYBRID_TIMED_FRAMES
-    frames = 1 + TIMED_FRAMES
-    sub_paths = {"path_h": (path_h, frames_h), "path_c": (path_c, frames),
-                 "path_l16": (path_l16, frames)}
+    sub_paths = {"path_h": (path_h, 1 + HYBRID_TIMED_FRAMES),
+                 "path_c": (path_c, path_c["host_frames"]),
+                 "path_l16": (path_l16, path_l16["host_frames"])}
 
     def sub_row(k, key):
         """A sub-row of a kernel at another path's shapes (phase 3b; path
@@ -5242,7 +5273,8 @@ def main(argv=None) -> int:
         elif key == "sbvh":
             label, tables_of = sbvh_frames[k]
             out = sbvh["frames"][label]
-            launches = {"launches_per_frame": out["launches"][k] / frames,
+            launches = {"launches_per_frame":
+                        out["launches"][k] / out["host_frames"],
                         "frames_of": label, "ms_frame": out["ms_frame"],
                         "busy_ms": out["busy_ms"],
                         "pixels_beyond_sah": out["pixels_beyond"],

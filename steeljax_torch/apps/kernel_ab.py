@@ -316,7 +316,7 @@ def frames(lib, scenes: dict, width: int, height: int) -> dict:
     from steeljax_torch.accel import cuda_traverse as ct
     from steeljax_torch.core import camera as camera_lib
     from steeljax_torch.core.config import RenderConfig
-    from steeljax_torch.render.pt import integrator
+    from steeljax_torch.render.pt import frame_graphs, integrator
 
     device = scenes["sunlit"][1].device
     paths = {"path L": scenes["sunlit"],
@@ -340,6 +340,11 @@ def frames(lib, scenes: dict, width: int, height: int) -> dict:
 
         def render(who):
             with contextlib.ExitStack() as stack:
+                # Both kernels' frames as the host launches them: a graph
+                # would replay whichever launcher it captured.
+                stack.enter_context(mock.patch.object(
+                    integrator, "FRAME_GRAPHS",
+                    frame_graphs.FrameGraphs(frame_graphs.Eager())))
                 if who == "old":
                     stack.enter_context(mock.patch.object(
                         ct, "anyhit_launcher", old_launcher))

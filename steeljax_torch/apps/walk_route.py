@@ -70,7 +70,7 @@ def _walked(flat):
 def run(width: int, height: int, device: str) -> dict:
     """Both ways on one tile; returns the JSON line's fields."""
     from steeljax_torch.apps import kernel_parity as kp
-    from steeljax_torch.render.pt import integrator
+    from steeljax_torch.render.pt import frame_graphs, integrator
     from steeljax_torch.render.pt.renderer import prepare_scene
 
     scene = kp.make_path_scene("sunlit")
@@ -84,9 +84,11 @@ def run(width: int, height: int, device: str) -> dict:
     out["plain_s"] = time.perf_counter() - start
 
     saved = (integrator.trace_nearest, integrator.trace_any,
-             os.environ.get("STEELJAX_SHADE_MODE"))
+             os.environ.get("STEELJAX_SHADE_MODE"), integrator.FRAME_GRAPHS)
     integrator.trace_nearest, integrator.trace_any = _walked(flat)
     os.environ["STEELJAX_SHADE_MODE"] = "0"
+    # The walk's tile as the host runs it, whatever graphs were captured.
+    integrator.FRAME_GRAPHS = frame_graphs.FrameGraphs(frame_graphs.Eager())
     try:
         start = time.perf_counter()
         walk, out["walk_rays_traced"] = _tile(flat, tables, scene, width,
@@ -94,6 +96,7 @@ def run(width: int, height: int, device: str) -> dict:
         out["walk_s"] = time.perf_counter() - start
     finally:
         integrator.trace_nearest, integrator.trace_any = saved[:2]
+        integrator.FRAME_GRAPHS = saved[3]
         if saved[2] is None:
             os.environ.pop("STEELJAX_SHADE_MODE", None)
         else:

@@ -15,10 +15,15 @@ microseconds of host time a span.
   once).  Each frame closes one row of the record: its host ms, the host ms
   inside its `wait=True` spans (calls that wait on the card: a blocking
   copy between host and device, a read of a device value), its host ms by
-  span name (inclusive and self, self being a span less its children) and
-  whether a profiler collected during it.  The record keeps the last
-  ROW_LIMIT rows; `record()` returns them with the per-name totals of every
-  span since `reset()`, set-up steps outside frames included.
+  span name (inclusive and self, self being a span less its children),
+  whether a profiler collected during it and how it ran (`frame_ran`:
+  "eager" unless the frame says it replayed or captured a CUDA graph).
+  The record keeps the last ROW_LIMIT rows; `record()` returns them with
+  the per-name totals of every span since `reset()`, set-up steps outside
+  frames included.
+- `frame_ran(how)` says how the open frame ran: "replay" (a CUDA graph's
+  replay, no launch from the host), "capture" (the graph captured, then
+  replayed) or "eager".
 - `count_retrace(counts, rows)` keeps, in the open frame's row, references
   to the bounded alpha re-trace's pending counts (0-d device tensors taken
   by the integrator anyway); `record()` sums them once, on request, for the
@@ -32,14 +37,15 @@ microseconds of host time a span.
 
 Which reader takes which span: portbench's per-layer metrics read the
 record (`host_frame_ms.*` the frame rows, `host_wait_ms.pt` the waits,
-`retrace_live_pct.pt` the re-trace counts, `prepare_tables_s` the
-`dispatch.prepare_tables` total, `environment_s` the `environment.load`
-total) and the device span of `gbuffer_stage` and `lighting_stage` from the
-profiler.  Every other span (the integrator's bounce pieces, the hybrid
-stages' pieces, the set-up steps inside prepare_scene and load_environment)
-is read by an operator in the exported trace and record.  The record is the
-rendering thread's: spans are not meant to be entered from several threads
-at once.  There is no live profiling endpoint.
+`retrace_live_pct.pt` the re-trace counts, `graph_frames_pct.pt` how the
+frames ran, `prepare_tables_s` the `dispatch.prepare_tables` total,
+`environment_s` the `environment.load` total) and the device span of
+`gbuffer_stage` and `lighting_stage` from the profiler.  Every other span
+(the integrator's bounce pieces, the hybrid stages' pieces, the set-up
+steps inside prepare_scene and load_environment) is read by an operator in
+the exported trace and record.  The record is the rendering thread's:
+spans are not meant to be entered from several threads at once.  There is
+no live profiling endpoint.
 """
 
 from __future__ import annotations
@@ -65,7 +71,7 @@ class _Record:
     """The spans' record.  `spans` is where a closing span adds its calls,
     host ns and self ns under its name: the open frame's own dict, else
     `outside`'s.  A frame's row is (name, ns, wait ns, spans, profiled,
-    re-trace counts)."""
+    re-trace counts, how it ran)."""
 
     def __init__(self):
         self.outside = {}
@@ -79,6 +85,7 @@ class _Record:
         self.profiled = False
         self.retrace = None
         self.retrace_row = None     # the last unprofiled row with counts
+        self.ran = "eager"
 
 
 _RECORD = _Record()
@@ -177,6 +184,7 @@ class frame(named_scope):
             rec.wait_ns = 0
             rec.profiled = False
             rec.retrace = None
+            rec.ran = "eager"
         return super().__enter__()
 
     def __exit__(self, *exc):
@@ -186,7 +194,7 @@ class frame(named_scope):
             profiled = rec.profiled or _collecting()
             retrace = None if profiled else rec.retrace
             row = [self.name, rec.spans[self.name][1], rec.wait_ns,
-                   rec.spans, profiled, retrace]
+                   rec.spans, profiled, retrace, rec.ran]
             if len(rec.rows) == ROW_LIMIT:
                 _add(rec.evicted, rec.rows.popleft()[3])
             rec.rows.append(row)
@@ -209,6 +217,14 @@ def upload(x, name: str, *, device, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=device)
 
 
+def frame_ran(how: str) -> None:
+    """Say how the open frame ran: "replay", "capture" or "eager" (every
+    frame's default); nothing outside a frame."""
+    rec = _RECORD
+    if rec.frame is not None:
+        rec.ran = how
+
+
 def count_retrace(counts: list, rows: int) -> None:
     """Keep the pending counts entering an alpha re-trace's passes (0-d
     device tensors, one a pass, each pass launched over `rows` rays) in the
@@ -226,12 +242,12 @@ def _ms(ns: int) -> float:
 
 def record() -> dict:
     """The record as plain data: {"rows": [{"frame", "ms", "wait_ms",
-    "spans" {name: ms}, "self_ms" {name: ms}, "profiled"} ...], "totals":
-    {name: {"calls", "ms", "self_ms"}}}, totals of every span closed since
-    `reset()`.  The last frame no profiler saw whose traces re-traced also
-    has "retrace": {"pending", "slots"}, the pending rays entering its
-    re-trace passes and the rays the passes were launched over, summed over
-    its alpha traces."""
+    "spans" {name: ms}, "self_ms" {name: ms}, "profiled", "ran"} ...],
+    "totals": {name: {"calls", "ms", "self_ms"}}}, totals of every span
+    closed since `reset()`.  The last frame no profiler saw whose traces
+    re-traced also has "retrace": {"pending", "slots"}, the pending rays
+    entering its re-trace passes and the rays the passes were launched
+    over, summed over its alpha traces."""
     rec = _RECORD
     held = rec.retrace_row
     if held is not None and isinstance(held[5], list):
@@ -243,12 +259,12 @@ def record() -> dict:
     totals = {}
     _add(totals, rec.evicted)
     _add(totals, rec.outside)
-    for name, ns, wait_ns, spans, profiled, retrace in rec.rows:
+    for name, ns, wait_ns, spans, profiled, retrace, ran in rec.rows:
         _add(totals, spans)
         out = {"frame": name, "ms": _ms(ns), "wait_ms": _ms(wait_ns),
                "spans": {k: _ms(v[1]) for k, v in spans.items()},
                "self_ms": {k: _ms(v[2]) for k, v in spans.items()},
-               "profiled": profiled}
+               "profiled": profiled, "ran": ran}
         if isinstance(retrace, dict):
             out["retrace"] = dict(retrace)
         rows.append(out)

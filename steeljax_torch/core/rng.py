@@ -72,19 +72,32 @@ def next_vec3(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.stack([a, b, c], dim=-1), state
 
 
+def seed_word(sample_index: int, accumulation_index: int) -> int:
+    """The 32-bit word whose hash seeds s1 (RayGen.rgen:43-44): the sample
+    index shifted left by 8, or'ed with the accumulation index."""
+    return ((((int(sample_index) & _MASK) << 8) & _MASK)
+            | (int(accumulation_index) & _MASK))
+
+
 def make_seed(pixel_x: torch.Tensor, pixel_y: torch.Tensor,
-              sample_index: int, accumulation_index: int) -> torch.Tensor:
+              sample_index: int = 0, accumulation_index: int = 0, *,
+              word: torch.Tensor | None = None) -> torch.Tensor:
     """Per-pixel stream seed (RayGen.rgen:37-50).
 
     s0 hashes the pixel id, s1 hashes (sample, accumulation) indices; one
     warm-up step mixes the state exactly as the reference's `Rand(seed)`
-    call.  Returns (N, 2) int64 on the pixels' device."""
+    call.  `word`, a 0-d int64 tensor on the pixels' device holding
+    seed_word(sample_index, accumulation_index), stands in for the two
+    indices: a frame replayed as a CUDA graph reads it from the device, so
+    the indices are not baked into the graph.  Returns (N, 2) int64 on the
+    pixels' device, the same bits either way."""
     px = pixel_x.to(torch.int64) & _MASK
     py = pixel_y.to(torch.int64) & _MASK
     s0 = ((px << 16) & _MASK) | py
-    s1_word = (((int(sample_index) & _MASK) << 8) & _MASK) \
-        | (int(accumulation_index) & _MASK)
-    s1 = torch.full_like(s0, s1_word)
+    if word is None:
+        s1 = torch.full_like(s0, seed_word(sample_index, accumulation_index))
+    else:
+        s1 = word.expand_as(s0)
     state = torch.stack([wang_hash(s0), wang_hash(s1)], dim=-1)
     _, state = rand_uint32(state)
     return state

@@ -33,12 +33,15 @@ object-space row and the instance's material row (shade_rows).
 
 `render_pixels` is a frame of core.profiling's record
 (`integrator.render_pixels`): the pixel upload `integrator.upload_pixels`
-(a wait: a copy of host data synchronizes the stream), then
+(a wait: a copy of host data synchronizes the stream; tiled_order's
+arrays are uploaded once per extent and device, by frame_pixels), then
 `integrator.primary_rays`, each bounce `integrator.bounce` (its
 `integrator.repack`, `integrator.trace_material` with the alpha re-trace's
 `integrator.retrace_pass`es, `integrator.shade_fused` or
 `integrator.shade_gather`, `integrator.nee`, `integrator.sample`) and
-`integrator.environment`.
+`integrator.environment`.  Since no frame reads the device on the host, a
+CUDA device replays each kind of frame as one CUDA graph (frame_graphs);
+a replayed frame's row holds the frame span alone.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from steeljax_torch.core.constants import (BIAS, DIRECT_LIGHT_DISK_RADIUS,
                                            RAY_DEAD_T, RAY_MAX_T, RAY_MIN_T)
 from steeljax_torch.env.cubemap import sample_cube_quads
 from steeljax_torch.render.pt import brdf as brdf_lib
+from steeljax_torch.render.pt import frame_graphs
 from steeljax_torch.render.texture import sample_bilinear
 from steeljax_torch.scene.flatten import FlatScene
 from steeljax_torch.scene.material import MaterialFlags
@@ -453,9 +457,6 @@ def _bounded_retrace(tables: TraceTables, o, d, t_min, t_max, trace,
             pending = pending & pending_again
             if count_pending:
                 counts.append(pending.sum())
-    if count_pending:
-        # The rays entering each pass, each pass launched over the batch.
-        profiling.count_retrace(counts[:max_alpha_retrace], count)
     rec["hit"] = rec["hit"] & ~pending
     rec["tri"] = torch.where(rec["hit"], rec["tri"], -1)
     rec["t"] = torch.where(rec["hit"], rec["t"], -1.0)
@@ -796,6 +797,62 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
     return clamped, seed, rays_traced
 
 
+def _samples(scene: FlatScene, tables: TraceTables, inverse_view,
+             inverse_proj, camera_near: float, camera_far: float, width: int,
+             height: int, px, py, seed_of, config: RenderConfig,
+             retrace_log: list | None):
+    """The frame's work on pixels (px, py) on the scene's device:
+    config.sample_count samples, sample s seeded by seed_of(s).  Returns
+    (mean irradiance (N, 3), rays_traced)."""
+    count = px.shape[0]
+    device = px.device
+    total = torch.zeros((count, 3), dtype=torch.float32, device=device)
+    rays_traced = torch.zeros((), dtype=torch.float32, device=device)
+    for s in range(config.sample_count):
+        with profiling.named_scope("integrator.primary_rays"):
+            seed = seed_of(s)
+            o, d, seed = primary_rays(inverse_view, inverse_proj, width,
+                                      height, px, py, seed)
+        sample, seed, rays = trace_paths(scene, tables, o, d, seed,
+                                         camera_near, camera_far, config,
+                                         retrace_log)
+        total = total + sample
+        rays_traced = rays_traced + rays
+    return total / config.sample_count, rays_traced
+
+
+# The frames' CUDA graphs (frame_graphs).  A test or an app that replaces
+# a function the frame calls (kernel_ab's earlier K2 launcher, walk_route's
+# walk) puts a FrameGraphs(frame_graphs.Eager()) in its place.
+FRAME_GRAPHS = frame_graphs.FrameGraphs(frame_graphs.CudaGraphs())
+
+
+def _frame_key(scene, tables, config: RenderConfig, width, height,
+               camera_near, camera_far, pixels: int,
+               return_stats: bool) -> tuple:
+    """Everything a captured frame bakes in: the device, the scene and
+    tables, the config, the extent, near and far, the number of pixels,
+    return_stats, and the values the frame reads at call time
+    (STEELJAX_REPACK, STEELJAX_SHADE_MODE, REPACK_MIN_TRIS)."""
+    return (scene.device, id(scene), id(tables), config, int(width),
+            int(height), float(camera_near), float(camera_far), pixels,
+            bool(return_stats), os.environ.get("STEELJAX_REPACK"),
+            os.environ.get("STEELJAX_SHADE_MODE"), REPACK_MIN_TRIS)
+
+
+def _device_pixels(px, py, width: int, height: int, device) -> tuple:
+    """(px, py) as tensors on `device`: tiled_order's arrays of this extent
+    as frame_pixels' copy, anything else through the upload (a wait: a
+    copy of host data synchronizes the stream; none for tensors on
+    `device`)."""
+    tiled = tiled_order(width, height)
+    if tiled is not None and px is tiled[0] and py is tiled[1]:
+        return frame_pixels(width, height, device)[:2]
+    with profiling.named_scope("integrator.upload_pixels", wait=True):
+        return torch.as_tensor(px, device=device), \
+            torch.as_tensor(py, device=device)
+
+
 def render_pixels(scene: FlatScene, tables: TraceTables,
                   inverse_view, inverse_proj,
                   camera_near: float, camera_far: float, width: int,
@@ -809,30 +866,46 @@ def render_pixels(scene: FlatScene, tables: TraceTables,
     "alpha_retrace": [(label, counts), ...]}: in alpha-tested scenes, for
     every material and shadow trace in bounce order, the rays still to
     re-trace before the first re-trace pass and after each, as 0-d tensors
-    (trace_material_ray; empty otherwise).  No stat is read back."""
+    (trace_material_ray; empty otherwise).  No stat is read back.
+
+    On a CUDA device the frame is replayed as a CUDA graph from its third
+    call with the same key on (frame_graphs, _frame_key): the same kernels
+    in the same order, so the same bits; the returned tensors are the
+    caller's own.  The seed words, the matrices and the pixels reach the
+    frame through buffers (frame_graphs.FrameInputs) on every device."""
     with profiling.frame("integrator.render_pixels"):
         device = scene.device
-        with profiling.named_scope("integrator.upload_pixels", wait=True):
-            px = torch.as_tensor(px, device=device).to(torch.int64)
-            py = torch.as_tensor(py, device=device).to(torch.int64)
-        count = px.shape[0]
-        total = torch.zeros((count, 3), dtype=torch.float32, device=device)
-        rays_traced = torch.zeros((), dtype=torch.float32, device=device)
-        retrace_log = [] if return_stats else None
+        px, py = _device_pixels(px, py, width, height, device)
+        inputs = frame_graphs.FrameInputs(
+            [rng.seed_word(s + int(sample_index), int(accumulation_index))
+             for s in range(config.sample_count)],
+            (inverse_view, inverse_proj), (px, py))
 
-        for s in range(config.sample_count):
-            with profiling.named_scope("integrator.primary_rays"):
-                seed = rng.make_seed(px, py, s + int(sample_index),
-                                     int(accumulation_index))
-                o, d, seed = primary_rays(inverse_view, inverse_proj, width,
-                                          height, px, py, seed)
-            sample, seed, rays = trace_paths(scene, tables, o, d, seed,
-                                             camera_near, camera_far, config,
-                                             retrace_log)
-            total = total + sample
-            rays_traced = rays_traced + rays
+        def frame(buffers):
+            words, view, proj, x, y = buffers
+            log = [] if return_stats else None
+            result, rays = _samples(
+                scene, tables, view, proj, camera_near, camera_far, width,
+                height, x, y, lambda s: rng.make_seed(x, y, word=words[s]),
+                config, log)
+            if log is None:
+                return [result, rays], None
+            return ([result, rays] + [c for _, cs in log for c in cs],
+                    [(label, len(cs)) for label, cs in log])
 
-        result = total / config.sample_count
+        key = _frame_key(scene, tables, config, width, height, camera_near,
+                         camera_far, px.shape[0], return_stats)
+        (result, rays_traced, *counts), layout = FRAME_GRAPHS.run(
+            key, (scene, tables), device, frame, inputs)
+        retrace_log = None
+        if layout is not None:
+            counts = iter(counts)
+            retrace_log = [(label, [next(counts) for _ in range(n)])
+                           for label, n in layout]
+        for _, counts in retrace_log or ():
+            # The rays entering each pass, each pass launched over the
+            # frame's rays.
+            profiling.count_retrace(counts[:-1], result.shape[0])
     if return_stats:
         return result, {"rays_traced": rays_traced,
                         "alpha_retrace": retrace_log}
@@ -864,24 +937,32 @@ def detile(result: torch.Tensor, width: int, height: int, tile):
         (height, width) + c)
 
 
+@functools.lru_cache(maxsize=8)
+def frame_pixels(width: int, height: int, device):
+    """A whole frame's pixels as int64 tensors on `device`, uploaded once
+    per extent and device: tiled_order's where the extent tiles, with its
+    tile, else row-major with tile None.  Returns (px, py, tile)."""
+    tiled = tiled_order(width, height)
+    if tiled is None:
+        ys, xs = np.meshgrid(np.arange(height), np.arange(width),
+                             indexing="ij")
+        tiled = xs.reshape(-1), ys.reshape(-1), None
+    with profiling.named_scope("integrator.upload_pixels", wait=True):
+        return (torch.as_tensor(tiled[0], dtype=torch.int64, device=device),
+                torch.as_tensor(tiled[1], dtype=torch.int64, device=device),
+                tiled[2])
+
+
 def render_sample(scene: FlatScene, tables: TraceTables,
                   inverse_view, inverse_proj,
                   camera_near, camera_far, width: int, height: int,
                   accumulation_index, sample_index,
                   config: RenderConfig = RenderConfig()) -> torch.Tensor:
     """Full-frame wrapper around render_pixels; (H, W, 3)."""
-    tiled = tiled_order(width, height)
-    if tiled is not None:
-        px, py, tile = tiled
-        result = render_pixels(
-            scene, tables, inverse_view, inverse_proj, camera_near,
-            camera_far, width, height, px, py,
-            accumulation_index, sample_index, config)
-        return detile(result, width, height, tile)
-    ys, xs = np.meshgrid(np.arange(height, dtype=np.int32),
-                         np.arange(width, dtype=np.int32), indexing="ij")
+    px, py, tile = frame_pixels(width, height, scene.device)
     result = render_pixels(
         scene, tables, inverse_view, inverse_proj, camera_near, camera_far,
-        width, height, xs.reshape(-1), ys.reshape(-1),
-        accumulation_index, sample_index, config)
+        width, height, px, py, accumulation_index, sample_index, config)
+    if tile is not None:
+        return detile(result, width, height, tile)
     return result.reshape(height, width, 3)
