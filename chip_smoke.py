@@ -966,16 +966,19 @@ def phase_prepare(device) -> tuple[dict, dict, dict, dict]:
               f"{renderer.flat.source_tri_count} triangles when flattened, "
               f"{_describe_tables(first)}, {seconds[name]:.3f} s (the "
               f"renderer's prepare_scene): {_steps_text(steps)}")
-        # An edit and its re-preparation, then the scene as it was.
+        # An edit and its re-preparation, then the scene as it was.  The
+        # refresh rewrites the instance rows in place (the same tables), so
+        # the rows before it are compared from a copy.
         entity = scene.entities[scene.renderable_entities()[-1]]
         before = entity.local_transform
         builds = renderer._accel.blas_builds
+        first_rows = first.inst_trace.clone()
         kernel_parity.move_entity(scene)
         _, again, steps = _profiled_steps(renderer.refresh_scene)
         edited = renderer.tables
         if renderer._accel.blas_builds != builds or \
                 edited.tris_packed is not first.tris_packed or \
-                torch.equal(edited.inst_trace, first.inst_trace):
+                torch.equal(edited.inst_trace, first_rows):
             raise RuntimeError(f"{name}: the re-preparation after an edit "
                                "rebuilt a BLAS or changed nothing")
         print(f"  refresh_scene() after moving one entity: {again:.4f} s "
@@ -984,7 +987,7 @@ def phase_prepare(device) -> tuple[dict, dict, dict, dict]:
         entity.local_transform = before
         scene.revision += 1
         renderer.refresh_scene()
-        if not torch.equal(renderer.tables.inst_trace, first.inst_trace):
+        if not torch.equal(renderer.tables.inst_trace, first_rows):
             raise RuntimeError(f"{name}: the scene put back gives other "
                                "instance rows")
         scenes[name] = (scene, renderer.flat, renderer.tables)
@@ -2091,7 +2094,8 @@ def phase_instanced_edit(device, scenes, renderers, flat_prepare_s) -> None:
     renderer = renderers["sunlit_inst"]
     before = renderer.render_frame()
     builds = renderer._accel.blas_builds
-    tris, rows = renderer.tables.tris_packed, renderer.tables.inst_trace
+    tris = renderer.tables.tris_packed
+    rows = renderer.tables.inst_trace.clone()  # rewritten in place
     kernel_parity.move_entity(scene)
     torch.cuda.synchronize()
     t0 = time.perf_counter()

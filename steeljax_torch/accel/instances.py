@@ -39,7 +39,9 @@ from steeljax_torch.accel import cuda_traverse, traverse
 from steeljax_torch.accel.bvh import (BVH, apply_permutation, build_bvh,
                                       collapse_bvh8)
 from steeljax_torch.core import profiling
-from steeljax_torch.scene.flatten import _to_linear_np, pack_tri_shade
+from steeljax_torch.scene.flatten import (_to_linear_np, copy_in,
+                                          pack_tri_shade, refresh_lights,
+                                          refresh_materials)
 
 # Floats per row of inst_trace and inst_shade.
 INST_COLS = cuda_traverse.INST_COLS
@@ -71,6 +73,9 @@ class InstancedTables:
     # World bounds of the instances, for the ray-sort keys.
     aabb_lo: tuple = (0.0, 0.0, 0.0)
     aabb_hi: tuple = (1.0, 1.0, 1.0)
+    # (2, 3) f32 on the device: the bounds' lower corner and inverse extent
+    # (sort_bounds), which the ray-sort keys read; a refresh rewrites it.
+    sort_bounds: torch.Tensor | None = None
     # Every cached BLAS's binary tree and permuted triangles, in BLAS index
     # order, for the walk (trace_nearest_instanced_walk).
     cpu_blas: tuple = ()       # tuple[CpuBlas]
@@ -135,60 +140,28 @@ class _Blas:
             self.hi = np.zeros(3, np.float32)
 
 
+def _runs(starts: np.ndarray, lengths: np.ndarray) -> tuple:
+    """(positions, run): every position of the runs [start, start + length)
+    in run order, and the run of each."""
+    run = np.repeat(np.arange(len(starts)), lengths)
+    first = np.cumsum(lengths) - lengths
+    return starts[run] + np.arange(len(run)) - first[run], run
+
+
 def _build_tlas8(lo: np.ndarray, hi: np.ndarray) -> tuple[np.ndarray, int]:
-    """8-wide median-split tree over instance AABBs.
+    """8-wide median-split tree over instance AABBs, the reference's
+    recursion (steeljax/accel/instances.py:130-193) level by level in numpy:
+    a node over more than 8 instances splits its instances three times at
+    the median of their centres along the widest axis of the centres
+    (stable order), one over 2 to 8 gives each its own slot; a group of one
+    is an instance slot, a larger one a child node.  Rows are numbered in
+    depth-first order, children in slot order, as the recursion appends
+    them, so the rows equal the reference's.
 
     Child slots: meta1 == -1 -> instance (meta0 = instance id);
     meta1 == 0 -> internal (meta0 = supernode id); empty slots have
     inverted AABBs and meta0 = -1.  Returns (rows (S, 128), depth)."""
     count = len(lo)
-    centers = (lo + hi) * 0.5
-    rows: list[np.ndarray] = []
-
-    def rec(ids: np.ndarray) -> tuple[int, int]:
-        sid = len(rows)
-        rows.append(np.zeros(128, np.float32))
-        if len(ids) <= 8:
-            groups = [np.array([i]) for i in ids]
-        else:
-            groups = [ids]
-            for _ in range(3):
-                nxt = []
-                for g in groups:
-                    if len(g) <= 1:
-                        nxt.append(g)
-                        continue
-                    c = centers[g]
-                    axis = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
-                    order = g[np.argsort(c[:, axis], kind="stable")]
-                    h = len(order) // 2
-                    nxt.extend([order[:h], order[h:]])
-                groups = nxt
-            groups = [g for g in groups if len(g)]
-        depth = 1
-        row = rows[sid]
-        for slot in range(8):
-            off = 16 * slot
-            if slot < len(groups):
-                g = groups[slot]
-                row[off:off + 3] = lo[g].min(axis=0)
-                row[off + 3:off + 6] = hi[g].max(axis=0)
-                if len(g) == 1:
-                    row[off + 6] = float(g[0])
-                    row[off + 7] = -1.0
-                else:
-                    child, d = rec(g)
-                    row = rows[sid]
-                    row[off + 6] = float(child)
-                    row[off + 7] = 0.0
-                    depth = max(depth, 1 + d)
-            else:
-                row[off:off + 3] = 3.0e37
-                row[off + 3:off + 6] = -3.0e37
-                row[off + 6] = -1.0
-                row[off + 7] = 0.0
-        return sid, depth
-
     if count == 0:
         row = np.zeros(128, np.float32)
         for slot in range(8):
@@ -197,8 +170,77 @@ def _build_tlas8(lo: np.ndarray, hi: np.ndarray) -> tuple[np.ndarray, int]:
             row[off + 3:off + 6] = -3.0e37
             row[off + 6] = -1.0
         return row[None], 1
-    _, depth = rec(np.arange(count))
-    return np.stack(rows), depth
+    centers = (lo + hi) * 0.5
+    # Every node holds a run of `perm`, and its groups are runs inside it.
+    perm = np.arange(count)
+    nodes = []   # per node: its groups (start, length) in slot order
+    child = {}   # a group of more than one instance -> its node
+    level = [(0, count)]
+    while level:
+        base = len(nodes)
+        child.update({run: base + i for i, run in enumerate(level)})
+        nodes.extend([] for _ in level)
+        starts, lengths = (np.asarray(x, np.int64) for x in zip(*level))
+        big = np.flatnonzero(lengths > 8)
+        seg_start, seg_len, seg_node = starts[big], lengths[big], big
+        for _ in range(3 if len(big) else 0):
+            pos, seg = _runs(seg_start, seg_len)
+            c = centers[perm[pos]]
+            first = np.cumsum(seg_len) - seg_len
+            extent = (np.maximum.reduceat(c, first)
+                      - np.minimum.reduceat(c, first))
+            key = c[np.arange(len(pos)), np.argmax(extent, axis=1)[seg]]
+            perm[pos] = perm[pos[np.lexsort((key, seg))]]
+            half = seg_len // 2
+            seg_start = np.stack([seg_start, seg_start + half], 1).ravel()
+            seg_len = np.stack([half, seg_len - half], 1).ravel()
+            keep = seg_len > 0
+            seg_start, seg_len = seg_start[keep], seg_len[keep]
+            seg_node = np.repeat(seg_node, 2)[keep]
+        small = np.flatnonzero(lengths <= 8)
+        single, single_node = _runs(starts[small], lengths[small])
+        level = []
+        for node, start, length in sorted(zip(
+                np.concatenate([seg_node, small[single_node]]).tolist(),
+                np.concatenate([seg_start, single]).tolist(),
+                np.concatenate([seg_len, np.ones_like(single)]).tolist())):
+            nodes[base + node].append((start, length))
+            if length > 1:
+                level.append((start, length))
+    # Depth-first numbering, children in slot order.
+    number = [0] * len(nodes)
+    stack, numbered = [0], 0
+    while stack:
+        node = stack.pop()
+        number[node] = numbered
+        numbered += 1
+        stack.extend(child[g] for g in reversed(nodes[node]) if g[1] > 1)
+    depth = [1] * len(nodes)
+    for node in reversed(range(len(nodes))):
+        for g in nodes[node]:
+            if g[1] > 1:
+                depth[node] = max(depth[node], 1 + depth[child[g]])
+    rows = np.zeros((len(nodes), 128), np.float32)
+    slots = rows.reshape(len(nodes), 8, 16)
+    slots[:, :, 0:3] = 3.0e37
+    slots[:, :, 3:6] = -3.0e37
+    slots[:, :, 6] = -1.0
+    row_of, slot_of, start, length = (np.asarray(x, np.int64) for x in zip(
+        *[(number[node], slot, a, n) for node in range(len(nodes))
+          for slot, (a, n) in enumerate(nodes[node])]))
+    pos, _ = _runs(start, length)
+    first = np.cumsum(length) - length
+    slots[row_of, slot_of, 0:3] = np.minimum.reduceat(lo[perm[pos]], first)
+    slots[row_of, slot_of, 3:6] = np.maximum.reduceat(hi[perm[pos]], first)
+    leaf = length == 1
+    inner = ~leaf
+    slots[row_of[leaf], slot_of[leaf], 6] = perm[start[leaf]]
+    slots[row_of[leaf], slot_of[leaf], 7] = -1.0
+    slots[row_of[inner], slot_of[inner], 6] = [
+        number[child[(a, n)]]
+        for a, n in zip(start[inner].tolist(), length[inner].tolist())]
+    slots[row_of[inner], slot_of[inner], 7] = 0.0
+    return rows, depth[0]
 
 
 def _pack_inst_material(mat) -> np.ndarray:
@@ -303,109 +345,213 @@ class InstancedAccel:
             self._packed_key = key
         return self._packed
 
-    def prepare(self, scene) -> InstancedTables:
-        """Build or refresh the instance tables for the scene's current
-        entity state.  Each step is an `instances.<step>` span
-        (core.profiling), those that launch device work ending in a
-        synchronize."""
+    def _instances(self, scene) -> tuple[list, np.ndarray, np.ndarray]:
+        """(BLAS key, world transform (I, 4, 4) float32, material id (I,))
+        of every render object of the scene's renderable entities, in
+        entity order; a BLAS is built for each primitive not cached yet."""
+        keys, worlds, mids = [], [], []
+        for ei in scene.renderable_entities():
+            world = scene.world_transform(ei)
+            for ro in scene.entities[ei].render_objects:
+                keys.append(self._get_blas(scene.primitives[ro.primitive])[0])
+                worlds.append(world)
+                mids.append(ro.material)
+        return (keys, np.asarray(worlds, np.float32).reshape(-1, 4, 4),
+                np.asarray(mids, np.int64))
+
+    def _host_tables(self, scene, keys, world, mids, blas_rows, offsets
+                     ) -> dict:
+        """The instance tables, the TLAS and the sort bounds of the scene's
+        instances as host arrays, and the host fields of InstancedTables:
+        the instance rows in one numpy pass (`_instance_rows`), then the
+        TLAS over their world bounds."""
         from steeljax_torch.scene.material import MaterialFlags
 
-        entries = []   # (blas key, world, material, material id)
+        sorted_keys = sorted(self._blas)
+        blas_index = {k: j for j, k in enumerate(sorted_keys)}
+        inst_blas = np.asarray([blas_index[k] for k in keys], np.int64)
+        pool = [self._blas[k] for k in sorted_keys]
+        with profiling.named_scope("instances.instance_rows"):
+            materials = scene.materials
+            material_rows = np.zeros((max(len(materials), 1), 28),
+                                     np.float32)
+            double_sided = np.zeros(max(len(materials), 1), bool)
+            for m, mat in enumerate(materials):
+                material_rows[m] = _pack_inst_material(mat)
+                double_sided[m] = bool(mat.flags & MaterialFlags.DOUBLE_SIDED)
+            blas_lo = np.zeros((max(len(pool), 1), 3), np.float32)
+            blas_hi = np.zeros((max(len(pool), 1), 3), np.float32)
+            for j, blas in enumerate(pool):
+                blas_lo[j], blas_hi[j] = blas.lo, blas.hi
+            inst_trace, inst_shade, lo, hi = _instance_rows(
+                world, blas_lo[inst_blas], blas_hi[inst_blas],
+                double_sided[mids], mids, material_rows[mids])
+        with profiling.named_scope("instances.build_tlas"):
+            tlas_rows, tlas_depth = _build_tlas8(lo, hi)
+            n_tlas = len(tlas_rows)
+            # Every instance points at its BLAS root, shifted past the TLAS
+            # prefix.
+            roots = np.asarray([offsets[k][0] for k in sorted_keys] or [0],
+                               np.float32)
+            inst_trace[:, 12] = roots[inst_blas] + n_tlas
+        count = len(keys)
+        aabb_lo = lo.min(axis=0) if count else np.zeros(3, np.float32)
+        aabb_hi = hi.max(axis=0) if count else np.ones(3, np.float32)
+        max_blas_depth = max([pool[j].depth8 for j in set(inst_blas.tolist())]
+                             + [1])
+        return {"tlas_rows": tlas_rows, "inst_trace": inst_trace,
+                "inst_shade": inst_shade,
+                "sort_bounds": sort_bounds(aabb_lo, aabb_hi),
+                "n_tlas": n_tlas, "depth": tlas_depth + 1 + max_blas_depth,
+                "aabb_lo": tuple(float(v) for v in aabb_lo),
+                "aabb_hi": tuple(float(v) for v in aabb_hi),
+                "inst_blas": tuple(int(j) for j in inst_blas)}
+
+    def _shade_mode(self, scene) -> int:
+        """Fused shading follows the flat path's gate: alpha-tested
+        materials keep the row-gather path (the bounded re-trace reads full
+        rows)."""
+        from steeljax_torch.scene.material import MaterialFlags
+
+        if any((m.flags & MaterialFlags.ALPHA_TEST)
+               and m.base_color_texture >= 0 for m in scene.materials):
+            return 0
+        return 2 if scene.textures else 1
+
+    def prepare(self, scene) -> InstancedTables:
+        """Build the instance tables for the scene's current entity state,
+        as new tables.  Each step is an `instances.<step>` span
+        (core.profiling), those that launch device work ending in a
+        synchronize."""
         with profiling.named_scope("instances.blas", sync=self.device):
-            for ei in scene.renderable_entities():
-                world = scene.world_transform(ei)
-                for ro in scene.entities[ei].render_objects:
-                    bkey, _ = self._get_blas(scene.primitives[ro.primitive])
-                    entries.append((bkey, np.asarray(world, np.float32),
-                                    scene.materials[ro.material],
-                                    ro.material))
-
-        # Fused shading follows the flat path's gate: alpha-tested
-        # materials keep the row-gather path (the bounded re-trace reads
-        # full rows).
-        any_alpha_test = any(
-            (m.flags & MaterialFlags.ALPHA_TEST)
-            and m.base_color_texture >= 0 for m in scene.materials)
-        shade_mode = 0
-        if not any_alpha_test:
-            shade_mode = 2 if scene.textures else 1
-
+            keys, world, mids = self._instances(scene)
+        shade_mode = self._shade_mode(scene)
         with profiling.named_scope("instances.pack_blas_tables",
                                    sync=self.device):
             blas_rows, tris_packed, tri_records, blas_shade, fused_rows, \
                 offsets = self._pack_blas_tables(shade_mode)
-        n_blas_rows = len(blas_rows)
-
-        count = len(entries)
-        lo = np.zeros((count, 3), np.float32)
-        hi = np.zeros((count, 3), np.float32)
-        inst_trace = np.zeros((count, INST_COLS), np.float32)
-        inst_shade = np.zeros((count, INST_COLS), np.float32)
-        blas_keys = []
-        max_blas_depth = 1
-        with profiling.named_scope("instances.instance_rows"):
-            for i, (bkey, world, mat, mid) in enumerate(entries):
-                blas = self._blas[bkey]
-                inv = np.linalg.inv(world)[:3, :4]
-                inst_trace[i, 0:12] = inv.reshape(-1)
-                inst_trace[i, 13] = float(
-                    bool(mat.flags & MaterialFlags.DOUBLE_SIDED))
-                lin = world[:3, :3]
-                nmat = np.linalg.inv(lin).T
-                scale = float(np.cbrt(abs(np.linalg.det(lin))))
-                inst_trace[i, 14] = float(mid)
-                inst_trace[i, 15] = 1.0 / max(scale, 1e-6)
-                inst_trace[i, 16:25] = nmat.reshape(-1)
-                inst_trace[i, 25:34] = lin.reshape(-1)
-                inst_shade[i, 0:9] = nmat.reshape(-1)
-                inst_shade[i, 9:18] = lin.reshape(-1)
-                inst_shade[i, 18:46] = _pack_inst_material(mat)
-                inst_shade[i, 46] = scale
-                # World AABB = transformed object AABB corners.
-                cs = np.stack(np.meshgrid(
-                    [blas.lo[0], blas.hi[0]], [blas.lo[1], blas.hi[1]],
-                    [blas.lo[2], blas.hi[2]], indexing="ij"),
-                    axis=-1).reshape(-1, 3)
-                wc = cs @ lin.T + world[:3, 3]
-                lo[i], hi[i] = wc.min(axis=0), wc.max(axis=0)
-                blas_keys.append(bkey)
-                max_blas_depth = max(max_blas_depth, blas.depth8)
-
-        with profiling.named_scope("instances.build_tlas"):
-            tlas_rows, tlas_depth = _build_tlas8(lo, hi)
-            n_tlas = len(tlas_rows)
-            # Shift every BLAS child reference past the TLAS prefix, and
-            # point each instance at its (shifted) BLAS root.
-            snode = np.concatenate([tlas_rows, blas_rows.copy()]) \
-                if n_blas_rows else tlas_rows
-            blas_section = snode[n_tlas:]
-            for c in range(8):
-                internal = (blas_section[:, 16 * c + 7] == 0) \
-                    & (blas_section[:, 16 * c + 6] >= 0)
-                blas_section[internal, 16 * c + 6] += n_tlas
-            for i, bkey in enumerate(blas_keys):
-                inst_trace[i, 12] = float(offsets[bkey][0] + n_tlas)
-
+        host = self._host_tables(scene, keys, world, mids, blas_rows,
+                                 offsets)
+        n_tlas = host["n_tlas"]
+        # Shift every BLAS child reference past the TLAS prefix.
+        snode = np.concatenate([host["tlas_rows"], blas_rows])
+        blas_section = snode[n_tlas:]
+        for c in range(8):
+            internal = (blas_section[:, 16 * c + 7] == 0) \
+                & (blas_section[:, 16 * c + 6] >= 0)
+            blas_section[internal, 16 * c + 6] += n_tlas
         sorted_keys = sorted(self._blas)
-        blas_index = {k: j for j, k in enumerate(sorted_keys)}
-        aabb_lo = lo.min(axis=0) if count else np.zeros(3, np.float32)
-        aabb_hi = hi.max(axis=0) if count else np.ones(3, np.float32)
         with profiling.named_scope("instances.upload", sync=self.device):
             def dev(a):
+                profiling.count("instances.upload_bytes", a.nbytes)
                 return torch.from_numpy(a).to(self.device)
 
             return InstancedTables(
                 snode_rows=dev(snode), tris_packed=tris_packed,
-                inst_trace=dev(inst_trace), inst_shade=dev(inst_shade),
-                blas_shade=blas_shade, tri_records=tri_records, n_tlas=n_tlas,
-                shade_rows=fused_rows, shade_mode=shade_mode,
-                depth=tlas_depth + 1 + max_blas_depth,
-                max_leaf=self.leaf_size,
-                aabb_lo=tuple(float(v) for v in aabb_lo),
-                aabb_hi=tuple(float(v) for v in aabb_hi),
+                inst_trace=dev(host["inst_trace"]),
+                inst_shade=dev(host["inst_shade"]),
+                blas_shade=blas_shade, tri_records=tri_records,
+                n_tlas=n_tlas, shade_rows=fused_rows, shade_mode=shade_mode,
+                depth=host["depth"], max_leaf=self.leaf_size,
+                aabb_lo=host["aabb_lo"], aabb_hi=host["aabb_hi"],
+                sort_bounds=dev(host["sort_bounds"]),
                 cpu_blas=tuple(self._blas[k].cpu for k in sorted_keys),
-                inst_blas=tuple(blas_index[k] for k in blas_keys),
+                inst_blas=host["inst_blas"],
                 blas_tri_offset=tuple(offsets[k][1] for k in sorted_keys))
+
+    def refresh(self, scene, flat, tables: InstancedTables,
+                materials: bool = False) -> tuple:
+        """The tables and the flat scene after a scene edit, the reference's
+        per-frame TLAS rebuild into its persistent instance buffer
+        (AccelerationStructureManager.cpp:128-220): `(flat, tables)` for
+        `prepare_scene`'s pair, the light rows refreshed and, with
+        `materials`, the material tables (flatten.refresh_lights,
+        refresh_materials).
+
+        While the instances, the BLAS pool, the shade mode and with them
+        the TLAS's shape stay as they were, the new TLAS rows, the two
+        instance tables, the sort bounds and the light and material rows
+        are copied into the tensors the tables and the scene already hold,
+        stream-ordered from pinned staging (no synchronize), and the same
+        objects come back: a frame captured over them (frame_graphs) stays
+        valid and replays.  A spawn, an erase, a new primitive or another
+        shade mode prepares new tables instead (`prepare`), as the
+        reference recreates its TLAS when the instance count changes.  One
+        row of core.profiling's record, `instances.refresh`, with the
+        counters `instances.in_place` or `instances.rebuilt` and
+        `instances.upload_bytes`."""
+        with profiling.frame("instances.refresh"):
+            builds = self.blas_builds
+            keys, world, mids = self._instances(scene)
+            shade_mode = self._shade_mode(scene)
+            host = None
+            if (self.blas_builds == builds and shade_mode == tables.shade_mode
+                    and len(keys) == tables.instance_count):
+                blas_rows, tris_packed, _, _, _, offsets = \
+                    self._pack_blas_tables(shade_mode)
+                if tris_packed is tables.tris_packed:
+                    host = self._host_tables(scene, keys, world, mids,
+                                             blas_rows, offsets)
+            kept = (host is not None and host["n_tlas"] == tables.n_tlas
+                    and host["depth"] == tables.depth)
+            if kept:
+                copy_in(tables.snode_rows[:tables.n_tlas], host["tlas_rows"])
+                for name in ("inst_trace", "inst_shade", "sort_bounds"):
+                    copy_in(getattr(tables, name), host[name])
+                for name in ("aabb_lo", "aabb_hi", "inst_blas"):
+                    setattr(tables, name, host[name])
+            else:
+                tables = self.prepare(scene)
+            new_flat = refresh_lights(flat, scene)
+            if materials:
+                new_flat = refresh_materials(new_flat, scene)
+            kept = kept and new_flat is flat
+            profiling.count("instances.in_place" if kept
+                            else "instances.rebuilt")
+        return new_flat, tables
+
+
+def sort_bounds(lo, hi) -> np.ndarray:
+    """(2, 3) float32: the lower corner and the inverse extent of the world
+    bounds (lo, hi), the ray-sort keys' constants
+    (integrator.scene_bounds)."""
+    lo = np.asarray(lo, np.float32)
+    inv = 1.0 / np.maximum(np.asarray(hi, np.float32) - lo, 1e-6)
+    return np.stack([lo, inv.astype(np.float32)])
+
+
+def _instance_rows(world, blas_lo, blas_hi, double_sided, material_ids,
+                   material_rows) -> tuple:
+    """The instance rows of I instances in one numpy pass, equal to the
+    reference's per-instance loop (steeljax/accel/instances.py:329-356):
+    world (I, 4, 4) float32 transforms, blas_lo and blas_hi (I, 3) each
+    instance's BLAS bounds in object space, double_sided (I,) its
+    material's flag, material_ids (I,) and material_rows (I, 28)
+    (_pack_inst_material).  Returns (inst_trace, inst_shade, lo, hi), lo and
+    hi the instances' world AABBs: the corners of the BLAS bounds
+    transformed."""
+    count = len(world)
+    inst_trace = np.zeros((count, INST_COLS), np.float32)
+    inst_shade = np.zeros((count, INST_COLS), np.float32)
+    lin = world[:, :3, :3]
+    nmat = np.linalg.inv(lin).transpose(0, 2, 1).reshape(count, 9)
+    scale = np.cbrt(np.abs(np.linalg.det(lin))).astype(np.float64)
+    inst_trace[:, 0:12] = np.linalg.inv(world)[:, :3, :4].reshape(count, 12)
+    inst_trace[:, 13] = double_sided
+    inst_trace[:, 14] = material_ids
+    inst_trace[:, 15] = 1.0 / np.maximum(scale, 1e-6)
+    inst_trace[:, 16:25] = nmat
+    inst_trace[:, 25:34] = lin.reshape(count, 9)
+    inst_shade[:, 0:9] = nmat
+    inst_shade[:, 9:18] = lin.reshape(count, 9)
+    inst_shade[:, 18:46] = material_rows
+    inst_shade[:, 46] = scale
+    # Corner c takes hi on axis k where bit 2 - k of c is set (the
+    # reference's meshgrid order).
+    bits = (np.arange(8)[:, None] >> np.arange(2, -1, -1)) & 1
+    corners = np.where(bits[None] == 1, blas_hi[:, None], blas_lo[:, None])
+    wc = corners @ lin.transpose(0, 2, 1) + world[:, None, :3, 3]
+    return inst_trace, inst_shade, wc.min(axis=1), wc.max(axis=1)
 
 
 def trace_nearest_instanced(tables: InstancedTables, o, d, t_min, t_max,

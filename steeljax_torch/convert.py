@@ -44,7 +44,8 @@ from steeljax_torch.accel.cuda_traverse import (hopper_records,
                                                 pack_fine_mask_rows,
                                                 pack_shade_records)
 from steeljax_torch.accel.dispatch import ChunkTables, TraceTables
-from steeljax_torch.accel.instances import CpuBlas, InstancedTables
+from steeljax_torch.accel.instances import (CpuBlas, InstancedTables,
+                                            sort_bounds)
 from steeljax_torch.accel.treelets import TreeletTables
 from steeljax_torch.env.cubemap import pack_mips_tri
 from steeljax_torch.env.environment import Environment
@@ -84,6 +85,8 @@ def _instanced(tables, dev) -> InstancedTables:
         depth=int(tables.depth), max_leaf=int(tables.max_leaf),
         aabb_lo=tuple(float(v) for v in np.asarray(tables.aabb_lo)),
         aabb_hi=tuple(float(v) for v in np.asarray(tables.aabb_hi)),
+        sort_bounds=dev(sort_bounds(np.asarray(tables.aabb_lo),
+                                    np.asarray(tables.aabb_hi))),
         cpu_blas=tuple(CpuBlas(bvh=_bvh(b.bvh), tri_pos=dev(b.tri_pos),
                                tri_double_sided=dev(b.tri_double_sided))
                        for b in tables.cpu_blas),

@@ -24,6 +24,10 @@ microseconds of host time a span.
 - `frame_ran(how)` says how the open frame ran: "replay" (a CUDA graph's
   replay, no launch from the host), "capture" (the graph captured, then
   replayed) or "eager".
+- `count(name, amount)` adds to a counter of the open frame's row (the
+  row's "counters"; outside a frame, to nothing): `instances.in_place` or
+  `instances.rebuilt` and `instances.upload_bytes` on the rows of
+  `instances.refresh`, the instanced tables' per-frame refresh.
 - `count_retrace(counts, rows)` keeps, in the open frame's row, references
   to the bounded alpha re-trace's pending counts (0-d device tensors taken
   by the integrator anyway); `record()` sums them once, on request, for the
@@ -37,10 +41,12 @@ microseconds of host time a span.
 
 Which reader takes which span: portbench's per-layer metrics read the
 record (`host_frame_ms.*` the frame rows, `host_wait_ms.pt` the waits,
-`retrace_live_pct.pt` the re-trace counts, `graph_frames_pct.pt` how the
-frames ran, `prepare_tables_s` the `dispatch.prepare_tables` total,
-`environment_s` the `environment.load` total) and the device span of
-`gbuffer_stage` and `lighting_stage` from the profiler.  Every other span
+`retrace_live_pct.pt` the re-trace counts, `graph_frames_pct.pt` and
+`graph_frames_pct.inst` how the frames ran, `refresh_ms.inst` the
+`instances.refresh` rows, `prepare_tables_s` the
+`dispatch.prepare_tables` total, `environment_s` the `environment.load`
+total) and the device span of `gbuffer_stage` and `lighting_stage` from
+the profiler.  Every other span
 (the integrator's bounce pieces, the hybrid stages' pieces, the set-up
 steps inside prepare_scene and load_environment) is read by an operator in
 the exported trace and record.  The record is the rendering thread's:
@@ -86,6 +92,7 @@ class _Record:
         self.retrace = None
         self.retrace_row = None     # the last unprofiled row with counts
         self.ran = "eager"
+        self.counters = None
 
 
 _RECORD = _Record()
@@ -185,6 +192,7 @@ class frame(named_scope):
             rec.profiled = False
             rec.retrace = None
             rec.ran = "eager"
+            rec.counters = None
         return super().__enter__()
 
     def __exit__(self, *exc):
@@ -194,7 +202,7 @@ class frame(named_scope):
             profiled = rec.profiled or _collecting()
             retrace = None if profiled else rec.retrace
             row = [self.name, rec.spans[self.name][1], rec.wait_ns,
-                   rec.spans, profiled, retrace, rec.ran]
+                   rec.spans, profiled, retrace, rec.ran, rec.counters]
             if len(rec.rows) == ROW_LIMIT:
                 _add(rec.evicted, rec.rows.popleft()[3])
             rec.rows.append(row)
@@ -225,6 +233,16 @@ def frame_ran(how: str) -> None:
         rec.ran = how
 
 
+def count(name: str, amount: int = 1) -> None:
+    """Add `amount` to the open frame's counter `name`; nothing outside a
+    frame."""
+    rec = _RECORD
+    if rec.frame is not None:
+        if rec.counters is None:
+            rec.counters = {}
+        rec.counters[name] = rec.counters.get(name, 0) + amount
+
+
 def count_retrace(counts: list, rows: int) -> None:
     """Keep the pending counts entering an alpha re-trace's passes (0-d
     device tensors, one a pass, each pass launched over `rows` rays) in the
@@ -242,7 +260,8 @@ def _ms(ns: int) -> float:
 
 def record() -> dict:
     """The record as plain data: {"rows": [{"frame", "ms", "wait_ms",
-    "spans" {name: ms}, "self_ms" {name: ms}, "profiled", "ran"} ...],
+    "spans" {name: ms}, "self_ms" {name: ms}, "profiled", "ran", and
+    "counters" {name: amount} where the frame counted} ...],
     "totals": {name: {"calls", "ms", "self_ms"}}}, totals of every span
     closed since `reset()`.  The last frame no profiler saw whose traces
     re-traced also has "retrace": {"pending", "slots"}, the pending rays
@@ -259,7 +278,8 @@ def record() -> dict:
     totals = {}
     _add(totals, rec.evicted)
     _add(totals, rec.outside)
-    for name, ns, wait_ns, spans, profiled, retrace, ran in rec.rows:
+    for name, ns, wait_ns, spans, profiled, retrace, ran, counters \
+            in rec.rows:
         _add(totals, spans)
         out = {"frame": name, "ms": _ms(ns), "wait_ms": _ms(wait_ns),
                "spans": {k: _ms(v[1]) for k, v in spans.items()},
@@ -267,6 +287,8 @@ def record() -> dict:
                "profiled": profiled, "ran": ran}
         if isinstance(retrace, dict):
             out["retrace"] = dict(retrace)
+        if counters:
+            out["counters"] = dict(counters)
         rows.append(out)
     return {"rows": rows,
             "totals": {name: {"calls": calls, "ms": _ms(ns),

@@ -123,7 +123,8 @@ def _part1by2(x: torch.Tensor) -> torch.Tensor:
 def _ray_sort_key(o, d, lo, inv_extent) -> torch.Tensor:
     """18-bit int32 coherence key: 15-bit Morton cell of the origin (5 bits
     per axis over the scene AABB), direction octant in the low 3 bits.
-    lo and inv_extent are 3-sequences of Python floats (float32 values)."""
+    lo and inv_extent are 3-sequences of Python floats (float32 values) or
+    (3,) float32 tensors (scene_bounds): the same float32 arithmetic."""
     q = [torch.clamp((o[:, k] - lo[k]) * inv_extent[k] * 32.0, 0.0,
                      31.0).to(torch.int32) for k in range(3)]
     morton = (_part1by2(q[0]) | (_part1by2(q[1]) << 1)
@@ -152,17 +153,16 @@ def _total_triangles(tables: TraceTables | InstancedTables) -> int:
     return sum(c.rows for c in tables.chunks)
 
 
-def scene_bounds(tables: TraceTables | InstancedTables
-                 ) -> tuple[tuple, tuple]:
-    """(lo, inv_extent) of the chunk AABBs (or the instances' world bounds)
-    for ray-sort keys, as float32 values in Python floats (a constant of
-    the key needs no device copy)."""
+def scene_bounds(tables: TraceTables | InstancedTables) -> tuple:
+    """(lo, inv_extent) of the chunk AABBs for ray-sort keys, as float32
+    values in Python floats (a constant of the key needs no device copy);
+    of instanced tables, the rows of their `sort_bounds` tensor, which a
+    refresh rewrites in place, so that a replayed frame reads the
+    instances' bounds as they are now."""
     if isinstance(tables, InstancedTables):
-        lo = np.asarray(tables.aabb_lo, np.float32)
-        hi = np.asarray(tables.aabb_hi, np.float32)
-    else:
-        lo = np.min([c.aabb[0] for c in tables.chunks], axis=0)
-        hi = np.max([c.aabb[1] for c in tables.chunks], axis=0)
+        return tables.sort_bounds[0], tables.sort_bounds[1]
+    lo = np.min([c.aabb[0] for c in tables.chunks], axis=0)
+    hi = np.max([c.aabb[1] for c in tables.chunks], axis=0)
     inv = 1.0 / np.maximum(hi - lo, 1e-6)
     return (tuple(float(v) for v in lo.astype(np.float32)),
             tuple(float(v) for v in inv.astype(np.float32)))

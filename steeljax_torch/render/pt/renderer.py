@@ -7,7 +7,7 @@ camera, scene and resize events, and applies the filmic tone map for
 display output (RayGen.rgen:420-424).  Every entry point takes the render
 device explicitly.  `PathTracingRenderer(instancing=True)` renders through
 the two-level structure (accel.instances), whose `refresh_scene` after a
-scene edit rebuilds only the instance tables.
+scene edit rewrites only the instance tables (InstancedAccel.refresh).
 """
 
 from __future__ import annotations
@@ -35,8 +35,7 @@ from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.env.panorama import panorama_to_cube
 from steeljax_torch.io.image import load_hdr
 from steeljax_torch.render.pt.integrator import render_sample
-from steeljax_torch.scene.flatten import (FlatScene, flatten_scene,
-                                          refresh_lights)
+from steeljax_torch.scene.flatten import FlatScene, flatten_scene
 from steeljax_torch.scene.scene import Scene
 
 
@@ -229,13 +228,15 @@ class PathTracingRenderer:
     def refresh_scene(self, prepared=None) -> None:
         """Refresh the device tables after a scene mutation and reset the
         accumulation.  With instancing only the O(instances) instance
-        tables, the TLAS and the light rows are rebuilt: the BLAS and
-        triangle tensors stay on the device."""
+        tables, the TLAS and the light rows are rewritten
+        (InstancedAccel.refresh): the BLAS and triangle tensors stay on the
+        device, and while the instances keep their count the tables and the
+        flat scene stay the same objects, so the frames replay."""
         if prepared is not None:
             self.flat, self.tables = prepared
         elif self._accel is not None:
-            self.tables = self._accel.prepare(self.scene)
-            self.flat = refresh_lights(self.flat, self.scene)
+            self.flat, self.tables = self._accel.refresh(
+                self.scene, self.flat, self.tables)
         else:
             self.flat, self.tables = prepare_scene(self.scene, self.device)
         self.reset_accumulation()

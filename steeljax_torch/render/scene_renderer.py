@@ -26,7 +26,6 @@ from steeljax_torch.env.environment import Environment, load_environment
 from steeljax_torch.render.hybrid.renderer import HybridRenderer
 from steeljax_torch.render.pt.renderer import (PathTracingRenderer,
                                                prepare_scene)
-from steeljax_torch.scene.flatten import refresh_lights, refresh_materials
 from steeljax_torch.scene.scene import Scene
 
 
@@ -104,13 +103,13 @@ class SceneRenderer:
         """New device tables after a scene edit (the reference's
         every-frame TLAS rebuild, SceneRenderer.cpp:318-358, on demand).
         With instancing only the O(instances) instance tables, the light
-        rows and the material tables are rebuilt."""
+        rows and the material tables are rewritten
+        (InstancedAccel.refresh), in place while the instances keep their
+        count."""
         if self._accel is not None:
-            tables = self._accel.prepare(self.scene)
-            flat = refresh_materials(
-                refresh_lights(self.path_tracer.flat, self.scene),
-                self.scene)
-            prepared = (flat, tables)
+            prepared = self._accel.refresh(
+                self.scene, self.path_tracer.flat, self.path_tracer.tables,
+                materials=True)
         else:
             prepared = prepare_scene(self.scene, self.device)
         self.path_tracer.refresh_scene(prepared)

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from steeljax_torch.core import profiling
 from steeljax_torch.core.constants import MAX_LIGHT_COUNT
 from steeljax_torch.scene.material import MaterialFlags
 from steeljax_torch.scene.scene import Scene
@@ -234,10 +235,41 @@ def _light_rows(scene: Scene):
     return light_location, light_color, int(light_count)
 
 
+def copy_in(dst: torch.Tensor, host: np.ndarray) -> None:
+    """Copy the host array into `dst` behind the work queued on the current
+    stream, through pinned staging on a CUDA device: the host allocator
+    keeps a staging block until the copy from it has run, so no later copy
+    overwrites a pending one, and nothing waits.  Counts the bytes
+    (core.profiling's `instances.upload_bytes`, the instanced refresh's)."""
+    src = torch.from_numpy(np.ascontiguousarray(host))
+    if dst.is_cuda:
+        src = src.pin_memory()
+    dst.copy_(src, non_blocking=True)
+    profiling.count("instances.upload_bytes", host.nbytes)
+
+
+def _write_into(flat: FlatScene, arrays: dict) -> bool:
+    """Copy each host array of `arrays` into the FlatScene tensor of its
+    name (copy_in) where every shape and dtype matches; else copy nothing.
+    Returns whether it copied."""
+    pairs = [(getattr(flat, name), a) for name, a in arrays.items()]
+    if any(tuple(t.shape) != a.shape
+           or t.dtype != torch.from_numpy(a[:0]).dtype for t, a in pairs):
+        return False
+    for dst, a in pairs:
+        copy_in(dst, a)
+    return True
+
+
 def refresh_lights(flat: FlatScene, scene: Scene) -> FlatScene:
     """Re-pack just the light rows from the entity view, O(entities): the
-    instanced refresh path keeps its geometry tables on the device."""
+    instanced refresh path keeps its geometry tables on the device.  With
+    the light count unchanged the rows are copied into `flat`'s own
+    tensors (no wait) and `flat` itself comes back, else a new FlatScene."""
     light_location, light_color, light_count = _light_rows(scene)
+    if light_count == flat.light_count and _write_into(flat, {
+            "light_location": light_location, "light_color": light_color}):
+        return flat
     device = flat.device
     return flat.replace(
         light_location=torch.from_numpy(light_location).to(device),
@@ -248,21 +280,23 @@ def refresh_lights(flat: FlatScene, scene: Scene) -> FlatScene:
 def refresh_materials(flat: FlatScene, scene: Scene) -> FlatScene:
     """Re-pack just the material tables, O(materials), for the instanced
     refresh path (the per-instance material rows are rebuilt inside
-    InstancedAccel.prepare; these are the tables material_select reads)."""
+    InstancedAccel; these are the tables material_select reads).  With the
+    material count unchanged they are copied into `flat`'s own tensors (no
+    wait) and `flat` itself comes back, else a new FlatScene."""
     mat_base_color, mat_emission, mat_params, mat_tex, mat_flags = \
         _material_arrays(scene)
+    arrays = {
+        "mat_base_color": mat_base_color, "mat_emission": mat_emission,
+        "mat_params": mat_params, "mat_tex": mat_tex, "mat_flags": mat_flags,
+        "mat_packed": pack_materials(mat_base_color, mat_emission,
+                                     mat_params, mat_flags),
+        "mat_emission_linear": _to_linear_np(mat_emission)}
+    if _write_into(flat, arrays):
+        return flat
     device = flat.device
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return flat.replace(
-        mat_base_color=dev(mat_base_color), mat_emission=dev(mat_emission),
-        mat_params=dev(mat_params), mat_tex=dev(mat_tex),
-        mat_flags=dev(mat_flags),
-        mat_packed=dev(pack_materials(mat_base_color, mat_emission,
-                                      mat_params, mat_flags)),
-        mat_emission_linear=dev(_to_linear_np(mat_emission)))
+    return flat.replace(**{
+        name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        for name, a in arrays.items()})
 
 
 def flatten_scene(scene: Scene, device: torch.device | str,

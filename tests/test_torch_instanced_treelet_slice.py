@@ -125,13 +125,14 @@ def test_instanced_renderer_matches_reference_and_refreshes():
 
     # Move one entity: the instance tables alone are rebuilt.
     builds = ours._accel.blas_builds
-    tris, inst_before = ours.tables.tris_packed, ours.tables.inst_trace
+    tables, inst_before = ours.tables, ours.tables.inst_trace.clone()
     kp.move_entity(scene)
     _move_ref(scene_r)
     ours.refresh_scene()
     ref.refresh_scene()
     assert ours._accel.blas_builds == builds == 2   # quad and sphere
-    assert ours.tables.tris_packed is tris
+    # The same instance count: rewritten in place, the same tables.
+    assert ours.tables is tables
     assert ours.tables.shade_rows is not None
     assert not torch.equal(ours.tables.inst_trace, inst_before)
     assert ours.state.index == 0
@@ -309,7 +310,8 @@ def test_from_jax_prepared_carries_treelet_tables(monkeypatch):
 def test_refresh_lights_and_materials_equal_reference():
     """flatten.refresh_lights and refresh_materials re-pack the light rows
     and the material tables alone, equal to the reference's
-    (flatten.py:204-257) and to a fresh flatten of the edited scene."""
+    (flatten.py:204-257) and to a fresh flatten of the edited scene, into
+    the flat scene's own tensors (the counts are unchanged)."""
     from steeljax.scene import flatten as flatten_ref
     from steeljax_torch.scene import flatten
 
@@ -322,6 +324,7 @@ def test_refresh_lights_and_materials_equal_reference():
         sun.light.color = np.float32([1.0, 2.0, 0.5])
         s.materials[0].roughness_factor = 0.25
         s.materials[0].base_color_factor = np.float32([0.2, 0.4, 0.6, 1.0])
+    light_color, mat_params = flat.light_color.clone(), flat.mat_params.clone()
     lit, lit_r = (flatten.refresh_lights(flat, scene),
                   flatten_ref.refresh_lights(flat_r, scene_r))
     fresh = flatten.flatten_scene(scene, "cpu")
@@ -329,9 +332,9 @@ def test_refresh_lights_and_materials_equal_reference():
         np.testing.assert_array_equal(getattr(lit, name).numpy(),
                                       np.asarray(getattr(lit_r, name)))
         assert torch.equal(getattr(lit, name), getattr(fresh, name))
-        assert not torch.equal(lit.light_color, flat.light_color)
+        assert not torch.equal(lit.light_color, light_color)
     assert lit.light_count == lit_r.light_count == fresh.light_count
-    assert lit.tri_pos is flat.tri_pos
+    assert lit is flat
     mats, mats_r = (flatten.refresh_materials(flat, scene),
                     flatten_ref.refresh_materials(flat_r, scene_r))
     for name in ("mat_base_color", "mat_emission", "mat_params", "mat_tex",
@@ -340,4 +343,5 @@ def test_refresh_lights_and_materials_equal_reference():
                                       np.asarray(getattr(mats_r, name)),
                                       err_msg=name)
         assert torch.equal(getattr(mats, name), getattr(fresh, name)), name
-    assert not torch.equal(mats.mat_params, flat.mat_params)
+    assert not torch.equal(mats.mat_params, mat_params)
+    assert mats is flat
