@@ -10,6 +10,10 @@ reference's BVH walk: phase 20):
   * path L, the sunlit stress scene (208,084 triangles and a directional
     sun): K1 and, for the shadow rays of next-event estimation, the
     any-hit kernel K2; once more with the dense any-hit tables (K2-dense);
+    every path-traced frame also runs each bounce's next-event estimation
+    and BRDF sampling as the two path stage kernels of csrc/pathstage.cu
+    (nee and sample), held on path L's frame bit for bit against their
+    plain versions (phase 5c);
   * path T, the textured stress scene (1,320,868 triangles): K3, nearest
     hit with textured fused shading;
   * paths F and S, the JAX bench's foliage scenes (500,000 alpha-tested
@@ -101,7 +105,13 @@ Phases:
      host ran, the last replay bit-equal to the same frame run eagerly,
      the kernel's share of a frame, the render CLI;
   5. path L: the same frames and checks, K1 and K2 launches, then the
-     frames with the dense any-hit tables (K2-dense launches);
+     frames with the dense any-hit tables (K2-dense launches); in every
+     path-traced drive the stage kernels nee and sample launch once a
+     bounce of the frames the host ran; 5c: the stage kernels on the
+     inputs of each bounce of one eager path L frame (921,600 rays), held
+     bit for bit against their plain versions (render/pt/stages.py run on
+     the card), each timed beside its plain version captured as a CUDA
+     graph, with the least time the bytes it reads and writes allow;
   6. path T: the same frames and checks, K3 launches;
   7. paths F, S and F with multihit_k = 4: the same frames and checks, K4
      and K5 launches, and the rays still to re-trace before and after each
@@ -117,7 +127,7 @@ Phases:
      the image against path L's and path T's; then path I's edit and
      refresh_scene() (no BLAS rebuilt, the same triangle tensor), its
      seconds beside a flat prepare_scene of the edited scene, and the
-     refreshed frame against the flat one;
+     refreshed frame against the flat one, then the scene put back;
   10. paths U and UL: the same frames and checks, K launches of K7 and one
      of the pick kernel per trace and no host read of the scheduler, the
      rounds and launches per frame, the image against path T's and path
@@ -459,6 +469,18 @@ HYBRID_TILE_W, HYBRID_TILE_H = 48, 27
 TILE_ENV = dict(cube_resolution=16, irradiance_resolution=4,
                 reflection_resolution=8, lut_resolution=16, lut_samples=32,
                 reflection_samples=16, irradiance_delta=0.4)
+# Phase 5c, the path stage kernels (csrc/pathstage.cu): the tensors each
+# kernel reads, by the names of its stage's arguments (stages.nee_stage,
+# sample_stage; `surface` keys and the (t, b, n) frame inline), and the
+# launches timed a call.
+STAGE_INPUTS = {
+    "nee": ("base_color", "roughness", "metallic", "emission", "tbn", "o",
+            "d", "t_hit", "hit", "throughput", "ray_pdf", "alive", "miss",
+            "irradiance", "seed"),
+    "sample": ("base_color", "roughness", "metallic", "tbn", "p", "wo", "d",
+               "direct", "throughput", "ray_pdf", "alive", "irradiance",
+               "seed")}
+STAGE_TIMED_LAUNCHES = 8
 # Runtime calls counted per profiled frame: the host waits for the device
 # in the first two, and in a copy from or to pageable host memory.
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -1542,9 +1564,11 @@ def _profile_frames(run_frame, frames: int = 2, spans=(),
     """Device time of `frames` frames under torch.profiler: per frame, the
     summed device time of all kernels, of each trace kernel (the kernels in
     its launches' profiler ranges, cuda_traverse.PROFILER_RANGE and the
-    LAUNCHES key) and of the largest device kernels, the number of device kernels, the calls of
-    SYNC_CALLS (the window's closing synchronize adds one cudaDeviceSynchronize
-    per `frames`), and the host wall time under the profiler.  For each
+    LAUNCHES key; of each path stage kernel, stages.PROFILER_RANGE, under
+    "stage_ms") and of the largest device kernels, the number of device
+    kernels, the calls of SYNC_CALLS (the window's closing synchronize adds
+    one cudaDeviceSynchronize per `frames`), and the host wall time under
+    the profiler.  For each
     record_function range named in `spans`, its device span per frame
     (first kernel's start to last kernel's end, gaps included) under
     "span_ms"; the `top` largest device kernels under "top"; the device's
@@ -1556,6 +1580,7 @@ def _profile_frames(run_frame, frames: int = 2, spans=(),
     from torch.profiler import ProfilerActivity, profile
 
     from steeljax_torch.accel.cuda_traverse import PROFILER_RANGE
+    from steeljax_torch.render.pt import stages
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1568,6 +1593,7 @@ def _profile_frames(run_frame, frames: int = 2, spans=(),
     kernels = 0
     syncs = dict.fromkeys(SYNC_CALLS, 0.0)
     trace: dict = {}
+    stage: dict = {}
     span: dict = {}
     copies: dict = {}
     largest = []
@@ -1583,6 +1609,10 @@ def _profile_frames(run_frame, frames: int = 2, spans=(),
             if evt.device_type == DeviceType.CUDA:
                 trace[evt.key[len(PROFILER_RANGE):]] = (
                     evt.self_device_time_total / 1000.0 / frames)
+        elif evt.key.startswith(stages.PROFILER_RANGE):
+            if evt.device_type == DeviceType.CUDA:
+                stage[evt.key[len(stages.PROFILER_RANGE):]] = (
+                    evt.self_device_time_total / 1000.0 / frames)
         elif evt.device_type == DeviceType.CUDA and \
                 not evt.is_user_annotation:
             busy += evt.self_device_time_total
@@ -1593,14 +1623,17 @@ def _profile_frames(run_frame, frames: int = 2, spans=(),
             syncs[evt.key] += evt.count / frames
     return {"wall_ms": wall_ms, "busy_ms": busy / 1000.0 / frames,
             "kernels": kernels / frames, "syncs": syncs,
-            "trace_ms": trace, "span_ms": span, "copies": copies,
+            "trace_ms": trace, "stage_ms": stage, "span_ms": span,
+            "copies": copies,
             "top": sorted(largest, reverse=True)[:top]}
 
 
 def _reset_launches() -> None:
     from steeljax_torch.accel import cuda_traverse, treelets
+    from steeljax_torch.render.pt import stages
 
-    for counts in (cuda_traverse.LAUNCHES, treelets.SCHEDULER):
+    for counts in (cuda_traverse.LAUNCHES, treelets.SCHEDULER,
+                   stages.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -1612,8 +1645,9 @@ def drive_path(label, scene, flat, tables, expected: dict,
     frame runs eagerly, the second captures, the timed frames replay) and
     the launch counts set to 0 just before and read just after; check the
     launches of the frames the host ran (each kernel of `expected` launches
-    that many times per bounce, every other kernel never; a replay launches
-    from the host nothing that the counters see), rays_traced, the image
+    that many times per bounce, and each path stage kernel, nee and sample,
+    once, every other kernel never; a replay launches from the host nothing
+    that the counters see), rays_traced, the image
     and, above the repack threshold, the sorts (the repack before every
     secondary bounce and, in alpha-tested scenes, the rejected-first
     compaction of every material and shadow ray's re-trace); hold the last
@@ -1635,8 +1669,9 @@ def drive_path(label, scene, flat, tables, expected: dict,
     from steeljax_torch.core import camera as camera_lib
     from steeljax_torch.core import profiling
     from steeljax_torch.core.config import RenderConfig
-    from steeljax_torch.render.pt import frame_graphs, integrator
+    from steeljax_torch.render.pt import frame_graphs, integrator, stages
 
+    expected = {"nee": 1, "sample": 1, **expected}
     device = flat.device
     frame = camera_lib.make_frame(scene.camera_location,
                                   scene.camera_projection)
@@ -1679,7 +1714,7 @@ def drive_path(label, scene, flat, tables, expected: dict,
             rays.append(stats["rays_traced"])
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = dict(cuda_traverse.LAUNCHES)
+        launches = {**cuda_traverse.LAUNCHES, **stages.LAUNCHES}
         scheduler = dict(treelets.SCHEDULER)
     finally:
         integrator.repack_rays = repack
@@ -1782,7 +1817,9 @@ def drive_path(label, scene, flat, tables, expected: dict,
               f"{100.0 * share / prof['busy_ms']:.1f}% of device time, "
               f"{100.0 * share / ms_frame:.1f}% of the unprofiled frame ("
               + ", ".join(f"{k} {v:.3f} ms" for k, v in
-                          sorted(prof["trace_ms"].items())) + ")"
+                          sorted(prof["trace_ms"].items())) + "); stage "
+              "kernels " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                     sorted(prof["stage_ms"].items()))
               + "".join(f"; range {k} {prof['span_ms'].get(k, 0.0):.3f} ms"
                         for k in spans))
         for ms, count, key in prof["top"]:
@@ -1795,7 +1832,8 @@ def drive_path(label, scene, flat, tables, expected: dict,
             "ms_frame": ms_frame, "rays_per_s": rays_per_s, "rays_frame": sum(per_frame) / frames,
             "image": image, "scheduler": scheduler,
             "busy_ms": prof["busy_ms"], "device_kernels": prof["kernels"],
-            "trace_ms": prof["trace_ms"], "span_ms": prof["span_ms"]}
+            "trace_ms": prof["trace_ms"], "stage_ms": prof["stage_ms"],
+            "span_ms": prof["span_ms"]}
 
 
 def _same_frame(label, ours: dict, ref_label, ref: dict) -> None:
@@ -1816,6 +1854,172 @@ def _same_frame(label, ours: dict, ref_label, ref: dict) -> None:
             beyond > IMAGE_PIXEL_FRACTION or \
             abs(rays - flat_rays) > RAYS_RTOL * flat_rays:
         raise RuntimeError(f"{label} does not render {ref_label}'s frame")
+
+
+def _stage_tensors(value) -> list:
+    """The tensors of a stage argument or output: a tensor, a tuple of them
+    (the (t, b, n) frame, the direct term, the shadow ray with its float
+    t_min) or None."""
+    if value is None:
+        return []
+    if isinstance(value, (tuple, list)):
+        return [x for x in value if torch.is_tensor(x)]
+    return [value]
+
+
+def _stage_bytes(stage: str, args: dict, out: dict) -> int:
+    """The bytes a path stage kernel must move in one call: each tensor it
+    reads (STAGE_INPUTS) once, a broadcast one (row stride 0, the primary
+    rays' origin) one row in all, and each output it writes once (an output
+    that is an input, such as sample's o, is not written)."""
+    n = args["seed"].shape[0]
+
+    def size(x, rows):
+        return x.element_size() * (x.shape[1] if x.dim() == 2 else 1) * rows
+
+    inputs = []
+    for name in STAGE_INPUTS[stage]:
+        inputs += _stage_tensors(args["surface"][name] if name in
+                                 args["surface"] else args[name])
+    read = {x.data_ptr() for x in inputs}
+    written = {x.data_ptr(): x for value in out.values()
+               for x in _stage_tensors(value) if x.data_ptr() not in read}
+    return (sum(size(x, n if x.stride(0) else 1) for x in inputs)
+            + sum(size(x, n) for x in written.values()))
+
+
+def _graph_ms(fn, reps: int = 5) -> float:
+    """Device ms of `fn()` captured once as a CUDA graph and replayed, as
+    the frame graph runs it: the host's gaps between its launches do not
+    count."""
+    from steeljax_torch.apps.timing import time_ms
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, reps)
+    del graph
+    return ms
+
+
+def phase_stages(scenes) -> dict:
+    """Phase 5c, the path stage kernels nee and sample (csrc/pathstage.cu)
+    on path L's scene: one eager 1280x720 frame's stage calls are
+    recorded, and on each bounce's inputs (921,600 rays) each kernel is held
+    against its plain version (render/pt/stages.py, run on the card): flags,
+    seeds and every float output bit-equal, or the phase raises.  Each
+    kernel's device ms is the mean of STAGE_TIMED_LAUNCHES launches queued
+    behind a device sleep, its plain version's that of one call captured as
+    a CUDA graph and replayed, so the host's launch gaps count in neither;
+    its bound is the bytes it reads and writes (_stage_bytes) over
+    PEAK_BYTES_PER_S.  Returns {stage: its row}, the times and bounds summed
+    over the frame's bounces, with each bounce's under "bounces"."""
+    import inspect
+
+    from steeljax_torch.apps.timing import queued_ms
+    from steeljax_torch.core import camera as camera_lib
+    from steeljax_torch.core.config import RenderConfig
+    from steeljax_torch.render.pt import frame_graphs, integrator, stages
+
+    scene, flat, tables = scenes["sunlit"]
+    device = flat.device
+    frame = camera_lib.make_frame(scene.camera_location,
+                                  scene.camera_projection)
+    config = RenderConfig(width=WIDTH, height=HEIGHT)
+    px, py, _ = integrator.tiled_order(WIDTH, HEIGHT)
+    px, py, inverse_view, inverse_proj = (
+        torch.as_tensor(a, device=device)
+        for a in (px, py, frame.inverse_view, frame.inverse_proj))
+    real = {"nee": stages.nee_stage, "sample": stages.sample_stage}
+    plain = {"nee": stages._nee_stage_plain,
+             "sample": stages._sample_stage_plain}
+    seen = {name: [] for name in real}
+
+    def recording(name):
+        def run(*args, **kwargs):
+            bound = inspect.signature(real[name]).bind(*args, **kwargs)
+            bound.apply_defaults()
+            seen[name].append(dict(bound.arguments))
+            return real[name](*args, **kwargs)
+        return run
+
+    graphs = integrator.FRAME_GRAPHS
+    integrator.FRAME_GRAPHS = frame_graphs.FrameGraphs(frame_graphs.Eager())
+    stages.nee_stage, stages.sample_stage = (recording("nee"),
+                                             recording("sample"))
+    try:
+        integrator.render_pixels(
+            flat, tables, inverse_view, inverse_proj, frame.camera_near,
+            frame.camera_far, WIDTH, HEIGHT, px, py, 0, 0, config)
+    finally:
+        stages.nee_stage, stages.sample_stage = real["nee"], real["sample"]
+        integrator.FRAME_GRAPHS = graphs
+    torch.cuda.synchronize()
+    if flat.light_count < 1 or any(len(calls) != config.max_bounce_count
+                                   for calls in seen.values()):
+        raise RuntimeError(f"path stages: {flat.light_count} lights, calls "
+                           + ", ".join(f"{k} {len(v)}"
+                                       for k, v in seen.items()))
+
+    rows = {}
+    for name in real:
+        bounces = []
+        for bounce, args in enumerate(seen[name]):
+            out = real[name](**args)
+            got = {k: _stage_tensors(v) for k, v in out.items()}
+            want = {k: _stage_tensors(v)
+                    for k, v in plain[name](**args).items()}
+            torch.cuda.synchronize()
+            if set(got) != set(want):
+                raise RuntimeError(f"path stage {name} bounce {bounce}: "
+                                   f"outputs {sorted(got)} against "
+                                   f"{sorted(want)}")
+            differ = {}
+            for key in want:
+                for i, (a, b) in enumerate(zip(got[key], want[key])):
+                    same = a == b
+                    if b.dtype.is_floating_point:
+                        same = same | (torch.isnan(a) & torch.isnan(b))
+                    if a.shape != b.shape or a.dtype != b.dtype:
+                        differ[f"{key}[{i}]"] = 1.0
+                    elif not bool(same.all()):
+                        differ[f"{key}[{i}]"] = float(
+                            (~same).float().mean())
+            if differ:
+                raise RuntimeError(f"path stage {name} bounce {bounce}: the "
+                                   "kernel differs from its plain version "
+                                   f"(share of values by output) {differ}")
+            kernel_ms = queued_ms(lambda: real[name](**args),
+                                  STAGE_TIMED_LAUNCHES)
+            plain_ms = _graph_ms(lambda: plain[name](**args))
+            moved = _stage_bytes(name, args, out)
+            bound_ms = moved / PEAK_BYTES_PER_S * 1e3
+            rays = args["seed"].shape[0]
+            print(f"path stage {name} bounce {bounce}: {rays} rays, every "
+                  f"output bit-equal to the plain version; kernel "
+                  f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms (a CUDA "
+                  f"graph), bound {bound_ms:.4f} ms by bytes "
+                  f"({moved / rays:.0f} B a ray), kernel/bound "
+                  f"{kernel_ms / bound_ms:.2f}x")
+            bounces.append({"ms": kernel_ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bytes": moved,
+                            "rays": rays})
+        row = {k: sum(b[k] for b in bounces)
+               for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+        rays = bounces[0]["rays"]
+        row.update(bound_by="bytes", max_abs_err=0.0, bit_equal=True,
+                   tolerance="bit-equal: flags, seeds and floats",
+                   rays=rays, plain_rays=rays, bounces=bounces,
+                   shapes=f"path L, {len(bounces)} bounces of {rays} rays, "
+                          f"{flat.light_count} light")
+        print(f"path stage {name} a frame: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, "
+              f"kernel/bound {row['ms'] / row['bound_ms']:.2f}x, plain/"
+              f"kernel {row['plain_ms'] / row['ms']:.1f}x")
+        rows[name] = row
+    return rows
 
 
 def phase_cornell(device) -> dict:
@@ -2084,7 +2288,9 @@ def phase_instanced_edit(device, scenes, renderers, flat_prepare_s) -> None:
     rebuilt and the triangle tensor must be the same object.  The seconds of
     the re-preparation are printed beside a flat prepare_scene of the edited
     scene (and of path L in phase 3a), and the refreshed renderer's frame
-    is held against the flat renderer's."""
+    is held against the flat renderer's.  Then the scene is put back: the
+    refresh rewrites path I's tables in place, and phases 18 and 20 hold
+    those tables to rays and records taken before the edit."""
     from steeljax_torch.apps import kernel_parity
     from steeljax_torch.core.config import RenderConfig
     from steeljax_torch.render.pt.renderer import (PathTracingRenderer,
@@ -2096,6 +2302,8 @@ def phase_instanced_edit(device, scenes, renderers, flat_prepare_s) -> None:
     builds = renderer._accel.blas_builds
     tris = renderer.tables.tris_packed
     rows = renderer.tables.inst_trace.clone()  # rewritten in place
+    entity = scene.entities[scene.renderable_entities()[-1]]
+    kept = entity.local_transform
     kernel_parity.move_entity(scene)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2138,6 +2346,12 @@ def phase_instanced_edit(device, scenes, renderers, flat_prepare_s) -> None:
             IMAGE_MEAN_RTOL * float(flat_frame.mean()) or \
             beyond > IMAGE_PIXEL_FRACTION:
         raise RuntimeError("the refreshed frame is not the flat renderer's")
+    entity.local_transform = kept
+    scene.revision += 1
+    renderer.refresh_scene()
+    if not torch.equal(renderer.tables.inst_trace, rows):
+        raise RuntimeError("path I: the scene put back gives other instance "
+                           "rows")
 
 
 def _timed_bake(**kwargs):
@@ -3052,10 +3266,9 @@ def _path_g_rows(flat, tables, positions) -> dict:
     the cold one."""
     from steeljax_torch.apps import kernel_parity as kp
     from steeljax_torch.gi import light_volume as lv_lib
-    from steeljax_torch.render.pt.integrator import (sample_light,
-                                                     shadow_rays,
-                                                     trace_material_ray,
+    from steeljax_torch.render.pt.integrator import (trace_material_ray,
                                                      unpack_material_fused)
+    from steeljax_torch.render.pt.stages import sample_light, shadow_rays
 
     res = GI_BAKE["resolution"]
     o, base_d, t_ax, b_ax, ids = lv_lib.probe_rays(positions, res,
@@ -5133,6 +5346,8 @@ def main(argv=None) -> int:
     path_l_dense = phase("5b. path L, dense any-hit tables", drive_path,
                          "path L dense", *scenes["sunlit_dense"],
                          {"K1": 1, "K2_dense": 1})
+    kernels.update(phase("5c. path stage kernels against their plain "
+                         "versions (path L)", phase_stages, scenes))
     path_t = phase("6. path T (textured stress)", drive_path, "path T",
                    *scenes["stress_tex"], {"K3": 1})
     # Each bounce traces its material rays and its sun rays, each in one
@@ -5251,7 +5466,9 @@ def main(argv=None) -> int:
                 "K7_shade1": path_ul["launches"]["K7"],
                 "K7_anyhit": path_ul["launches"]["K7_anyhit"],
                 "K7_pick": path_u["launches"]["K7_pick"],
-                "R": path_r["launches"]["R"]}
+                "R": path_r["launches"]["R"],
+                "nee": path_l["launches"]["nee"],
+                "sample": path_l["launches"]["sample"]}
     sub_paths = {"path_h": (path_h, 1 + HYBRID_TIMED_FRAMES),
                  "path_c": (path_c, path_c["host_frames"]),
                  "path_l16": (path_l16, path_l16["host_frames"])}
@@ -5299,6 +5516,7 @@ def main(argv=None) -> int:
     for k in ("K6", "K6_shade2", "K6_anyhit"):
         sources[k] = "steeljax_torch/csrc/instanced8.cu"
     sources["R"] = "steeljax_torch/csrc/raster.cu"
+    sources["nee"] = sources["sample"] = "steeljax_torch/csrc/pathstage.cu"
     titles = {
         "K1": "K1 trace_alpha8 NEAREST without masks (BVH8 nearest hit, "
               "cull, shade mode 1)",
@@ -5335,7 +5553,14 @@ def main(argv=None) -> int:
              "plain_ms on the whole frame; bound_ms at strip granularity "
              "from the bytes the work reads; subtile_bound_ms the bound at "
              "subtile granularity, whole records and every pixel of a "
-             "covering candidate)"}
+             "covering candidate)",
+        "nee": "nee (a bounce's next-event estimation up to the shadow ray, "
+               "one thread a ray; launches on path L; ms, plain_ms and "
+               "bound_ms summed over one frame's 4 bounces, phase 5c)",
+        "sample": "sample (a bounce's BRDF sampling, path update and "
+                  "Russian roulette, one thread a ray; launches on path L; "
+                  "ms, plain_ms and bound_ms summed over one frame's 4 "
+                  "bounces, phase 5c)"}
     replaces = {
         "K1": "steeljax/accel/pallas_traverse.py:249",
         "K2": "steeljax/accel/pallas_traverse.py:506",
@@ -5351,7 +5576,11 @@ def main(argv=None) -> int:
         "K7_shade1": "steeljax/accel/pallas_traverse.py:1252",
         "K7_anyhit": "steeljax/accel/pallas_traverse.py:1252",
         "K7_pick": "steeljax/accel/treelets.py:184",
-        "R": "steeljax/render/hybrid/raster.py:306"}
+        "R": "steeljax/render/hybrid/raster.py:306",
+        "nee": "no Pallas kernel: plain jnp in "
+               "steeljax/render/pt/integrator.py",
+        "sample": "no Pallas kernel: plain jnp in "
+                  "steeljax/render/pt/integrator.py"}
     print(json.dumps({"kernels": [{
         "name": titles[k], "route": "cuda", "source": sources[k],
         "replaces": replaces[k], "launches": launches[k],

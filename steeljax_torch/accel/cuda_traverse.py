@@ -433,18 +433,21 @@ def _check_depth(depth: int, width: int = 8) -> None:
                          "entries")
 
 
-def _launch_fn(kernel: str, entry: str, args, tensors):
+def _launch_fn(kernel: str, entry: str, args, tensors, launches=LAUNCHES,
+               prefix: str = PROFILER_RANGE):
     """A launch closure: runs `entry` of the kernel library with `args` on
-    the current stream and adds one to LAUNCHES[kernel].  Under a profiler
-    the launch lies in a range named PROFILER_RANGE + kernel, which the
-    kernel's device time is attributed to (a range costs host time on
-    every launch, so it is entered only then)."""
+    the current stream and adds one to launches[kernel].  Under a profiler
+    the launch lies in a range named prefix + kernel, which the kernel's
+    device time is attributed to (a range costs host time on every launch,
+    so it is entered only then).  The trace kernels count in LAUNCHES
+    under PROFILER_RANGE; the path stages (render/pt/stages.py) pass their
+    own."""
     from steeljax_torch.native import cuda_library
 
     lib = cuda_library()
     fn = getattr(lib, entry)
     device = tensors[0].device
-    range_name = PROFILER_RANGE + kernel
+    range_name = prefix + kernel
 
     def launch():
         # The kernel library's runtime launches into the context current
@@ -455,7 +458,7 @@ def _launch_fn(kernel: str, entry: str, args, tensors):
             status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if status != 0:
             raise RuntimeError(f"{entry} launch failed: CUDA error {status}")
-        LAUNCHES[kernel] += 1
+        launches[kernel] += 1
 
     # The pointers in `args` stay valid while the launcher holds the
     # tensors they point into, its outputs included (a caller may keep the

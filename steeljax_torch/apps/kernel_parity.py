@@ -543,16 +543,17 @@ def _bounce_rays(flat, tables, o, d, near, far, seed):
     from steeljax_torch.core.constants import (EPSILON, RAY_DEAD_T,
                                                RAY_MAX_T, RAY_MIN_T)
     from steeljax_torch.render.pt import brdf as brdf_lib
-    from steeljax_torch.render.pt import integrator
+    from steeljax_torch.render.pt import integrator, stages
 
     rec = integrator.trace_material_ray(flat, tables, o, d, near, far,
                                         cull_backface=True)
     surface, tbn = integrator.unpack_material_fused(flat, rec)
     if flat.light_count > 0:
-        _, seed = integrator.sample_light(flat, tbn[2],
-                                          o + d * rec["t"][:, None], seed)
+        _, seed = stages.sample_light(flat, tbn[2],
+                                      o + d * rec["t"][:, None], seed)
     wo = brdf_lib._normalize(brdf_lib.world_to_tangent(-d, tbn))
-    f, wi, pdf, _ = brdf_lib.sample_brdf(surface, wo, seed)
+    f, wi, pdf, _ = brdf_lib.sample_brdf(brdf_lib.make_surface(**surface),
+                                         wo, seed)
     alive = rec["hit"] & (pdf >= EPSILON) & ((f * f).sum(-1) >= EPSILON)
     o1 = (o + d * rec["t"][:, None]).contiguous()
     d1 = torch.where(alive[:, None], brdf_lib.tangent_to_world(wi, tbn), d)
@@ -681,10 +682,9 @@ def sunlit_shadow_case(scene, flat, tables, width: int, height: int):
     """The shadow rays the integrator traces at the primary hits of the lit
     scene (bounce 0 of its bounce loop): (o, d, t_min, t_max), every lane
     as the integrator traces it."""
-    from steeljax_torch.render.pt.integrator import (sample_light,
-                                                     shadow_rays,
-                                                     trace_material_ray,
+    from steeljax_torch.render.pt.integrator import (trace_material_ray,
                                                      unpack_material_fused)
+    from steeljax_torch.render.pt.stages import sample_light, shadow_rays
 
     o, d, near, far, seed = tiled_primary(scene, flat.device, width, height)
     rec = trace_material_ray(flat, tables, o, d, near, far,
@@ -701,10 +701,10 @@ def foliage_shadow_case(scene, flat, tables, width: int, height: int):
     alpha-tested scene (bounce 0), each lane as the integrator traces it:
     (o, d, t_min, t_max).  The primaries resolve through the alpha
     re-trace, the shading through tri_shade rows."""
-    from steeljax_torch.render.pt.integrator import (sample_light,
-                                                     shade_rows, shadow_rays,
+    from steeljax_torch.render.pt.integrator import (shade_rows,
                                                      trace_material_ray,
                                                      unpack_material)
+    from steeljax_torch.render.pt.stages import sample_light, shadow_rays
 
     o, d, near, far, seed = tiled_primary(scene, flat.device, width, height)
     rec = trace_material_ray(flat, tables, o, d, near, far,

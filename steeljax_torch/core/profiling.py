@@ -27,7 +27,10 @@ microseconds of host time a span.
 - `count(name, amount)` adds to a counter of the open frame's row (the
   row's "counters"; outside a frame, to nothing): `instances.in_place` or
   `instances.rebuilt` and `instances.upload_bytes` on the rows of
-  `instances.refresh`, the instanced tables' per-frame refresh.
+  `instances.refresh`, the instanced tables' per-frame refresh;
+  `integrator.bounces` and `integrator.stage_bounces` (those whose stages
+  ran as the kernels of csrc/pathstage.cu) on every row of
+  `integrator.render_pixels`, replayed frames' too.
 - `count_retrace(counts, rows)` keeps, in the open frame's row, references
   to the bounded alpha re-trace's pending counts (0-d device tensors taken
   by the integrator anyway); `record()` sums them once, on request, for the
@@ -42,7 +45,8 @@ microseconds of host time a span.
 Which reader takes which span: portbench's per-layer metrics read the
 record (`host_frame_ms.*` the frame rows, `host_wait_ms.pt` the waits,
 `retrace_live_pct.pt` the re-trace counts, `graph_frames_pct.pt` and
-`graph_frames_pct.inst` how the frames ran, `refresh_ms.inst` the
+`graph_frames_pct.inst` how the frames ran, `stage_kernel_pct.pt` and
+`stage_kernel_pct.inst` the frames' bounce counters, `refresh_ms.inst` the
 `instances.refresh` rows, `prepare_tables_s` the
 `dispatch.prepare_tables` total, `environment_s` the `environment.load`
 total) and the device span of `gbuffer_stage` and `lighting_stage` from

@@ -35,7 +35,8 @@ BVH_SOURCE = _PKG / "native" / "bvh_builder.cpp"
 CUDA_SOURCES = (_PKG / "csrc" / "alpha8.cu",
                 _PKG / "csrc" / "instanced8.cu",
                 _PKG / "csrc" / "treelet8.cu",
-                _PKG / "csrc" / "raster.cu")
+                _PKG / "csrc" / "raster.cu",
+                _PKG / "csrc" / "pathstage.cu")
 # Headers the sources include: a change rebuilds the library too.
 CUDA_HEADERS = (_PKG / "csrc" / "trace8_common.cuh",)
 NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -150,6 +151,11 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
     lib.steeljax_raster_tiles.restype = ctypes.c_int
     lib.steeljax_raster_tiles.argtypes = (
         [ptr] * 14 + [ctypes.c_int] * 4 + [ptr])
+    # The path stages take arrays of pointers and of int64 values.
+    lib.steeljax_nee_stage.restype = ctypes.c_int
+    lib.steeljax_nee_stage.argtypes = [ptr, ptr, ptr]
+    lib.steeljax_sample_stage.restype = ctypes.c_int
+    lib.steeljax_sample_stage.argtypes = [ptr, ptr, ctypes.c_float, ptr]
 
 
 def bvh_library() -> ctypes.CDLL:

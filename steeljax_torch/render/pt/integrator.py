@@ -6,8 +6,10 @@ proj/view matrices, a bounded bounce loop (miss -> environment; emission;
 next-event estimation against punctual lights with an irradiance-
 proportional light pick and an any-hit shadow ray; textured shading with
 normal mapping; BRDF importance sampling; Russian roulette after bounce 2),
-irradiance clamp.  The bounce loop is a Python loop over a flat ray batch
-with one nearest trace per bounce (plus one shadow trace in lit scenes);
+irradiance clamp.  A bounce's work around its visibility trace is the two
+stages of stages.py, on a CUDA device two kernels.  The bounce loop is a
+Python loop over a flat ray batch with one nearest trace per bounce (plus
+one shadow trace in lit scenes);
 dead lanes ride along with an inverted t interval (RAY_DEAD_T) and cost the
 trace nothing.  Above REPACK_MIN_TRIS the in-flight rays are repacked
 before every secondary bounce (repack_rays); the reference's
@@ -38,10 +40,14 @@ arrays are uploaded once per extent and device, by frame_pixels), then
 `integrator.primary_rays`, each bounce `integrator.bounce` (its
 `integrator.repack`, `integrator.trace_material` with the alpha re-trace's
 `integrator.retrace_pass`es, `integrator.shade_fused` or
-`integrator.shade_gather`, `integrator.nee`, `integrator.sample`) and
-`integrator.environment`.  Since no frame reads the device on the host, a
-CUDA device replays each kind of frame as one CUDA graph (frame_graphs);
-a replayed frame's row holds the frame span alone.
+`integrator.shade_gather`, `integrator.nee` (stages.nee_stage and, in a
+lit scene, the visibility trace), `integrator.sample` (stages.sample_stage))
+and `integrator.environment`.  Since no frame reads the device on the
+host, a CUDA device replays each kind of frame as one CUDA graph
+(frame_graphs); a replayed frame's row holds the frame span alone.  Every
+row counts the frame's bounces (`integrator.bounces`) and those whose
+stages ran as the kernels of csrc/pathstage.cu
+(`integrator.stage_bounces`), replayed rows too.
 """
 
 from __future__ import annotations
@@ -58,14 +64,12 @@ from steeljax_torch.accel.dispatch import (TraceTables, trace_any,
                                            trace_multihit, trace_nearest)
 from steeljax_torch.accel.instances import InstancedTables
 from steeljax_torch.core import profiling, rng
-from steeljax_torch.core.colors import luminance, to_linear
+from steeljax_torch.core.colors import to_linear
 from steeljax_torch.core.config import RenderConfig
-from steeljax_torch.core.constants import (BIAS, DIRECT_LIGHT_DISK_RADIUS,
-                                           EPSILON, PI, POINT_LIGHT_RADIUS,
-                                           RAY_DEAD_T, RAY_MAX_T, RAY_MIN_T)
+from steeljax_torch.core.constants import RAY_DEAD_T, RAY_MAX_T
 from steeljax_torch.env.cubemap import sample_cube_quads
 from steeljax_torch.render.pt import brdf as brdf_lib
-from steeljax_torch.render.pt import frame_graphs
+from steeljax_torch.render.pt import frame_graphs, stages
 from steeljax_torch.render.texture import sample_bilinear
 from steeljax_torch.scene.flatten import FlatScene
 from steeljax_torch.scene.material import MaterialFlags
@@ -240,12 +244,20 @@ def _alpha_rejected(scene: FlatScene, rec: dict, row: torch.Tensor
     return rec["hit"] & is_alpha_test & (alpha < row[:, 38])
 
 
+def _surface(base_color, roughness, metallic, emission) -> dict:
+    """The surface's inputs, as the stages take them (stages.py derives
+    brdf.make_surface's terms from them)."""
+    return {"base_color": base_color, "roughness": roughness,
+            "metallic": metallic, "emission": emission}
+
+
 def unpack_material(scene: FlatScene, rec: dict, ray_d: torch.Tensor,
                     shade: torch.Tensor):
     """Attribute interpolation and UnpackMaterial from the hits' tri_shade
     rows (RayGen.rgen:72-115, integrator.py:602-688), the path of tables
     without fused shading.  The normal is flipped where geom_n . d > 0
-    (ClosestHit.rchit:67-70).  Returns (surface, tbn)."""
+    (ClosestHit.rchit:67-70).  Returns (surface, tbn), surface _surface's
+    dict."""
     u, v = rec["u"], rec["v"]
     w = (1.0 - u - v)[..., None]
     uw = u[..., None]
@@ -262,9 +274,8 @@ def unpack_material(scene: FlatScene, rec: dict, ray_d: torch.Tensor,
 
     tbn = brdf_lib.make_tbn(normal)
     if not scene.has_textures:
-        surface = brdf_lib.make_surface(shade[:, 32:35], shade[:, 36],
-                                        shade[:, 37], shade[:, 29:32])
-        return surface, tbn
+        return _surface(shade[:, 32:35], shade[:, 36], shade[:, 37],
+                        shade[:, 29:32]), tbn
 
     def sample(col):
         return sample_bilinear(scene.atlas, scene.tex_offset, scene.tex_size,
@@ -290,9 +301,7 @@ def unpack_material(scene: FlatScene, rec: dict, ray_d: torch.Tensor,
     roughness = shade[:, 36] * torch.where(has_rm, rm[..., 1], 1.0)
     metallic = shade[:, 37] * torch.where(has_rm, rm[..., 2], 1.0)
     emission = to_linear(shade[:, 49:52] * tex_rgb(45))
-    surface = brdf_lib.make_surface(base_color, roughness, metallic,
-                                    emission)
-    return surface, tbn
+    return _surface(base_color, roughness, metallic, emission), tbn
 
 
 def unpack_material_fused(scene: FlatScene, rec: dict):
@@ -300,7 +309,8 @@ def unpack_material_fused(scene: FlatScene, rec: dict):
     interpolated, normalized, back-face-flipped normal and the material id,
     and in textured scenes (shade mode 2) the tangent and uv, which drive
     normal mapping and the base-colour, roughness-metallic and emission
-    textures (integrator.py:554-599)."""
+    textures (integrator.py:554-599).  Returns (surface, tbn), surface
+    _surface's dict."""
     normal = rec["n"]
     mrow, emission, tex = material_select(scene, rec["mat"])
     base_color = mrow[:, 13:16]  # ToLinear(factor) precomputed
@@ -337,9 +347,7 @@ def unpack_material_fused(scene: FlatScene, rec: dict):
         metallic = metallic * torch.where(rm_idx >= 0, rm[..., 2], 1.0)
         emission = to_linear(mrow[:, 4:7] * tex_rgb(tex[:, 4]))
 
-    surface = brdf_lib.make_surface(base_color, roughness, metallic,
-                                    emission)
-    return surface, tbn
+    return _surface(base_color, roughness, metallic, emission), tbn
 
 
 def _retrace_tmin(t: torch.Tensor) -> torch.Tensor:
@@ -506,118 +514,6 @@ def trace_visibility(scene: FlatScene, tables: TraceTables, o, d,
 
 
 # ---------------------------------------------------------------------------
-# Next-event estimation (RayGen.rgen:180-305)
-# ---------------------------------------------------------------------------
-
-def _estimate_lights(scene: FlatScene, n, p) -> torch.Tensor:
-    """Per-light irradiance estimate (EstimateLight, RayGen.rgen:180-197).
-    Returns (N, L) for the first light_count lights."""
-    loc = scene.light_location[:scene.light_count]          # (L, 4)
-    color = scene.light_color[:scene.light_count, :3]       # (L, 3)
-    direction = loc[None, :, :3] - p[:, None, :] * loc[None, :, 3:4]
-    dist2 = (direction * direction).sum(dim=-1)
-    attenuation = torch.where(
-        loc[None, :, 3] == 0.0, 1.0,
-        torch.where(dist2 == 0.0, 1e10, 1.0 / dist2))
-    l = _normalize(direction)
-    nol = torch.clamp((n[:, None, :] * l).sum(dim=-1), min=0.0)
-    return attenuation * nol * luminance(color)[None, :]
-
-
-def _light_distortion(n, w, seed):
-    """ComputeLightDistortion (RayGen.rgen:251-266): disk/sphere jitter of
-    the light direction for soft penumbrae.  Draws two floats."""
-    zero = torch.zeros_like(n[..., 0])
-    u = torch.stack([n[..., 1], -n[..., 0], zero], dim=-1)
-    u_len = torch.linalg.vector_norm(u, dim=-1, keepdim=True)
-    unit_x = torch.stack([torch.ones_like(zero), zero, zero], dim=-1)
-    u = torch.where(u_len > 1e-12, u / torch.clamp(u_len, min=1e-20), unit_x)
-    v = _normalize(torch.linalg.cross(n, u, dim=-1))
-    theta, seed = rng.next_float(seed)
-    theta = theta * 2.0 * PI
-    offset = torch.cos(theta)[..., None] * u + torch.sin(theta)[..., None] * v
-    r, seed = rng.next_float(seed)
-    dd = torch.sqrt(torch.clamp(1.0 - r * r, min=0.0))
-    offset = offset * r[..., None] + _normalize(n) * (dd * w)[..., None]
-    return offset, seed
-
-
-def sample_light(scene: FlatScene, n, p, seed):
-    """The light pick and jittered light direction of DirectLighting
-    (RayGen.rgen:268-290), in the reference's RNG order: one float for the
-    pick, then two for the distortion.  Returns ({"direction" (N, 3) unit,
-    "distance", "attenuation", "pdf", "has_light" (N,), "color" (N, 3)},
-    seed)."""
-    estimates = _estimate_lights(scene, n, p)            # (N, L)
-    # Running sum over the few lights, in cumsum's order: torch.cumsum
-    # along this short innermost axis runs as a scan kernel that took 5 ms
-    # per call at 921,600 rays on an H100.
-    running = list(estimates.unbind(dim=-1))
-    for i in range(1, len(running)):
-        running[i] = running[i - 1] + running[i]
-    cum = torch.stack(running, dim=-1)
-    total = running[-1]
-    has_light = total > 0.0
-    cum_norm = cum / torch.clamp(total, min=1e-20)[:, None]
-
-    pick, seed = rng.next_float(seed)
-    # First index with pick < cum_norm[i] (RayGen.rgen:226-234).
-    light_index = (pick[:, None] >= cum_norm[:, :-1]).sum(dim=-1)
-    norm_est = estimates / torch.clamp(total, min=1e-20)[:, None]
-    pdf = norm_est.gather(1, light_index[:, None])[:, 0]
-    loc = scene.light_location[light_index]
-    color = scene.light_color[light_index, :3]
-    is_point = loc[..., 3]
-
-    direction = loc[..., :3] - p * is_point[..., None]
-    distortion, seed = _light_distortion(-direction, is_point, seed)
-    radius = torch.where(is_point == 0.0, DIRECT_LIGHT_DISK_RADIUS,
-                         POINT_LIGHT_RADIUS)
-    direction = direction + distortion * radius[..., None]
-
-    distance = torch.where(is_point == 0.0, RAY_MAX_T,
-                           torch.linalg.vector_norm(direction, dim=-1))
-    attenuation = torch.where(
-        is_point == 0.0, 1.0,
-        1.0 / torch.clamp(distance * distance, min=1e-20))
-    return {"direction": _normalize(direction), "distance": distance,
-            "attenuation": attenuation, "pdf": pdf, "has_light": has_light,
-            "color": color}, seed
-
-
-def shadow_rays(p, n, light):
-    """The shadow ray of sample_light's light: (origin, direction, t_min,
-    t_max), with an inverted interval where no light was picked."""
-    t_far = torch.where(light["has_light"], light["distance"], RAY_DEAD_T)
-    return p + n * BIAS, light["direction"], RAY_MIN_T, t_far
-
-
-def direct_lighting(scene: FlatScene, tables: TraceTables, surface, tbn,
-                    p, wo, seed, compose: str = "both",
-                    max_alpha_retrace: int = 4,
-                    retrace_log: list | None = None):
-    """DirectLighting (RayGen.rgen:268-305).  Returns (radiance, seed).
-    `compose` isolates the diffuse/specular BRDF term (ComposeBRDF,
-    PathTracing.glsl:59); `retrace_log` as in trace_material_ray."""
-    n = tbn[2]
-    light, seed = sample_light(scene, n, p, seed)
-    wi = brdf_lib.world_to_tangent(light["direction"], tbn)
-    wh = _normalize(wo + wi)
-    # Lanes with no light get an inverted interval: the kernel reports them
-    # unoccluded without descending, and has_light zeroes them anyway.
-    occluded = trace_visibility(scene, tables, *shadow_rays(p, n, light),
-                                max_alpha_retrace=max_alpha_retrace,
-                                retrace_log=retrace_log)
-
-    f = brdf_lib.evaluate_brdf(surface, wo, wi, wh, compose=compose)
-    contrib = (f * brdf_lib.cos_theta(wi)[..., None] * light["color"]
-               * (light["attenuation"]
-                  / torch.clamp(light["pdf"], min=1e-20))[..., None])
-    visible = light["has_light"] & ~occluded
-    return torch.where(visible[..., None], contrib, 0.0), seed
-
-
-# ---------------------------------------------------------------------------
 # The bounce loop (RayGen.rgen:322-412)
 # ---------------------------------------------------------------------------
 
@@ -634,7 +530,9 @@ def _environment(scene: FlatScene, d: torch.Tensor) -> torch.Tensor:
 def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
                 t_min, t_max, config: RenderConfig,
                 retrace_log: list | None = None):
-    """The bounce loop for a prepared ray batch (RayGen.rgen:344-407).
+    """The bounce loop for a prepared ray batch (RayGen.rgen:344-407): a
+    bounce is the material trace, the shading unpack, stages.nee_stage, the
+    visibility trace in a lit scene and stages.sample_stage.
 
     Returns (irradiance (N, 3) clamped, seed, rays_traced) with rays_traced
     (path segments and shadow rays) a 0-d float32 tensor on the render
@@ -697,12 +595,6 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
                     max_alpha_retrace=config.max_alpha_retrace,
                     retrace_log=retrace_log)
 
-            weight = throughput / torch.clamp(ray_pdf, min=1e-30)[..., None]
-
-            # Miss -> environment (RayGen.rgen:353-357), deferred.
-            miss = miss | (alive & ~rec["hit"])
-            alive = alive & rec["hit"]
-
             if "n" in rec:  # the fused kernel's shading outputs
                 with profiling.named_scope("integrator.shade_fused"):
                     surface, tbn = unpack_material_fused(scene, rec)
@@ -715,67 +607,46 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
             if config.override_material is not None:
                 # DEBUG_OVERRIDE_MATERIAL (RayGen.rgen:99-102).
                 r_ov, m_ov = config.override_material
-                surface = brdf_lib.make_surface(
-                    surface["base_color"],
-                    torch.full_like(surface["roughness"], r_ov),
-                    torch.full_like(surface["metallic"], m_ov),
-                    surface["emission"])
+                surface = {**surface,
+                           "roughness": torch.full_like(
+                               surface["roughness"], r_ov),
+                           "metallic": torch.full_like(
+                               surface["metallic"], m_ov)}
 
-            # Emission (RayGen.rgen:361).
-            irradiance = irradiance + torch.where(
-                alive[..., None], surface["emission"] * weight, 0.0)
-
-            p = o + d * rec["t"][..., None]
-            wo = _normalize(brdf_lib.world_to_tangent(-d, tbn))
-
-            # NEE against punctual lights (RayGen.rgen:366-371).
-            if scene.light_count > 0:
-                with profiling.named_scope("integrator.nee"):
+            # The miss and alive update, emission, and NEE against punctual
+            # lights up to the shadow ray (RayGen.rgen:353-371).
+            with profiling.named_scope("integrator.nee"):
+                nee = stages.nee_stage(
+                    scene, surface, tbn, o, d, rec["t"], rec["hit"],
+                    throughput, ray_pdf, alive, miss, irradiance, seed,
+                    compose)
+                alive, miss = nee["alive"], nee["miss"]
+                irradiance, seed = nee["irradiance"], nee["seed"]
+                direct = None
+                if scene.light_count > 0:
                     rays_traced = rays_traced + alive.sum(dtype=torch.float32)
-                    direct, seed = direct_lighting(
-                        scene, tables, surface, tbn, p, wo, seed,
-                        compose=compose,
+                    # Lanes with no light get an inverted interval: the
+                    # kernel reports them unoccluded without descending, and
+                    # has_light zeroes them anyway.
+                    occluded = trace_visibility(
+                        scene, tables, *nee["shadow"],
                         max_alpha_retrace=config.max_alpha_retrace,
                         retrace_log=retrace_log)
-                    irradiance = irradiance + torch.where(
-                        alive[..., None], direct * weight, 0.0)
+                    direct = (nee["contrib"], nee["has_light"], occluded)
 
+            # The shadow ray's term, the BRDF sample and Russian roulette
+            # (RayGen.rgen:366-395).
             with profiling.named_scope("integrator.sample"):
-                # BRDF sample (RayGen.rgen:374-385).
-                f, wi, pdf, seed = brdf_lib.sample_brdf(surface, wo, seed)
-                black = (f * f).sum(dim=-1) < EPSILON
-                alive = alive & (pdf >= EPSILON) & ~black
-
-                throughput = torch.where(
-                    alive[..., None],
-                    throughput * f * brdf_lib.cos_theta(wi)[..., None],
-                    throughput)
-                ray_pdf = torch.where(alive, ray_pdf * pdf, ray_pdf)
-
-                # Russian roulette (RayGen.rgen:387-395).
-                if bounce >= config.min_bounce_count:
-                    threshold = torch.clamp(
-                        1.0 - throughput.max(dim=-1).values,
-                        min=config.rr_min_threshold)
-                    r, seed = rng.next_float(seed)
-                    alive = alive & ~(r < threshold)
-                    throughput = torch.where(
-                        alive[..., None],
-                        throughput / torch.clamp(1.0 - threshold,
-                                                 min=1e-20)[..., None],
-                        throughput)
-
-                o = p
-                # Guarded so a ray that missed keeps its traced direction —
-                # that frozen d is the deferred environment lookup
-                # direction.
-                d = torch.where(alive[..., None],
-                                brdf_lib.tangent_to_world(wi, tbn), d)
-                t_min = torch.full_like(t_min, RAY_MIN_T)
-                # Dead lanes get an inverted interval: the trace reports
-                # them as misses without descending.
-                t_max = torch.where(alive, RAY_MAX_T, RAY_DEAD_T).to(
-                    torch.float32)
+                nxt = stages.sample_stage(
+                    surface, tbn, nee["p"], nee["wo"], d, throughput,
+                    ray_pdf, alive, irradiance, seed, direct,
+                    roulette=bounce >= config.min_bounce_count,
+                    rr_min_threshold=config.rr_min_threshold)
+                o, d, t_min, t_max = (nxt["o"], nxt["d"], nxt["t_min"],
+                                      nxt["t_max"])
+                throughput, ray_pdf = nxt["throughput"], nxt["ray_pdf"]
+                alive, irradiance = nxt["alive"], nxt["irradiance"]
+                seed = nxt["seed"]
 
     with profiling.named_scope("integrator.environment"):
         # Deferred env: throughput/ray_pdf/d froze at the miss bounce, so
@@ -884,24 +755,34 @@ def render_pixels(scene: FlatScene, tables: TraceTables,
         def frame(buffers):
             words, view, proj, x, y = buffers
             log = [] if return_stats else None
+            before = dict(stages.LAUNCHES)
             result, rays = _samples(
                 scene, tables, view, proj, camera_near, camera_far, width,
                 height, x, y, lambda s: rng.make_seed(x, y, word=words[s]),
                 config, log)
+            # A bounce ran as the stage kernels where it launched both.
+            staged = min(stages.LAUNCHES[k] - before[k] for k in before)
+            layout = {"stage_bounces": staged, "retrace": None}
             if log is None:
-                return [result, rays], None
-            return ([result, rays] + [c for _, cs in log for c in cs],
-                    [(label, len(cs)) for label, cs in log])
+                return [result, rays], layout
+            layout["retrace"] = [(label, len(cs)) for label, cs in log]
+            return [result, rays] + [c for _, cs in log for c in cs], layout
 
         key = _frame_key(scene, tables, config, width, height, camera_near,
                          camera_far, px.shape[0], return_stats)
         (result, rays_traced, *counts), layout = FRAME_GRAPHS.run(
             key, (scene, tables), device, frame, inputs)
+        # The bounces that ran the stage kernels, of the frame's bounces:
+        # counted when the host ran the frame and kept in the layout, so
+        # that a replayed frame counts them too.
+        profiling.count("integrator.stage_bounces", layout["stage_bounces"])
+        profiling.count("integrator.bounces",
+                        config.sample_count * config.max_bounce_count)
         retrace_log = None
-        if layout is not None:
+        if layout["retrace"] is not None:
             counts = iter(counts)
             retrace_log = [(label, [next(counts) for _ in range(n)])
-                           for label, n in layout]
+                           for label, n in layout["retrace"]]
         for _, counts in retrace_log or ():
             # The rays entering each pass, each pass launched over the
             # frame's rays.

@@ -21,7 +21,7 @@ from steeljax.scene import builtin as builtin_ref
 from steeljax.scene import scene as scene_ref
 from steeljax.scene.flatten import flatten_scene as flatten_ref
 from steeljax_torch.render import texture
-from steeljax_torch.render.pt import brdf, integrator, renderer
+from steeljax_torch.render.pt import brdf, integrator, renderer, stages
 from steeljax_torch.scene import builtin
 from steeljax_torch.scene import scene as scene_lib
 from steeljax_torch.scene.flatten import flatten_scene
@@ -135,8 +135,8 @@ def test_estimate_lights_and_light_distortion():
     r = np.random.default_rng(3)
     p, nrm = _points_and_normals(r, N)
     p[0] = np.asarray(ours.light_location[1, :3])  # on the point light
-    _close(integrator._estimate_lights(ours, torch.from_numpy(nrm),
-                                       torch.from_numpy(p)),
+    _close(stages._estimate_lights(ours, torch.from_numpy(nrm),
+                                   torch.from_numpy(p)),
            integrator_ref._estimate_lights(ref, jnp.asarray(nrm),
                                            jnp.asarray(p)), rtol=RTOL)
 
@@ -144,7 +144,7 @@ def test_estimate_lights_and_light_distortion():
     n_in = (_unit(r, N) * r.uniform(0.5, 20, (N, 1))).astype(np.float32)
     n_in[:2] = [[0, 0, 1], [0, 0, -2]]  # u degenerates: falls back to +x
     seed = _seeds(r, N)
-    off, s = integrator._light_distortion(
+    off, s = stages._light_distortion(
         torch.from_numpy(n_in), torch.from_numpy(w),
         torch.from_numpy(seed.astype(np.int64)))
     off_r, s_r = integrator_ref._light_distortion(
@@ -156,10 +156,13 @@ def test_estimate_lights_and_light_distortion():
 @pytest.mark.parametrize("compose", ["both", "diffuse"])
 def test_direct_lighting(compose):
     """The whole NEE term on seeded points, normals, surfaces and seeds
-    in the two-light parity scene: the light pick, the jittered direction,
-    the shadow ray through the port's any-hit trace against the
-    reference's binary-BVH oracle, and the BRDF.  Seeds advance exactly
-    as the reference's (pick, then two distortion floats)."""
+    in the two-light parity scene, as a bounce computes it: the plain
+    stages.nee_stage (the light pick, the jittered direction and the BRDF;
+    no emission, every lane alive and hit at t = 0 from its point), its
+    shadow ray through the port's any-hit trace (trace_visibility) and the
+    contribution of the lanes the ray reached, against the reference's
+    direct_lighting with its binary-BVH oracle.  Seeds advance exactly as
+    the reference's (pick, then two distortion floats)."""
     ours_scene, ref_scene = _two_light_scenes()
     flat, tables = renderer.prepare_scene(ours_scene, "cpu",
                                           env_resolution=8)
@@ -176,18 +179,27 @@ def test_direct_lighting(compose):
     seed = _seeds(r, N)
 
     tbn = brdf.make_tbn(torch.from_numpy(nrm))
-    got, s = integrator.direct_lighting(
-        flat, tables, brdf.make_surface(*(torch.from_numpy(a)
-                                          for a in surface_args)),
-        tbn, torch.from_numpy(p), torch.from_numpy(wo),
-        torch.from_numpy(seed.astype(np.int64)), compose=compose)
+    surface = dict(zip(("base_color", "roughness", "metallic", "emission"),
+                       (torch.from_numpy(a) for a in surface_args)))
+    # The ray that reached p travels against wo.
+    d = -brdf.tangent_to_world(torch.from_numpy(wo), tbn)
+    lanes = torch.ones(N, dtype=torch.bool)
+    nee = stages.nee_stage(
+        flat, surface, tbn, torch.from_numpy(p), d, torch.zeros(N), lanes,
+        torch.ones((N, 3)), torch.ones(N), lanes, ~lanes,
+        torch.zeros((N, 3)), torch.from_numpy(seed.astype(np.int64)),
+        compose=compose)
+    assert torch.equal(nee["p"], torch.from_numpy(p))
+    occluded = integrator.trace_visibility(flat, tables, *nee["shadow"])
+    got = torch.where((nee["has_light"] & ~occluded)[:, None],
+                      nee["contrib"], 0.0)
     tbn_r = brdf_ref.make_tbn(jnp.asarray(nrm))
     want, s_r = integrator_ref.direct_lighting(
         flat_r, tables_r, brdf_ref.make_surface(*(jnp.asarray(a)
                                                   for a in surface_args)),
-        tbn_r, jnp.asarray(p), jnp.asarray(wo), jnp.asarray(seed), 4,
-        compose=compose)
-    np.testing.assert_array_equal(s.numpy(), np.asarray(s_r))
+        tbn_r, jnp.asarray(p), jnp.asarray(nee["wo"].numpy()),
+        jnp.asarray(seed), 4, compose=compose)
+    np.testing.assert_array_equal(nee["seed"].numpy(), np.asarray(s_r))
     want = np.asarray(want)
     lit = (want != 0).any(axis=-1)
     print(f"direct lighting: {int(lit.sum())} of {N} points lit")
