@@ -193,13 +193,11 @@ Phases:
      G-buffer record on all 2,073,600 pixels (tests/test_raster.py's 3%
      budget), R alone over the frame's 2,700 subtiles with its bound at
      strip granularity from the bytes its work reads (and the first
-     design's bound at subtile granularity beside it), the tail (density
-     against raster order, the densest subtile alone), its work split (candidates by segment, covering, rejected by the strip
-     test, the densest subtile, bytes staged) and bit-equal to its plain
-     version on every subtile; a tie-heavy launch (path R's records with
-     quantized depths) bit-equal at WINDOW 1, 3, 16 and 256; R's
-     registers; with --ab-old DIR holding an earlier raster.cu, the
-     earlier R against this tree's in turns (old, new, new, old); the
+     design's bound at subtile granularity beside it), its work split
+     (candidates by segment, covering, rejected by the strip test, the
+     densest subtile, bytes staged) and bit-equal to its plain version on
+     every subtile; a tie-heavy launch (path R's records with quantized
+     depths) bit-equal at WINDOW 1, 3, 16 and 256; R's registers; the
      Cornell box at 1280x720 with the raster, R bit-equal to its plain
      version there; and fit_env_surrogate's sample gathering on a
      synthetic image on the card against the CPU;
@@ -267,20 +265,10 @@ its launches a frame under STEELJAX_SHADE_MODE=0; the kernels phase 20
 held carry its comparisons under "walk"; R's bound_ms is
 counted at strip granularity from the bytes its work reads, its entry
 carries the bound at subtile granularity as "subtile_bound_ms", its
-(subtile, winner) pairs, its work split, the tail, the tie-heavy launch,
-the Cornell check, its registers and, with --ab-old, the earlier R's
-times as "ab"), the last line the device JSON.
+(subtile, winner) pairs, its work split, the tie-heavy launch, the Cornell
+check and its registers), the last line the device JSON.
 
-With --ab-old DIR, DIR is an earlier commit's csrc directory
-(steeljax_torch/apps/kernel_ab.py says how to unpack it), and each kernel
-whose earlier source it holds is timed against this tree's: K2 and
-K2-dense from traverse8.cu in phase 3c (its "A/B" lines give old and new
-ms in turns, the flag mismatches, both designs' per-ray work counts and a
-frame of path L and of path L dense with each design), R from raster.cu
-in phase 17 on path R's frame and the Cornell raster frame ("A/B R"
-lines, both outputs bit-equal).
-
-Usage: python3 chip_smoke.py [--ab-old DIR]
+Usage: python3 chip_smoke.py
 """
 
 from __future__ import annotations
@@ -368,9 +356,9 @@ ROWS = (("K1", "Cornell", PRIMARIES), ("K1", "path L", PRIMARIES),
 # The earlier designs of K1-K5 (one thread per ray, scalar loads, a stack
 # in local memory, each leaf tested as it is popped), per ray on the same
 # rays as phase 3b: counted by their COUNT instances on the H100 (K4, K5:
-# apps/alpha_ab.py at commit 233eaca; K1, K3: phase 3c, apps/kernel_ab.py
-# at commit dabca91, with commit 3f38e36's traverse8.cu; K2, K2-dense:
-# phase 3c with commit dabca91's traverse8.cu), by phase 3b row.
+# apps/alpha_ab.py at commit 233eaca; K1, K3: apps/kernel_ab.py at commit
+# dabca91, with commit 3f38e36's traverse8.cu; K2, K2-dense: apps/
+# kernel_ab.py with commit dabca91's traverse8.cu), by phase 3b row.
 # The bounds take the smaller of these and the new kernel's counts: a walk
 # order that pops more nodes does not raise the least time of the
 # function.
@@ -3267,7 +3255,7 @@ def _path_g_rows(flat, tables, positions) -> dict:
     from steeljax_torch.apps import kernel_parity as kp
     from steeljax_torch.gi import light_volume as lv_lib
     from steeljax_torch.render.pt.integrator import (trace_material_ray,
-                                                     unpack_material_fused)
+                                                     unpack_material)
     from steeljax_torch.render.pt.stages import sample_light, shadow_rays
 
     res = GI_BAKE["resolution"]
@@ -3285,7 +3273,7 @@ def _path_g_rows(flat, tables, positions) -> dict:
                             f"6 faces x {res}x{res}, the first bounce of "
                             "sample 0, shade mode 1")
     rec = trace_material_ray(flat, tables, *rays, cull_backface=True)
-    _, tbn = unpack_material_fused(flat, rec)
+    _, tbn = unpack_material(flat, tables, rec, d)
     p = o + d * rec["t"][:, None]
     light, _ = sample_light(flat, tbn[2], p, seed)
     so, sd, t_min, t_max = shadow_rays(p, tbn[2], light)
@@ -3661,43 +3649,6 @@ def _raster_held(label, recs_sorted, tile_ids, segments, ntx) -> dict:
     return {"parity": parity, "out": out}
 
 
-def _raster_tail(recs_sorted, tile_ids, segments, ntx, work: dict) -> dict:
-    """Whether the densest subtiles set R's length: R with its blocks in
-    density order (the wrapper's) and in raster order (the C entry called
-    with the identity order, kernel_ab.raster_launcher), in turns
-    (density, raster, raster, density; timing.queued_ms over 20 launches),
-    and the densest subtile alone, one block with the card to itself."""
-    from steeljax_torch import native
-    from steeljax_torch.apps import kernel_ab
-    from steeljax_torch.apps.timing import queued_ms
-    from steeljax_torch.render.hybrid import raster
-
-    n = tile_ids.shape[0]
-    identity = torch.arange(n, dtype=torch.int32, device=tile_ids.device)
-    launches = {
-        "density": raster.raster_tiles_launcher(recs_sorted, tile_ids,
-                                                segments, ntx)[0],
-        "raster": kernel_ab.raster_launcher(
-            native.cuda_library().steeljax_raster_tiles, recs_sorted,
-            tile_ids, segments, ntx, identity)[0]}
-    turns = {"density": [], "raster": []}
-    for name in ("density", "raster", "raster", "density"):
-        turns[name].append(queued_ms(launches[name], 20))
-    d = work["densest"]["row"]
-    alone = raster.raster_tiles_launcher(
-        recs_sorted, tile_ids[d:d + 1], [x[d:d + 1] for x in segments],
-        ntx)[0]
-    densest_ms = queued_ms(alone, 20)
-    print(f"R tail path R: density order " + " / ".join(
-        f"{x:.4f}" for x in turns["density"]) + " ms, raster order "
-        + " / ".join(f"{x:.4f}" for x in turns["raster"])
-        + f" ms (density, raster, raster, density); the densest subtile "
-        f"alone (row {d}, {work['densest']['candidates']:,} candidates) "
-        f"{densest_ms:.4f} ms")
-    return {"density_ms": turns["density"], "raster_order_ms":
-            turns["raster"], "densest_alone_ms": densest_ms}
-
-
 def _raster_ties(recs_sorted, tile_ids, segments, ntx) -> dict:
     """R against its plain version on path R's records with tie-heavy
     depths (RASTER_TIE_PLANES) at each of RASTER_TIE_WINDOWS, bit-equal;
@@ -3826,11 +3777,11 @@ def _raster_renderer(scene, width, height, env, device, prepared=None):
     return renderer
 
 
-def _raster_cornell(device, env, ab_old=None) -> dict:
+def _raster_cornell(device, env) -> dict:
     """The Cornell box at 1280x720 with the raster: one R and no K1 launch
     a frame, the frame beside the traced one, R held bit-equal to its
     plain version on the frame's subtiles and timed alone (CUDA events, 50
-    launches), with `ab_old` also against the earlier R in turns."""
+    launches)."""
     from steeljax_torch.accel import cuda_traverse
     from steeljax_torch.apps.timing import time_ms
     from steeljax_torch.render.hybrid import raster
@@ -3869,16 +3820,9 @@ def _raster_cornell(device, env, ab_old=None) -> dict:
     work = _raster_work(recs_sorted, tile_ids, segments, ntx)
     print(f"R raster_tiles Cornell {WIDTH}x{HEIGHT}: {tile_ids.shape[0]} "
           f"subtiles, kernel {kernel_ms:.4f} ms; {_work_text(work)}")
-    ab = None
-    if ab_old and (Path(ab_old) / "raster.cu").is_file():
-        from steeljax_torch.apps import kernel_ab
-
-        ab = kernel_ab.raster_ab(ab_old, recs_sorted, tile_ids, segments,
-                                 ntx, f"Cornell {WIDTH}x{HEIGHT}")
-        del ab["old_ptxas"]
     return {"bit_equal": held["parity"]["bit_equal"],
             "hits": held["parity"]["hits"], "ms": kernel_ms, "work": work,
-            "ab": ab, "ms_frame": ms, "traced_ms_frame": traced_ms}
+            "ms_frame": ms, "traced_ms_frame": traced_ms}
 
 
 def _surrogate_on_card(device) -> None:
@@ -3914,8 +3858,7 @@ def _surrogate_on_card(device) -> None:
                            "from the CPU's")
 
 
-def phase_raster(device, scenes, path_h, ptxas: dict,
-                 ab_old=None) -> dict:
+def phase_raster(device, scenes, path_h, ptxas: dict) -> dict:
     """Path R: path H's frame (path L's scene, the bench's 1920x1080 hybrid
     config, path H's environment) with STEELJAX_RASTER=1, the G-buffer's
     primary visibility rasterized (csrc/raster.cu, R).  One warm and
@@ -3930,10 +3873,8 @@ def phase_raster(device, scenes, path_h, ptxas: dict,
     subtiles (CUDA events, 50 launches) with its bound (and the bound at
     strip granularity), its work split (_raster_work), bit-equal to
     _raster_tiles_plain on every subtile; the tie-heavy launch
-    (_raster_ties); R's registers from the build's `ptxas` table; with
-    `ab_old` a csrc directory holding an earlier raster.cu, the earlier R
-    against this tree's in turns (kernel_ab.raster_ab); then the Cornell
-    box at 1280x720 with the raster (R bit-equal to its plain version
+    (_raster_ties); R's registers from the build's `ptxas` table; then the
+    Cornell box at 1280x720 with the raster (R bit-equal to its plain version
     there too), and fit_env_surrogate's sample gathering on the card
     against the CPU."""
     from steeljax_torch.accel import cuda_traverse
@@ -4051,9 +3992,8 @@ def phase_raster(device, scenes, path_h, ptxas: dict,
     versus = _raster_vs_trace("path R raster record against K1's traced "
                               "G-buffer record", rec_r, rec_t, 0.03)
 
-    kernel = _raster_kernel(rscene, view_proj, width, height, near, ptxas,
-                            ab_old)
-    kernel["cornell"] = _raster_cornell(device, path_h["env"], ab_old)
+    kernel = _raster_kernel(rscene, view_proj, width, height, near, ptxas)
+    kernel["cornell"] = _raster_cornell(device, path_h["env"])
     _surrogate_on_card(device)
     return {"launches": launches, "ms_frame": ms_frame,
             "traced_ms_frame": traced_ms, "turns": turns,
@@ -4061,15 +4001,14 @@ def phase_raster(device, scenes, path_h, ptxas: dict,
             "syncs_added": waits, "kernel": kernel}
 
 
-def _raster_kernel(rscene, view_proj, width, height, near, ptxas: dict,
-                   ab_old=None) -> dict:
+def _raster_kernel(rscene, view_proj, width, height, near,
+                   ptxas: dict) -> dict:
     """Phase 17's rows of R on one frame's inputs: the kernel alone (CUDA
     events, 50 launches) with its bound and its bound at strip
     granularity, its work split, bit-equal to _raster_tiles_plain on every
-    subtile (the plain version timed over 3 calls), the tie-heavy launch,
-    its registers from the build's `ptxas` table, and with `ab_old` a
-    csrc directory holding an earlier raster.cu, the earlier R against
-    this one in turns.  Returns the kernels line's entry of R."""
+    subtile (the plain version timed over 3 calls), the tie-heavy launch
+    and its registers from the build's `ptxas` table.  Returns the kernels
+    line's entry of R."""
     from steeljax_torch.apps.timing import time_ms
     from steeljax_torch.render.hybrid import raster
 
@@ -4125,20 +4064,11 @@ def _raster_kernel(rscene, view_proj, width, height, near, ptxas: dict,
     if not parity["bit_equal"]:
         raise RuntimeError(f"R: the kernel differs from its plain version: "
                            f"{parity}")
-    tail = _raster_tail(recs_sorted, tile_ids, segments, ntx, work)
     ties = _raster_ties(recs_sorted, tile_ids, segments, ntx)
     registers = check_raster_ptxas(ptxas)
     print(f"ptxas this tree: {RASTER_INSTANCE}: {registers[0]} registers, "
           f"{registers[1]} B stack frame, spill stores {registers[2]} B, "
           f"spill loads {registers[3]} B, static smem {registers[4]} B")
-    ab = None
-    if ab_old and (Path(ab_old) / "raster.cu").is_file():
-        from steeljax_torch.apps import kernel_ab
-
-        ab = kernel_ab.raster_ab(ab_old, recs_sorted, tile_ids, segments,
-                                 ntx, "path R")
-        _print_ptxas("earlier", {k: v for k, v in ab.pop("old_ptxas").items()
-                                 if k.startswith(RASTER_INSTANCE)})
 
     return {"ms": kernel_ms, "plain_ms": plain_ms,
               "max_abs_err": parity["max_abs_err"], "library_ms": None,
@@ -4153,9 +4083,8 @@ def _raster_kernel(rscene, view_proj, width, height, near, ptxas: dict,
               "parity": parity, "bit_equal": parity["bit_equal"],
               **bound, "subtile_bound_ms": subtile_bound["bound_ms"],
               "subtile_bound_by": subtile_bound["bound_by"],
-              "winners": winners, "work": work,
-              "tail": tail, "ties": ties, "registers": registers[0],
-              "ab": ab}
+              "winners": winners, "work": work, "ties": ties,
+              "registers": registers[0]}
 
 
 # Phase 18, paths LS and FS: path L's and path F's scenes prepared with
@@ -5278,17 +5207,6 @@ def phase_walk(device, scenes, kernels, sbvh) -> dict:
     return out
 
 
-def phase_kernel_ab(scenes, old_dir, ptxas: dict) -> None:
-    """K2 and K2-dense against the earlier kernels built from `old_dir`, in
-    turns, on path L's first-bounce shadow rays and their live subset, and
-    one frame of path L and path L dense with each (apps/kernel_ab.py);
-    then the earlier library's ptxas registers beside this tree's."""
-    from steeljax_torch.apps import kernel_ab
-
-    result = kernel_ab.run(scenes, old_dir, WIDTH, HEIGHT)
-    kernel_ab.compare_ptxas(result["old_ptxas"], ptxas)
-
-
 def _row_fields(row: dict) -> dict:
     """The fields of a kernel's sub-row in the kernels line."""
     return {f: row[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -5303,12 +5221,7 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--ab-old", default=None, metavar="DIR",
-                    help="also time K2 and K2-dense (phase 3c, where DIR "
-                         "holds traverse8.cu) or R (phase 17, where it "
-                         "holds raster.cu) against the earlier kernels "
-                         "built from this csrc directory")
-    args = ap.parse_args(argv)
+    ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: chip_smoke.py runs only on the GPU")
     import steeljax_torch  # noqa: F401  (fails outside a checkout)
@@ -5333,13 +5246,6 @@ def main(argv=None) -> int:
         phase_prepare, device)
     kernels = phase("3b. parity and kernel times", phase_parity, device,
                     scenes)
-    if args.ab_old and (Path(args.ab_old) / "traverse8.cu").is_file():
-        phase("3c. earlier kernels against this tree's", phase_kernel_ab,
-              scenes, args.ab_old, ptxas)
-    elif args.ab_old:
-        print(f"== 3c. skipped: {args.ab_old} holds no traverse8.cu (the "
-              "earlier K2); phase 17 times the earlier R if it holds "
-              "raster.cu")
     cornell = phase("4. Cornell main path", phase_cornell, device)
     path_l = phase("5a. path L (sunlit stress)", drive_path, "path L",
                    *scenes["sunlit"], {"K1": 1, "K2": 1})
@@ -5393,7 +5299,7 @@ def main(argv=None) -> int:
     path_g = phase("16. path G (light-volume GI on path L's scene)",
                    phase_gi, device, scenes, path_h)
     path_r = phase("17. path R (raster G-buffer on path H)", phase_raster,
-                   device, scenes, path_h, ptxas, args.ab_old)
+                   device, scenes, path_h, ptxas)
     kernels["R"] = path_r["kernel"]
     sbvh = phase("18. paths LS, FS, IS and US (SBVH)", phase_sbvh, device,
                  scenes, kernels, prepare_steps,
@@ -5595,7 +5501,7 @@ def main(argv=None) -> int:
         "plain_rays": kernels[k]["plain_rays"],
         **{key: kernels[k][key] for key in (
             "bit_equal", "subtile_bound_ms", "subtile_bound_by", "winners",
-            "work", "tail", "ties", "cornell", "registers", "ab", "walk")
+            "work", "ties", "cornell", "registers", "walk")
             if key in kernels[k]},
         **{key: sub_row(k, key) for key in (*sub_paths, "path_g", "sbvh",
                                             "sbvh_cards", "shade_mode0")

@@ -365,7 +365,7 @@ def attach_shade_tables(tables: TraceTables, tri_nrm, tri_mat,
     """Fused-shading rows from the PERMUTED per-triangle arrays (the ones
     matching the BVH leaf order, padded to prepare_tables' total), on the
     tables' device: mode 1, or mode 2 when `textured` (which needs tri_tan
-    and tri_uv; tri_uvd is the uv density, tri_shade column 27)."""
+    and tri_uv; tri_uvd is the uv density, flatten.TriShade.UV_DENSITY)."""
     tri_nrm = np.asarray(tri_nrm)
     tri_mat = np.asarray(tri_mat)
     mode = 2 if textured else 1

@@ -39,12 +39,23 @@ from steeljax_torch.accel import cuda_traverse, traverse
 from steeljax_torch.accel.bvh import (BVH, apply_permutation, build_bvh,
                                       collapse_bvh8)
 from steeljax_torch.core import profiling
-from steeljax_torch.scene.flatten import (_to_linear_np, copy_in,
+from steeljax_torch.scene.flatten import (TRI_SHADE_COLS, TRI_SHADE_GEOMETRY,
+                                          TRI_SHADE_MATERIAL, TriGeometry,
+                                          TriShade, _to_linear_np, copy_in,
                                           pack_tri_shade, refresh_lights,
                                           refresh_materials)
 
 # Floats per row of inst_trace and inst_shade.
 INST_COLS = cuda_traverse.INST_COLS
+
+
+class InstShade:
+    """Columns of inst_shade's (I, INST_COLS) per-instance rows."""
+    NORMAL_MATRIX = slice(0, 9)    # inverse transpose of WORLD_LINEAR
+    WORLD_LINEAR = slice(9, 18)    # row-major 3x3
+    MATERIAL = slice(18, 46)       # tri_shade's TRI_SHADE_MATERIAL columns
+    SCALE = 46                     # uniform scale, cbrt |det WORLD_LINEAR|
+    PAD = 47
 
 
 @dataclasses.dataclass
@@ -56,10 +67,8 @@ class InstancedTables:
     # double-sided flag (13), material id (14), 1 / uniform scale (15),
     # normal matrix (16:25), world linear matrix (25:34).
     inst_trace: torch.Tensor
-    # (I, 48) f32: normal matrix (0:9), world linear (9:18), material row
-    # (18:46, tri_shade columns 28:56), uniform scale (46).
-    inst_shade: torch.Tensor
-    blas_shade: torch.Tensor   # (T, 28) f32 object-space geometric rows
+    inst_shade: torch.Tensor   # (I, 48) f32, InstShade's columns
+    blas_shade: torch.Tensor   # (T, 28) f32, TriGeometry's columns
     # (R * 12, 12) f32: cuda_traverse.hopper_records of tris_packed, the
     # 48-byte records K6 reads.
     tri_records: torch.Tensor | None = None
@@ -128,7 +137,7 @@ class _Blas:
         self.tri_uv = permuted["tri_uv"]
         self.shade = pack_tri_shade(
             permuted["tri_nrm"], permuted["tri_tan"], permuted["tri_uv"],
-            permuted["tri_pos"])[:, :28]
+            permuted["tri_pos"])[:, TRI_SHADE_GEOMETRY]
         self.padded = padded
         # AABB over real triangles (object space).
         real = self.tri_pos[:, 0, 0] < 1e37
@@ -244,28 +253,27 @@ def _build_tlas8(lo: np.ndarray, hi: np.ndarray) -> tuple[np.ndarray, int]:
 
 
 def _pack_inst_material(mat) -> np.ndarray:
-    """Material constants in tri_shade col 28:56 semantics (28 floats):
-    [mat id, emission linear (3), base linear (3), base alpha, roughness,
-    metallic, alpha cutoff, normal scale, flags, tex ids (5), base raw
-    (3), emission raw (3), occlusion strength, pad (3)]."""
-    out = np.zeros(28, np.float32)
+    """The material's constants as tri_shade's material columns
+    (TRI_SHADE_MATERIAL, 28 floats), its material id left 0."""
+    row = np.zeros(TRI_SHADE_COLS, np.float32)
+    c = TriShade
     base = np.asarray(mat.base_color_factor, np.float32)
     emission = np.asarray(mat.emission_factor, np.float32)[:3]
-    out[1:4] = _to_linear_np(emission)
-    out[4:7] = _to_linear_np(base[:3])
-    out[7] = base[3]
-    out[8] = mat.roughness_factor
-    out[9] = mat.metallic_factor
-    out[10] = mat.alpha_cutoff
-    out[11] = mat.normal_scale
-    out[12] = float(int(mat.flags))
-    out[13:18] = [mat.base_color_texture, mat.roughness_metallic_texture,
-                  mat.normal_texture, mat.occlusion_texture,
-                  mat.emission_texture]
-    out[18:21] = base[:3]
-    out[21:24] = emission
-    out[24] = mat.occlusion_strength
-    return out
+    row[c.EMISSION_LINEAR] = _to_linear_np(emission)
+    row[c.BASE_LINEAR] = _to_linear_np(base[:3])
+    row[c.ALPHA] = base[3]
+    row[c.ROUGHNESS] = mat.roughness_factor
+    row[c.METALLIC] = mat.metallic_factor
+    row[c.ALPHA_CUTOFF] = mat.alpha_cutoff
+    row[c.NORMAL_SCALE] = mat.normal_scale
+    row[c.FLAGS] = float(int(mat.flags))
+    row[c.TEX_IDS] = [mat.base_color_texture, mat.roughness_metallic_texture,
+                      mat.normal_texture, mat.occlusion_texture,
+                      mat.emission_texture]
+    row[c.BASE_COLOR] = base[:3]
+    row[c.EMISSION] = emission
+    row[c.OCCLUSION] = mat.occlusion_strength
+    return row[TRI_SHADE_MATERIAL]
 
 
 class InstancedAccel:
@@ -325,7 +333,8 @@ class InstancedAccel:
                     fused_parts.append(cuda_traverse.pack_shade_records(
                         blas.tri_nrm, np.zeros(blas.padded, np.float32),
                         shade_mode == 2, tri_tan=blas.tri_tan,
-                        tri_uv=blas.tri_uv, tri_uvd=blas.shade[:, 27]))
+                        tri_uv=blas.tri_uv,
+                        tri_uvd=blas.shade[:, TriGeometry.UV_DENSITY]))
                 srow += len(rows)
                 tri0 += blas.padded
 
@@ -542,16 +551,45 @@ def _instance_rows(world, blas_lo, blas_hi, double_sided, material_ids,
     inst_trace[:, 15] = 1.0 / np.maximum(scale, 1e-6)
     inst_trace[:, 16:25] = nmat
     inst_trace[:, 25:34] = lin.reshape(count, 9)
-    inst_shade[:, 0:9] = nmat
-    inst_shade[:, 9:18] = lin.reshape(count, 9)
-    inst_shade[:, 18:46] = material_rows
-    inst_shade[:, 46] = scale
+    inst_shade[:, InstShade.NORMAL_MATRIX] = nmat
+    inst_shade[:, InstShade.WORLD_LINEAR] = lin.reshape(count, 9)
+    inst_shade[:, InstShade.MATERIAL] = material_rows
+    inst_shade[:, InstShade.SCALE] = scale
     # Corner c takes hi on axis k where bit 2 - k of c is set (the
     # reference's meshgrid order).
     bits = (np.arange(8)[:, None] >> np.arange(2, -1, -1)) & 1
     corners = np.where(bits[None] == 1, blas_hi[:, None], blas_lo[:, None])
     wc = corners @ lin.transpose(0, 2, 1) + world[:, None, :3, 3]
     return inst_trace, inst_shade, wc.min(axis=1), wc.max(axis=1)
+
+
+def world_shade_rows(tables: InstancedTables, tri: torch.Tensor,
+                     inst: torch.Tensor) -> torch.Tensor:
+    """The world-space tri_shade rows (TriShade) of hits on the pool's
+    triangles `tri` of instances `inst`, int64 (N,) each
+    (integrator.py:82-129): the object-space geometric BLAS row composed
+    with the instance's material row, normals rotated by the instance's
+    normal matrix and tangents by its world linear matrix (plain indexing
+    of inst_shade; the reference's select chain over few instances gives
+    the same rows)."""
+    geo = tables.blas_shade[tri]
+    irow = tables.inst_shade[inst]
+    nm = irow[:, InstShade.NORMAL_MATRIX]
+    wl = irow[:, InstShade.WORLD_LINEAR]
+
+    def rotate(vecs, m):
+        return torch.cat([cuda_traverse.rotate(m, vecs[:, i:i + 3])
+                          for i in range(0, vecs.shape[1], 3)], dim=-1)
+
+    # The uv density is per world length: divide by the instance scale.
+    uvd = geo[:, TriGeometry.UV_DENSITY, None] / torch.clamp(
+        irow[:, InstShade.SCALE, None], min=1e-6)
+    # TriShade's column order.
+    return torch.cat([rotate(geo[:, TriGeometry.NORMALS], nm),
+                      rotate(geo[:, TriGeometry.TANGENTS], wl),
+                      geo[:, TriGeometry.UVS],
+                      rotate(geo[:, TriGeometry.GEOM_NORMAL], nm), uvd,
+                      irow[:, InstShade.MATERIAL]], dim=-1)
 
 
 def trace_nearest_instanced(tables: InstancedTables, o, d, t_min, t_max,

@@ -35,9 +35,10 @@ import torch
 from steeljax_torch.accel.dispatch import trace_nearest
 from steeljax_torch.core import camera as camera_lib
 from steeljax_torch.env.cubemap import face_directions
-from steeljax_torch.render.pt.integrator import shade_rows
 from steeljax_torch.render.pt.renderer import prepare_scene
+from steeljax_torch.render.surface import shade_rows
 from steeljax_torch.scene import load_scene
+from steeljax_torch.scene.flatten import TriShade
 
 GALLERY = "/root/reference/Gallery/Images/CornellBox_PathTracing.png"
 SCENE = "/root/reference/Assets/Scenes/CornellBox/CornellBox.gltf"
@@ -116,7 +117,7 @@ def samples_from_image(img: np.ndarray, scene,
 
     # Mirror-sphere reflections that escape the box.
     rows = shade_rows(flat, tables, rec).cpu().numpy()
-    mat = rows[:, 28].astype(np.int64)
+    mat = rows[:, TriShade.MAT_ID].astype(np.int64)
     params = flat.mat_params.cpu().numpy()
     mrough, mmetal = params[:, 0], params[:, 1]
     mirror_mats = np.nonzero((mmetal > 0.9) & (mrough < 0.3))[0]
@@ -124,8 +125,8 @@ def samples_from_image(img: np.ndarray, scene,
     if is_mirror.any():
         u, v, t = (rec[k].cpu().numpy() for k in ("u", "v", "t"))
         w = 1.0 - u - v
-        n = (rows[:, 0:3] * w[:, None] + rows[:, 3:6] * u[:, None]
-             + rows[:, 6:9] * v[:, None])
+        n = rows[:, TriShade.NORMALS].reshape(-1, 3, 3)
+        n = n[:, 0] * w[:, None] + n[:, 1] * u[:, None] + n[:, 2] * v[:, None]
         n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
         cos = -np.sum(d * n, axis=-1)
         n = np.where((cos < 0)[:, None], -n, n)

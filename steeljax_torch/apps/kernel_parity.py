@@ -547,7 +547,7 @@ def _bounce_rays(flat, tables, o, d, near, far, seed):
 
     rec = integrator.trace_material_ray(flat, tables, o, d, near, far,
                                         cull_backface=True)
-    surface, tbn = integrator.unpack_material_fused(flat, rec)
+    surface, tbn = integrator.unpack_material(flat, tables, rec, d)
     if flat.light_count > 0:
         _, seed = stages.sample_light(flat, tbn[2],
                                       o + d * rec["t"][:, None], seed)
@@ -683,13 +683,13 @@ def sunlit_shadow_case(scene, flat, tables, width: int, height: int):
     scene (bounce 0 of its bounce loop): (o, d, t_min, t_max), every lane
     as the integrator traces it."""
     from steeljax_torch.render.pt.integrator import (trace_material_ray,
-                                                     unpack_material_fused)
+                                                     unpack_material)
     from steeljax_torch.render.pt.stages import sample_light, shadow_rays
 
     o, d, near, far, seed = tiled_primary(scene, flat.device, width, height)
     rec = trace_material_ray(flat, tables, o, d, near, far,
                              cull_backface=True)
-    _, tbn = unpack_material_fused(flat, rec)
+    _, tbn = unpack_material(flat, tables, rec, d)
     p = o + d * rec["t"][:, None]
     light, _ = sample_light(flat, tbn[2], p, seed)
     so, sd, t_min, t_max = shadow_rays(p, tbn[2], light)
@@ -701,15 +701,14 @@ def foliage_shadow_case(scene, flat, tables, width: int, height: int):
     alpha-tested scene (bounce 0), each lane as the integrator traces it:
     (o, d, t_min, t_max).  The primaries resolve through the alpha
     re-trace, the shading through tri_shade rows."""
-    from steeljax_torch.render.pt.integrator import (shade_rows,
-                                                     trace_material_ray,
+    from steeljax_torch.render.pt.integrator import (trace_material_ray,
                                                      unpack_material)
     from steeljax_torch.render.pt.stages import sample_light, shadow_rays
 
     o, d, near, far, seed = tiled_primary(scene, flat.device, width, height)
     rec = trace_material_ray(flat, tables, o, d, near, far,
                              cull_backface=True)
-    _, tbn = unpack_material(flat, rec, d, shade_rows(flat, tables, rec))
+    _, tbn = unpack_material(flat, tables, rec, d)
     p = o + d * rec["t"][:, None]
     light, _ = sample_light(flat, tbn[2], p, seed)
     so, sd, t_min, t_max = shadow_rays(p, tbn[2], light)

@@ -5,7 +5,7 @@ whole sequence of launch closures behind a device sleep and brackets it
 with two CUDA events, so that no host gap between the launches counts;
 queued_ms applies it to repeated launches of one kernel, trace_device_ms
 to one treelet trace (the scheduler's first pick and its K rounds of the
-treelet kernel K7).  chip_smoke.py and apps/kernel_ab.py time with these.
+treelet kernel K7).  chip_smoke.py times with these.
 """
 
 from __future__ import annotations

@@ -50,7 +50,7 @@ from steeljax_torch.accel.treelets import TreeletTables
 from steeljax_torch.env.cubemap import pack_mips_tri
 from steeljax_torch.env.environment import Environment
 from steeljax_torch.gi.light_volume import LightVolume
-from steeljax_torch.scene.flatten import FlatScene
+from steeljax_torch.scene.flatten import FlatScene, TriShade
 
 _STATIC_FIELDS = ("light_count", "env_enabled", "env_analytic",
                   "any_alpha_test", "any_alpha_blend", "has_textures",
@@ -179,7 +179,7 @@ def _chunk(flat, chunk, dev, mode: int, fine: bool, scene) -> ChunkTables:
             np.asarray(flat.tri_nrm)[s], np.asarray(flat.tri_mat)[s],
             mode == 2, tri_tan=np.asarray(flat.tri_tan)[s],
             tri_uv=np.asarray(flat.tri_uv)[s],
-            tri_uvd=np.asarray(flat.tri_shade)[s, 27])
+            tri_uvd=np.asarray(flat.tri_shade)[s, TriShade.UV_DENSITY])
     dense = chunk.anyhit_tris is not None
     alpha = chunk.tri_mask is not None
     port = ChunkTables(

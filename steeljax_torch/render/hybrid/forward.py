@@ -30,14 +30,14 @@ from steeljax_torch.core.constants import RAY_DEAD_T
 from steeljax_torch.env.cubemap import sample_cube_quads
 from steeljax_torch.env.environment import Environment
 from steeljax_torch.env.sky import sky_radiance
-from steeljax_torch.render.hybrid.gbuffer import _interp_cols, select_rec
 from steeljax_torch.render.hybrid.lighting import (compute_direct_lighting,
                                                    compute_indirect_lighting)
-from steeljax_torch.render.pt import brdf as brdf_lib
-from steeljax_torch.render.pt.integrator import (_alpha_rejected, _normalize,
-                                                 _retrace_tmin, shade_rows)
-from steeljax_torch.render.texture import sample_bilinear
-from steeljax_torch.scene.flatten import FlatScene
+from steeljax_torch.render.surface import (alpha_rejected, bilinear,
+                                           interpolate, material_flag,
+                                           normalize, retrace_tmin,
+                                           select_rec, shade_rows,
+                                           textured_surface)
+from steeljax_torch.scene.flatten import FlatScene, TriShade
 from steeljax_torch.scene.material import MaterialFlags
 
 
@@ -47,10 +47,8 @@ def _forward_rejected(scene: FlatScene, tables, rec,
     G-buffer), or under kForceForward alpha-test texels below the cutoff."""
     row = shade_rows(scene, tables, rec)
     if all_materials:
-        return _alpha_rejected(scene, rec, row)
-    blend = (row[:, 40].to(torch.int32)
-             & int(MaterialFlags.ALPHA_BLEND)) != 0
-    return rec["hit"] & ~blend
+        return alpha_rejected(scene, rec, row)
+    return rec["hit"] & ~material_flag(row, MaterialFlags.ALPHA_BLEND)
 
 
 def trace_blend(scene: FlatScene, tables: TraceTables, o, d, t_min, t_max,
@@ -64,7 +62,7 @@ def trace_blend(scene: FlatScene, tables: TraceTables, o, d, t_min, t_max,
     rec = trace_nearest(tables, o, d, t_min, t_max, cull_backface=True)
     for _ in range(max_retrace):
         rejected = _forward_rejected(scene, tables, rec, all_materials)
-        again = trace_nearest(tables, o, d, _retrace_tmin(rec["t"]),
+        again = trace_nearest(tables, o, d, retrace_tmin(rec["t"]),
                               torch.where(rejected, tmax, RAY_DEAD_T),
                               cull_backface=True)
         rec = select_rec(rejected, again, rec)
@@ -83,54 +81,31 @@ def shade_forward(scene: FlatScene, tables: TraceTables, env: Environment,
     (N, 3), alpha (N,)).  With `all_materials` non-blend materials return
     alpha 1 (their pipelines do not blend)."""
     u, v_bar = rec["u"], rec["v"]
-    shade = shade_rows(scene, tables, rec)
+    row = shade_rows(scene, tables, rec)
     p = o + d * rec["t"][..., None]
-    uv = _interp_cols(shade, 18, u, v_bar, width=2)
-    normal = _normalize(_interp_cols(shade, 0, u, v_bar))
-    tangent = _normalize(_interp_cols(shade, 9, u, v_bar))
-    view = _normalize(camera_position - p)
+    uv = interpolate(row, TriShade.UVS, u, v_bar)
+    normal = normalize(interpolate(row, TriShade.NORMALS, u, v_bar))
+    tangent = normalize(interpolate(row, TriShade.TANGENTS, u, v_bar))
+    view = normalize(camera_position - p)
 
-    flags = shade[:, 40].to(torch.int32)
-    ds_mat = (flags & int(MaterialFlags.DOUBLE_SIDED)) != 0
-    flip = ds_mat & ((normal * view).sum(dim=-1) < 0.0)
+    flip = (material_flag(row, MaterialFlags.DOUBLE_SIDED)
+            & ((normal * view).sum(dim=-1) < 0.0))
     normal = torch.where(flip[..., None], -normal, normal)
 
-    def tex(col):
-        idx = shade[:, col].to(torch.int32)
-        if not scene.has_textures:
-            return torch.ones(idx.shape + (4,), device=idx.device), idx >= 0
-        return sample_bilinear(scene.atlas, scene.tex_offset,
-                               scene.tex_size, idx, uv), idx >= 0
-
+    s = textured_surface(row, TriShade, row[:, TriShade.TEX_IDS],
+                         bilinear(scene, uv),
+                         ("base_color", "alpha", "roughness", "metallic",
+                          "occlusion", "emission"), normal, tangent)
     if scene.has_textures:
-        nm, has_nm = tex(43)
-        ns = nm[..., :3] * 2.0 - 1.0
-        scale = shade[:, 39]
-        ns = _normalize(ns * torch.stack(
-            [scale, scale, torch.ones_like(scale)], dim=-1))
-        tbn = brdf_lib.make_tbn_with_tangent(normal, tangent)
-        mapped = _normalize(brdf_lib.tangent_to_world(ns, tbn))
-        normal = torch.where(has_nm[..., None], mapped, normal)
-
-    base_s, has_base = tex(41)
-    base_raw = shade[:, 46:49] * torch.where(has_base[..., None],
-                                             base_s[..., :3], 1.0)
-    alpha = shade[:, 35] * torch.where(has_base, base_s[..., 3], 1.0)
-    base_color = to_linear(base_raw)
-
-    rm_s, has_rm = tex(42)
-    roughness = shade[:, 36] * torch.where(has_rm, rm_s[..., 1], 1.0)
-    metallic = shade[:, 37] * torch.where(has_rm, rm_s[..., 2], 1.0)
+        normal = torch.where(s["has_normal_map"][..., None], s["normal"],
+                             normal)
+    base_color = to_linear(s["base_color"])
+    alpha, roughness, metallic = s["alpha"], s["roughness"], s["metallic"]
     if override_material is not None:
         # DEBUG_OVERRIDE_MATERIAL (Forward.frag:46-49).
         roughness = torch.full_like(roughness, override_material[0])
         metallic = torch.full_like(metallic, override_material[1])
-
-    occ_s, has_occ = tex(44)
-    occlusion = shade[:, 52] * torch.where(has_occ, occ_s[..., 0], 1.0)
-    em_s, has_em = tex(45)
-    emission = to_linear(shade[:, 49:52] * torch.where(
-        has_em[..., None], em_s[..., :3], 1.0))
+    emission = to_linear(s["emission"])
 
     f0 = 0.04 + (base_color - 0.04) * metallic[..., None]
     nov = torch.clamp((normal * view).sum(dim=-1), min=0.0)
@@ -142,10 +117,10 @@ def shade_forward(scene: FlatScene, tables: TraceTables, env: Environment,
         direct = torch.zeros_like(base_color)
     indirect = compute_indirect_lighting(
         env, p, normal, view, nov, base_color, f0, roughness, metallic,
-        occlusion)
+        s["occlusion"])
     if all_materials:
-        blend = (flags & int(MaterialFlags.ALPHA_BLEND)) != 0
-        alpha = torch.where(blend, alpha, 1.0)
+        alpha = torch.where(material_flag(row, MaterialFlags.ALPHA_BLEND),
+                            alpha, 1.0)
     return direct + indirect + emission, alpha
 
 
@@ -186,7 +161,7 @@ def forward_stage(scene: FlatScene, tables: TraceTables, env: Environment,
                            torch.clamp(alpha, 0.0, 1.0)))
             # Finished rays get an empty interval, so later peels reject
             # them before the walk.
-            tmin = torch.where(rec["hit"], _retrace_tmin(rec["t"]),
+            tmin = torch.where(rec["hit"], retrace_tmin(rec["t"]),
                                blend_tmax + 1.0)
 
     # Far to near over the opaque and background image: the blend state of

@@ -35,11 +35,12 @@ from steeljax_torch.accel.dispatch import TraceTables, trace_nearest
 from steeljax_torch.core import profiling
 from steeljax_torch.core.constants import RAY_DEAD_T
 from steeljax_torch.render.hybrid.raster import raster_rec
-from steeljax_torch.render.pt import brdf as brdf_lib
-from steeljax_torch.render.pt.integrator import (_alpha_rejected, _normalize,
-                                                 material_select, shade_rows)
+from steeljax_torch.render.surface import (alpha_rejected, interpolate,
+                                           material_flag, material_select,
+                                           normalize, select_rec, shade_rows,
+                                           textured_surface)
 from steeljax_torch.render.texture import sample_trilinear
-from steeljax_torch.scene.flatten import FlatScene
+from steeljax_torch.scene.flatten import FlatScene, MatPacked, TriShade
 from steeljax_torch.scene.material import MaterialFlags
 
 
@@ -49,29 +50,12 @@ def _quantize(x: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.round(torch.clamp(x, 0.0, 1.0) * levels) / levels
 
 
-def _interp_cols(row, base: int, u, v, width: int = 3):
-    """Barycentric interpolation of a per-vertex attribute stored as three
-    consecutive `width`-column blocks of a tri_shade row."""
-    w = (1.0 - u - v)[..., None]
-    return (row[:, base:base + width] * w
-            + row[:, base + width:base + 2 * width] * u[..., None]
-            + row[:, base + 2 * width:base + 3 * width] * v[..., None])
-
-
 def _opaque_rejected(scene: FlatScene, tables, rec) -> torch.Tensor:
     """hit & (alpha blend | alpha-test discard): surfaces the G-buffer does
     not show (they belong to the forward stage)."""
     row = shade_rows(scene, tables, rec)
-    blend = (row[:, 40].to(torch.int32)
-             & int(MaterialFlags.ALPHA_BLEND)) != 0
-    return (rec["hit"] & blend) | _alpha_rejected(scene, rec, row)
-
-
-def select_rec(mask: torch.Tensor, new: dict, old: dict) -> dict:
-    """Field by field, `new` where `mask` holds and `old` elsewhere; (N,)
-    and (N, k) fields alike."""
-    return {k: torch.where(mask.reshape((-1,) + (1,) * (old[k].dim() - 1)),
-                           new[k], old[k]) for k in old}
+    return ((rec["hit"] & material_flag(row, MaterialFlags.ALPHA_BLEND))
+            | alpha_rejected(scene, rec, row))
 
 
 def trace_opaque(scene: FlatScene, tables: TraceTables, o, d, t_min, t_max,
@@ -143,7 +127,8 @@ def generate_gbuffer(scene: FlatScene, tables: TraceTables, o, d,
     p = o + d * rec["t"][..., None]
 
     if "n" in rec:  # the trace kernel's fused shading outputs
-        mrow, _, tex_ids = material_select(scene, rec["mat"])
+        rows, _, tex = material_select(scene, rec["mat"])
+        layout = MatPacked
         # The kernel interpolated and normalized the normal and flipped it
         # by winding; with culling on, that flips exactly the double-sided
         # backfaces (Material.glsl:33-38 with a geometric test).
@@ -154,38 +139,20 @@ def generate_gbuffer(scene: FlatScene, tables: TraceTables, o, d,
         # The LOD's incidence term from the shading normal: the kernel
         # exports no geometric normal.
         cos_inc = torch.clamp((normal * d).sum(dim=-1).abs(), min=0.3)
-        base_factor = mrow[:, 0:3]
-        em_factor = mrow[:, 4:7]
-        rough_factor = mrow[:, 7]
-        metal_factor = mrow[:, 8]
-        normal_scale = mrow[:, 9]
-        occl_strength = mrow[:, 10]
-
-        def slot_idx(slot):
-            return tex_ids[:, slot]
     else:
-        shade = shade_rows(scene, tables, rec)        # (N, 56)
-        uv = _interp_cols(shade, 18, u, v, width=2)
-        normal = _normalize(_interp_cols(shade, 0, u, v))
-        tangent = _normalize(_interp_cols(shade, 9, u, v))
-        geom_n = _normalize(shade[:, 24:27])
+        rows = shade_rows(scene, tables, rec)
+        layout, tex = TriShade, rows[:, TriShade.TEX_IDS]
+        uv = interpolate(rows, layout.UVS, u, v)
+        normal = normalize(interpolate(rows, layout.NORMALS, u, v))
+        tangent = normalize(interpolate(rows, layout.TANGENTS, u, v))
+        geom_n = normalize(rows[:, layout.GEOM_NORMAL])
         cos_inc = torch.clamp((geom_n * d).sum(dim=-1).abs(), min=0.3)
-        uv_density = shade[:, 27]
-        flags = shade[:, 40].to(torch.int32)
-        base_factor = shade[:, 46:49]
-        em_factor = shade[:, 49:52]
-        rough_factor = shade[:, 36]
-        metal_factor = shade[:, 37]
-        normal_scale = shade[:, 39]
-        occl_strength = shade[:, 52]
-
-        def slot_idx(slot):
-            return shade[:, 41 + slot].to(torch.int32)
+        uv_density = rows[:, layout.UV_DENSITY]
 
         # DOUBLE_SIDED: face the viewer (Material.glsl:33-38).
-        view = _normalize(camera_position - p)
-        ds_mat = (flags & int(MaterialFlags.DOUBLE_SIDED)) != 0
-        flip = ds_mat & ((normal * view).sum(dim=-1) < 0.0)
+        view = normalize(camera_position - p)
+        flip = (material_flag(rows, MaterialFlags.DOUBLE_SIDED)
+                & ((normal * view).sum(dim=-1) < 0.0))
         normal = torch.where(flip[..., None], -normal, normal)
 
     # Mip lod from the ray footprint (the raster pipeline's derivatives):
@@ -194,42 +161,20 @@ def generate_gbuffer(scene: FlatScene, tables: TraceTables, o, d,
     footprint_uv = (rec["t"] * pixel_spread / cos_inc) * uv_density
     base_lod = torch.log2(torch.clamp(footprint_uv, min=1e-20))
 
-    def lod_of(idx):
+    def sample(idx):
         width = torch.clamp(scene.tex_size[idx.long().clamp(min=0), 0],
                             min=1)
-        return base_lod + torch.log2(width.to(torch.float32))
+        lod = base_lod + torch.log2(width.to(torch.float32))
+        return sample_trilinear(scene.atlas, scene.tex_offset,
+                                scene.tex_size, idx, uv, lod)
 
-    # NORMAL_MAPPING (Material.glsl:40-47), for textured scenes only.
+    s = textured_surface(rows, layout, tex,
+                         sample if scene.has_textures else None,
+                         ("base_color", "emission", "roughness", "metallic",
+                          "occlusion"), normal, tangent)
     if scene.has_textures:
-        n_idx = slot_idx(2)
-        ns = sample_trilinear(scene.atlas, scene.tex_offset, scene.tex_size,
-                              n_idx, uv, lod_of(n_idx))[..., :3] * 2.0 - 1.0
-        scale = normal_scale
-        ns = _normalize(ns * torch.stack(
-            [scale, scale, torch.ones_like(scale)], dim=-1))
-        tbn = brdf_lib.make_tbn_with_tangent(normal, tangent)
-        mapped = _normalize(brdf_lib.tangent_to_world(ns, tbn))
-        normal = torch.where((n_idx >= 0)[..., None], mapped, normal)
-
-    def tex_sample(slot):
-        idx = slot_idx(slot)
-        if not scene.has_textures:
-            return torch.ones(idx.shape + (4,), device=idx.device), idx >= 0
-        s = sample_trilinear(scene.atlas, scene.tex_offset, scene.tex_size,
-                             idx, uv, lod_of(idx))
-        return s, idx >= 0
-
-    base_tex, has_base = tex_sample(0)
-    base_color = base_factor * torch.where(has_base[..., None],
-                                           base_tex[..., :3], 1.0)
-    em_tex, has_em = tex_sample(4)
-    emission = em_factor * torch.where(has_em[..., None], em_tex[..., :3],
-                                       1.0)
-    rm_tex, has_rm = tex_sample(1)
-    roughness = rough_factor * torch.where(has_rm, rm_tex[..., 1], 1.0)
-    metallic = metal_factor * torch.where(has_rm, rm_tex[..., 2], 1.0)
-    occ_tex, has_occ = tex_sample(3)
-    occlusion = occl_strength * torch.where(has_occ, occ_tex[..., 0], 1.0)
+        normal = torch.where(s["has_normal_map"][..., None], s["normal"],
+                             normal)
 
     # Reverse-z NDC depth from the (already reverse-depth) projection.
     clip = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1) @ view_proj.T
@@ -239,11 +184,11 @@ def generate_gbuffer(scene: FlatScene, tables: TraceTables, o, d,
     col = hit[..., None]
     return {
         "normal": torch.where(col, _quantize(normal * 0.5 + 0.5, 10), 0.0),
-        "emission": torch.where(col, emission, 0.0),
+        "emission": torch.where(col, s["emission"], 0.0),
         "base_color_occlusion": torch.where(col, _quantize(torch.cat(
-            [base_color, occlusion[..., None]], dim=-1), 8), 0.0),
+            [s["base_color"], s["occlusion"][..., None]], dim=-1), 8), 0.0),
         "rough_metal": torch.where(col, _quantize(torch.stack(
-            [roughness, metallic], dim=-1), 8), 0.0),
+            [s["roughness"], s["metallic"]], dim=-1), 8), 0.0),
         "depth": torch.where(hit, depth, 0.0),  # clear = 0 under reverse z
         "hit": hit,
     }

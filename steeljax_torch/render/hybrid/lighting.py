@@ -30,7 +30,8 @@ from steeljax_torch.env.environment import Environment
 from steeljax_torch.env.ibl import eval_cube_sh
 from steeljax_torch.gi.sample import sample_light_volume
 from steeljax_torch.render.pt import brdf as brdf_lib
-from steeljax_torch.render.pt.integrator import _normalize, trace_visibility
+from steeljax_torch.render.pt.integrator import trace_visibility
+from steeljax_torch.render.surface import normalize
 from steeljax_torch.scene.flatten import FlatScene
 
 def restore_position(depth, uv, inverse_proj_view):
@@ -55,7 +56,7 @@ def light_terms(scene: FlatScene, i: int, position, n):
     attenuation = torch.where(
         is_point == 0.0, 1.0,
         1.0 / torch.clamp(distance * distance, min=1e-20))
-    l = _normalize(direction)
+    l = normalize(direction)
     nol = torch.clamp((n * l).sum(dim=-1), min=0.0)
     lum = 0.2126 * color[0] + 0.7152 * color[1] + 0.0722 * color[2]
     return l, distance, attenuation, nol, attenuation * nol * lum, color
@@ -87,7 +88,7 @@ def compute_direct_lighting(scene: FlatScene, tables: TraceTables,
     for i in range(scene.light_count):
         l, distance, attenuation, nol, irradiance, color = light_terms(
             scene, i, position, n)
-        h = _normalize(l + v)
+        h = normalize(l + v)
         noh = torch.clamp((n * h).sum(dim=-1), min=0.0)
         voh = torch.clamp((v * h).sum(dim=-1), min=0.0)
 
@@ -197,7 +198,7 @@ def deferred_lighting(scene: FlatScene, tables: TraceTables,
                else "both")
 
     f0 = DIELECTRIC_F0 + (base_color - DIELECTRIC_F0) * metallic[..., None]
-    v = _normalize(camera_position - position)
+    v = normalize(camera_position - position)
     nov = torch.clamp((n * v).sum(dim=-1), min=0.0)
 
     with profiling.named_scope("lighting_stage.direct"):

@@ -60,6 +60,7 @@ import dataclasses
 
 import torch
 
+from steeljax_torch.render.surface import material_flag
 from steeljax_torch.scene.material import MaterialFlags
 
 # Subtile: the binning granule and the pixel group of one raster block (768
@@ -110,8 +111,7 @@ def prepare_raster(flat, tables) -> RasterScene | None:
     multi-chunk branch), in the tables' triangle order."""
     if getattr(tables, "chunks", None) is None or tables.treelets is not None:
         return None
-    flags = flat.tri_shade[:, 40].to(torch.int64)
-    in_raster = (flags & int(MaterialFlags.ALPHA_BLEND)) == 0
+    in_raster = ~material_flag(flat.tri_shade, MaterialFlags.ALPHA_BLEND)
     # Pad slots (tri_pos parked at 3e37) are also culled by the vertex
     # magnitude test of raster_visibility.
     in_raster &= flat.tri_pos[:, 0, 0] < 3.0e36

@@ -18,7 +18,7 @@ alone (dead rays sink, the live ones keep their order).
 
 Alpha-tested materials (the reference's any-hit shader, AnyHit.rahit:
 25-52): the trace kernel K4 drops candidates the coverage masks prove
-transparent, and the integrator's exact test (_alpha_rejected) re-traces
+transparent, and the exact test (render/surface.alpha_rejected) re-traces
 past the rest, a bounded number of passes; with tables.multihit_k > 0 the
 multi-hit kernel K5 returns K candidates per walk instead.  Every pass runs
 unconditionally, with the rays that need no re-trace given the dead
@@ -31,7 +31,7 @@ by hit (the K-nearest kernel K5 traces one chunk, as in the reference).
 Instanced tables (accel.instances, kernel K6) and treelet tables
 (accel.treelets, K7) answer the same queries through accel.dispatch; with
 instanced tables the unfused shading rows are composed from the BLAS's
-object-space row and the instance's material row (shade_rows).
+object-space row and the instance's material row (surface.shade_rows).
 
 `render_pixels` is a frame of core.profiling's record
 (`integrator.render_pixels`): the pixel upload `integrator.upload_pixels`
@@ -59,7 +59,6 @@ import numpy as np
 import torch
 
 from steeljax_torch.accel.bvh import TRI_PER_ROW
-from steeljax_torch.accel.cuda_traverse import rotate as rotate3
 from steeljax_torch.accel.dispatch import (TraceTables, trace_any,
                                            trace_multihit, trace_nearest)
 from steeljax_torch.accel.instances import InstancedTables
@@ -70,13 +69,11 @@ from steeljax_torch.core.constants import RAY_DEAD_T, RAY_MAX_T
 from steeljax_torch.env.cubemap import sample_cube_quads
 from steeljax_torch.render.pt import brdf as brdf_lib
 from steeljax_torch.render.pt import frame_graphs, stages
-from steeljax_torch.render.texture import sample_bilinear
-from steeljax_torch.scene.flatten import FlatScene
-from steeljax_torch.scene.material import MaterialFlags
-
-def _normalize(v: torch.Tensor) -> torch.Tensor:
-    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
-                           min=1e-20)
+from steeljax_torch.render.surface import (alpha_rejected, bilinear,
+                                           interpolate, material_select,
+                                           normalize, retrace_tmin,
+                                           shade_rows, textured_surface)
+from steeljax_torch.scene.flatten import FlatScene, MatPacked, TriShade
 
 
 def _matrix(m, device) -> torch.Tensor:
@@ -104,11 +101,11 @@ def primary_rays(inverse_view, inverse_proj, width, height, px, py, seed):
     xy = torch.stack([u, v], dim=-1) * 2.0 - 1.0
 
     target = torch.cat([xy, torch.ones_like(xy)], dim=-1) @ inverse_proj.T
-    direction = _normalize(target[..., :3])
+    direction = normalize(target[..., :3])
     direction = (torch.cat([direction, torch.zeros_like(direction[..., :1])],
                            dim=-1) @ inverse_view.T)[..., :3]
     origin = inverse_view[:3, 3].expand(direction.shape)
-    return origin, _normalize(direction), seed
+    return origin, normalize(direction), seed
 
 
 # ---------------------------------------------------------------------------
@@ -185,65 +182,6 @@ def repack_rays(key: torch.Tensor, columns):
 # Hit shading inputs (ClosestHit.rchit + UnpackMaterial, RayGen.rgen:72-115)
 # ---------------------------------------------------------------------------
 
-def material_select(scene: FlatScene, mid: torch.Tensor):
-    """Per-ray material constants: (packed_row (N, 16), emission_linear
-    (N, 3), texture ids (N, 5)).  The reference builds these with a select
-    chain because a TPU gather is slow; plain indexing gives the same
-    values."""
-    mid = mid.long()
-    return (scene.mat_packed[mid], scene.mat_emission_linear[mid],
-            scene.mat_tex[mid])
-
-
-def shade_rows(scene: FlatScene, tables, rec: dict) -> torch.Tensor:
-    """The (N, 56) shading rows of the hits, tri_shade layout, world space
-    (integrator.py:82-129).  Flat tables: one tri_shade row gather.
-    Instanced tables: the object-space geometric BLAS row composed with
-    the instance's material row, normals rotated by the instance's normal
-    matrix and tangents by its world linear matrix (plain indexing of
-    inst_shade; the reference's select chain over few instances gives the
-    same rows)."""
-    tri = rec["tri"].clamp(min=0).long()
-    if not isinstance(tables, InstancedTables):
-        return scene.tri_shade[tri]
-    geo = tables.blas_shade[tri]                              # (N, 28)
-    irow = tables.inst_shade[rec["inst"].clamp(min=0).long()]  # (N, 48)
-    nm = irow[:, 0:9]
-    wl = irow[:, 9:18]
-
-    def rotate(vecs, m, k):
-        return torch.cat([rotate3(m, vecs[:, 3 * i:3 * i + 3])
-                          for i in range(k)], dim=-1)
-
-    normals = rotate(geo[:, 0:9], nm, 3)
-    tangents = rotate(geo[:, 9:18], wl, 3)
-    geom_n = rotate(geo[:, 24:27], nm, 1)
-    # The uv density is per world length: divide by the instance scale.
-    uvd = geo[:, 27:28] / torch.clamp(irow[:, 46:47], min=1e-6)
-    return torch.cat([normals, tangents, geo[:, 18:24], geom_n, uvd,
-                      irow[:, 18:46]], dim=-1)
-
-
-def _alpha_rejected(scene: FlatScene, rec: dict, row: torch.Tensor
-                    ) -> torch.Tensor:
-    """hit & alpha-test & alpha < cutoff at a hit (AnyHit.rahit:35-52,
-    integrator.py:132-148).  One shading row covers the flags, cutoff,
-    alpha factor, base texture id and the uv triangle."""
-    flags = row[:, 40].to(torch.int32)
-    is_alpha_test = (flags & int(MaterialFlags.ALPHA_TEST)) != 0
-    alpha = row[:, 35]
-    if scene.has_textures:
-        u, v = rec["u"], rec["v"]
-        w = (1.0 - u - v)[..., None]
-        uv = (row[:, 18:20] * w + row[:, 20:22] * u[..., None]
-              + row[:, 22:24] * v[..., None])
-        tex = row[:, 41].to(torch.int32)
-        sampled = sample_bilinear(scene.atlas, scene.tex_offset,
-                                  scene.tex_size, tex, uv)[..., 3]
-        alpha = alpha * torch.where(tex >= 0, sampled, 1.0)
-    return rec["hit"] & is_alpha_test & (alpha < row[:, 38])
-
-
 def _surface(base_color, roughness, metallic, emission) -> dict:
     """The surface's inputs, as the stages take them (stages.py derives
     brdf.make_surface's terms from them)."""
@@ -251,110 +189,53 @@ def _surface(base_color, roughness, metallic, emission) -> dict:
             "metallic": metallic, "emission": emission}
 
 
-def unpack_material(scene: FlatScene, rec: dict, ray_d: torch.Tensor,
-                    shade: torch.Tensor):
-    """Attribute interpolation and UnpackMaterial from the hits' tri_shade
-    rows (RayGen.rgen:72-115, integrator.py:602-688), the path of tables
-    without fused shading.  The normal is flipped where geom_n . d > 0
-    (ClosestHit.rchit:67-70).  Returns (surface, tbn), surface _surface's
-    dict."""
-    u, v = rec["u"], rec["v"]
-    w = (1.0 - u - v)[..., None]
-    uw = u[..., None]
-    vw = v[..., None]
-    normal = _normalize(shade[:, 0:3] * w + shade[:, 3:6] * uw
-                        + shade[:, 6:9] * vw)
-    if scene.has_textures:
-        tangent = _normalize(shade[:, 9:12] * w + shade[:, 12:15] * uw
-                             + shade[:, 15:18] * vw)
-        uv = (shade[:, 18:20] * w + shade[:, 20:22] * uw
-              + shade[:, 22:24] * vw)
-    backface = (shade[:, 24:27] * ray_d).sum(dim=-1) > 0.0
-    normal = torch.where(backface[..., None], -normal, normal)
+# The material terms a bounce shades with.
+_SHADE_TERMS = ("base_color", "roughness", "metallic", "emission")
+
+
+def unpack_material(scene: FlatScene, tables, rec: dict, d: torch.Tensor):
+    """Surface + TBN at the hits of `rec` (UnpackMaterial, RayGen.rgen:
+    72-115).  From the trace kernel's fused outputs where the record has
+    them (integrator.py:554-599): the interpolated, normalized,
+    back-face-flipped normal and the material id, and in textured scenes
+    (shade mode 2) the tangent and uv.  Else from the hits' shading rows
+    (surface.shade_rows, integrator.py:602-688), the normal flipped where
+    geom_n . d > 0 (ClosestHit.rchit:67-70).  Untextured scenes take the
+    precomputed linear colours; textured ones normal-map and sample the
+    base-colour, roughness-metallic and emission textures.  Returns
+    (surface, tbn), surface _surface's dict."""
+    textured = scene.has_textures
+    if "n" in rec:
+        normal = rec["n"]
+        rows, emission, tex = material_select(scene, rec["mat"])
+        layout = MatPacked
+        plain = (rows[:, layout.BASE_LINEAR], rows[:, layout.ROUGHNESS],
+                 rows[:, layout.METALLIC], emission)
+        if textured:
+            tangent, uv = rec["tan"], rec["uv"]
+    else:
+        rows = shade_rows(scene, tables, rec)
+        layout, tex = TriShade, rows[:, TriShade.TEX_IDS]
+        u, v = rec["u"], rec["v"]
+        normal = normalize(interpolate(rows, layout.NORMALS, u, v))
+        if textured:
+            tangent = normalize(interpolate(rows, layout.TANGENTS, u, v))
+            uv = interpolate(rows, layout.UVS, u, v)
+        backface = (rows[:, layout.GEOM_NORMAL] * d).sum(dim=-1) > 0.0
+        normal = torch.where(backface[..., None], -normal, normal)
+        plain = (rows[:, layout.BASE_LINEAR], rows[:, layout.ROUGHNESS],
+                 rows[:, layout.METALLIC], rows[:, layout.EMISSION_LINEAR])
 
     tbn = brdf_lib.make_tbn(normal)
-    if not scene.has_textures:
-        return _surface(shade[:, 32:35], shade[:, 36], shade[:, 37],
-                        shade[:, 29:32]), tbn
-
-    def sample(col):
-        return sample_bilinear(scene.atlas, scene.tex_offset, scene.tex_size,
-                               shade[:, col].to(torch.int32), uv)
-
-    def tex_rgb(col):
-        return torch.where((shade[:, col] >= 0)[..., None],
-                           sample(col)[..., :3], 1.0)
-
-    ns = sample(43)[..., :3] * 2.0 - 1.0
-    scale = shade[:, 39]
-    ns = _normalize(ns * torch.stack(
-        [scale, scale, torch.ones_like(scale)], dim=-1))
-    tbn_t = brdf_lib.make_tbn_with_tangent(normal, tangent)
-    perturbed = _normalize(brdf_lib.tangent_to_world(ns, tbn_t))
-    tbn_nm = brdf_lib.make_tbn(perturbed)
-    has_nm = (shade[:, 43] >= 0)[..., None]
-    tbn = tuple(torch.where(has_nm, a, b) for a, b in zip(tbn_nm, tbn))
-
-    base_color = to_linear(shade[:, 46:49] * tex_rgb(41))
-    rm = sample(42)
-    has_rm = shade[:, 42] >= 0
-    roughness = shade[:, 36] * torch.where(has_rm, rm[..., 1], 1.0)
-    metallic = shade[:, 37] * torch.where(has_rm, rm[..., 2], 1.0)
-    emission = to_linear(shade[:, 49:52] * tex_rgb(45))
-    return _surface(base_color, roughness, metallic, emission), tbn
-
-
-def unpack_material_fused(scene: FlatScene, rec: dict):
-    """Surface + TBN from the trace kernel's fused outputs: the
-    interpolated, normalized, back-face-flipped normal and the material id,
-    and in textured scenes (shade mode 2) the tangent and uv, which drive
-    normal mapping and the base-colour, roughness-metallic and emission
-    textures (integrator.py:554-599).  Returns (surface, tbn), surface
-    _surface's dict."""
-    normal = rec["n"]
-    mrow, emission, tex = material_select(scene, rec["mat"])
-    base_color = mrow[:, 13:16]  # ToLinear(factor) precomputed
-    roughness = mrow[:, 7]
-    metallic = mrow[:, 8]
-
-    tbn = brdf_lib.make_tbn(normal)
-    if scene.has_textures:
-        uv = rec["uv"]
-
-        def sample(idx):
-            return sample_bilinear(scene.atlas, scene.tex_offset,
-                                   scene.tex_size, idx, uv)
-
-        def tex_rgb(idx):
-            return torch.where((idx >= 0)[..., None], sample(idx)[..., :3],
-                               1.0)
-
-        n_idx = tex[:, 2]
-        ns = sample(n_idx)[..., :3] * 2.0 - 1.0
-        scale = mrow[:, 9]
-        ns = _normalize(ns * torch.stack(
-            [scale, scale, torch.ones_like(scale)], dim=-1))
-        tbn_t = brdf_lib.make_tbn_with_tangent(normal, rec["tan"])
-        perturbed = _normalize(brdf_lib.tangent_to_world(ns, tbn_t))
-        tbn_nm = brdf_lib.make_tbn(perturbed)
-        has_nm = (n_idx >= 0)[..., None]
-        tbn = tuple(torch.where(has_nm, a, b) for a, b in zip(tbn_nm, tbn))
-
-        base_color = to_linear(mrow[:, 0:3] * tex_rgb(tex[:, 0]))
-        rm_idx = tex[:, 1]
-        rm = sample(rm_idx)
-        roughness = roughness * torch.where(rm_idx >= 0, rm[..., 1], 1.0)
-        metallic = metallic * torch.where(rm_idx >= 0, rm[..., 2], 1.0)
-        emission = to_linear(mrow[:, 4:7] * tex_rgb(tex[:, 4]))
-
-    return _surface(base_color, roughness, metallic, emission), tbn
-
-
-def _retrace_tmin(t: torch.Tensor) -> torch.Tensor:
-    """The re-trace interval's start past a rejected hit at t: relative, as
-    an absolute 1e-4 is below one fp32 ulp of far t and would find the
-    same triangle again (integrator.py:360-363)."""
-    return t * (1.0 + 1e-4) + 1e-4
+    if not textured:
+        return _surface(*plain), tbn
+    s = textured_surface(rows, layout, tex, bilinear(scene, uv),
+                         _SHADE_TERMS, normal, tangent)
+    has_nm = s["has_normal_map"][..., None]
+    tbn = tuple(torch.where(has_nm, a, b)
+                for a, b in zip(brdf_lib.make_tbn(s["normal"]), tbn))
+    return _surface(to_linear(s["base_color"]), s["roughness"],
+                    s["metallic"], to_linear(s["emission"])), tbn
 
 
 class _Compaction:
@@ -420,8 +301,8 @@ def trace_material_ray(scene: FlatScene, tables: TraceTables, o, d,
         def trace(o, d, t_min, t_max):
             rec = trace_nearest(tables, o, d, t_min, t_max,
                                 cull_backface=cull_backface)
-            return (rec, _alpha_rejected(scene, rec,
-                                         shade_rows(scene, tables, rec)),
+            return (rec, alpha_rejected(scene, rec,
+                                        shade_rows(scene, tables, rec)),
                     rec["t"])
     rec, counts = _bounded_retrace(tables, o, d, t_min, t_max, trace,
                                    max_alpha_retrace, retrace_log is not None)
@@ -457,7 +338,7 @@ def _bounded_retrace(tables: TraceTables, o, d, t_min, t_max, trace,
     for _ in range(max_alpha_retrace):
         with profiling.named_scope("integrator.retrace_pass"):
             again, pending_again, restart_again = trace(
-                o, d, _retrace_tmin(restart_t),
+                o, d, retrace_tmin(restart_t),
                 torch.where(pending, tmax, RAY_DEAD_T))
             rec = {k: torch.where(pending, again[k], rec[k]) for k in rec}
             restart_t = torch.where(pending, restart_again, restart_t)
@@ -488,8 +369,8 @@ def _resolve_multihit(scene: FlatScene, tables: TraceTables, slots: dict):
     for k in range(k_hits):
         rec_k = {f: slots[f][k] for f in ("t", "u", "v", "tri")}
         rec_k["hit"] = rec_k["tri"] >= 0
-        rejected = _alpha_rejected(scene, rec_k,
-                                   shade_rows(scene, tables, rec_k))
+        rejected = alpha_rejected(scene, rec_k,
+                                  shade_rows(scene, tables, rec_k))
         take = ~resolved & rec_k["hit"] & ~rejected
         for f in ("t", "u", "v", "tri"):
             rec[f] = torch.where(take, rec_k[f], rec[f])
@@ -595,15 +476,12 @@ def trace_paths(scene: FlatScene, tables: TraceTables, o, d, seed,
                     max_alpha_retrace=config.max_alpha_retrace,
                     retrace_log=retrace_log)
 
-            if "n" in rec:  # the fused kernel's shading outputs
-                with profiling.named_scope("integrator.shade_fused"):
-                    surface, tbn = unpack_material_fused(scene, rec)
-            else:
-                # No fused shading (STEELJAX_SHADE_MODE=0, or tables
-                # without it): gather the hits' tri_shade rows.
-                with profiling.named_scope("integrator.shade_gather"):
-                    surface, tbn = unpack_material(
-                        scene, rec, d, shade_rows(scene, tables, rec))
+            # The fused kernel's shading outputs, or without fused shading
+            # (STEELJAX_SHADE_MODE=0, or tables without it) the gather of
+            # the hits' shading rows.
+            with profiling.named_scope("integrator.shade_fused" if "n" in rec
+                                       else "integrator.shade_gather"):
+                surface, tbn = unpack_material(scene, tables, rec, d)
             if config.override_material is not None:
                 # DEBUG_OVERRIDE_MATERIAL (RayGen.rgen:99-102).
                 r_ov, m_ov = config.override_material
@@ -693,8 +571,8 @@ def _samples(scene: FlatScene, tables: TraceTables, inverse_view,
 
 
 # The frames' CUDA graphs (frame_graphs).  A test or an app that replaces
-# a function the frame calls (kernel_ab's earlier K2 launcher, walk_route's
-# walk) puts a FrameGraphs(frame_graphs.Eager()) in its place.
+# a function the frame calls (walk_route's walk) puts a
+# FrameGraphs(frame_graphs.Eager()) in its place.
 FRAME_GRAPHS = frame_graphs.FrameGraphs(frame_graphs.CudaGraphs())
 
 

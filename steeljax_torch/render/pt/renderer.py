@@ -35,7 +35,7 @@ from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.env.panorama import panorama_to_cube
 from steeljax_torch.io.image import load_hdr
 from steeljax_torch.render.pt.integrator import render_sample
-from steeljax_torch.scene.flatten import FlatScene, flatten_scene
+from steeljax_torch.scene.flatten import FlatScene, TriShade, flatten_scene
 from steeljax_torch.scene.scene import Scene
 
 
@@ -193,7 +193,7 @@ def prepare_scene(scene: Scene, device: torch.device | str,
                 tables, permuted["tri_nrm"], permuted["tri_mat"],
                 textured=flat.has_textures, tri_tan=permuted["tri_tan"],
                 tri_uv=permuted["tri_uv"],
-                tri_uvd=permuted["tri_shade"][:, 27])
+                tri_uvd=permuted["tri_shade"][:, TriShade.UV_DENSITY])
     with profiling.named_scope("prepare_scene.upload_permuted", sync=device):
         flat = flat.replace(**{name: torch.from_numpy(arr).to(device)
                                for name, arr in permuted.items()})

@@ -1,9 +1,9 @@
 """The two per-bounce stages of the path tracer around its visibility trace.
 
 Port of steeljax/render/pt/integrator.py (RayGen.rgen:180-395): once a
-bounce's nearest hits are shaded (integrator.unpack_material_fused or
-unpack_material), `nee_stage` does the bounce's work up to the shadow ray
-and `sample_stage` the rest, with the visibility trace between them:
+bounce's nearest hits are shaded (integrator.unpack_material), `nee_stage`
+does the bounce's work up to the shadow ray and `sample_stage` the rest,
+with the visibility trace between them:
 
 - `nee_stage`: the path weight throughput / ray_pdf, the miss and alive
   update from the hits, the emission term, the hit point p and the
@@ -46,6 +46,7 @@ from steeljax_torch.core.constants import (BIAS, DIRECT_LIGHT_DISK_RADIUS,
                                            EPSILON, PI, POINT_LIGHT_RADIUS,
                                            RAY_DEAD_T, RAY_MAX_T, RAY_MIN_T)
 from steeljax_torch.render.pt import brdf as brdf_lib
+from steeljax_torch.render.surface import normalize
 
 # Kernel launches by stage since the last reset (set the entries to 0 to
 # start counting).
@@ -62,11 +63,6 @@ def runs_kernels(device: torch.device) -> bool:
     """Whether the stages launch their kernels on `device` (else they run
     the plain versions)."""
     return device.type == "cuda"
-
-
-def _normalize(v: torch.Tensor) -> torch.Tensor:
-    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
-                           min=1e-20)
 
 
 def _surface(surface: dict) -> dict:
@@ -88,7 +84,7 @@ def _estimate_lights(scene, n, p) -> torch.Tensor:
     attenuation = torch.where(
         loc[None, :, 3] == 0.0, 1.0,
         torch.where(dist2 == 0.0, 1e10, 1.0 / dist2))
-    l = _normalize(direction)
+    l = normalize(direction)
     nol = torch.clamp((n[:, None, :] * l).sum(dim=-1), min=0.0)
     return attenuation * nol * luminance(color)[None, :]
 
@@ -101,13 +97,13 @@ def _light_distortion(n, w, seed):
     u_len = torch.linalg.vector_norm(u, dim=-1, keepdim=True)
     unit_x = torch.stack([torch.ones_like(zero), zero, zero], dim=-1)
     u = torch.where(u_len > 1e-12, u / torch.clamp(u_len, min=1e-20), unit_x)
-    v = _normalize(torch.linalg.cross(n, u, dim=-1))
+    v = normalize(torch.linalg.cross(n, u, dim=-1))
     theta, seed = rng.next_float(seed)
     theta = theta * 2.0 * PI
     offset = torch.cos(theta)[..., None] * u + torch.sin(theta)[..., None] * v
     r, seed = rng.next_float(seed)
     dd = torch.sqrt(torch.clamp(1.0 - r * r, min=0.0))
-    offset = offset * r[..., None] + _normalize(n) * (dd * w)[..., None]
+    offset = offset * r[..., None] + normalize(n) * (dd * w)[..., None]
     return offset, seed
 
 
@@ -149,7 +145,7 @@ def sample_light(scene, n, p, seed):
     attenuation = torch.where(
         is_point == 0.0, 1.0,
         1.0 / torch.clamp(distance * distance, min=1e-20))
-    return {"direction": _normalize(direction), "distance": distance,
+    return {"direction": normalize(direction), "distance": distance,
             "attenuation": attenuation, "pdf": pdf, "has_light": has_light,
             "color": color}, seed
 
@@ -258,7 +254,7 @@ def _nee_stage_plain(scene, surface, tbn, o, d, t_hit, hit, throughput,
     irradiance = irradiance + torch.where(
         alive[..., None], surface["emission"] * weight, 0.0)
     p = o + d * t_hit[..., None]
-    wo = _normalize(brdf_lib.world_to_tangent(-d, tbn))
+    wo = normalize(brdf_lib.world_to_tangent(-d, tbn))
     out = {"alive": alive, "miss": miss, "irradiance": irradiance, "p": p,
            "wo": wo, "seed": seed}
     if scene.light_count > 0:
@@ -267,7 +263,7 @@ def _nee_stage_plain(scene, surface, tbn, o, d, t_hit, hit, throughput,
         n = tbn[2]
         light, seed = sample_light(scene, n, p, seed)
         wi = brdf_lib.world_to_tangent(light["direction"], tbn)
-        wh = _normalize(wo + wi)
+        wh = normalize(wo + wi)
         out.update(shadow=shadow_rays(p, n, light), seed=seed,
                    contrib=light_contribution(_surface(surface), wo, wi, wh,
                                               light, compose),

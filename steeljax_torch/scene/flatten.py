@@ -23,6 +23,58 @@ from steeljax_torch.scene.scene import Scene
 MAX_TEX_MIPS = 13  # enough for 4096^2 sources
 
 
+class TriGeometry:
+    """Columns of a triangle's geometry: the shading row's columns
+    TRI_SHADE_GEOMETRY, and the whole of the instanced tables' object-space
+    blas_shade rows.  A per-vertex block holds vertex 0's, 1's and 2's
+    attribute in turn; an int names one column, a slice a block."""
+    NORMALS = slice(0, 9)          # shading normals
+    TANGENTS = slice(9, 18)
+    UVS = slice(18, 24)
+    GEOM_NORMAL = slice(24, 27)    # cross(p1 - p0, p2 - p0), unnormalized
+    UV_DENSITY = 27                # sqrt(uv area / world area)
+
+
+class TriShade(TriGeometry):
+    """Columns of the (T, TRI_SHADE_COLS) per-triangle shading row
+    (pack_tri_shade, steeljax/scene/flatten.py:57-72): TriGeometry's, then
+    the triangle's material's constants (TRI_SHADE_MATERIAL, the instanced
+    tables' per-instance material row)."""
+    MAT_ID = 28
+    EMISSION_LINEAR = slice(29, 32)
+    BASE_LINEAR = slice(32, 35)
+    ALPHA = 35
+    ROUGHNESS = 36
+    METALLIC = 37
+    ALPHA_CUTOFF = 38
+    NORMAL_SCALE = 39
+    FLAGS = 40                     # MaterialFlags bits
+    TEX_IDS = slice(41, 46)        # mat_tex's five texture slots
+    BASE_COLOR = slice(46, 49)
+    EMISSION = slice(49, 52)
+    OCCLUSION = 52                 # occlusion strength
+    PAD = slice(53, 56)
+
+
+TRI_SHADE_COLS = 56
+TRI_SHADE_GEOMETRY = slice(0, 28)
+TRI_SHADE_MATERIAL = slice(28, 56)
+
+
+class MatPacked:
+    """Columns of the (M, 16) per-material row (pack_materials)."""
+    BASE_COLOR = slice(0, 3)
+    ALPHA = 3
+    EMISSION = slice(4, 7)
+    ROUGHNESS = 7
+    METALLIC = 8
+    NORMAL_SCALE = 9
+    OCCLUSION = 10
+    ALPHA_CUTOFF = 11
+    FLAGS = 12
+    BASE_LINEAR = slice(13, 16)
+
+
 @dataclasses.dataclass
 class FlatScene:
     # Geometry (world space), one row per triangle.
@@ -57,10 +109,9 @@ class FlatScene:
     # Environment cubemap (+X -X +Y -Y +Z -Z), linear RGB.
     env_cube: torch.Tensor  # (6, R, R, 3) float32
 
-    # Per-triangle shading row (steeljax/scene/flatten.py:57-72 layout).
+    # Per-triangle shading rows (TriShade's columns).
     tri_shade: torch.Tensor   # (T, 56) float32
-    # Per-material rows: [base rgba (4), emission (3), rough/metal/nscale/
-    # occl/cutoff (7:12), flags (12), linear base rgb (13:16)].
+    # Per-material rows (MatPacked's columns).
     mat_packed: torch.Tensor  # (M, 16) float32
     mat_emission_linear: torch.Tensor  # (M, 3) float32
     # Bilinear-footprint rows of env_cube (env.cubemap.pack_cube_quads).
@@ -141,42 +192,44 @@ def _texture_pool(textures) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 def pack_tri_shade(tri_nrm, tri_tan, tri_uv, tri_pos, tri_mat=None,
                    mat_base_color=None, mat_emission=None, mat_params=None,
                    mat_tex=None, mat_flags=None) -> np.ndarray:
-    """(T, 56) per-triangle shading row: vertex attributes plus the owning
-    material's constants (steeljax/scene/flatten.py:139-180)."""
+    """(T, 56) per-triangle shading row (TriShade): vertex attributes plus
+    the owning material's constants (steeljax/scene/flatten.py:139-180)."""
     t = len(tri_nrm)
-    out = np.zeros((t, 56), np.float32)
+    c = TriShade
+    out = np.zeros((t, TRI_SHADE_COLS), np.float32)
     if t:
-        out[:, 0:9] = np.asarray(tri_nrm, np.float32).reshape(t, 9)
-        out[:, 9:18] = np.asarray(tri_tan, np.float32).reshape(t, 9)
+        out[:, c.NORMALS] = np.asarray(tri_nrm, np.float32).reshape(t, 9)
+        out[:, c.TANGENTS] = np.asarray(tri_tan, np.float32).reshape(t, 9)
         uv = np.asarray(tri_uv, np.float32)
-        out[:, 18:24] = uv.reshape(t, 6)
+        out[:, c.UVS] = uv.reshape(t, 6)
         p = np.asarray(tri_pos, np.float32)
         gn = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
-        out[:, 24:27] = gn
+        out[:, c.GEOM_NORMAL] = gn
         world_area = 0.5 * np.linalg.norm(gn, axis=-1)
         duv1 = uv[:, 1] - uv[:, 0]
         duv2 = uv[:, 2] - uv[:, 0]
         uv_area = 0.5 * np.abs(duv1[:, 0] * duv2[:, 1]
                                - duv1[:, 1] * duv2[:, 0])
-        out[:, 27] = np.sqrt(
+        out[:, c.UV_DENSITY] = np.sqrt(
             uv_area / np.maximum(world_area, 1e-20)).astype(np.float32)
         if tri_mat is not None:
             m = np.asarray(tri_mat, np.int64)
-            out[:, 28] = m.astype(np.float32)
-            out[:, 29:32] = _to_linear_np(np.asarray(mat_emission))[m]
+            out[:, c.MAT_ID] = m.astype(np.float32)
+            out[:, c.EMISSION_LINEAR] = _to_linear_np(
+                np.asarray(mat_emission))[m]
             base = np.asarray(mat_base_color, np.float32)[m]
-            out[:, 32:35] = _to_linear_np(base[:, :3])
-            out[:, 35] = base[:, 3]
+            out[:, c.BASE_LINEAR] = _to_linear_np(base[:, :3])
+            out[:, c.ALPHA] = base[:, 3]
             params = np.asarray(mat_params, np.float32)[m]
-            out[:, 36] = params[:, 0]   # roughness
-            out[:, 37] = params[:, 1]   # metallic
-            out[:, 38] = params[:, 4]   # alpha cutoff
-            out[:, 39] = params[:, 2]   # normal scale
-            out[:, 40] = np.asarray(mat_flags, np.float32)[m]
-            out[:, 41:46] = np.asarray(mat_tex, np.float32)[m]
-            out[:, 46:49] = base[:, :3]
-            out[:, 49:52] = np.asarray(mat_emission, np.float32)[m]
-            out[:, 52] = params[:, 3]   # occlusion strength
+            out[:, c.ROUGHNESS] = params[:, 0]
+            out[:, c.METALLIC] = params[:, 1]
+            out[:, c.ALPHA_CUTOFF] = params[:, 4]
+            out[:, c.NORMAL_SCALE] = params[:, 2]
+            out[:, c.FLAGS] = np.asarray(mat_flags, np.float32)[m]
+            out[:, c.TEX_IDS] = np.asarray(mat_tex, np.float32)[m]
+            out[:, c.BASE_COLOR] = base[:, :3]
+            out[:, c.EMISSION] = np.asarray(mat_emission, np.float32)[m]
+            out[:, c.OCCLUSION] = params[:, 3]
     return out
 
 
@@ -188,15 +241,22 @@ def _to_linear_np(srgb):
 
 def pack_materials(mat_base_color, mat_emission, mat_params,
                    mat_flags) -> np.ndarray:
-    """Columns: base rgba (0:4), emission (4:7), rough/metal/nscale/occl/
-    cutoff (7:12), flags (12), linearized base rgb (13:16)."""
+    """(M, 16) per-material rows (MatPacked) from the material tables;
+    mat_params' columns are roughness, metallic, normal scale, occlusion
+    strength and alpha cutoff."""
     m = len(mat_base_color)
+    c = MatPacked
     out = np.zeros((m, 16), np.float32)
-    out[:, 0:4] = mat_base_color
-    out[:, 4:7] = mat_emission
-    out[:, 7:12] = mat_params
-    out[:, 12] = np.asarray(mat_flags, np.float32)
-    out[:, 13:16] = _to_linear_np(mat_base_color[:, :3])
+    out[:, c.BASE_COLOR] = mat_base_color[:, :3]
+    out[:, c.ALPHA] = mat_base_color[:, 3]
+    out[:, c.EMISSION] = mat_emission
+    out[:, c.ROUGHNESS] = mat_params[:, 0]
+    out[:, c.METALLIC] = mat_params[:, 1]
+    out[:, c.NORMAL_SCALE] = mat_params[:, 2]
+    out[:, c.OCCLUSION] = mat_params[:, 3]
+    out[:, c.ALPHA_CUTOFF] = mat_params[:, 4]
+    out[:, c.FLAGS] = np.asarray(mat_flags, np.float32)
+    out[:, c.BASE_LINEAR] = _to_linear_np(mat_base_color[:, :3])
     return out
 
 

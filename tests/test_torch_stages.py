@@ -98,13 +98,13 @@ def _composition(scene, b, compose, roulette, rr_min):
     irradiance = irradiance + torch.where(
         alive[..., None], surface["emission"] * weight, 0.0)
     p = o + d * b["t_hit"][..., None]
-    wo = stages._normalize(brdf.world_to_tangent(-d, tbn))
+    wo = stages.normalize(brdf.world_to_tangent(-d, tbn))
     shadow = None
     if scene.light_count > 0:
         n = tbn[2]
         light, seed = stages.sample_light(scene, n, p, seed)
         wi = brdf.world_to_tangent(light["direction"], tbn)
-        wh = stages._normalize(wo + wi)
+        wh = stages.normalize(wo + wi)
         shadow = stages.shadow_rays(p, n, light)
         f = brdf.evaluate_brdf(surface, wo, wi, wh, compose=compose)
         contrib = (f * brdf.cos_theta(wi)[..., None] * light["color"]
