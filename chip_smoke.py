@@ -20,8 +20,10 @@ reference's BVH walk: phase 20):
     leaf cards over a ground quad, 1,000,002 triangles, a sun; serrated and
     solid leaves, coarse and fine alpha masks): K4, nearest hit with
     in-kernel alpha masks, for every material and shadow ray and each of
-    their re-trace passes; and path F once more with multihit_k = 4: K5,
-    the K-nearest multi-hit kernel, in K4's place;
+    their re-trace passes, each followed by the exact alpha test as the
+    kernel of csrc/alphatest.cu, held on path F's frame bit for bit
+    against its plain version (phase 5d); and path F once more with
+    multihit_k = 4: K5, the K-nearest multi-hit kernel, in K4's place;
   * paths I and J, path L's and path T's scenes through the two-level
     structure (PathTracingRenderer(instancing=True): 310 and 490
     instances of three BLAS): K6, the two-level kernel, with fused mode-1
@@ -112,6 +114,10 @@ Phases:
      bit for bit against their plain versions (render/pt/stages.py run on
      the card), each timed beside its plain version captured as a CUDA
      graph, with the least time the bytes it reads and writes allow;
+     5d: the alpha test kernel on the records of the 40 tests of one eager
+     path F frame, held bit for bit against its plain version, timed over
+     its 40 launches behind a device sleep beside the plain tests captured
+     as one CUDA graph, with the least time its bytes allow;
   6. path T: the same frames and checks, K3 launches;
   7. paths F, S and F with multihit_k = 4: the same frames and checks, K4
      and K5 launches, and the rays still to re-trace before and after each
@@ -1618,10 +1624,11 @@ def _profile_frames(run_frame, frames: int = 2, spans=(),
 
 def _reset_launches() -> None:
     from steeljax_torch.accel import cuda_traverse, treelets
+    from steeljax_torch.render import surface
     from steeljax_torch.render.pt import stages
 
     for counts in (cuda_traverse.LAUNCHES, treelets.SCHEDULER,
-                   stages.LAUNCHES):
+                   stages.LAUNCHES, surface.COUNTS):
         for name in counts:
             counts[name] = 0
 
@@ -1634,8 +1641,9 @@ def drive_path(label, scene, flat, tables, expected: dict,
     the launch counts set to 0 just before and read just after; check the
     launches of the frames the host ran (each kernel of `expected` launches
     that many times per bounce, and each path stage kernel, nee and sample,
-    once, every other kernel never; a replay launches from the host nothing
-    that the counters see), rays_traced, the image
+    once, every other kernel never, the alpha test's kernel included; a
+    replay launches from the host nothing that the counters see),
+    rays_traced, the image
     and, above the repack threshold, the sorts (the repack before every
     secondary bounce and, in alpha-tested scenes, the rejected-first
     compaction of every material and shadow ray's re-trace); hold the last
@@ -1657,6 +1665,7 @@ def drive_path(label, scene, flat, tables, expected: dict,
     from steeljax_torch.core import camera as camera_lib
     from steeljax_torch.core import profiling
     from steeljax_torch.core.config import RenderConfig
+    from steeljax_torch.render import surface
     from steeljax_torch.render.pt import frame_graphs, integrator, stages
 
     expected = {"nee": 1, "sample": 1, **expected}
@@ -1702,7 +1711,8 @@ def drive_path(label, scene, flat, tables, expected: dict,
             rays.append(stats["rays_traced"])
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = {**cuda_traverse.LAUNCHES, **stages.LAUNCHES}
+        launches = {**cuda_traverse.LAUNCHES, **stages.LAUNCHES,
+                    "alpha": surface.COUNTS["alpha"]}
         scheduler = dict(treelets.SCHEDULER)
     finally:
         integrator.repack_rays = repack
@@ -2008,6 +2018,128 @@ def phase_stages(scenes) -> dict:
               f"kernel {row['plain_ms'] / row['ms']:.1f}x")
         rows[name] = row
     return rows
+
+
+def _alpha_bytes(flat, rec) -> int:
+    """The least bytes one alpha test of `rec` moves, each byte once: each
+    ray's hit flag read and its verdict written (2 B; a miss reads nothing
+    more); each hit's triangle id (4 B); of each distinct triangle hit, the
+    32-byte sector of its shading row that holds the flags, the sector of
+    alpha and cutoff where its material is alpha-tested, and the uv sector
+    where it also samples a texture; and each hit on a triangle that
+    samples, its (u, v) (8 B) and a 16-byte quad row of the texel pool, at
+    most the whole pool."""
+    from steeljax_torch.scene.flatten import TriShade
+    from steeljax_torch.scene.material import MaterialFlags
+
+    hit = rec["hit"]
+    tri = rec["tri"][hit].long()
+    distinct, count = torch.unique(tri, return_counts=True)
+    rows = flat.tri_shade[distinct]
+    tested = (rows[:, TriShade.FLAGS].to(torch.int32)
+              & int(MaterialFlags.ALPHA_TEST)) != 0
+    sampled = tested & (rows[:, TriShade.TEX_IDS.start].to(torch.int32)
+                        >= 0) if flat.has_textures else torch.zeros_like(
+                            tested)
+    sampled_hits = int(count[sampled].sum())
+    return (2 * hit.shape[0] + 4 * tri.numel()
+            + 32 * (distinct.numel() + int(tested.sum())
+                    + int(sampled.sum()))
+            + 8 * sampled_hits + min(16 * sampled_hits, flat.atlas.numel()))
+
+
+def phase_alpha(scenes) -> dict:
+    """Phase 5d, the exact alpha test's kernel (csrc/alphatest.cu) on path
+    F's scene: the records of one eager 1280x720 frame's 40 alpha tests
+    ((1 trace + 4 re-trace passes) x (material + shadow) x 4 bounces) are
+    recorded, each of which must have launched the kernel, and on each the
+    kernel (surface.alpha_test) is held against
+    its plain version (surface.alpha_rejected over surface.shade_rows, run
+    on the card), bit for bit, or the phase raises.  Times a frame: the
+    kernel's 40 launches queued behind a device sleep; the plain version's
+    40 tests captured as one CUDA graph and replayed; the bound, the least
+    bytes the tests move (_alpha_bytes) over PEAK_BYTES_PER_S.  Returns
+    {"alpha": its row}."""
+    from steeljax_torch.apps.timing import device_ms
+    from steeljax_torch.core import camera as camera_lib
+    from steeljax_torch.core.config import RenderConfig
+    from steeljax_torch.render import surface
+    from steeljax_torch.render.pt import frame_graphs, integrator
+
+    scene, flat, tables = scenes["foliage"]
+    device = flat.device
+    frame = camera_lib.make_frame(scene.camera_location,
+                                  scene.camera_projection)
+    config = RenderConfig(width=WIDTH, height=HEIGHT)
+    px, py, _ = integrator.tiled_order(WIDTH, HEIGHT)
+    px, py, inverse_view, inverse_proj = (
+        torch.as_tensor(a, device=device)
+        for a in (px, py, frame.inverse_view, frame.inverse_proj))
+    real = integrator.alpha_test
+    recs = []
+
+    def recording(scene_, tables_, rec):
+        recs.append({k: rec[k].clone() for k in ("hit", "tri", "u", "v")})
+        return real(scene_, tables_, rec)
+
+    graphs = integrator.FRAME_GRAPHS
+    integrator.FRAME_GRAPHS = frame_graphs.FrameGraphs(frame_graphs.Eager())
+    integrator.alpha_test = recording
+    frame_launches = surface.COUNTS["alpha"]
+    try:
+        integrator.render_pixels(
+            flat, tables, inverse_view, inverse_proj, frame.camera_near,
+            frame.camera_far, WIDTH, HEIGHT, px, py, 0, 0, config)
+    finally:
+        integrator.alpha_test = real
+        integrator.FRAME_GRAPHS = graphs
+    torch.cuda.synchronize()
+    want_tests = (config.max_bounce_count * (1 + (flat.light_count > 0))
+                  * (1 + config.max_alpha_retrace))
+    frame_launches = surface.COUNTS["alpha"] - frame_launches
+    if len(recs) != want_tests or frame_launches != want_tests:
+        raise RuntimeError(f"alpha test: {len(recs)} tests and "
+                           f"{frame_launches} kernel launches in a frame, "
+                           f"expected {want_tests}")
+
+    def plain(rec):
+        return surface.alpha_rejected(flat, rec,
+                                      surface.shade_rows(flat, tables, rec))
+
+    launches = []
+    for i, rec in enumerate(recs):
+        before = surface.COUNTS["alpha"]
+        got = surface.alpha_test(flat, tables, rec)
+        want = plain(rec)
+        torch.cuda.synchronize()
+        if surface.COUNTS["alpha"] != before + 1:
+            raise RuntimeError(f"alpha test {i}: the kernel did not launch")
+        if not torch.equal(got, want):
+            raise RuntimeError(
+                f"alpha test {i}: the kernel differs from its plain version "
+                f"on {int((got != want).sum())} of {want.shape[0]} rays")
+        launches.append(surface.alpha_launcher(flat, tables, rec)[0])
+    hits = [int(rec["hit"].sum()) for rec in recs]
+    kernel_ms = device_ms(lambda: None, launches)
+    plain_ms = _graph_ms(lambda: [plain(rec) for rec in recs])
+    moved = sum(_alpha_bytes(flat, rec) for rec in recs)
+    bound_ms = moved / PEAK_BYTES_PER_S * 1e3
+    rays = recs[0]["hit"].shape[0]
+    print(f"alpha test: {len(recs)} tests of {rays} rays a frame, "
+          f"{sum(hits)} hits ({min(hits)}-{max(hits)} a test), every "
+          f"verdict equal to the plain version's; a frame: kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms (a CUDA graph), "
+          f"bound {bound_ms:.4f} ms by bytes ({moved} B), kernel/bound "
+          f"{kernel_ms / bound_ms:.2f}x, plain/kernel "
+          f"{plain_ms / kernel_ms:.1f}x")
+    row = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bytes": moved, "bound_by": "bytes", "max_abs_err": 0.0,
+           "bit_equal": True, "tolerance": "bit-equal: every verdict",
+           "rays": rays, "plain_rays": rays, "launches": len(recs),
+           "hits": hits,
+           "shapes": f"path F, the {len(recs)} tests of one frame of "
+                     f"{rays} rays"}
+    return {"alpha": row}
 
 
 def phase_cornell(device) -> dict:
@@ -4484,10 +4616,11 @@ def phase_sbvh(device, scenes, kernels, prepare_steps, sah_paths) -> dict:
     scene, flat, tables = prepared["path FS"]
     drives = (("path LS", prepared["path LS"], {"K1": 1, "K2": 1},
                "path L"),
-              ("path FS", prepared["path FS"], {"K4": alpha_passes},
-               "path F"),
+              ("path FS", prepared["path FS"],
+               {"K4": alpha_passes, "alpha": alpha_passes}, "path F"),
               ("path FS multihit", (scene, flat, tables.replace(
-                  multihit_k=k_hits)), {"K5": alpha_passes},
+                  multihit_k=k_hits)),
+               {"K5": alpha_passes, "alpha": k_hits * alpha_passes},
                "path F multihit"),
               ("path IS", prepared["path IS"], {"K6": 1, "K6_anyhit": 1},
                "path I"),
@@ -5254,18 +5387,24 @@ def main(argv=None) -> int:
                          {"K1": 1, "K2_dense": 1})
     kernels.update(phase("5c. path stage kernels against their plain "
                          "versions (path L)", phase_stages, scenes))
+    kernels.update(phase("5d. the alpha test kernel against its plain "
+                         "version (path F)", phase_alpha, scenes))
     path_t = phase("6. path T (textured stress)", drive_path, "path T",
                    *scenes["stress_tex"], {"K3": 1})
     # Each bounce traces its material rays and its sun rays, each in one
-    # pass and max_alpha_retrace = 4 re-trace passes.
+    # pass and max_alpha_retrace = 4 re-trace passes, and runs the exact
+    # alpha test once a pass (K5: once for each of its K slots).
     alpha_passes = 2 * (1 + 4)
+    k_hits = scenes["foliage_multihit"][2].multihit_k
     path_f = phase("7a. path F (foliage, serrated leaves)", drive_path,
-                   "path F", *scenes["foliage"], {"K4": alpha_passes})
+                   "path F", *scenes["foliage"],
+                   {"K4": alpha_passes, "alpha": alpha_passes})
     path_s = phase("7b. path S (foliage, solid leaves)", drive_path,
-                   "path S", *scenes["foliage_solid"], {"K4": alpha_passes})
+                   "path S", *scenes["foliage_solid"],
+                   {"K4": alpha_passes, "alpha": alpha_passes})
     path_fm = phase("7c. path F, multihit_k = 4", drive_path,
                     "path F multihit", *scenes["foliage_multihit"],
-                    {"K5": alpha_passes})
+                    {"K5": alpha_passes, "alpha": k_hits * alpha_passes})
     phase("8. cross-device tiles", phase_cross_device, device)
 
     def against(title, label, name, expected, ref_label, ref):
@@ -5374,7 +5513,8 @@ def main(argv=None) -> int:
                 "K7_pick": path_u["launches"]["K7_pick"],
                 "R": path_r["launches"]["R"],
                 "nee": path_l["launches"]["nee"],
-                "sample": path_l["launches"]["sample"]}
+                "sample": path_l["launches"]["sample"],
+                "alpha": path_f["launches"]["alpha"]}
     sub_paths = {"path_h": (path_h, 1 + HYBRID_TIMED_FRAMES),
                  "path_c": (path_c, path_c["host_frames"]),
                  "path_l16": (path_l16, path_l16["host_frames"])}
@@ -5423,6 +5563,7 @@ def main(argv=None) -> int:
         sources[k] = "steeljax_torch/csrc/instanced8.cu"
     sources["R"] = "steeljax_torch/csrc/raster.cu"
     sources["nee"] = sources["sample"] = "steeljax_torch/csrc/pathstage.cu"
+    sources["alpha"] = "steeljax_torch/csrc/alphatest.cu"
     titles = {
         "K1": "K1 trace_alpha8 NEAREST without masks (BVH8 nearest hit, "
               "cull, shade mode 1)",
@@ -5466,7 +5607,10 @@ def main(argv=None) -> int:
         "sample": "sample (a bounce's BRDF sampling, path update and "
                   "Russian roulette, one thread a ray; launches on path L; "
                   "ms, plain_ms and bound_ms summed over one frame's 4 "
-                  "bounces, phase 5c)"}
+                  "bounces, phase 5c)",
+        "alpha": "alpha (the exact alpha test at a hit, one thread a ray; "
+                 "launches: the tests of one eager path F frame; ms, "
+                 "plain_ms and bound_ms summed over them, phase 5d)"}
     replaces = {
         "K1": "steeljax/accel/pallas_traverse.py:249",
         "K2": "steeljax/accel/pallas_traverse.py:506",
@@ -5486,7 +5630,9 @@ def main(argv=None) -> int:
         "nee": "no Pallas kernel: plain jnp in "
                "steeljax/render/pt/integrator.py",
         "sample": "no Pallas kernel: plain jnp in "
-                  "steeljax/render/pt/integrator.py"}
+                  "steeljax/render/pt/integrator.py",
+        "alpha": "no Pallas kernel: plain jnp in "
+                 "steeljax/render/pt/integrator.py:132-148"}
     print(json.dumps({"kernels": [{
         "name": titles[k], "route": "cuda", "source": sources[k],
         "replaces": replaces[k], "launches": launches[k],

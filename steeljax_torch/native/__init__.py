@@ -36,7 +36,8 @@ CUDA_SOURCES = (_PKG / "csrc" / "alpha8.cu",
                 _PKG / "csrc" / "instanced8.cu",
                 _PKG / "csrc" / "treelet8.cu",
                 _PKG / "csrc" / "raster.cu",
-                _PKG / "csrc" / "pathstage.cu")
+                _PKG / "csrc" / "pathstage.cu",
+                _PKG / "csrc" / "alphatest.cu")
 # Headers the sources include: a change rebuilds the library too.
 CUDA_HEADERS = (_PKG / "csrc" / "trace8_common.cuh",)
 NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -156,6 +157,8 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
     lib.steeljax_nee_stage.argtypes = [ptr, ptr, ptr]
     lib.steeljax_sample_stage.restype = ctypes.c_int
     lib.steeljax_sample_stage.argtypes = [ptr, ptr, ctypes.c_float, ptr]
+    lib.steeljax_alpha_test.restype = ctypes.c_int
+    lib.steeljax_alpha_test.argtypes = [ptr, ptr, ptr]
 
 
 def bvh_library() -> ctypes.CDLL:

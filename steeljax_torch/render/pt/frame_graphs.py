@@ -40,6 +40,7 @@ import torch
 
 from steeljax_torch.accel import cuda_traverse, treelets
 from steeljax_torch.core import profiling
+from steeljax_torch.render import surface
 from steeljax_torch.render.pt import stages
 
 # Graphs kept a device; each holds a frame's intermediates in its memory
@@ -48,7 +49,8 @@ GRAPHS_PER_DEVICE = 2
 # Keys kept without a graph (seen once, or whose capture raised).
 KEYS_KEPT = 16
 # The host counters a frame's launches add to.
-COUNTERS = (cuda_traverse.LAUNCHES, treelets.SCHEDULER, stages.LAUNCHES)
+COUNTERS = (cuda_traverse.LAUNCHES, treelets.SCHEDULER, stages.LAUNCHES,
+            surface.COUNTS)
 
 
 class CudaGraphs:

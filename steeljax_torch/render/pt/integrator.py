@@ -18,15 +18,16 @@ alone (dead rays sink, the live ones keep their order).
 
 Alpha-tested materials (the reference's any-hit shader, AnyHit.rahit:
 25-52): the trace kernel K4 drops candidates the coverage masks prove
-transparent, and the exact test (render/surface.alpha_rejected) re-traces
-past the rest, a bounded number of passes; with tables.multihit_k > 0 the
-multi-hit kernel K5 returns K candidates per walk instead.  Every pass runs
-unconditionally, with the rays that need no re-trace given the dead
-interval, so the loop never reads a device value on the host: the output
-is the reference's, whose lax.cond skips only passes in which no ray would
-change.  A scene of several chunks traces through dispatch's chunk sweep,
-whose records carry global triangle ids; its alpha re-trace re-traces hit
-by hit (the K-nearest kernel K5 traces one chunk, as in the reference).
+transparent, and the exact test (render/surface.alpha_test, on a CUDA
+device one kernel) re-traces past the rest, a bounded number of passes;
+with tables.multihit_k > 0 the multi-hit kernel K5 returns K candidates
+per walk instead.  Every pass runs unconditionally, with the rays that
+need no re-trace given the dead interval, so the loop never reads a
+device value on the host: the output is the reference's, whose lax.cond
+skips only passes in which no ray would change.  A scene of several
+chunks traces through dispatch's chunk sweep, whose records carry global
+triangle ids; its alpha re-trace re-traces hit by hit (the K-nearest
+kernel K5 traces one chunk, as in the reference).
 
 Instanced tables (accel.instances, kernel K6) and treelet tables
 (accel.treelets, K7) answer the same queries through accel.dispatch; with
@@ -47,7 +48,9 @@ host, a CUDA device replays each kind of frame as one CUDA graph
 (frame_graphs); a replayed frame's row holds the frame span alone.  Every
 row counts the frame's bounces (`integrator.bounces`) and those whose
 stages ran as the kernels of csrc/pathstage.cu
-(`integrator.stage_bounces`), replayed rows too.
+(`integrator.stage_bounces`), and its exact alpha tests
+(`integrator.alpha_tests`) and those that ran as the kernel of
+csrc/alphatest.cu (`integrator.alpha_kernel_tests`), replayed rows too.
 """
 
 from __future__ import annotations
@@ -67,9 +70,10 @@ from steeljax_torch.core.colors import to_linear
 from steeljax_torch.core.config import RenderConfig
 from steeljax_torch.core.constants import RAY_DEAD_T, RAY_MAX_T
 from steeljax_torch.env.cubemap import sample_cube_quads
+from steeljax_torch.render import surface as surface_lib
 from steeljax_torch.render.pt import brdf as brdf_lib
 from steeljax_torch.render.pt import frame_graphs, stages
-from steeljax_torch.render.surface import (alpha_rejected, bilinear,
+from steeljax_torch.render.surface import (alpha_test, bilinear,
                                            interpolate, material_select,
                                            normalize, retrace_tmin,
                                            shade_rows, textured_surface)
@@ -301,9 +305,7 @@ def trace_material_ray(scene: FlatScene, tables: TraceTables, o, d,
         def trace(o, d, t_min, t_max):
             rec = trace_nearest(tables, o, d, t_min, t_max,
                                 cull_backface=cull_backface)
-            return (rec, alpha_rejected(scene, rec,
-                                        shade_rows(scene, tables, rec)),
-                    rec["t"])
+            return rec, alpha_test(scene, tables, rec), rec["t"]
     rec, counts = _bounded_retrace(tables, o, d, t_min, t_max, trace,
                                    max_alpha_retrace, retrace_log is not None)
     if retrace_log is not None:
@@ -369,8 +371,7 @@ def _resolve_multihit(scene: FlatScene, tables: TraceTables, slots: dict):
     for k in range(k_hits):
         rec_k = {f: slots[f][k] for f in ("t", "u", "v", "tri")}
         rec_k["hit"] = rec_k["tri"] >= 0
-        rejected = alpha_rejected(scene, rec_k,
-                                  shade_rows(scene, tables, rec_k))
+        rejected = alpha_test(scene, tables, rec_k)
         take = ~resolved & rec_k["hit"] & ~rejected
         for f in ("t", "u", "v", "tri"):
             rec[f] = torch.where(take, rec_k[f], rec[f])
@@ -634,13 +635,19 @@ def render_pixels(scene: FlatScene, tables: TraceTables,
             words, view, proj, x, y = buffers
             log = [] if return_stats else None
             before = dict(stages.LAUNCHES)
+            alpha = dict(surface_lib.COUNTS)
             result, rays = _samples(
                 scene, tables, view, proj, camera_near, camera_far, width,
                 height, x, y, lambda s: rng.make_seed(x, y, word=words[s]),
                 config, log)
             # A bounce ran as the stage kernels where it launched both.
             staged = min(stages.LAUNCHES[k] - before[k] for k in before)
-            layout = {"stage_bounces": staged, "retrace": None}
+            layout = {"stage_bounces": staged,
+                      "alpha_tests":
+                          surface_lib.COUNTS["tests"] - alpha["tests"],
+                      "alpha_kernel_tests":
+                          surface_lib.COUNTS["alpha"] - alpha["alpha"],
+                      "retrace": None}
             if log is None:
                 return [result, rays], layout
             layout["retrace"] = [(label, len(cs)) for label, cs in log]
@@ -650,12 +657,16 @@ def render_pixels(scene: FlatScene, tables: TraceTables,
                          camera_far, px.shape[0], return_stats)
         (result, rays_traced, *counts), layout = FRAME_GRAPHS.run(
             key, (scene, tables), device, frame, inputs)
-        # The bounces that ran the stage kernels, of the frame's bounces:
-        # counted when the host ran the frame and kept in the layout, so
-        # that a replayed frame counts them too.
+        # The bounces that ran the stage kernels, of the frame's bounces,
+        # and the exact alpha tests that ran the alpha kernel, of its
+        # tests: counted when the host ran the frame and kept in the
+        # layout, so that a replayed frame counts them too.
         profiling.count("integrator.stage_bounces", layout["stage_bounces"])
         profiling.count("integrator.bounces",
                         config.sample_count * config.max_bounce_count)
+        profiling.count("integrator.alpha_kernel_tests",
+                        layout["alpha_kernel_tests"])
+        profiling.count("integrator.alpha_tests", layout["alpha_tests"])
         retrace_log = None
         if layout["retrace"] is not None:
             counts = iter(counts)

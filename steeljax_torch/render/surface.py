@@ -12,16 +12,31 @@ and in the texture sampler they pass (bilinear at lod 0 in ray-tracing
 stages, trilinear at the G-buffer's lod).  Also the pieces of their
 bounded re-traces: the interval's start past a rejected hit
 (`retrace_tmin`) and the merge of two hit records (`select_rec`).
+
+The path tracer's exact alpha test is `alpha_test`: with CUDA tensors one
+kernel of csrc/alphatest.cu, which reads only the columns the test needs
+(of flat, chunked and treelet tables the tri_shade row; of instanced tables
+the blas_shade and inst_shade rows that world_shade_rows composes) and
+gives the plain version's bits; with CPU tensors the plain `alpha_rejected`
+over `shade_rows`.  Nothing falls back: a CUDA tensor launches the kernel
+or raises.  Each call adds one to COUNTS["tests"], each launch one to
+COUNTS["alpha"], under a profiler in a range named PROFILER_RANGE +
+"alpha", apart from the trace kernels'.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from steeljax_torch.accel.instances import InstancedTables, world_shade_rows
+from steeljax_torch.accel import cuda_traverse
+from steeljax_torch.accel.instances import (INST_COLS, InstancedTables,
+                                             world_shade_rows)
 from steeljax_torch.render.pt import brdf as brdf_lib
 from steeljax_torch.render.texture import sample_bilinear
-from steeljax_torch.scene.flatten import FlatScene, TriShade
+from steeljax_torch.scene.flatten import (TRI_SHADE_COLS, TRI_SHADE_GEOMETRY,
+                                          FlatScene, TriShade)
 from steeljax_torch.scene.material import MaterialFlags
 
 # Each material term's factor (its column name in TriShade and MatPacked
@@ -32,6 +47,12 @@ _TERMS = {"base_color": ("BASE_COLOR", 0, slice(0, 3)),
           "metallic": ("METALLIC", 1, 2), "occlusion": ("OCCLUSION", 3, 0),
           "emission": ("EMISSION", 4, slice(0, 3))}
 _NORMAL_SLOT = 2
+
+# alpha_test's calls since the last reset, on either route ("tests"), and
+# its kernel launches ("alpha"); set the entries to 0 to start counting.
+COUNTS = {"tests": 0, "alpha": 0}
+# The profiler range of a launch: this prefix and its COUNTS key.
+PROFILER_RANGE = "surface_kernel."
 
 
 def normalize(v: torch.Tensor) -> torch.Tensor:
@@ -151,3 +172,69 @@ def alpha_rejected(scene: FlatScene, rec: dict, row: torch.Tensor
                                  bilinear(scene, uv), ("alpha",))["alpha"]
     return (rec["hit"] & material_flag(row, MaterialFlags.ALPHA_TEST)
             & (alpha < row[:, TriShade.ALPHA_CUTOFF]))
+
+
+def alpha_test(scene: FlatScene, tables, rec: dict) -> torch.Tensor:
+    """(N,) bool: alpha_rejected at the hits of `rec` ("hit", "tri", "u",
+    "v" (N,), and of instanced tables "inst"), whose ids index
+    scene.tri_shade unless `tables` are instanced.  With CUDA tensors the
+    kernel of csrc/alphatest.cu, which gives the same bits; with CPU
+    tensors the plain version."""
+    COUNTS["tests"] += 1
+    if not rec["tri"].is_cuda:
+        return alpha_rejected(scene, rec, shade_rows(scene, tables, rec))
+    launch, rejected = alpha_launcher(scene, tables, rec)
+    launch()
+    return rejected
+
+
+def alpha_launcher(scene: FlatScene, tables, rec: dict):
+    """Check the inputs of one alpha kernel call on CUDA tensors and
+    allocate its output: returns (launch, rejected), each `launch()`
+    running the kernel into `rejected` on the current stream and adding one
+    to COUNTS["alpha"].  alpha_test calls it once; a benchmark can repeat
+    the launch without the wrapper's host work."""
+    instanced = isinstance(tables, InstancedTables)
+    hit, tri, u, v = rec["hit"], rec["tri"], rec["u"], rec["v"]
+    inst = rec["inst"] if instanced else tri
+    n = tri.shape[0]
+    device = tri.device
+    for x, dtype in ((hit, torch.bool), (tri, torch.int32),
+                     (inst, torch.int32), (u, torch.float32),
+                     (v, torch.float32)):
+        if x.dim() != 1 or x.shape[0] != n or x.dtype != dtype \
+                or x.device != device:
+            raise ValueError(f"the alpha test takes (N,) hit bool, tri "
+                             f"(and instanced inst) int32, u and v float32 "
+                             f"on one device; got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+    # The rows holding the uvs and those holding the material, and widths.
+    if instanced:
+        rows = (tables.blas_shade, tables.inst_shade)
+        widths = (TRI_SHADE_GEOMETRY.stop, INST_COLS)
+    else:
+        rows = (scene.tri_shade,) * 2
+        widths = (TRI_SHADE_COLS,) * 2
+    pool = [*rows, scene.atlas, scene.tex_offset, scene.tex_size]
+    for x, dtype, cols in zip(pool, (torch.float32, torch.float32,
+                                     torch.uint8, torch.int32, torch.int32),
+                              (*widths, 16, None, 2)):
+        if (x.dtype != dtype or x.dim() != 2 or x.device != device
+                or not x.is_contiguous() or x.data_ptr() % 16
+                or (cols is not None and x.shape[1] != cols)):
+            raise ValueError(f"the alpha test's scene tables must be "
+                             f"contiguous 16-byte aligned {dtype} on "
+                             f"{device}; got {tuple(x.shape)} {x.dtype} on "
+                             f"{x.device}")
+    out = torch.empty((n,), dtype=torch.bool, device=device)
+    ptrs = [x.data_ptr() for x in (hit, tri, inst, u, v, *pool, out)]
+    ints = [n, int(scene.has_textures), scene.tex_offset.shape[1],
+            int(instanced), hit.stride(0), tri.stride(0), inst.stride(0),
+            u.stride(0), v.stride(0)]
+    args = ((ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int64 * len(ints))(*ints))
+    launch = cuda_traverse._launch_fn("alpha", "steeljax_alpha_test", args,
+                                      [hit, tri, inst, u, v, *pool, out],
+                                      launches=COUNTS,
+                                      prefix=PROFILER_RANGE)
+    return launch, out

@@ -300,7 +300,8 @@ def test_frame_rows_count_stage_bounces():
     (row,) = record["rows"]
     assert row["counters"] == {
         "integrator.stage_bounces": 0,
-        "integrator.bounces": config.sample_count * config.max_bounce_count}
+        "integrator.bounces": config.sample_count * config.max_bounce_count,
+        "integrator.alpha_tests": 0, "integrator.alpha_kernel_tests": 0}
     read = _reader("stage_kernel_pct.pt")
     ctx = {"mode": "pt", "window": {"frames": 1}, "program_record": record}
     assert read(ctx) == 0.0
@@ -365,4 +366,5 @@ def test_stage_bounces_count_the_kernel_launches(monkeypatch, launched):
     for row in rows:
         assert row["counters"] == {
             "integrator.stage_bounces": bounces if len(launched) == 2 else 0,
-            "integrator.bounces": bounces}
+            "integrator.bounces": bounces, "integrator.alpha_tests": 0,
+            "integrator.alpha_kernel_tests": 0}
